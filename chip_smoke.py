@@ -5,18 +5,42 @@
 Phases, one output line or more each, in order; any failure raises and the
 script exits non-zero:
 
-1. device   -- a CUDA card must be present (no CPU fallback); prints its name
-               and the `nvidia-smi` name and power limit.
-2. build    -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py).
-3. parity   -- each kernel against its plain PyTorch version on the same
-               CUDA tensors at the production shape (batch 16384, d_sae 16384,
-               d_model 1024, k 32, 10 prefixes), plus edge cases.
+1. device    -- a CUDA card must be present (no CPU fallback); prints its name
+                and the `nvidia-smi` name and power limit.
+2. build     -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py),
+                one nvcc for each source, all started together.
+3. parity    -- each kernel against its plain PyTorch version on the same
+                CUDA tensors at the production shape (batch 16384, d_sae
+                16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K6
+                also against K1's kth; K5 at the dense (16384 x 16384) and
+                both subspace rungs' shapes (16384 x 1024 and 16384 x 4096),
+                k_aux 512, under masks that leave the dead columns (819, 5%;
+                3276, 20%, on the wide rung; pinned at -1e6 as bench.py pins
+                them), fewer than k, none and all.
 4. reference -- the step on the card (kernel path) against the same step on
-               the CPU (plain f32 path) at a small shape.
-5. slice    -- the warm-up train step (TopK 32 + Matryoshka 10, Adam,
-               aux_enabled=False) at full width: 5 steps of one SAE and 2 of a
-               two-SAE sweep, counting kernel launches.
-6. timing   -- each kernel's time against its plain version's.
+                the CPU (plain f32 path) at a small shape: the warm-up step,
+                and the AuxK step, dense and subspace, with 1/16 of the
+                latents pinned dead.
+5. slice     -- the warm-up train step (TopK 32 + Matryoshka 10, Adam,
+                aux_enabled=False) at full width: 5 steps of one SAE and 2 of
+                a two-SAE sweep, counting kernel launches.
+6. steady    -- the step router (`make_step_router`) over the AuxK step at
+                full width, from aux_from_step - 1, on states with 5%, 2%, 20%
+                and 40% of the latents pinned dead, at n_sae 1 and 2: the
+                variant sequence (warm, dense until the first readout, then
+                the rung that holds n_dead), n_dead, launches per step, and
+                subspace aux against dense aux from one state: the tight rung
+                at 5% dead, the wide rung at 20%. Those two check steps are
+                not counted as the path's launches.
+7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
+                the two-SAE state at 5% dead.
+8. timing    -- each kernel's time against its plain version's.
+9. profile   -- torch.profiler over the warm, tight-rung and dense steps at
+                full width: wall and device ms/step, the device's idle share
+                and the kernels that take the most device time.
+
+Kernel launches are counted per driven path (slice, steady, metrics): every
+count is set to 0 just before the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured in
 this run; the last line is {"ok": true, "device": {...}}.
@@ -32,6 +56,10 @@ import numpy as np
 import torch
 
 B, D_MODEL, D_SAE, TOP_K, N_PREFIXES, GROUP = 16384, 1024, 16384, 32, 10, 1024
+K_AUX, TIGHT, WIDE = 512, 1024, 4096  # AuxK k and subspace_cap_ladder(16384, 512)
+N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
+N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
+WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
 KERNELS = {
@@ -39,6 +67,8 @@ KERNELS = {
     "grouped_prefix_err": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
     "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
     "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
+    "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
+    "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
 }
 
 
@@ -47,15 +77,26 @@ def log(msg: str) -> None:
 
 
 def wrappers() -> dict:
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.ops import cuda_topk
 
     return {
         "topk_stats": cuda_topk.topk_stats_cuda,
         "grouped_prefix_err": cm.grouped_prefix_err,
         "grouped_matmul_dgrad": cm.grouped_matmul_dgrad,
         "grouped_matmul_wgrad": cm.grouped_matmul_wgrad,
+        "kth_value_masked": cuda_kth.kth_value_masked_cuda,
+        "kth_value": cuda_kth.kth_value_cuda,
     }
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
 
 
 def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -70,6 +111,18 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal f32 tensors, -0.0 and +0.0 taken as one value (adding
+    +0.0 turns -0.0 into +0.0 and leaves every other value as it is)."""
+    return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
+
+
+def kth_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the entries where b is finite (-inf rows excluded)."""
+    fin = torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
 def phase_device() -> str:
@@ -130,6 +183,56 @@ def _k1_inputs() -> torch.Tensor:
     return h
 
 
+def _k6_case(h: torch.Tensor, k: int, what: str) -> float:
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
+
+    got = cuda_kth.kth_value_cuda(h, k)
+    want = topk._kth_plain(h, min(k, h.shape[1]))
+    k1 = cuda_topk.topk_stats_cuda(h, k).kth
+    torch.cuda.synchronize()
+    require(same_bits(got, want), f"K6 {what}: differs from its plain version")
+    require(same_bits(got, k1), f"K6 {what}: differs from K1's kth")
+    log(f"parity K6 {what}: kth bitwise equal to the plain version and to K1's kth")
+    return kth_err(got, want)
+
+
+def _k5_inputs(s: int, n_dead: int = N_DEAD_5) -> torch.Tensor:
+    """(B, s) with the first n_dead columns pinned as bench.py pins dead
+    latents: bias -1e6, where f32 values lie 0.0625 apart and many tie."""
+    h = torch.randn((B, s), generator=_gen(), device="cuda")
+    h[:, :n_dead] = h[:, :n_dead] * 4.0 - 1e6
+    return h
+
+
+def _k5_masks(s: int, n_dead: int) -> dict:
+    cols = torch.arange(s, device="cuda")
+    return {
+        f"{n_dead} dead ({n_dead / D_SAE:.0%})": cols < n_dead,
+        f"{K_AUX - 3} unmasked (< k)": cols < K_AUX - 3,
+        "all masked": torch.zeros(s, dtype=torch.bool, device="cuda"),
+        "none masked": torch.ones(s, dtype=torch.bool, device="cuda"),
+    }
+
+
+def _k5_cases(s: int, n_dead: int = N_DEAD_5) -> float:
+    from saev_tpu_torch.ops import cuda_kth, topk
+
+    h = _k5_inputs(s, n_dead)
+    err = 0.0
+    for what, mask in _k5_masks(s, n_dead).items():
+        got = cuda_kth.kth_value_masked_cuda(h, mask, K_AUX)
+        want = topk._kth_masked_plain(h, mask, K_AUX)
+        torch.cuda.synchronize()
+        require(same_bits(got, want), f"K5 {B}x{s} {what}: differs from its plain version")
+        n_inf = int(torch.isneginf(got).sum())
+        if int(mask.sum()) < K_AUX:
+            require(n_inf == B, f"K5 {B}x{s} {what}: {n_inf} of {B} rows are -inf, expected all")
+        err = max(err, kth_err(got, want))
+        log(f"parity K5 {B}x{s} k {K_AUX} mask {what}: bitwise equal, {n_inf} rows -inf, "
+            f"median kth {float(got.median()):.4f}")
+    return err
+
+
 def _matryoshka_inputs():
     from saev_tpu_torch.nn import objectives
 
@@ -160,7 +263,15 @@ def phase_parity() -> dict:
     errs["topk_stats"] = _k1_case(h, TOP_K, "production")
     errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256].contiguous(), D_SAE, "k = d_sae"))
     errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000"))
+    errs["kth_value"] = max(
+        _k6_case(h, TOP_K, "production"),
+        _k6_case(h[:256].contiguous(), D_SAE, "k = d_sae"),
+        _k6_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000"),
+    )
     del h
+    torch.cuda.empty_cache()
+    errs["kth_value_masked"] = max(_k5_cases(D_SAE), _k5_cases(WIDE, N_DEAD_20), _k5_cases(TIGHT))
+    torch.cuda.empty_cache()
 
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
     upper = x.abs().max().clamp_min(1e-12)
@@ -211,33 +322,67 @@ def _hp(n_sae: int, device) -> dict:
         "n_lr_warmup": torch.full((n_sae,), 2.0, device=device),
         "grad_clip": torch.ones((n_sae,), device=device),
         "sparsity_coeff": torch.zeros((n_sae,), device=device),
+        "aux_alpha": torch.full((n_sae,), 1 / 32, device=device) * (1 + torch.arange(n_sae, device=device)),
     }
+
+
+def _pin_dead(ts, n_dead: int) -> None:
+    """Pin the first n_dead latents of every SAE dead, as bench.py does
+    (bench.py:72-81): encoder bias -1e6 and counters at 1 << 30."""
+    ts.params["b_enc"][:, :n_dead] = -1e6
+    ts.obj_state["toks_since_active"][:, :n_dead] = 1 << 30
+
+
+def _to(ts, device):
+    from saev_tpu_torch.framework import train
+
+    return train.SweepState(*(train._tree_map(lambda t: t.to(device), v) for v in ts))
 
 
 def phase_reference() -> None:
     """Kernel path on the card against the plain f32 path on the CPU, from
-    one state and batch at a small shape (bf16 against f32: rel 1e-2)."""
+    one state and batch at a small shape (bf16 against f32: rel 1e-2): the
+    warm-up step, then the AuxK step in its dense and subspace forms with
+    1/16 of the latents pinned dead."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
 
-    cfg = modeling.SparseAutoencoderConfig(d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8))
-    obj = objectives.Matryoshka(n_prefixes=4)
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
     pf = torch.from_numpy(np.stack([objectives.sample_prefixes(2048, 4, rng=rng) for _ in range(2)]))
-    ts_cpu = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(SEED))
-    ts_gpu = train.SweepState(*(train._tree_map(lambda t: t.to("cuda"), v) for v in ts_cpu))
-    step = train.make_train_step(cfg, obj, n_steps=100)
-    for i in range(3):
-        ts_cpu, s_cpu = step(ts_cpu, x, pf, _hp(2, "cpu"))
-        ts_gpu, s_gpu = step(ts_gpu, x.cuda(), pf.cuda(), _hp(2, "cuda"))
-        for key in ("mse", "l1", "loss", "grad_norm"):
-            a, b = s_gpu[key].cpu(), s_cpu[key]
-            rel = float(((a - b).abs() / b.abs()).max())
-            require(rel <= 1e-2, f"reference step {i}: {key} rel err {rel:.3g} > 1e-2")
-        require(torch.equal(s_gpu["l0"].cpu(), s_cpu["l0"]), f"reference step {i}: l0 differs")
-    log(f"reference: 3 steps of a 2-SAE sweep (d_model 128, d_sae 2048, batch 256) "
-        f"agree with the CPU plain path; last mse {s_gpu['mse'].tolist()}")
+    obj = objectives.Matryoshka(n_prefixes=4)
+    warm_cfg = modeling.SparseAutoencoderConfig(d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8))
+    aux_cfg = modeling.SparseAutoencoderConfig(
+        d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8, aux=modeling.AuxK(k_aux=64))
+    )
+    n_dead = 2048 // 16
+    cases = (
+        ("warm-up", warm_cfg, 0, dict(aux_enabled=False), ("mse", "l1", "loss", "grad_norm")),
+        ("AuxK dense, none dead", aux_cfg, 0, {}, ("mse", "l1", "loss", "grad_norm")),
+        ("AuxK dense", aux_cfg, n_dead, {}, ("mse", "aux", "loss", "grad_norm")),
+        ("AuxK subspace cap 128", aux_cfg, n_dead, dict(aux_subspace_cap=128), ("mse", "aux", "loss", "grad_norm")),
+    )
+    for what, cfg, dead, variant, keys in cases:
+        ts_cpu = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(SEED))
+        _pin_dead(ts_cpu, dead)
+        ts_gpu = _to(ts_cpu, "cuda")
+        step = train.make_train_step(cfg, obj, n_steps=100, **variant)
+        for i in range(3):
+            ts_cpu, s_cpu = step(ts_cpu, x, pf, _hp(2, "cpu"))
+            ts_gpu, s_gpu = step(ts_gpu, x.cuda(), pf.cuda(), _hp(2, "cuda"))
+            for key in keys:
+                a, b = s_gpu[key].cpu(), s_cpu[key]
+                rel = float(((a - b).abs() / b.abs()).max())
+                require(rel <= 1e-2, f"reference {what} step {i}: {key} rel err {rel:.3g} > 1e-2")
+            for key in ("l0", "n_dead"):
+                require(torch.equal(s_gpu[key].cpu(), s_cpu[key]), f"reference {what} step {i}: {key} differs")
+            require(s_cpu["n_dead"].tolist() == [dead, dead], f"reference {what}: n_dead {s_cpu['n_dead'].tolist()}")
+            require((s_gpu["aux"] > 0).tolist() == [dead > 0] * 2, f"reference {what}: aux {s_gpu['aux'].tolist()}")
+        for key, v in ts_gpu.params.items():
+            require(bool(torch.isfinite(v).all()), f"reference {what}: param {key} not finite")
+        log(f"reference {what}: 3 steps of a 2-SAE sweep (d_model 128, d_sae 2048, batch 256, "
+            f"{dead} dead) agree with the CPU plain path; last mse {s_gpu['mse'].tolist()}, "
+            f"aux {s_gpu['aux'].tolist()} (CPU {s_cpu['aux'].tolist()})")
 
 
 def phase_slice() -> dict:
@@ -253,8 +398,7 @@ def phase_slice() -> dict:
     xs = [torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda") for _ in range(2)]
     fns = wrappers()
     results = {}
-    for fn in fns.values():
-        fn.launches = 0
+    reset_counts()
     for n_sae, n_steps in ((1, 5), (2, 2)):
         ts = train.init_sweep_state(cfg, n_sae, _gen(), "cuda")
         prefixes = torch.from_numpy(
@@ -280,7 +424,8 @@ def phase_slice() -> dict:
             require(bool(torch.isfinite(v).all()), f"slice: param {key} not finite")
         for k, fn in fns.items():
             rose = fn.launches - before[k]
-            require(rose == n_sae * n_steps, f"slice: {k} launched {rose} times, expected {n_sae * n_steps}")
+            want = n_sae * n_steps if k in WARM_KERNELS else 0
+            require(rose == want, f"slice: {k} launched {rose} times, expected {want}")
         ms = 1e3 * statistics.median(times[1:] if len(times) > 2 else times)
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[n_sae] = {"ms": ms, "peak_gib": peak}
@@ -290,7 +435,152 @@ def phase_slice() -> dict:
             f"launches {[fn.launches - before[k] for k, fn in fns.items()]}")
         del ts, stats
         torch.cuda.empty_cache()
-    return {k: fn.launches for k, fn in fns.items()}, results
+    return counts(), results
+
+# (fraction of latents pinned dead, the variant of each step from
+# aux_from_step - 1): the warm step, the dense step while no aux_risk readout
+# exists, then the narrowest rung that holds n_dead (tight 1024, wide 4096)
+# or the dense step above it.
+STEADY_RUNS = (
+    (0.05, ["warm", "dense"] + ["tight"] * 6),
+    (0.02, ["warm", "dense", "tight"]),
+    (0.20, ["warm", "dense", "wide", "wide"]),
+    (0.40, ["warm", "dense", "dense", "dense"]),
+)
+# Fraction dead -> the ladder rung whose aux is held to the dense step's from
+# one state (n_dead <= cap, so both select the same dead columns).
+CHECK_RUNG = {0.05: 0, 0.20: 1}
+
+
+def _steady_hp(n_sae: int) -> dict:
+    """bench.py's hyperparameters (bench.py:88-95)."""
+    return {
+        "lr": torch.full((n_sae,), 4e-4, device="cuda"),
+        "n_lr_warmup": torch.full((n_sae,), 500.0, device="cuda"),
+        "grad_clip": torch.ones((n_sae,), device="cuda"),
+        "sparsity_coeff": torch.zeros((n_sae,), device="cuda"),
+        "aux_alpha": torch.full((n_sae,), 1 / 32, device="cuda"),
+    }
+
+
+def phase_steady():
+    """The router over the AuxK step at full width. Returns the launch
+    counts of the path, ms/step and peak GiB per (n_sae, variant), and the
+    two-SAE state at 5% dead with its batch and prefixes."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+    require(cfg.activation.aux.k_aux == K_AUX, f"AuxK k_aux {cfg.activation.aux.k_aux}")
+    obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
+    rng = np.random.default_rng(SEED + 1)
+    xs = [torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda") for _ in range(2)]
+    per_variant: dict[tuple[int, str], dict] = {}
+    kept = None
+    check_launches = dict.fromkeys(KERNELS, 0)
+    reset_counts()
+    for n_sae in (1, 2):
+        prefixes = torch.from_numpy(
+            np.stack([objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng) for _ in range(n_sae)])
+        ).to("cuda")
+        hp = _steady_hp(n_sae)
+        for frac, expected in STEADY_RUNS:
+            if n_sae == 2 and frac == 0.05:
+                expected = expected[:5]
+            n_dead = int(D_SAE * frac)
+            router = train.make_step_router(cfg, obj, n_steps=6000, batch_size=B)
+            require([c for c, _ in router.step_fn_subs] == [TIGHT, WIDE],
+                    f"steady: ladder {[c for c, _ in router.step_fn_subs]}")
+            names = {id(router.step_fn_warm): "warm", id(router.step_fn): "dense",
+                     id(router.step_fn_subs[0][1]): "tight", id(router.step_fn_subs[1][1]): "wide"}
+            ts = train.init_sweep_state(cfg, n_sae, _gen(), "cuda")
+            _pin_dead(ts, n_dead)
+            seq, times = [], []
+            start = router.aux_from_step - 1
+            for i, g in enumerate(range(start, start + len(expected))):
+                fn = router.step_fn_at(g)
+                name = names[id(fn)]
+                seq.append(name)
+                before = counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                ts, stats = fn(ts, xs[i % 2], prefixes, hp)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                router.record_stats(g, stats)
+                rose = {k: v - before[k] for k, v in counts().items()}
+                want = {k: n_sae for k in WARM_KERNELS}
+                want.update(kth_value_masked=0 if name == "warm" else n_sae, kth_value=0)
+                require(rose == want, f"steady {frac:.0%} step {g} ({name}): launches {rose}, expected {want}")
+                for key, v in stats.items():
+                    require(bool(torch.isfinite(v.float()).all()), f"steady: stat {key} not finite: {v}")
+                require(stats["n_dead"].tolist() == [n_dead] * n_sae,
+                        f"steady {frac:.0%} step {g}: n_dead {stats['n_dead'].tolist()}, planted {n_dead}")
+                require(all(TOP_K <= v <= TOP_K + 4 / B for v in stats["l0"].tolist()),
+                        f"steady: mean L0 {stats['l0'].tolist()} is not {TOP_K}")
+                if name != "warm":
+                    require(bool((stats["aux"] > 0).all()), f"steady: aux {stats['aux'].tolist()} at {name}")
+                rec = per_variant.setdefault((n_sae, name), {"ms": [], "peak_gib": 0.0})
+                rec["ms"].append(dt * 1e3)
+                rec["peak_gib"] = max(rec["peak_gib"], peak)
+                times.append(round(dt * 1e3, 2))
+            require(seq == expected, f"steady n_sae={n_sae} {frac:.0%}: variants {seq}, expected {expected}")
+            for key, v in ts.params.items():
+                require(bool(torch.isfinite(v).all()), f"steady: param {key} not finite")
+            log(f"steady n_sae={n_sae} {frac:.0%} dead ({n_dead}): steps {start}..{start + len(seq) - 1} "
+                f"ran {seq}, ms {times}, n_dead {stats['n_dead'].tolist()}, "
+                f"last aux {stats['aux'].tolist()}, mse {stats['mse'].tolist()}")
+            if frac in CHECK_RUNG:
+                cap, sub_fn = router.step_fn_subs[CHECK_RUNG[frac]]
+                before = counts()
+                _, s_dense = router.step_fn(ts, xs[0], prefixes, hp)
+                _, s_sub = sub_fn(ts, xs[0], prefixes, hp)
+                for k, v in counts().items():
+                    check_launches[k] += v - before[k]
+                rel = float(((s_sub["aux"] - s_dense["aux"]).abs() / s_dense["aux"].abs()).max())
+                require(rel <= 1e-4, f"steady n_sae={n_sae} {frac:.0%}: cap {cap} aux rel err {rel:.3g} > 1e-4")
+                log(f"steady n_sae={n_sae} {frac:.0%} dead: subspace (cap {cap}) aux {s_sub['aux'].tolist()} "
+                    f"against dense {s_dense['aux'].tolist()}, rel err {rel:.3g}")
+                if frac == 0.05 and n_sae == 2:
+                    kept = (ts, xs[0], prefixes, n_dead)
+            del ts, stats
+            torch.cuda.empty_cache()
+    results = {}
+    for (n_sae, name), rec in sorted(per_variant.items()):
+        ms = statistics.median(rec["ms"])
+        results[(n_sae, name)] = {"ms": ms, "peak_gib": rec["peak_gib"], "n": len(rec["ms"])}
+        log(f"steady variant {name} n_sae={n_sae}: median {ms:.2f} ms/step over {len(rec['ms'])} steps "
+            f"({B / (ms / 1e3):.1f} patches/s), peak {rec['peak_gib']:.2f} GiB, ms {[round(t, 2) for t in rec['ms']]}")
+    return {k: v - check_launches[k] for k, v in counts().items()}, results, kept
+
+
+def phase_metrics(ts, x, prefixes, n_dead: int) -> dict:
+    """The log-step metrics once at full width: K6 launches once per SAE."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+    metrics = train.make_metrics_fn(cfg)
+    n_sae = ts.params["W_dec"].shape[0]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = metrics(ts, x, prefixes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    want = {k: 0 for k in got} | {"kth_value": n_sae}
+    require(got == want, f"metrics: launches {got}, expected {want}")
+    for key, v in out.items():
+        require(tuple(v.shape) == (n_sae,) and bool(torch.isfinite(v).all()), f"metrics: {key} = {v}")
+    require(bool((out["dead_unit_pct"] >= n_dead / D_SAE).all()),
+            f"metrics: dead_unit_pct {out['dead_unit_pct'].tolist()} below the planted {n_dead / D_SAE}")
+    log(f"metrics n_sae={n_sae}: {ms:.2f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        + ", ".join(f"{k} {[round(u, 6) for u in v.tolist()]}" for k, v in out.items()))
+    return got
 
 
 def _time(fn, n: int) -> float:
@@ -305,15 +595,31 @@ def _time(fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def phase_timing() -> dict:
+def phase_timing() -> tuple[dict, tuple[float, float]]:
+    """(kernel ms, plain ms) of each kernel at the main path's shapes; K5 at
+    the tight rung's subspace shape, and separately at the wide rung's and
+    the dense shape."""
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.ops import cuda_topk, topk
 
     out = {}
     h = torch.randn((B, D_SAE), generator=_gen(), device="cuda")
     out["topk_stats"] = (_time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10),
                          _time(lambda: topk._topk_stats_plain(h, TOP_K), 3))
+    out["kth_value"] = (_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 10),
+                        _time(lambda: topk._kth_plain(h, TOP_K), 3))
     del h
+    masked = {}
+    for s, n_dead in ((TIGHT, N_DEAD_5), (WIDE, N_DEAD_20), (D_SAE, N_DEAD_5)):
+        h = _k5_inputs(s, n_dead)
+        mask = torch.arange(s, device="cuda") < n_dead
+        masked[s] = (_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 10),
+                     _time(lambda: topk._kth_masked_plain(h, mask, K_AUX), 3))
+        log(f"timing kth_value_masked {B}x{s} k {K_AUX} ({n_dead} unmasked): "
+            f"kernel {masked[s][0]:.3f} ms, plain {masked[s][1]:.3f} ms")
+        del h
+    out["kth_value_masked"] = masked[TIGHT]
+    torch.cuda.empty_cache()
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
     m, r = _cuts(cut_sets["sampled"])
     iu = (1.0 / x.abs().max()).reshape(1)
@@ -333,7 +639,56 @@ def phase_timing() -> dict:
         _time(lambda: cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP), 2))
     for k, (ms, plain_ms) in out.items():
         log(f"timing {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (cuts {cut_sets['sampled'].tolist()})")
-    return out
+    return out, masked[D_SAE]
+
+
+def phase_profile() -> None:
+    """torch.profiler over 3 steps (after 3 warm-up steps) of the warm,
+    tight-rung and dense steps at full width, n_sae 1, 5% dead: wall and
+    device ms/step, the device's idle share, and the 15 kernels that take the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+    obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
+    rng = np.random.default_rng(SEED + 1)
+    x = torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda")
+    prefixes = torch.from_numpy(objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng)[None]).to("cuda")
+    hp = _steady_hp(1)
+    variants = {
+        "warm": dict(aux_enabled=False),
+        "tight": dict(aux_subspace_cap=TIGHT),
+        "dense": {},
+    }
+    for name, kwargs in variants.items():
+        step = train.make_train_step(cfg, obj, n_steps=6000, **kwargs)
+        ts = train.init_sweep_state(cfg, 1, _gen(), "cuda")
+        _pin_dead(ts, N_DEAD_5)
+        for _ in range(3):
+            ts, _ = step(ts, x, prefixes, hp)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ts, _ = step(ts, x, prefixes, hp)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in events) / 1e3 / 3
+        if dev == 0:  # a measurement, not a check: report and go on
+            log(f"profile {name}: wall {wall:.2f} ms/step; the profiler reported no device time")
+            continue
+        lines = [f"profile {name}: wall {wall:.2f} ms/step, device kernels {dev:.2f} ms/step, "
+                 f"idle {100 * (1 - dev / wall):.1f}%"]
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+            ms = e.self_device_time_total / 1e3 / 3
+            lines.append(f"  {ms:8.3f} ms/step {100 * ms / dev:5.1f}%  x{e.count // 3:<4d} {e.key[:110]}")
+        log("\n".join(lines))
+        del ts
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -341,8 +696,19 @@ def main() -> int:
     phase_build()
     errs = phase_parity()
     phase_reference()
-    launches, _ = phase_slice()
-    times = phase_timing()
+    warm_counts, _ = phase_slice()
+    steady_counts, _, (ts, x, prefixes, n_dead) = phase_steady()
+    metric_counts = phase_metrics(ts, x, prefixes, n_dead)
+    del ts
+    torch.cuda.empty_cache()
+    times, _ = phase_timing()
+    phase_profile()
+    launches = {k: warm_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
+    for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
+                               ("steady", steady_counts, WARM_KERNELS + ("kth_value_masked",)),
+                               ("metrics", metric_counts, ("kth_value",))):
+        for k in kernels:
+            require(got[k] > 0, f"{path}: kernel {k} was never launched")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

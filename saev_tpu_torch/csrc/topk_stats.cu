@@ -23,16 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "order_key.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint32_t float_key(float x) {
-  uint32_t u = __float_as_uint(x);
-  return (u >> 31) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_float(uint32_t key) {
-  return __uint_as_float((key >> 31) ? (key & 0x7FFFFFFFu) : ~key);
-}
 
 template <int VPT, int MAXT>
 __global__ void __launch_bounds__(MAXT)

@@ -9,10 +9,11 @@ on its own and only its gradients are kept, then the decoder-norm constraints,
 the per-SAE gradient clip, the warmup-cosine learning rate and Adam are
 applied to the stacked state.
 
-Ported: the warm-up variant of the step (`aux_enabled=False`), which the
-JAX train loop runs for the first `dead_threshold_tokens` of training, with
-Adam at `matmul_precision="default"`. The AuxK step, Muon and the other
-precisions raise NotImplementedError.
+Ported, with Adam at `matmul_precision="default"`: the step in its three
+forms (warm-up without AuxK, AuxK dense, AuxK in a dead subspace), the
+router that picks one for each step of the loop (`StepRouter`,
+`make_step_router`), and the log-step metrics (`make_metrics_fn`). Muon and
+the other precisions raise NotImplementedError.
 """
 
 import typing as tp
@@ -128,7 +129,8 @@ def make_train_step(
     n_steps: int,
     optim: str = "adam",
     matmul_precision: str = "default",
-    aux_enabled: bool = False,
+    aux_enabled: bool = True,
+    aux_subspace_cap: int | None = None,
 ):
     """Build the train step for one cohort.
 
@@ -136,14 +138,15 @@ def make_train_step(
       x:        (batch, d_model) f32 on the device of the state
       prefixes: (n_sae, n_prefixes) int32, sampled host-side per step
       hp:       per-SAE (n_sae,) f32 tensors "lr", "n_lr_warmup",
-                "grad_clip", "sparsity_coeff" (others are ignored)
+                "grad_clip", "sparsity_coeff" and, optionally, "aux_alpha"
+                (AuxK.alpha when absent); others are ignored
       stats:    per-SAE loss terms, grad_norm, lr and aux_risk, (n_sae,)
 
     `aux_enabled=False` is the warm-up step: AuxK is left out, which is exact
     while no latent can be dead yet (the first dead_threshold_tokens).
+    `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
+    n_dead <= cap at the step; `StepRouter` picks the variant that is.
     """
-    if aux_enabled:
-        raise NotImplementedError("AuxK (K5) not ported yet")
     if optim == "muon":
         raise NotImplementedError("Muon not ported yet")
     if optim != "adam":
@@ -155,11 +158,15 @@ def make_train_step(
     if matmul_precision != "default":
         raise ValueError(f"Unknown matmul precision: {matmul_precision}")
 
-    def grad_one(params_i, sae_state_i, obj_state_i, x, prefixes_i, coeff):
+    # Static gate: None computes AuxK, False leaves it out (warm-up).
+    any_dead = None if aux_enabled else False
+
+    def grad_one(params_i, sae_state_i, obj_state_i, x, prefixes_i, coeff, alpha):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params_i.items()}
         loss, _, obj_state_i = objectives.matryoshka_loss(
             obj_cfg, sae_cfg, leaves, sae_state_i, obj_state_i, x, prefixes_i,
-            training=True, hp={"sparsity_coeff": coeff}, any_dead=False,
+            training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha},
+            any_dead=any_dead, aux_subspace_cap=aux_subspace_cap,
         )
         keys = sorted(leaves)
         grads = torch.autograd.grad(loss.loss, [leaves[k] for k in keys])
@@ -170,11 +177,12 @@ def make_train_step(
         # Normalize W_dec rows before the forward.
         params = modeling.normalize_w_dec(sae_cfg, ts.params)
         n_sae = params["W_dec"].shape[0]
+        alphas = hp.get("aux_alpha")
         losses, grads, obj_states = [], [], []
         for i in range(n_sae):
             loss_i, grads_i, obj_i = grad_one(
                 _index(params, i), _index(ts.sae_state, i), _index(ts.obj_state, i), x,
-                prefixes[i], hp["sparsity_coeff"][i],
+                prefixes[i], hp["sparsity_coeff"][i], None if alphas is None else alphas[i],
             )
             losses.append(loss_i)
             grads.append(grads_i)
@@ -225,3 +233,154 @@ def make_train_step(
         return new_ts, stats
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Log-step metrics
+# ---------------------------------------------------------------------------
+
+
+def dictionary_coherence(w: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """max off-diagonal |<w_i/|w_i|, w_j/|w_j|>| over decoder rows, in row
+    blocks so the (d_sae, d_sae) Gram matrix is never built."""
+    d_sae = w.shape[0]
+    wn = w / torch.linalg.norm(w, dim=1, keepdim=True)
+    block = min(block, d_sae)
+    ids = torch.arange(d_sae, device=w.device)
+    coh = torch.zeros((), dtype=torch.float32, device=w.device)
+    for start in range(0, d_sae, block):
+        rows = wn[start : start + block]
+        gram = torch.abs(rows @ wn.T)
+        off_diag = ids[start : start + rows.shape[0], None] != ids[None, :]
+        coh = torch.maximum(coh, torch.where(off_diag, gram, 0.0).max())
+    return coh
+
+
+def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
+    """The heavy per-SAE metrics the loop computes every log_every steps:
+    explained variance, dead %, coherence, SSE terms, from a fresh forward on
+    the current params. Its TopK threshold is kernel K6 on the card.
+
+    Signature: metrics(sweep_state, x, prefixes) -> {name: (n_sae,) tensor}
+    (`prefixes` is accepted for the JAX package's signature and not read).
+    """
+
+    def one(params, sae_state, x):
+        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=True)
+        x_hat = modeling.decode(sae_cfg, params, enc.f_x)[:, -1, :]
+        residual = x - x_hat
+        return {
+            "sse_sae": torch.sum(residual**2),
+            "explained_variance": 1.0 - torch.var(residual, correction=0) / torch.var(x, correction=0),
+            "dead_unit_pct": ((torch.abs(enc.f_x) > 1e-12).sum(dim=0) == 0).to(torch.float32).mean(),
+            "dictionary_coherence": dictionary_coherence(params["W_dec"]),
+            "avg_decoder_row_norm": torch.linalg.norm(params["W_dec"], dim=1).mean(),
+        }
+
+    @torch.no_grad()
+    def metrics(ts: SweepState, x: torch.Tensor, prefixes: torch.Tensor):
+        sum_vec = torch.sum(x, dim=0)
+        sse_baseline = torch.sum(x * x) - torch.dot(sum_vec, sum_vec) / x.shape[0]
+        n_sae = ts.params["W_dec"].shape[0]
+        per = [one(_index(ts.params, i), _index(ts.sae_state, i), x) for i in range(n_sae)]
+        out = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        out["sse_baseline"] = sse_baseline.expand(n_sae)
+        out["normalized_mse"] = out["sse_sae"] / sse_baseline
+        return out
+
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Step routing
+# ---------------------------------------------------------------------------
+
+
+class StepRouter:
+    """Picks the step variant for each step of the train loop (counterpart of
+    saev_tpu/framework/train.py `_CohortRuntime.step_fn_at` and
+    `record_stats`).
+
+    Steps before `aux_from_step` cannot see a dead latent and run the warm
+    step (AuxK left out). After that, the narrowest dead-subspace step whose
+    cap the lagged stats["aux_risk"] proves wide enough runs; the dense step
+    is the fallback while no readout exists or no rung is wide enough.
+    `step_fn_subs` is [(cap, step_fn), ...] ascending by cap.
+    """
+
+    def __init__(self, step_fn, *, step_fn_warm=None, aux_from_step: int = 0, step_fn_subs=()):
+        self.step_fn = step_fn
+        self.step_fn_warm = step_fn_warm
+        self.aux_from_step = aux_from_step
+        self.step_fn_subs = list(step_fn_subs)
+        # [(global_step, max aux_risk, event or None)] awaiting readout, and
+        # the newest proven bound on n_dead (None: unknown, run dense).
+        self.pending: list[tuple[int, torch.Tensor, tp.Any]] = []
+        self.risk: int | None = None
+
+    def step_fn_at(self, global_step: int):
+        if self.step_fn_warm is not None and global_step < self.aux_from_step:
+            return self.step_fn_warm
+        if not self.step_fn_subs:
+            return self.step_fn
+        # Read the bounds of steps AUX_RISK_HORIZON or more steps old: the
+        # wait ends when that step's kernels have, while newer steps are
+        # already queued behind it.
+        while self.pending and self.pending[0][0] <= global_step - AUX_RISK_HORIZON:
+            _, risk, done = self.pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            self.risk = int(risk)
+        if self.risk is not None:
+            for cap, fn in self.step_fn_subs:
+                if self.risk <= cap:
+                    return fn
+        return self.step_fn
+
+    def record_stats(self, global_step: int, stats: dict) -> None:
+        # Stats before (aux_from_step - horizon) would never be read.
+        if not self.step_fn_subs or global_step < self.aux_from_step - AUX_RISK_HORIZON:
+            return
+        risk, done = stats["aux_risk"].max(), None
+        if risk.is_cuda:
+            # Copy to pinned host memory behind this step's kernels; reading
+            # it later waits on this event, not on the steps queued since.
+            host = torch.empty((), dtype=risk.dtype, pin_memory=True)
+            host.copy_(risk, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            risk = host
+        self.pending.append((global_step, risk, done))
+
+
+def make_step_router(
+    sae_cfg: modeling.SparseAutoencoderConfig,
+    obj_cfg: objectives.Matryoshka,
+    n_steps: int,
+    batch_size: int,
+    optim: str = "adam",
+    matmul_precision: str = "default",
+) -> StepRouter:
+    """The step variants of one cohort and their router, as the JAX train
+    loop builds them (saev_tpu/framework/train.py:1057-1103).
+
+    Steps [0, aux_from_step) cannot produce a dead latent: within 0-based
+    step i the counters reach at most (i + 1) * batch_size, and dead needs
+    dead_threshold_tokens, so the first step that can see one is
+    ceil(threshold / batch_size) - 1.
+    """
+    has_aux = isinstance(sae_cfg.activation.aux, modeling.AuxK)
+    aux_from_step = (
+        max(0, -(-obj_cfg.dead_threshold_tokens // batch_size) - 1) if has_aux else n_steps + 1
+    )
+    caps = objectives.subspace_cap_ladder(sae_cfg.d_sae, sae_cfg.activation.aux.k_aux) if has_aux else []
+
+    def make(**kwargs):
+        return make_train_step(sae_cfg, obj_cfg, n_steps, optim, matmul_precision, **kwargs)
+
+    return StepRouter(
+        make(),
+        step_fn_warm=make(aux_enabled=False) if has_aux and aux_from_step > 0 else None,
+        aux_from_step=aux_from_step,
+        step_fn_subs=[(cap, make(aux_subspace_cap=cap)) for cap in caps],
+    )

@@ -232,6 +232,32 @@ def encode(
 
 
 # ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def decode(
+    cfg: SparseAutoencoderConfig, params: Params, f_x: torch.Tensor,
+    prefixes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Decode latents to per-prefix reconstructions (batch, n_prefixes,
+    d_model). Ported for prefixes=None and a single prefix (which must be
+    d_sae): one f32 product plus b_dec, returned as (batch, 1, d_model).
+
+    The multi-prefix decode (saev_tpu/nn/modeling.py:413-467), which eval and
+    high-precision training take, raises NotImplementedError.
+    """
+    if f_x.ndim != 2 or f_x.shape[1] != params["W_dec"].shape[0]:
+        raise ValueError(
+            f"f_x has shape {tuple(f_x.shape)}; expected (batch, {cfg.d_sae}) "
+            f"latents for this {cfg.d_sae}-latent SAE"
+        )
+    if prefixes is not None and prefixes.shape[0] > 1:
+        raise NotImplementedError("the multi-prefix decode is not ported yet")
+    return (f_x @ params["W_dec"] + params["b_dec"])[:, None, :]
+
+
+# ---------------------------------------------------------------------------
 # Decoder-norm constraints
 # ---------------------------------------------------------------------------
 

@@ -6,9 +6,10 @@ package. Prefix cuts are sampled host-side with numpy (`sample_prefixes`, a
 jax-free copy of the original) and passed in as a small int32 tensor.
 
 Ported: the fused training path (`use_fused`), with the TopK statistics pass
-on CUDA (`use_stats`). Not ported yet: AuxK (it needs kernel K5) and the
-autodiff-through-decode path that eval and high-precision training take.
-Both raise NotImplementedError rather than being skipped.
+on CUDA (`use_stats`), and AuxK in its dense and dead-subspace forms, whose
+dead-latent threshold is kernel K5 on CUDA. Not ported yet: the
+autodiff-through-decode path that eval and high-precision training take; it
+raises NotImplementedError rather than being skipped.
 """
 
 import dataclasses
@@ -96,6 +97,103 @@ def scale_stabilized_mse(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return ((x_hat / upper - x / upper) ** 2) * upper * upper
 
 
+def _aux_mse(
+    aux_cfg: modeling.AuxK, aux_recon: torch.Tensor, residual: torch.Tensor,
+    n_dead: torch.Tensor, alpha: torch.Tensor | float | None,
+) -> torch.Tensor:
+    """alpha * mean((aux_recon - residual)^2), or 0 when no latent is dead."""
+    alpha = aux_cfg.alpha if alpha is None else alpha
+    loss = alpha * torch.mean((aux_recon - residual) ** 2)
+    return torch.where(n_dead > 0, loss, torch.zeros((), dtype=loss.dtype, device=loss.device))
+
+
+def _aux_loss(
+    aux_cfg: modeling.AuxK,
+    sae_cfg: modeling.SparseAutoencoderConfig,
+    params: modeling.Params,
+    x: torch.Tensor,
+    h_x: torch.Tensor,
+    x_hat_full: torch.Tensor,
+    dead_mask: torch.Tensor,
+    alpha: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """AuxK dead-latent loss, dense form (saev_tpu/nn/objectives.py:131-167).
+
+    The k_aux largest pre-activations among dead latents reconstruct the
+    detached residual of the main reconstruction. With kth the k_aux-th
+    largest of where(dead, h, -inf) (kernel K5 on the card), the kept set
+    {h >= kth and dead} is the top-min(k_aux, n_dead): a row with fewer dead
+    latents than k_aux thresholds at -inf and keeps them all.
+
+    `h_x` must be the same tensor the main TopK reads, so both gradients sum
+    into the one encoder backward.
+    """
+    residual = (x - x_hat_full).detach()
+    k_aux = min(aux_cfg.k_aux, sae_cfg.d_sae)
+    kth = ops.exact_kth_value_masked(h_x, dead_mask, k_aux)
+    keep = (h_x >= kth) & dead_mask[None, :]
+    aux_acts = torch.where(keep, h_x, torch.zeros((), dtype=h_x.dtype, device=h_x.device))
+    aux_recon = modeling.decode(sae_cfg, params, aux_acts)[:, -1, :]
+    return _aux_mse(aux_cfg, aux_recon, residual, dead_mask.sum(), alpha)
+
+
+def default_subspace_cap(d_sae: int, k_aux: int) -> int:
+    """Default dead-subspace width: a quarter of the dictionary, at least
+    4x k_aux, rounded up to a multiple of 128, capped at d_sae."""
+    cap = max(d_sae // 4, 4 * k_aux)
+    cap = -(-cap // 128) * 128
+    return min(cap, d_sae)
+
+
+def subspace_cap_ladder(d_sae: int, k_aux: int) -> list[int]:
+    """Ascending subspace caps for the train loop's AuxK routing: a tight cap
+    (d_sae/16, the few-percent-dead steady state) and the d_sae/4 default.
+    n_dead above the top rung routes to the dense step."""
+    tight = min(-(-max(d_sae // 16, 2 * k_aux) // 128) * 128, d_sae)
+    wide = default_subspace_cap(d_sae, k_aux)
+    return sorted({c for c in (tight, wide) if c < d_sae})
+
+
+def stalest_columns(toks: torch.Tensor, cap: int) -> torch.Tensor:
+    """Indices of the `cap` largest staleness counters, ties in ascending
+    index order, as `lax.top_k` orders them (counters tie constantly: every
+    latent that fired this step has counter 0)."""
+    return torch.sort(toks, descending=True, stable=True).indices[:cap]
+
+
+def _aux_loss_subspace(
+    aux_cfg: modeling.AuxK,
+    sae_cfg: modeling.SparseAutoencoderConfig,
+    params: modeling.Params,
+    x: torch.Tensor,
+    x_hat_full: torch.Tensor,
+    toks: torch.Tensor,
+    dead_threshold: int,
+    cap: int,
+    alpha: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """AuxK loss in the gathered subspace of the `cap` stalest latents
+    (saev_tpu/nn/objectives.py:190-250).
+
+    Every dead latent sorts above every live one, so whenever n_dead <= cap
+    the subspace holds all dead latents and this loss and its gradients equal
+    `_aux_loss`; callers guarantee n_dead <= cap (the step router). The
+    subspace pre-activations are recomputed as x @ W_enc[:, idx] + b_enc[idx];
+    the gradients scatter back through the same indices.
+    """
+    residual = (x - x_hat_full).detach()
+    cap = min(cap, sae_cfg.d_sae)
+    k_aux = min(aux_cfg.k_aux, cap)
+    idx = stalest_columns(toks, cap)
+    dead_sub = toks[idx] >= dead_threshold
+    h_sub = x @ params["W_enc"][:, idx] + params["b_enc"][idx]
+    kth = ops.exact_kth_value_masked(h_sub, dead_sub, k_aux)
+    keep = (h_sub >= kth) & dead_sub[None, :]
+    aux_acts = torch.where(keep, h_sub, torch.zeros((), dtype=h_sub.dtype, device=h_sub.device))
+    aux_recon = aux_acts @ params["W_dec"][idx] + params["b_dec"]
+    return _aux_mse(aux_cfg, aux_recon, residual, dead_sub.sum(), alpha)
+
+
 def matryoshka_loss(
     obj_cfg: Matryoshka,
     sae_cfg: modeling.SparseAutoencoderConfig,
@@ -108,15 +206,22 @@ def matryoshka_loss(
     training: bool,
     hp: dict[str, torch.Tensor] | None = None,
     any_dead: bool | None = None,
+    aux_subspace_cap: int | None = None,
 ) -> tuple[MatryoshkaLoss, modeling.State, ObjectiveState]:
     """One objective forward. Returns the loss terms, the SAE state and the
     updated objective state (dead-latent counters).
 
-    `hp` optionally overrides "sparsity_coeff" with a per-SAE scalar.
-    `any_dead=False` leaves AuxK out, as the JAX package's static gate does
-    during warm-up, where no latent can be dead yet; any other value asks for
-    AuxK, which is not ported yet.
+    `hp` optionally overrides "sparsity_coeff" and "aux_alpha" with per-SAE
+    scalars. `any_dead` gates AuxK statically: None or True computes it,
+    False leaves it out, as the train loop does during warm-up, where no
+    latent can be dead yet. (The JAX package's traced `lax.cond` gate is
+    TPU-only; a tensor here raises TypeError.)
+
+    `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
+    n_dead <= cap: the caller's contract (the step router keeps it).
     """
+    if any_dead is not None and not isinstance(any_dead, bool):
+        raise TypeError(f"any_dead must be None or a bool, got {type(any_dead).__name__}")
     hp = hp or {}
     use_fused = (
         training
@@ -148,14 +253,24 @@ def matryoshka_loss(
     dead_mask = toks >= obj_cfg.dead_threshold_tokens
     new_obj_state = {**obj_state, "toks_since_active": toks}
 
-    mse, _xhat_full = _fused.prefix_mse(
+    mse, xhat_full = _fused.prefix_mse(
         params["W_dec"], params["b_dec"], f_x, x, prefixes, min(1024, sae_cfg.d_sae)
     )
+    xhat_full = xhat_full.detach()
 
     aux_cfg = sae_cfg.activation.aux
     if isinstance(aux_cfg, modeling.AuxK) and any_dead is not False:
-        raise NotImplementedError("AuxK (K5) not ported yet")
-    aux = torch.zeros((), dtype=x.dtype, device=x.device)
+        alpha = hp.get("aux_alpha")
+        if aux_subspace_cap is not None and aux_subspace_cap < sae_cfg.d_sae:
+            aux = _aux_loss_subspace(
+                aux_cfg, sae_cfg, params, x, xhat_full, toks,
+                obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha,
+            )
+        else:
+            h_aux = h_x if st is not None else enc.h_x
+            aux = _aux_loss(aux_cfg, sae_cfg, params, x, h_aux, xhat_full, dead_mask, alpha=alpha)
+    else:
+        aux = torch.zeros((), dtype=x.dtype, device=x.device)
     n_dead = dead_mask.sum().to(torch.int32)
 
     if st is not None:

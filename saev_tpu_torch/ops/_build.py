@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels in `saev_tpu_torch/csrc` and load them.
 
-The sources are compiled with `nvcc` into one shared library with a plain C
-interface and loaded with `ctypes` (no PyTorch headers, so a build takes
-seconds). The library lands in `BUILD_DIR` under a name that carries the hash
-of the sources, so an edited source rebuilds on first use and an unchanged one
-loads the existing library. Nothing here runs at import time.
+Each `.cu` source is compiled by its own `nvcc`, all started together, and the
+objects are linked into one shared library with a plain C interface, loaded
+with `ctypes` (no PyTorch headers, so a build takes seconds). The library
+lands in `BUILD_DIR` under a name that carries the hash of the sources, so an
+edited source rebuilds on first use and an unchanged one loads the existing
+library. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
@@ -24,7 +25,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -33,6 +34,8 @@ _I = ctypes.c_int
 # Entry point -> argument types (pointers and the stream as void*, ints as int).
 SIGNATURES = {
     "saev_topk_stats": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "saev_kth": [_P, _I, _I, _I, _P, _P],
+    "saev_kth_masked": [_P, _P, _I, _I, _I, _P, _P],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -72,28 +75,37 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libsaev_kernels_{_digest()}.so"
 
 
+def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+    """Start the commands together, wait for every one, then raise on the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        if verbose:
+            print(err, end="")
+
+
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists; returns
-    its path. The build writes to a temporary file and renames it, so a cut
-    build leaves nothing half-written behind."""
+    its path. The build writes into a temporary directory and renames the
+    library into place, so a cut build leaves nothing half-written behind."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)],
+                 verbose)
+        lib_tmp = os.path.join(tmp, out.name)
+        _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]], verbose)
+        os.replace(lib_tmp, out)
     return out
 
 

@@ -1,0 +1,71 @@
+"""Wrappers of kernels K6 and K5, the exact per-row k-th largest value
+(csrc/kth.cu), plain and with a column mask.
+
+Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
+`exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
+CPU tensor takes the plain version, `ops.topk._kth_plain` or
+`ops.topk._kth_masked_plain`. There is no fallback from one to the other.
+"""
+
+import torch
+
+from . import _build
+from .topk import _kth_masked_plain, _kth_plain
+
+# The kernel stages a row in registers, as K1 does: at most 64 keys a thread,
+# 512 threads.
+MAX_S = 512 * 64
+
+
+def _check_h(h: torch.Tensor, k: int, what: str) -> int:
+    if h.dtype != torch.float32 or h.ndim != 2 or not h.is_contiguous():
+        raise ValueError(
+            f"{what} wants a contiguous (B, S) float32 tensor, got "
+            f"{tuple(h.shape)} {h.dtype} contiguous={h.is_contiguous()}"
+        )
+    b, s = h.shape
+    k = min(k, s)
+    if not (1 <= k and 1 <= s <= MAX_S and b >= 1):
+        raise ValueError(f"{what}: unsupported shape {tuple(h.shape)} with k={k}")
+    return k
+
+
+def kth_value_cuda(h: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, 1) exact k-th largest of each row of a (B, S) f32 batch."""
+    if h.device.type != "cuda":
+        return _kth_plain(h, min(k, h.shape[-1]))
+    k = _check_h(h, k, "kth_value")
+    out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
+    code = _build.lib().saev_kth(
+        h.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(), _build.stream_ptr(h)
+    )
+    _build.check(code, "kth_value")
+    kth_value_cuda.launches += 1
+    return out
+
+
+def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, 1) exact k-th largest of where(mask, h, -inf) per row; `mask` is a
+    (S,) bool column mask shared by every row. -inf where a row has fewer
+    than k unmasked columns."""
+    if h.device.type != "cuda":
+        return _kth_masked_plain(h, mask, min(k, h.shape[-1]))
+    k = _check_h(h, k, "kth_value_masked")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (h.shape[1],) or mask.device != h.device:
+        raise ValueError(
+            f"kth_value_masked wants a ({h.shape[1]},) bool mask on {h.device}, got "
+            f"{tuple(mask.shape)} {mask.dtype} on {mask.device}"
+        )
+    mask = mask.contiguous()
+    out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
+    code = _build.lib().saev_kth_masked(
+        h.data_ptr(), mask.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(),
+        _build.stream_ptr(h),
+    )
+    _build.check(code, "kth_value_masked")
+    kth_value_masked_cuda.launches += 1
+    return out
+
+
+kth_value_cuda.launches = 0
+kth_value_masked_cuda.launches = 0

@@ -8,7 +8,9 @@ package (torch.topk's mask keeps exactly k and is not used for selection).
 `topk_stats` is the train step's one pass over the pre-activations. On a CUDA
 tensor it launches kernel K1 (ops/cuda_topk.py, csrc/topk_stats.cu); on a CPU
 tensor it runs `_topk_stats_plain`, the same outputs composed from plain
-torch operations.
+torch operations. `exact_kth_value` (K6) and `exact_kth_value_masked` (K5,
+the AuxK threshold among dead latents) dispatch the same way
+(ops/cuda_kth.py, csrc/kth.cu).
 """
 
 import typing
@@ -32,12 +34,38 @@ def _kth_plain(h: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(h, k, dim=-1, sorted=True).values[..., -1:]
 
 
+def _kth_masked_plain(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version of K5: the k-th largest of where(mask, h, -inf)."""
+    neg_inf = torch.full((), float("-inf"), dtype=h.dtype, device=h.device)
+    return _kth_plain(torch.where(mask[None, :], h, neg_inf), k)
+
+
 def exact_kth_value(h: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact k-th largest along the last axis, (B, ..., 1). Plain torch only:
-    the CUDA kernel for it (K6) is not ported yet."""
-    if h.is_cuda:
-        raise NotImplementedError("K6 not ported yet")
-    return _kth_plain(h, min(k, h.shape[-1]))
+    """Exact k-th largest along the last axis, (B, 1) of a (B, S) batch.
+
+    Carries no gradient (the threshold is piecewise constant in h). A CUDA
+    tensor launches kernel K6 (ops/cuda_kth.py), which takes a contiguous 2-D
+    f32 batch and raises on anything else; a CPU tensor takes `_kth_plain`,
+    which also takes (B, ..., S).
+    """
+    from . import cuda_kth
+
+    return cuda_kth.kth_value_cuda(h.detach(), k)
+
+
+def exact_kth_value_masked(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact k-th largest of where(mask, h, -inf), (B, 1); `mask` is a (S,)
+    bool column mask shared by every row (counterpart of
+    saev_tpu/ops/topk.py `exact_kth_value_masked`). Rows with fewer than k
+    unmasked columns give -inf.
+
+    Carries no gradient. A CUDA tensor launches kernel K5 (ops/cuda_kth.py),
+    which never builds the masked tensor; a CPU tensor takes
+    `_kth_masked_plain`.
+    """
+    from . import cuda_kth
+
+    return cuda_kth.kth_value_masked_cuda(h.detach(), mask, k)
 
 
 def _topk_stats_plain(h: torch.Tensor, k: int) -> TopKStats:

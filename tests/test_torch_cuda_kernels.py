@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain versions on the card, at small
+"""The six CUDA kernels against their plain versions on the card, at small
 shapes with edge cases. Every test here needs a CUDA device and skips
 without one. The file imports no JAX, so it runs on a machine without it:
 
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 from saev_tpu_torch.ops import cuda_matryoshka as cm
-from saev_tpu_torch.ops import cuda_topk, topk
 from saev_tpu_torch.ops import matryoshka as tmat
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +116,57 @@ def test_prefix_mse_kernel_path_matches_plain_path(dev):
         assert rel_norm(got, want) <= 1e-2
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, with -0.0 and +0.0 taken as one value (adding +0.0
+    turns -0.0 into +0.0 and leaves every other value as it is)."""
+    return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("b,s,k", [(256, 4096, 32), (64, 100, 100), (33, 16384, 32), (8, 20000, 7), (16, 1000, 512)])
+def test_kth_kernel_matches_plain(dev, b, s, k):
+    h = _rows(b, s, b + s + 1).to(dev)
+    before = cuda_kth.kth_value_cuda.launches
+    got = topk.exact_kth_value(h, k)
+    want = topk._kth_plain(h, min(k, s))
+    torch.cuda.synchronize()
+    assert cuda_kth.kth_value_cuda.launches == before + 1
+    assert _same_bits(got, want)
+    assert _same_bits(got, cuda_topk.topk_stats_cuda(h, k).kth)
+
+
+def _masks(s: int, k: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {
+        "half": rng.random(s) < 0.5,
+        "fewer-than-k": np.arange(s) < k - 3,
+        "all-masked": np.zeros(s, bool),
+        "none-masked": np.ones(s, bool),
+        "5%-dead": np.arange(s) < max(s // 20, 1),
+    }
+
+
+@pytest.mark.parametrize(
+    "b,s,k", [(128, 1024, 512), (64, 4096, 16), (64, 4096, 512), (32, 1000, 64), (16, 16384, 512)]
+)
+def test_kth_masked_kernel_matches_plain(dev, b, s, k):
+    h = _rows(b, s, b + s + 2)
+    # Dead latents as the bench state pins them: bias -1e6, where f32 is
+    # spaced 0.0625 apart and many pre-activations tie exactly.
+    n_dead = max(s // 20, 1)
+    h[:, :n_dead] = h[:, :n_dead] * 4.0 - 1e6
+    h = h.to(dev)
+    for name, mask in _masks(s, k, s).items():
+        mt = torch.from_numpy(mask).to(dev)
+        before = cuda_kth.kth_value_masked_cuda.launches
+        got = topk.exact_kth_value_masked(h, mt, k)
+        want = topk._kth_masked_plain(h, mt, min(k, s))
+        torch.cuda.synchronize()
+        assert cuda_kth.kth_value_masked_cuda.launches == before + 1, name
+        assert _same_bits(got, want), name
+        if mask.sum() < k:
+            assert bool(torch.isneginf(got).all()), name
+
+
 def test_wrappers_refuse_bad_shapes(dev):
     f = torch.zeros((100, 2048), dtype=torch.bfloat16, device=dev)  # batch not a multiple of 128
     w = torch.zeros((2048, 128), dtype=torch.bfloat16, device=dev)
@@ -125,5 +176,13 @@ def test_wrappers_refuse_bad_shapes(dev):
         cm.grouped_prefix_err(f, w, x, torch.zeros(128, device=dev), torch.ones(1, device=dev), m, m)
     with pytest.raises(ValueError, match="float32"):
         cuda_topk.topk_stats_cuda(torch.zeros((4, 8), dtype=torch.float64, device=dev), 2)
-    with pytest.raises(NotImplementedError, match="K6"):
-        topk.exact_kth_value(torch.zeros((4, 8), device=dev), 2)
+    for bad in (torch.zeros((4, 8), dtype=torch.float64, device=dev),
+                torch.zeros((2, 4, 8), device=dev),
+                torch.zeros((8, 4), device=dev).T,
+                torch.zeros((2, cuda_kth.MAX_S + 1), device=dev)):
+        with pytest.raises(ValueError):
+            topk.exact_kth_value(bad, 2)
+        with pytest.raises(ValueError):
+            topk.exact_kth_value_masked(bad, torch.ones(bad.shape[-1], dtype=torch.bool, device=dev), 2)
+    with pytest.raises(ValueError, match="mask"):
+        topk.exact_kth_value_masked(torch.zeros((4, 8), device=dev), torch.ones(8, device=dev), 2)

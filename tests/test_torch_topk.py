@@ -1,7 +1,14 @@
-"""The port's TopK statistics (saev_tpu_torch/ops/topk.py) against the JAX
-package: the plain version of kernel K1 against `topk._topk_stats_xla` and
-against the Pallas kernel in interpret mode, on the edge-case rows the CUDA
-kernel must handle. kth, f, live and L0 must be equal, L1 agree to rel 1e-6."""
+"""The port's TopK thresholds and statistics (saev_tpu_torch/ops/topk.py)
+against the JAX package, on the edge-case rows the CUDA kernels must handle:
+
+- the plain version of kernel K1 against `topk._topk_stats_xla` and against
+  the Pallas kernel in interpret mode: kth, f, live and L0 equal, L1 to
+  rel 1e-6;
+- the plain versions of K6 (`exact_kth_value`) and K5
+  (`exact_kth_value_masked`) against the Pallas kernels in interpret mode
+  and against the JAX ops, equal, with masks that leave fewer than k columns
+  (-inf), mask everything or nothing, and with ties at -1e6.
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +17,7 @@ import torch
 
 from saev_tpu.ops import pallas_topk
 from saev_tpu.ops import topk as jtopk
-from saev_tpu_torch.ops import cuda_topk, topk
+from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 
 
 def _rows(b: int, s: int, seed: int) -> np.ndarray:
@@ -89,3 +96,63 @@ def test_grad_matches_jax_custom_vjp():
     (torch.sum(st.f.float() * torch.from_numpy(t_f)) + torch.sum(st.l1 * torch.from_numpy(t_l1))).backward()
     np.testing.assert_allclose(ht.grad.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
+
+
+# --- K6 and K5: the plain versions against the Pallas kernels (interpret) ---
+
+
+@pytest.mark.parametrize("b,s,k", [(64, 512, 32), (32, 300, 8), (32, 64, 64), (32, 1000, 999)])
+def test_kth_plain_matches_pallas_interpret(b, s, k):
+    h = _rows(b, s, 3 * k + s)
+    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
+    got = topk.exact_kth_value(torch.from_numpy(h), k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), topk._topk_stats_plain(torch.from_numpy(h), k).kth.numpy())
+
+
+def _masked_rows(b: int, s: int, seed: int) -> np.ndarray:
+    """`_rows` with a twentieth of the columns pinned as bench.py pins dead
+    latents: bias -1e6, where f32 values lie 0.0625 apart and tie exactly."""
+    h = _rows(b, s, seed)
+    n = max(s // 20, 1)
+    h[:, :n] = h[:, :n] * 4.0 - 1e6
+    return h
+
+
+def _masks(s: int, k: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {  # test_ops_topk.py's masks, plus none masked and the pinned set
+        "half": rng.random(s) < 0.5,
+        "fewer-than-k": np.arange(s) < k - 3,
+        "all-masked": np.zeros(s, bool),
+        "none-masked": np.ones(s, bool),
+        "pinned-dead": np.arange(s) < max(s // 20, 1),
+    }
+
+
+@pytest.mark.parametrize("b,s,k", [(64, 512, 16), (32, 1024, 512), (32, 300, 8)])
+def test_kth_masked_plain_matches_jax(b, s, k):
+    h = _masked_rows(b, s, b + s + k)
+    for name, mask in _masks(s, k, s + k).items():
+        got = topk.exact_kth_value_masked(torch.from_numpy(h), torch.from_numpy(mask), k).numpy()
+        pallas = pallas_topk.exact_kth_value_masked_pallas(
+            jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32), k, True
+        )
+        np.testing.assert_array_equal(got, np.asarray(pallas), err_msg=name)
+        xla = jtopk.exact_kth_value_masked(jnp.asarray(h), jnp.asarray(mask), k)
+        np.testing.assert_array_equal(got, np.asarray(xla), err_msg=name)
+        if mask.sum() < k:
+            assert np.isneginf(got).all(), name
+
+
+def test_kth_wrappers_take_plain_version_on_cpu():
+    h = torch.from_numpy(_masked_rows(32, 128, 4))
+    mask = torch.arange(128) < 40
+    before = (cuda_kth.kth_value_cuda.launches, cuda_kth.kth_value_masked_cuda.launches)
+    assert torch.equal(cuda_kth.kth_value_cuda(h, 8), topk._kth_plain(h, 8))
+    assert torch.equal(cuda_kth.kth_value_masked_cuda(h, mask, 8), topk._kth_masked_plain(h, mask, 8))
+    assert (cuda_kth.kth_value_cuda.launches, cuda_kth.kth_value_masked_cuda.launches) == before
+    # Non-differentiable: the input's graph is cut.
+    hg = h.clone().requires_grad_(True)
+    assert not topk.exact_kth_value(hg, 8).requires_grad
+    assert not topk.exact_kth_value_masked(hg, mask, 8).requires_grad
