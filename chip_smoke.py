@@ -35,12 +35,21 @@ script exits non-zero:
 7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
                 the two-SAE state at 5% dead.
 8. timing    -- each kernel's time against its plain version's.
-9. profile   -- torch.profiler over the warm, tight-rung and dense steps at
+9. benches   -- the kernel-level entry points (saev_tpu_torch/scripts) at the
+                production shape: first K7, P1, P2 and P3 held to their plain
+                versions (K7 also bit for bit to K2's xhat and E, with both
+                cut sets of the parity phase; P2 also to K2 with the JAX
+                script's limits; P1's statistics bit for bit to K1 on P1's
+                own h); then the entry points' own measured work, counted:
+                kprof's profile of K6, K7, K3 and K4, P2 against K2, P1's
+                fused-against-two-pass A/B, P3 at 32, 16 and 8 passes against
+                K6; then each new kernel timed against its plain version.
+10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
                 full width: wall and device ms/step, the device's idle share
                 and the kernels that take the most device time.
 
-Kernel launches are counted per driven path (slice, steady, metrics): every
-count is set to 0 just before the path and read just after.
+Kernel launches are counted per driven path (slice, steady, metrics,
+benches): every count is set to 0 just before the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured in
 this run; the last line is {"ok": true, "device": {...}}.
@@ -69,7 +78,12 @@ KERNELS = {
     "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
     "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
+    "grouped_prefix_base": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
+    "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
+    "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/matryoshka.cu", "scripts/proto_gouter.py:41"),
+    "count_loop": ("saev_tpu_torch/csrc/kth.cu", "scripts/microbench_kth.py:39"),
 }
+BENCH_KERNELS = ("grouped_prefix_base", "encode_stats", "grouped_prefix_err_gouter", "count_loop")
 
 
 def log(msg: str) -> None:
@@ -79,6 +93,7 @@ def log(msg: str) -> None:
 def wrappers() -> dict:
     from saev_tpu_torch.ops import cuda_kth, cuda_topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
+    from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter
 
     return {
         "topk_stats": cuda_topk.topk_stats_cuda,
@@ -87,6 +102,10 @@ def wrappers() -> dict:
         "grouped_matmul_wgrad": cm.grouped_matmul_wgrad,
         "kth_value_masked": cuda_kth.kth_value_masked_cuda,
         "kth_value": cuda_kth.kth_value_cuda,
+        "grouped_prefix_base": cm.grouped_prefix_base,
+        "encode_stats": proto_encode_stats.encode_stats,
+        "grouped_prefix_err_gouter": proto_gouter.grouped_prefix_err_gouter,
+        "count_loop": microbench_kth.count_loop,
     }
 
 
@@ -511,8 +530,8 @@ def phase_steady():
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 router.record_stats(g, stats)
                 rose = {k: v - before[k] for k, v in counts().items()}
-                want = {k: n_sae for k in WARM_KERNELS}
-                want.update(kth_value_masked=0 if name == "warm" else n_sae, kth_value=0)
+                want = dict.fromkeys(KERNELS, 0) | {k: n_sae for k in WARM_KERNELS}
+                want.update(kth_value_masked=0 if name == "warm" else n_sae)
                 require(rose == want, f"steady {frac:.0%} step {g} ({name}): launches {rose}, expected {want}")
                 for key, v in stats.items():
                     require(bool(torch.isfinite(v.float()).all()), f"steady: stat {key} not finite: {v}")
@@ -642,6 +661,111 @@ def phase_timing() -> tuple[dict, tuple[float, float]]:
     return out, masked[D_SAE]
 
 
+def _k7_case(f, w, x, b_dec, iu, p: np.ndarray, what: str) -> float:
+    """K7 against its plain version (rel-norm 1e-4, as K2's xhat) and against
+    K2 bit for bit: the same xhat, and bf16(base_j + (b_dec - x)) = E_j; the
+    bf16 base is the f32 base rounded."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+
+    m, r = _cuts(p)
+    base, xhat = cm.grouped_prefix_base(f, w, m, r, group_size=GROUP)
+    base16, xhat16 = cm.grouped_prefix_base(f, w, m, r, group_size=GROUP, base_dtype=torch.bfloat16)
+    e, k2_xhat, _ = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
+    torch.cuda.synchronize()
+    require(same_bits(xhat, k2_xhat) and same_bits(xhat16, k2_xhat), f"K7 {what}: xhat differs from K2's")
+    e_from_base = (base + (b_dec - x)).to(torch.bfloat16)
+    n_diff = int((e_from_base.view(torch.int16) != e.view(torch.int16)).sum())
+    require(n_diff == 0, f"K7 {what}: bf16(base + b_dec - x) differs from K2's E at {n_diff} entries, "
+                         f"rel-norm {rel_norm(e_from_base, e):.3g}")
+    require(torch.equal(base16.view(torch.int16), base.to(torch.bfloat16).view(torch.int16)),
+            f"K7 {what}: the bf16 base is not the f32 base rounded")
+    del e, e_from_base, k2_xhat, xhat16
+    pbase, pxhat = cm.grouped_prefix_base_plain(f, w, m, r, group_size=GROUP)
+    r_base, r_xhat, r_16 = rel_norm(base, pbase), rel_norm(xhat, pxhat), rel_norm(base16, pbase)
+    require(r_base <= 1e-4 and r_xhat <= 1e-4, f"K7 {what}: base {r_base:.3g} / xhat {r_xhat:.3g} rel-norm > 1e-4")
+    require(r_16 <= 1e-2, f"K7 {what}: bf16 base rel-norm {r_16:.3g} > 1e-2")
+    err = max(max_abs(base, pbase), max_abs(xhat, pxhat))
+    log(f"parity K7 {what} cuts {p.tolist()}: base rel-norm {r_base:.3g}, xhat {r_xhat:.3g}, bf16 base "
+        f"{r_16:.3g}; xhat and bf16(base + b_dec - x) bitwise equal to K2's xhat and E")
+    return err
+
+
+def phase_benches() -> tuple[dict, dict, dict]:
+    """The kernel-level entry points through their modules. Returns the
+    launch counts of their measured work, and each new kernel's max abs
+    error and (kernel ms, plain ms)."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+    from saev_tpu_torch.scripts import kprof, microbench_kth, proto_encode_stats, proto_gouter
+
+    errs = {}
+    f, w, x, b_dec, cut_sets = _matryoshka_inputs()
+    iu = (1.0 / x.abs().max()).reshape(1)
+    errs["grouped_prefix_base"] = max(_k7_case(f, w, x, b_dec, iu, p, what) for what, p in cut_sets.items())
+    gouter = {}
+    for what, p in cut_sets.items():
+        m, r = _cuts(p)
+        gouter[what] = proto_gouter.check(dict(f=f, w=w, x=x, b_dec=b_dec, inv_upper=iu, m=m, r=r))
+    del f, w, x, b_dec
+    torch.cuda.empty_cache()
+
+    g_inp = proto_gouter.inputs()
+    gouter["proto_gouter inputs"] = proto_gouter.check(g_inp)
+    for what, res in gouter.items():
+        log(f"parity P2 {what}: against K2 E rel-norm {res['e_rel_k2']:.3g} (mismatch frac "
+            f"{res['e_mismatch_frac_k2']:.3g}), err_full rel-norm {res['err_rel_k2']:.3g}, loss rel "
+            f"{res['loss_rel_k2']:.3g}; against plain E {res['e_rel']:.3g}, err_full {res['err_rel']:.3g}, "
+            f"loss {res['loss_rel']:.3g}; bitwise repeatable")
+    errs["grouped_prefix_err_gouter"] = max(res["max_abs"] for res in gouter.values())
+    e_inp = proto_encode_stats.inputs()
+    res = proto_encode_stats.check(e_inp)
+    errs["encode_stats"] = res["h_max_abs"]
+    log(f"parity P1 {B}x{D_MODEL} -> {D_SAE}, k {TOP_K}: h rel-norm {res['h_rel']:.3g}, max abs "
+        f"{res['h_max_abs']:.3g}; kth, f, live ({res['n_live']}), l0 bitwise equal to K1 and to its plain "
+        f"version on P1's own h, l1 within 1e-6")
+    m_inp = microbench_kth.inputs()
+    microbench_kth.check(m_inp)
+    errs["count_loop"] = 0.0  # the counts are equal, or check raised
+    log(f"parity P3 {B}x{D_SAE}, {list(microbench_kth.PASSES)} passes: counts equal to the plain version")
+    k_inp = kprof.inputs()
+    torch.cuda.synchronize()
+
+    reset_counts()
+    runs = {f"kprof {k}": rows for k, rows in kprof.profile_kernels(k_inp, n=5, warmup=1).items()}
+    runs |= proto_gouter.timing(g_inp, n=5, warmup=1)
+    runs |= proto_encode_stats.ab(e_inp, n=5, warmup=1)
+    runs |= microbench_kth.passes(m_inp, n=5, warmup=1)
+    torch.cuda.synchronize()
+    got = counts()
+    for k in BENCH_KERNELS:
+        require(got[k] > 0, f"benches: kernel {k} was never launched")
+    for name, rows in runs.items():
+        require(len(rows) > 0, f"benches: the profiler reported no device time for {name}")
+        log("bench " + kprof.report(name, rows))
+    log(f"benches: launches {got}")
+
+    times = {}
+    kf, kw, km, kr = k_inp["f"], k_inp["w"], k_inp["m"], k_inp["r"]
+    times["grouped_prefix_base"] = (
+        _time(lambda: cm.grouped_prefix_base(kf, kw, km, kr, group_size=GROUP), 10),
+        _time(lambda: cm.grouped_prefix_base_plain(kf, kw, km, kr, group_size=GROUP), 2))
+    g_args = tuple(g_inp[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r"))
+    times["grouped_prefix_err_gouter"] = (
+        _time(lambda: proto_gouter.grouped_prefix_err_gouter(*g_args, group_size=GROUP), 10),
+        _time(lambda: proto_gouter.grouped_prefix_err_gouter_plain(*g_args, group_size=GROUP), 2))
+    ex, ewb, eb = e_inp["x"], e_inp["wb"], e_inp["b_enc"]
+    times["encode_stats"] = (
+        _time(lambda: proto_encode_stats.encode_stats(ex, ewb, eb, TOP_K), 10),
+        _time(lambda: proto_encode_stats.encode_stats_plain(ex, ewb, eb, TOP_K), 3))
+    key = m_inp["key"]
+    times["count_loop"] = (_time(lambda: microbench_kth.count_loop(key, 32), 10),
+                           _time(lambda: microbench_kth.count_loop_plain(key, 32), 3))
+    for k, (ms, plain_ms) in times.items():
+        log(f"timing {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del k_inp, g_inp, e_inp, m_inp
+    torch.cuda.empty_cache()
+    return got, errs, times
+
+
 def phase_profile() -> None:
     """torch.profiler over 3 steps (after 3 warm-up steps) of the warm,
     tight-rung and dense steps at full width, n_sae 1, 5% dead: wall and
@@ -702,11 +826,16 @@ def main() -> int:
     del ts
     torch.cuda.empty_cache()
     times, _ = phase_timing()
+    bench_counts, bench_errs, bench_times = phase_benches()
+    errs |= bench_errs
+    times |= bench_times
     phase_profile()
     launches = {k: warm_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
+    launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
                                ("steady", steady_counts, WARM_KERNELS + ("kth_value_masked",)),
-                               ("metrics", metric_counts, ("kth_value",))):
+                               ("metrics", metric_counts, ("kth_value",)),
+                               ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")
     kernels = [

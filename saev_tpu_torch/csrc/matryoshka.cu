@@ -1,9 +1,12 @@
-// K2-K4: the grouped Matryoshka prefix-MSE products (forward error, dgrad,
-// wgrad) on bf16 operands with f32 accumulation.
+// K2-K4 and K7: the grouped Matryoshka prefix-MSE products (forward error,
+// dgrad, wgrad, forward base) on bf16 operands with f32 accumulation, and
+// P2, the group-outer forward error.
 //
 // Replaces saev_tpu/ops/pallas_matryoshka.py `_err_kernel`
-// (`grouped_prefix_err`), `_dgrad_kernel` (`grouped_matmul_dgrad`) and
-// `_wgrad_kernel` (`grouped_matmul_wgrad`).
+// (`grouped_prefix_err`), `_dgrad_kernel` (`grouped_matmul_dgrad`),
+// `_wgrad_kernel` (`grouped_matmul_wgrad`) and `_base_kernel`
+// (`grouped_prefix_base`), and scripts/proto_gouter.py `_err_kernel_gouter`
+// (`grouped_prefix_err_gouter`).
 //
 // Notation: f (B, S) latents, W (S, D) decoder rows, J prefix cuts
 // p_j = m_j * g + r_j with groups of g latents, E_j (B, D) the per-prefix
@@ -23,6 +26,23 @@
 //    A cut inside a 32-wide K step splits that step into K-lane-masked
 //    passes, so cuts may be any integers. The loss is one partial per CTA,
 //    summed by a second one-block pass in a fixed order.
+//  - K7 is K2's kernel (one template, `prefix_fwd_kernel`) with another
+//    snapshot: base_j = the f32 accumulator, stored as it is or rounded to
+//    bf16; no x, b_dec or loss. It walks K in K2's order, so its xhat is K2's
+//    bit for bit and bf16(base_j + (b_dec - x)) is K2's E_j.
+//  - P2 is the same template over one group's K range per launch, launched
+//    once per group in ascending order. A CUDA block cannot carry a (B, D)
+//    running sum across the grid, so the f32 accumulator lives in device
+//    memory (the err_full output, 64 MB at the production shape): each
+//    launch loads its tile of it (at group 0: b_dec - x), adds f_G @ W_G,
+//    snapshots E_j = bf16(acc) at the cuts inside the group (and at p_j = S
+//    after the last), and stores it back. Bytes: W_G (2 MB bf16) is read by
+//    all 128 row tiles of a launch while it sits in L2, so W leaves device
+//    memory about once (32 MB) where K2's 128 row tiles each stream all of W
+//    (4 GB through L2); against that P2 adds 16 read-modify-write passes over
+//    the 64 MB accumulator (2 GB of device-memory traffic), 16 launch tails
+//    and 16 pipeline fills. The loss is one partial per CTA per group,
+//    summed in a fixed order, so repeated runs give the same bits.
 //  - K3 first builds dA_G = bf16(scale * sum_{m_j > G} E_j) with one thread
 //    per (b, d) walking the groups downward (the TPU kernel's descending
 //    carry, as a per-element loop). The df GEMM then accumulates the masked
@@ -41,8 +61,44 @@ namespace {
 
 constexpr int MAXJ = 64;
 
-// --- K2: grouped prefix error ------------------------------------------------
+// --- K2, K7, P2: the grouped prefix forward ------------------------------------
 
+template <typename Out>
+__device__ __forceinline__ void store_pair(Out* p, float a, float b);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                          float b) {
+  __nv_bfloat162 v;
+  v.x = __float2bfloat16_rn(a);
+  v.y = __float2bfloat16_rn(b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+template <typename Out>
+__device__ __forceinline__ void store_tile(const Acc& acc, Out* out, long ld, long r0,
+                                           long c0) {
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long row = r0 + wm + 16 * i + (l >> 2) + 8 * h;
+        const long col = c0 + wn + 8 * t + 2 * (l & 3);
+        store_pair<Out>(out + row * ld + col, acc.v[i][t][2 * h], acc.v[i][t][2 * h + 1]);
+      }
+}
+
+// E_j = bf16(acc (+ b_dec - x)) for one output tile, and its loss terms
+// (f32(E_j) * inv_upper)^2 added to lsum. K2's accumulator holds f @ W only
+// (ADD_BX); P2's already starts at b_dec - x.
+template <bool ADD_BX>
 __device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long n0,
                                            int B, int D, const float* __restrict__ x,
                                            const float* __restrict__ bdec, float iu,
@@ -58,11 +114,16 @@ __device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long 
       for (int h = 0; h < 2; ++h) {
         const long row = b0 + wm + 16 * i + (l >> 2) + 8 * h;
         const long col = n0 + wn + 8 * t + 2 * (l & 3);
-        const float2 xv = *reinterpret_cast<const float2*>(x + row * D + col);
-        const float2 bv = *reinterpret_cast<const float2*>(bdec + col);
+        float v0 = acc.v[i][t][2 * h], v1 = acc.v[i][t][2 * h + 1];
+        if constexpr (ADD_BX) {
+          const float2 xv = *reinterpret_cast<const float2*>(x + row * D + col);
+          const float2 bv = *reinterpret_cast<const float2*>(bdec + col);
+          v0 = v0 + (bv.x - xv.x);
+          v1 = v1 + (bv.y - xv.y);
+        }
         __nv_bfloat162 ev;
-        ev.x = __float2bfloat16_rn(acc.v[i][t][2 * h] + (bv.x - xv.x));
-        ev.y = __float2bfloat16_rn(acc.v[i][t][2 * h + 1] + (bv.y - xv.y));
+        ev.x = __float2bfloat16_rn(v0);
+        ev.y = __float2bfloat16_rn(v1);
         *reinterpret_cast<__nv_bfloat162*>(ej + row * D + col) = ev;
         const float e0 = __bfloat162float(ev.x) * iu, e1 = __bfloat162float(ev.y) * iu;
         lsum += e0 * e0;
@@ -70,13 +131,56 @@ __device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long 
       }
 }
 
+// P2's accumulator at the start of a group: b_dec - x at group 0, else the
+// running sum the previous group's launch stored.
+__device__ __forceinline__ void load_run(Acc& acc, long b0, long n0, int D, bool first,
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ bdec,
+                                         const float* __restrict__ run) {
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long row = b0 + wm + 16 * i + (l >> 2) + 8 * h;
+        const long col = n0 + wn + 8 * t + 2 * (l & 3);
+        float2 v;
+        if (first) {
+          const float2 xv = *reinterpret_cast<const float2*>(x + row * D + col);
+          const float2 bv = *reinterpret_cast<const float2*>(bdec + col);
+          v = make_float2(bv.x - xv.x, bv.y - xv.y);
+        } else {
+          v = *reinterpret_cast<const float2*>(run + row * D + col);
+        }
+        acc.v[i][t][2 * h] = v.x;
+        acc.v[i][t][2 * h + 1] = v.y;
+      }
+}
+
+// What the forward kernel snapshots at each cut.
+enum class Fwd {
+  kErr,       // K2: E_j = bf16(acc + b_dec - x), loss partials; acc_io = xhat
+  kBaseF32,   // K7: base_j = acc (f32); acc_io = xhat
+  kBaseBf16,  // K7: base_j = bf16(acc); acc_io = xhat
+  kGouter,    // P2: E_j = bf16(acc), loss partials; acc_io = the running sum
+};
+
+// One 128x128 output tile (row tile blockIdx.y, d_model tile blockIdx.x) over
+// the K range [k_begin, k_end) of f @ W. The cuts p_j inside that range are
+// snapshotted as the walk crosses them; the cuts at p_j = S after the walk
+// when k_end == S. `out` is E (bf16) or base (f32 or bf16), (J, B, D).
+template <Fwd MODE>
 __global__ void __launch_bounds__(THREADS)
-    prefix_err_kernel(const __nv_bfloat16* __restrict__ f,
+    prefix_fwd_kernel(const __nv_bfloat16* __restrict__ f,
                       const __nv_bfloat16* __restrict__ w, const float* __restrict__ x,
                       const float* __restrict__ bdec, const float* __restrict__ inv_upper,
                       const int* __restrict__ m, const int* __restrict__ r, int J, int B,
-                      int S, int D, int g, __nv_bfloat16* __restrict__ e,
-                      float* __restrict__ xhat, float* __restrict__ partials) {
+                      int S, int D, int g, int k_begin, int k_end, void* __restrict__ out,
+                      float* __restrict__ acc_io, float* __restrict__ partials) {
+  constexpr bool kLoss = MODE == Fwd::kErr || MODE == Fwd::kGouter;
   __shared__ __align__(16) __nv_bfloat16 smem[4 * STAGE_ELEMS];
   __shared__ int cut_p[MAXJ], cut_j[MAXJ];
   __shared__ float red[THREADS / 32];
@@ -97,30 +201,47 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  const float iu = *inv_upper;
+  const float iu = kLoss ? *inv_upper : 0.f;
 
   Acc acc;
-  zero(acc);
+  if constexpr (MODE == Fwd::kGouter)
+    load_run(acc, b0, n0, D, k_begin == 0, x, bdec, acc_io);
+  else
+    zero(acc);
   float lsum = 0.f;
+  auto emit = [&](int j) {
+    if constexpr (MODE == Fwd::kErr)
+      emit_error<true>(acc, j, b0, n0, B, D, x, bdec, iu,
+                       static_cast<__nv_bfloat16*>(out), lsum);
+    else if constexpr (MODE == Fwd::kGouter)
+      emit_error<false>(acc, j, b0, n0, B, D, x, bdec, iu,
+                        static_cast<__nv_bfloat16*>(out), lsum);
+    else if constexpr (MODE == Fwd::kBaseF32)
+      store_tile<float>(acc, static_cast<float*>(out) + (long)j * B * D, D, b0, n0);
+    else
+      store_tile<__nv_bfloat16>(acc, static_cast<__nv_bfloat16*>(out) + (long)j * B * D, D,
+                                b0, n0);
+  };
   int ci = 0;
+  while (ci < J && cut_p[ci] < k_begin) ++ci;  // cuts of earlier groups (P2)
   __nv_bfloat16* sa = smem;
   __nv_bfloat16* sb = smem + 2 * STAGE_ELEMS;
-  const int n_k = S / BK;
-  load_tile<true>(sa, f, S, b0, 0);
-  load_tile<false>(sb, w, D, n0, 0);
+  const int n_k = (k_end - k_begin) / BK;
+  load_tile<true>(sa, f, S, b0, k_begin);
+  load_tile<false>(sb, w, D, n0, k_begin);
   cp_async_commit();
   for (int t = 0; t < n_k; ++t) {
     const int cur = t & 1;
     if (t + 1 < n_k) {
-      load_tile<true>(sa + (cur ^ 1) * STAGE_ELEMS, f, S, b0, (long)(t + 1) * BK);
-      load_tile<false>(sb + (cur ^ 1) * STAGE_ELEMS, w, D, n0, (long)(t + 1) * BK);
+      load_tile<true>(sa + (cur ^ 1) * STAGE_ELEMS, f, S, b0, k_begin + (long)(t + 1) * BK);
+      load_tile<false>(sb + (cur ^ 1) * STAGE_ELEMS, w, D, n0, k_begin + (long)(t + 1) * BK);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* a_s = sa + cur * STAGE_ELEMS;
     const __nv_bfloat16* b_s = sb + cur * STAGE_ELEMS;
-    const int k0 = t * BK;
+    const int k0 = k_begin + t * BK;
     int lo = 0;  // lanes of this K step already in acc
     while (ci < J && cut_p[ci] < k0 + BK) {
       const int pr = cut_p[ci] - k0;
@@ -128,7 +249,7 @@ __global__ void __launch_bounds__(THREADS)
         mma_stage<true, false, true>(acc, a_s, b_s, Masks{lo, pr, BM, BN}, 0);
         lo = pr;
       }
-      emit_error(acc, cut_j[ci], b0, n0, B, D, x, bdec, iu, e, lsum);
+      emit(cut_j[ci]);
       ++ci;
     }
     if (lo == 0)
@@ -138,23 +259,14 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
   }
   // Cuts at p_j = S (the full decode): the snapshot is the whole product.
-  for (; ci < J; ++ci) emit_error(acc, cut_j[ci], b0, n0, B, D, x, bdec, iu, e, lsum);
+  if (k_end == S)
+    for (; ci < J; ++ci) emit(cut_j[ci]);
 
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long row = b0 + wm + 16 * i + (l >> 2) + 8 * h;
-        const long col = n0 + wn + 8 * t + 2 * (l & 3);
-        *reinterpret_cast<float2*>(xhat + row * D + col) =
-            make_float2(acc.v[i][t][2 * h], acc.v[i][t][2 * h + 1]);
-      }
-  const float s = block_sum(lsum, red);
-  if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  store_tile<float>(acc, acc_io, D, b0, n0);
+  if constexpr (kLoss) {
+    const float s = block_sum(lsum, red);
+    if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
 }
 
 // Fixed-order sum of the per-CTA loss partials: bitwise the same every run.
@@ -189,38 +301,6 @@ __global__ void build_da_kernel(const __nv_bfloat16* __restrict__ e,
       da[(b * n_groups + G) * D + d] = __float2bfloat16_rn(run * s);
     }
   }
-}
-
-template <typename Out>
-__device__ __forceinline__ void store_pair(Out* p, float a, float b);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                          float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16_rn(a);
-  v.y = __float2bfloat16_rn(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
-
-template <typename Out>
-__device__ __forceinline__ void store_tile(const Acc& acc, Out* out, long ld, long r0,
-                                           long c0) {
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long row = r0 + wm + 16 * i + (l >> 2) + 8 * h;
-        const long col = c0 + wn + 8 * t + 2 * (l & 3);
-        store_pair<Out>(out + row * ld + col, acc.v[i][t][2 * h], acc.v[i][t][2 * h + 1]);
-      }
 }
 
 // df[:, G*g + n0 ...] for one (n tile, row tile, group) = scale * sum_{m_j = G}
@@ -312,9 +392,47 @@ extern "C" int saev_prefix_err(const __nv_bfloat16* f, const __nv_bfloat16* w,
                                float* loss_sum, cudaStream_t stream) {
   if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
   dim3 grid(D / BN, B / BM);
-  prefix_err_kernel<<<grid, THREADS, 0, stream>>>(f, w, x, bdec, inv_upper, m, r, J, B, S,
-                                                  D, g, e, xhat, partials);
+  prefix_fwd_kernel<Fwd::kErr><<<grid, THREADS, 0, stream>>>(
+      f, w, x, bdec, inv_upper, m, r, J, B, S, D, g, 0, S, e, xhat, partials);
   sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, grid.x * grid.y, loss_sum);
+  return cudaGetLastError();
+}
+
+extern "C" int saev_prefix_base(const __nv_bfloat16* f, const __nv_bfloat16* w,
+                                const int* m, const int* r, int J, int B, int S, int D,
+                                int g, int base_bf16, void* base, float* xhat,
+                                cudaStream_t stream) {
+  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
+  dim3 grid(D / BN, B / BM);
+  if (base_bf16)
+    prefix_fwd_kernel<Fwd::kBaseBf16><<<grid, THREADS, 0, stream>>>(
+        f, w, nullptr, nullptr, nullptr, m, r, J, B, S, D, g, 0, S, base, xhat, nullptr);
+  else
+    prefix_fwd_kernel<Fwd::kBaseF32><<<grid, THREADS, 0, stream>>>(
+        f, w, nullptr, nullptr, nullptr, m, r, J, B, S, D, g, 0, S, base, xhat, nullptr);
+  return cudaGetLastError();
+}
+
+// P2: one launch per group, in ascending order on one stream; err carries the
+// running sum from each launch to the next. partials holds n_groups * (B/BM)
+// * (D/BN) floats.
+extern "C" int saev_prefix_err_gouter(const __nv_bfloat16* f, const __nv_bfloat16* w,
+                                      const float* x, const float* bdec,
+                                      const float* inv_upper, const int* m, const int* r,
+                                      int J, int B, int S, int D, int g, __nv_bfloat16* e,
+                                      float* err, float* partials, float* loss_sum,
+                                      cudaStream_t stream) {
+  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
+  dim3 grid(D / BN, B / BM);
+  const int n_tiles = grid.x * grid.y, n_groups = S / g;
+  for (int G = 0; G < n_groups; ++G) {
+    prefix_fwd_kernel<Fwd::kGouter><<<grid, THREADS, 0, stream>>>(
+        f, w, x, bdec, inv_upper, m, r, J, B, S, D, g, G * g, (G + 1) * g, e, err,
+        partials + (long)G * n_tiles);
+    const cudaError_t code = cudaGetLastError();
+    if (code != cudaSuccess) return code;
+  }
+  sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, n_groups * n_tiles, loss_sum);
   return cudaGetLastError();
 }
 

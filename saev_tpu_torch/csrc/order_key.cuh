@@ -1,5 +1,5 @@
 // The order-preserving uint32 key of a float32, shared by the k-th value
-// kernels (K1 in topk_stats.cu, K5 and K6 in kth.cu).
+// kernels (K1 and P1 through topk_row.cuh, K5 and K6 in kth.cu).
 //
 // Non-negative floats get the sign bit set; negative floats are bit-inverted.
 // The map is monotone in the float's value (with -0.0 just below +0.0), so

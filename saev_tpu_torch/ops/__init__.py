@@ -4,7 +4,7 @@
   fused TopK statistics; `cuda_topk` wraps kernel K1, `cuda_kth` kernels K5
   and K6.
 - `matryoshka`: the Matryoshka prefix-MSE with its hand-derived backward;
-  `cuda_matryoshka` wraps kernels K2-K4.
+  `cuda_matryoshka` wraps kernels K2-K4 and K7.
 - `_build`: compiles `csrc/*.cu` with nvcc and loads it with ctypes.
 """
 

@@ -1,8 +1,8 @@
-"""Wrappers of kernels K2-K4, the grouped Matryoshka products
+"""Wrappers of kernels K2-K4 and K7, the grouped Matryoshka products
 (csrc/matryoshka.cu), each with its plain bf16-operand version beside it.
 
 Counterparts of saev_tpu/ops/pallas_matryoshka.py `grouped_prefix_err`,
-`grouped_matmul_dgrad` and `grouped_matmul_wgrad`. A CUDA tensor launches the
+`grouped_matmul_dgrad`, `grouped_matmul_wgrad` and `grouped_prefix_base`. A CUDA tensor launches the
 kernel; a CPU tensor takes the `*_plain` version, which has the same outputs
 and dtypes: bf16 operands, f32 accumulation.
 
@@ -91,6 +91,49 @@ def grouped_prefix_err(f, w, x, b_dec, inv_upper, m, r, *, group_size=1024):
 
 
 grouped_prefix_err.launches = 0
+
+
+# --- K7 -------------------------------------------------------------------------
+
+
+def grouped_prefix_base_plain(f, w, m, r, *, group_size=1024, base_dtype=_F32):
+    """(base (J, B, D) in base_dtype, xhat_nobias (B, D) f32) with
+    base[j] = f[:, :p_j] @ W[:p_j] (the sub-group remainder included) and
+    xhat_nobias = f @ W."""
+    ff, wf = f.float(), w.float()
+    cuts = (m * group_size + r).tolist()
+    base = torch.stack([ff[:, :p] @ wf[:p] for p in cuts]).to(base_dtype)
+    return base, ff @ wf
+
+
+def grouped_prefix_base(f, w, m, r, *, group_size=1024, base_dtype=_F32):
+    """Kernel K7; same outputs as `grouped_prefix_base_plain`. K2's kernel
+    without the error epilogue: its xhat is K2's bit for bit, and
+    bf16(base[j] + (b_dec - x)) is K2's E[j]."""
+    if f.device.type != "cuda":
+        return grouped_prefix_base_plain(f, w, m, r, group_size=group_size, base_dtype=base_dtype)
+    dev = f.device
+    b, s = f.shape
+    d = w.shape[1]
+    j = m.shape[0]
+    _check_cuts(j, b, s, d, group_size)
+    _require(base_dtype in (_F32, _BF16), f"base dtype {base_dtype} is not float32 or bfloat16")
+    _check("f", f, _BF16, (b, s), dev)
+    _check("w", w, _BF16, (s, d), dev)
+    _check("m", m, torch.int32, (j,), dev)
+    _check("r", r, torch.int32, (j,), dev)
+    base = torch.empty((j, b, d), dtype=base_dtype, device=dev)
+    xhat = torch.empty((b, d), dtype=_F32, device=dev)
+    code = _build.lib().saev_prefix_base(
+        f.data_ptr(), w.data_ptr(), m.data_ptr(), r.data_ptr(), j, b, s, d, group_size,
+        int(base_dtype == _BF16), base.data_ptr(), xhat.data_ptr(), _build.stream_ptr(f),
+    )
+    _build.check(code, "grouped_prefix_base")
+    grouped_prefix_base.launches += 1
+    return base, xhat
+
+
+grouped_prefix_base.launches = 0
 
 
 # --- K3 -------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The six CUDA kernels against their plain versions on the card, at small
+"""The ten CUDA kernels against their plain versions on the card, at small
 shapes with edge cases. Every test here needs a CUDA device and skips
 without one. The file imports no JAX, so it runs on a machine without it:
 
@@ -14,6 +14,7 @@ import torch
 from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 from saev_tpu_torch.ops import cuda_matryoshka as cm
 from saev_tpu_torch.ops import matryoshka as tmat
+from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +187,96 @@ def test_wrappers_refuse_bad_shapes(dev):
             topk.exact_kth_value_masked(bad, torch.ones(bad.shape[-1], dtype=torch.bool, device=dev), 2)
     with pytest.raises(ValueError, match="mask"):
         topk.exact_kth_value_masked(torch.zeros((4, 8), device=dev), torch.ones(8, device=dev), 2)
+
+
+def _matryoshka_operands(dev, seed: int, b: int = 256, s: int = 2048, d: int = 128):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = (torch.randn((b, s), generator=gen, device=dev)
+         * (torch.rand((b, s), generator=gen, device=dev) < 0.2)).to(torch.bfloat16)
+    w = (torch.randn((s, d), generator=gen, device=dev) / 32).to(torch.bfloat16)
+    x = torch.randn((b, d), generator=gen, device=dev)
+    b_dec = torch.randn((d,), generator=gen, device=dev) * 0.1
+    return f, w, x, b_dec
+
+
+def _mr(cuts, g, dev):
+    p = torch.tensor(cuts, dtype=torch.int32, device=dev)
+    m = torch.div(p, g, rounding_mode="floor").to(torch.int32)
+    return m, (p - m * g).to(torch.int32)
+
+
+@pytest.mark.parametrize("cuts,g", CUTS.values(), ids=CUTS.keys())
+def test_prefix_base_kernel_matches_plain_and_k2(dev, cuts, g):
+    f, w, x, b_dec = _matryoshka_operands(dev, len(cuts) + g + 1)
+    m, r = _mr(cuts, g, dev)
+    before = cm.grouped_prefix_base.launches
+    base, xhat = cm.grouped_prefix_base(f, w, m, r, group_size=g)
+    base16, _ = cm.grouped_prefix_base(f, w, m, r, group_size=g, base_dtype=torch.bfloat16)
+    assert cm.grouped_prefix_base.launches == before + 2
+    pbase, pxhat = cm.grouped_prefix_base_plain(f, w, m, r, group_size=g)
+    assert rel_norm(base, pbase) <= 1e-4 and rel_norm(xhat, pxhat) <= 1e-4
+    assert torch.equal(base16.view(torch.int16), base.to(torch.bfloat16).view(torch.int16))
+    e, k2_xhat, _ = cm.grouped_prefix_err(f, w, x, b_dec, 1.0 / x.abs().max(), m, r, group_size=g)
+    assert _same_bits(xhat, k2_xhat)
+    rebuilt = (base + (b_dec - x)).to(torch.bfloat16)
+    assert torch.equal(rebuilt.view(torch.int16), e.view(torch.int16))
+
+
+@pytest.mark.parametrize("cuts,g", CUTS.values(), ids=CUTS.keys())
+def test_gouter_kernel_matches_plain_and_k2(dev, cuts, g):
+    f, w, x, b_dec = _matryoshka_operands(dev, len(cuts) + g + 2)
+    m, r = _mr(cuts, g, dev)
+    before = proto_gouter.grouped_prefix_err_gouter.launches
+    res = proto_gouter.check(dict(f=f, w=w, x=x, b_dec=b_dec, inv_upper=1.0 / x.abs().max(), m=m, r=r),
+                             group_size=g)
+    assert proto_gouter.grouped_prefix_err_gouter.launches == before + 2
+    assert res["repeatable"]
+
+
+@pytest.mark.parametrize("b,d,s,k", [(256, 128, 2048, 32), (128, 64, 1152, 7), (128, 96, 16384, 32),
+                                     (128, 32, 128, 128)])
+def test_encode_stats_kernel_matches_plain_and_k1(dev, b, d, s, k):
+    gen = torch.Generator(device=dev).manual_seed(b + d + s)
+    x = torch.randn((b, d), generator=gen, device=dev)
+    x[3] = 0.0  # a row of bias only
+    w = (torch.randn((d, s), generator=gen, device=dev) / 32).to(torch.bfloat16)
+    b_enc = torch.randn((s,), generator=gen, device=dev) * 0.01
+    b_enc[:50] = 0.25  # ties across the boundary in row 3
+    before = proto_encode_stats.encode_stats.launches
+    res = proto_encode_stats.check(dict(x=x, wb=w, b_enc=b_enc), k=k)
+    assert proto_encode_stats.encode_stats.launches == before + 1
+    assert res["h_rel"] <= 1e-5 and res["n_live"] > 0
+
+
+@pytest.mark.parametrize("b,s", [(64, 2048), (33, 1000), (8, 16384), (4, 20000)])
+@pytest.mark.parametrize("n_passes", [0, 8, 16, 32])
+def test_count_loop_kernel_matches_plain(dev, b, s, n_passes):
+    rng = np.random.default_rng(b + s)
+    key = rng.integers(-8, 40, size=(b, s), dtype=np.int32)
+    key[0] = np.iinfo(np.int32).min
+    key[1] = np.iinfo(np.int32).max
+    key = torch.from_numpy(key).to(dev)
+    before = microbench_kth.count_loop.launches
+    got = microbench_kth.count_loop(key, n_passes)
+    assert microbench_kth.count_loop.launches == before + 1
+    assert torch.equal(got, microbench_kth.count_loop_plain(key, n_passes))
+
+
+def test_bench_wrappers_refuse_bad_shapes(dev):
+    with pytest.raises(ValueError):
+        proto_encode_stats.encode_stats(torch.zeros((100, 64), device=dev),
+                                        torch.zeros((64, 256), dtype=torch.bfloat16, device=dev),
+                                        torch.zeros(256, device=dev), 8)
+    with pytest.raises(ValueError):
+        proto_encode_stats.encode_stats(torch.zeros((128, 64), device=dev),
+                                        torch.zeros((64, 256), device=dev), torch.zeros(256, device=dev), 8)
+    with pytest.raises(ValueError):
+        microbench_kth.count_loop(torch.zeros((4, 8), device=dev), 8)
+    f = torch.zeros((100, 2048), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((2048, 128), dtype=torch.bfloat16, device=dev)
+    m = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="batch"):
+        cm.grouped_prefix_base(f, w, m, m)
+    with pytest.raises(ValueError, match="batch"):
+        proto_gouter.grouped_prefix_err_gouter(f, w, torch.zeros((100, 128), device=dev),
+                                               torch.zeros(128, device=dev), torch.ones(1, device=dev), m, m)
