@@ -36,14 +36,18 @@ script exits non-zero:
                 the two-SAE state at 5% dead.
 8. timing    -- each kernel's time against its plain version's.
 9. benches   -- the kernel-level entry points (saev_tpu_torch/scripts) at the
-                production shape: first K7, P1, P2 and P3 held to their plain
-                versions (K7 also bit for bit to K2's xhat and E, with both
-                cut sets of the parity phase; P2 also to K2 with the JAX
+                production shape: first K7, P1, P2, P3 and P4 held to their
+                plain versions (K7 also bit for bit to K2's xhat and E, with
+                both cut sets of the parity phase; P2 also to K2 with the JAX
                 script's limits; P1's statistics bit for bit to K1 on P1's
-                own h); then the entry points' own measured work, counted:
-                kprof's profile of K6, K7, K3 and K4, P2 against K2, P1's
-                fused-against-two-pass A/B, P3 at 32, 16 and 8 passes against
-                K6; then each new kernel timed against its plain version.
+                own h; P4's exact modes bit for bit to torch.topk and K6, on
+                the script's rows and on edge rows), and P4's tensor-core
+                count found in mxu's SASS alone; then the entry points' own
+                measured work, counted: kprof's profile of K6, K7, K3 and K4,
+                P2 against K2, P1's fused-against-two-pass A/B, P3 at 32, 16
+                and 8 passes against K6, P4's five modes against K6 and the
+                library's k-th value; then each new kernel timed against its
+                plain version.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
                 full width: wall and device ms/step, the device's idle share
                 and the kernels that take the most device time.
@@ -51,8 +55,12 @@ script exits non-zero:
 Kernel launches are counted per driven path (slice, steady, metrics,
 benches): every count is set to 0 just before the path and read just after.
 
-The line before the last is {"kernels": [...]} with every number measured in
-this run; the last line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]} with every number measured or
+computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
+larger of its bytes over the card's memory rate and its operations over the
+peak rate of their type; bound_by names which) and library_ms (one PyTorch
+call computing the same function, null where there is none; lib_ms repeats
+it). The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -82,8 +90,13 @@ KERNELS = {
     "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
     "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/matryoshka.cu", "scripts/proto_gouter.py:41"),
     "count_loop": ("saev_tpu_torch/csrc/kth.cu", "scripts/microbench_kth.py:39"),
+    "kth_ops": ("saev_tpu_torch/csrc/kth_ops.cu", "scripts/proto_kth_ops.py:55"),
 }
-BENCH_KERNELS = ("grouped_prefix_base", "encode_stats", "grouped_prefix_err_gouter", "count_loop")
+BENCH_KERNELS = ("grouped_prefix_base", "encode_stats", "grouped_prefix_err_gouter", "count_loop", "kth_ops")
+
+# NVIDIA H100 SXM data sheet peaks at 700 W: memory bytes/s, dense bf16
+# tensor-core and f32 CUDA-core operations/s.
+HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
 
 
 def log(msg: str) -> None:
@@ -93,7 +106,7 @@ def log(msg: str) -> None:
 def wrappers() -> dict:
     from saev_tpu_torch.ops import cuda_kth, cuda_topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter
+    from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
 
     return {
         "topk_stats": cuda_topk.topk_stats_cuda,
@@ -106,6 +119,7 @@ def wrappers() -> dict:
         "encode_stats": proto_encode_stats.encode_stats,
         "grouped_prefix_err_gouter": proto_gouter.grouped_prefix_err_gouter,
         "count_loop": microbench_kth.count_loop,
+        "kth_ops": proto_kth_ops.kth_ops,
     }
 
 
@@ -382,7 +396,7 @@ def phase_reference() -> None:
         ("AuxK subspace cap 128", aux_cfg, n_dead, dict(aux_subspace_cap=128), ("mse", "aux", "loss", "grad_norm")),
     )
     for what, cfg, dead, variant, keys in cases:
-        ts_cpu = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(SEED))
+        ts_cpu = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(SEED), device="cpu")
         _pin_dead(ts_cpu, dead)
         ts_gpu = _to(ts_cpu, "cuda")
         step = train.make_train_step(cfg, obj, n_steps=100, **variant)
@@ -614,28 +628,69 @@ def _time(fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def phase_timing() -> tuple[dict, tuple[float, float]]:
-    """(kernel ms, plain ms) of each kernel at the main path's shapes; K5 at
-    the tight rung's subspace shape, and separately at the wide rung's and
-    the dense shape."""
+def bound(parts, ops: float, peak: float) -> dict:
+    """The least time the card could take for a function: the larger of the
+    bytes it must move (each of `parts`, a tensor or a byte count, read or
+    written once) over the memory rate, and `ops` operations over `peak`."""
+    n_bytes = sum(p if isinstance(p, int) else p.numel() * p.element_size() for p in parts)
+    mem_ms, op_ms = n_bytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+
+def timed(ms: float, plain_ms: float, bnd: dict, library_ms: float | None = None) -> dict:
+    return {"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms}
+
+
+def library_kth_ms(h: torch.Tensor, k: int, what: str) -> float:
+    """The faster of the library calls that give each row's k-th largest
+    value (torch.topk, torch.kthvalue), timed on h."""
+    from saev_tpu_torch.scripts import proto_kth_ops
+
+    lib = {name: _time(lambda fn=fn: fn(h, k), 10) for name, fn in proto_kth_ops.LIBRARY.items()}
+    log(f"timing library k-th value for {what} {tuple(h.shape)} k {k}: "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in lib.items()))
+    return min(lib.values())
+
+
+def _selection_bound(h: torch.Tensor, out: torch.Tensor) -> dict:
+    """A selection over h: h read once, the output written once, and one
+    operation an element (the least any selection does) at the f32 rate."""
+    return bound((h, out), h.numel(), F32_OPS_S)
+
+
+def log_timing(k: str, row: dict, what: str = "") -> None:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+    log(f"timing {k}{what}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']}), library {lib}")
+
+
+def phase_timing() -> dict:
+    """Each kernel at the main path's shapes: kernel ms, plain ms, bound and
+    library ms; K5 at the tight rung's subspace shape, and separately at the
+    wide rung's and the dense shape."""
     from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
     out = {}
     h = torch.randn((B, D_SAE), generator=_gen(), device="cuda")
-    out["topk_stats"] = (_time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10),
-                         _time(lambda: topk._topk_stats_plain(h, TOP_K), 3))
-    out["kth_value"] = (_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 10),
-                        _time(lambda: topk._kth_plain(h, TOP_K), 3))
-    del h
+    stats = cuda_topk.topk_stats_cuda(h, TOP_K)
+    out["topk_stats"] = timed(_time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10),
+                              _time(lambda: topk._topk_stats_plain(h, TOP_K), 3),
+                              bound((h, *stats), h.numel(), F32_OPS_S))
+    out["kth_value"] = timed(_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 10),
+                             _time(lambda: topk._kth_plain(h, TOP_K), 3),
+                             _selection_bound(h, stats.kth), library_kth_ms(h, TOP_K, "K6"))
+    del h, stats
     masked = {}
     for s, n_dead in ((TIGHT, N_DEAD_5), (WIDE, N_DEAD_20), (D_SAE, N_DEAD_5)):
         h = _k5_inputs(s, n_dead)
         mask = torch.arange(s, device="cuda") < n_dead
-        masked[s] = (_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 10),
-                     _time(lambda: topk._kth_masked_plain(h, mask, K_AUX), 3))
-        log(f"timing kth_value_masked {B}x{s} k {K_AUX} ({n_dead} unmasked): "
-            f"kernel {masked[s][0]:.3f} ms, plain {masked[s][1]:.3f} ms")
+        kth = cuda_kth.kth_value_masked_cuda(h, mask, K_AUX)
+        # Only the unmasked columns of h need reading.
+        masked[s] = timed(_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 10),
+                          _time(lambda: topk._kth_masked_plain(h, mask, K_AUX), 3),
+                          bound((B * n_dead * 4, mask, kth), B * n_dead, F32_OPS_S))
+        log_timing("kth_value_masked", masked[s], f" {B}x{s} k {K_AUX} ({n_dead} unmasked)")
         del h
     out["kth_value_masked"] = masked[TIGHT]
     torch.cuda.empty_cache()
@@ -643,22 +698,29 @@ def phase_timing() -> tuple[dict, tuple[float, float]]:
     m, r = _cuts(cut_sets["sampled"])
     iu = (1.0 / x.abs().max()).reshape(1)
     scale = torch.full((1,), 2.0 / (B * N_PREFIXES * D_MODEL), device="cuda")
-    e, _, _ = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
-    _, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
-    out["grouped_prefix_err"] = (
+    e, xhat, loss = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
+    df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+    # f's zeros need no product: 2 operations for each nonzero of f and
+    # column of W. dgrad's E is dense.
+    sparse_ops = 2 * int((f != 0).sum()) * D_MODEL
+    out["grouped_prefix_err"] = timed(
         _time(lambda: cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP), 10),
-        _time(lambda: cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=GROUP), 2))
-    out["grouped_matmul_dgrad"] = (
+        _time(lambda: cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=GROUP), 2),
+        bound((f, w, x, b_dec, iu, m, r, e, xhat, loss), sparse_ops, BF16_OPS_S))
+    out["grouped_matmul_dgrad"] = timed(
         _time(lambda: cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP,
                                               df_dtype=torch.bfloat16), 10),
         _time(lambda: cm.grouped_matmul_dgrad_plain(w, e, m, r, scale, group_size=GROUP,
-                                                    df_dtype=torch.bfloat16), 2))
-    out["grouped_matmul_wgrad"] = (
+                                                    df_dtype=torch.bfloat16), 2),
+        bound((w, e, m, r, scale, df, da), 2 * B * D_SAE * D_MODEL, BF16_OPS_S))
+    out["grouped_matmul_wgrad"] = timed(
         _time(lambda: cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP), 10),
-        _time(lambda: cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP), 2))
-    for k, (ms, plain_ms) in out.items():
-        log(f"timing {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (cuts {cut_sets['sampled'].tolist()})")
-    return out, masked[D_SAE]
+        _time(lambda: cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP), 2),
+        bound((f, da, e, m, r, scale, dw), sparse_ops, BF16_OPS_S))
+    for k, row in out.items():
+        log_timing(k, row, f" (cuts {cut_sets['sampled'].tolist()})" if k.startswith("grouped") else "")
+    return out
 
 
 def _k7_case(f, w, x, b_dec, iu, p: np.ndarray, what: str) -> float:
@@ -690,12 +752,27 @@ def _k7_case(f, w, x, b_dec, iu, p: np.ndarray, what: str) -> float:
     return err
 
 
+def _p4_sass() -> None:
+    """The tensor-core count is in mxu's instantiations, every one of them,
+    and in no other mode's (cuobjdump --dump-sass of the built library)."""
+    from saev_tpu_torch.scripts import proto_kth_ops
+
+    found = proto_kth_ops.sass_opcodes()
+    hmma = proto_kth_ops.hmma_by_mode(found)
+    require(all(len(v) == 6 for v in hmma.values()), f"P4 SASS: instantiations {hmma}")
+    require(all(n > 0 for n in hmma["mxu"]), f"P4 SASS: an mxu instantiation has no HMMA: {hmma}")
+    require(all(n == 0 for mode, v in hmma.items() if mode != "mxu" for n in v),
+            f"P4 SASS: HMMA outside mxu: {hmma}")
+    for line in proto_kth_ops.sass_report(found):
+        log("P4 " + line)
+
+
 def phase_benches() -> tuple[dict, dict, dict]:
     """The kernel-level entry points through their modules. Returns the
     launch counts of their measured work, and each new kernel's max abs
-    error and (kernel ms, plain ms)."""
+    error and timing row (kernel ms, plain ms, bound, library ms)."""
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.scripts import kprof, microbench_kth, proto_encode_stats, proto_gouter
+    from saev_tpu_torch.scripts import kprof, microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
 
     errs = {}
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
@@ -726,6 +803,13 @@ def phase_benches() -> tuple[dict, dict, dict]:
     microbench_kth.check(m_inp)
     errs["count_loop"] = 0.0  # the counts are equal, or check raised
     log(f"parity P3 {B}x{D_SAE}, {list(microbench_kth.PASSES)} passes: counts equal to the plain version")
+    p_inp = proto_kth_ops.inputs()
+    n_rows = proto_kth_ops.check(p_inp)
+    errs["kth_ops"] = 0.0  # bit for bit, or check raised
+    log(f"parity P4 {B}x{D_SAE}, k {TOP_K}, and edge rows with k 32, 1, {D_SAE} and ragged "
+        f"{proto_kth_ops.RAGGED} ({n_rows} rows): every mode bitwise equal to its plain version; "
+        f"{', '.join(proto_kth_ops.EXACT)} bitwise equal to torch.topk and K6")
+    _p4_sass()
     k_inp = kprof.inputs()
     torch.cuda.synchronize()
 
@@ -734,6 +818,7 @@ def phase_benches() -> tuple[dict, dict, dict]:
     runs |= proto_gouter.timing(g_inp, n=5, warmup=1)
     runs |= proto_encode_stats.ab(e_inp, n=5, warmup=1)
     runs |= microbench_kth.passes(m_inp, n=5, warmup=1)
+    runs |= proto_kth_ops.timing(p_inp, n=5, warmup=1)
     torch.cuda.synchronize()
     got = counts()
     for k in BENCH_KERNELS:
@@ -745,23 +830,38 @@ def phase_benches() -> tuple[dict, dict, dict]:
 
     times = {}
     kf, kw, km, kr = k_inp["f"], k_inp["w"], k_inp["m"], k_inp["r"]
-    times["grouped_prefix_base"] = (
+    base, xhat = cm.grouped_prefix_base(kf, kw, km, kr, group_size=GROUP)
+    times["grouped_prefix_base"] = timed(
         _time(lambda: cm.grouped_prefix_base(kf, kw, km, kr, group_size=GROUP), 10),
-        _time(lambda: cm.grouped_prefix_base_plain(kf, kw, km, kr, group_size=GROUP), 2))
+        _time(lambda: cm.grouped_prefix_base_plain(kf, kw, km, kr, group_size=GROUP), 2),
+        bound((kf, kw, km, kr, base, xhat), 2 * int((kf != 0).sum()) * D_MODEL, BF16_OPS_S))
+    del base, xhat
     g_args = tuple(g_inp[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r"))
-    times["grouped_prefix_err_gouter"] = (
+    g_out = proto_gouter.grouped_prefix_err_gouter(*g_args, group_size=GROUP)
+    times["grouped_prefix_err_gouter"] = timed(
         _time(lambda: proto_gouter.grouped_prefix_err_gouter(*g_args, group_size=GROUP), 10),
-        _time(lambda: proto_gouter.grouped_prefix_err_gouter_plain(*g_args, group_size=GROUP), 2))
+        _time(lambda: proto_gouter.grouped_prefix_err_gouter_plain(*g_args, group_size=GROUP), 2),
+        bound(g_args + g_out, 2 * int((g_inp["f"] != 0).sum()) * D_MODEL, BF16_OPS_S))
+    del g_out
     ex, ewb, eb = e_inp["x"], e_inp["wb"], e_inp["b_enc"]
-    times["encode_stats"] = (
+    e_h, e_stats = proto_encode_stats.encode_stats(ex, ewb, eb, TOP_K)
+    times["encode_stats"] = timed(
         _time(lambda: proto_encode_stats.encode_stats(ex, ewb, eb, TOP_K), 10),
-        _time(lambda: proto_encode_stats.encode_stats_plain(ex, ewb, eb, TOP_K), 3))
+        _time(lambda: proto_encode_stats.encode_stats_plain(ex, ewb, eb, TOP_K), 3),
+        bound((ex, ewb, eb, e_h, *e_stats), 2 * B * D_MODEL * D_SAE, BF16_OPS_S))
+    del e_h, e_stats
     key = m_inp["key"]
-    times["count_loop"] = (_time(lambda: microbench_kth.count_loop(key, 32), 10),
-                           _time(lambda: microbench_kth.count_loop_plain(key, 32), 3))
-    for k, (ms, plain_ms) in times.items():
-        log(f"timing {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del k_inp, g_inp, e_inp, m_inp
+    times["count_loop"] = timed(_time(lambda: microbench_kth.count_loop(key, 32), 10),
+                                _time(lambda: microbench_kth.count_loop_plain(key, 32), 3),
+                                _selection_bound(key, microbench_kth.count_loop(key, 32)))
+    ph = p_inp["h"]
+    times["kth_ops"] = timed(_time(lambda: proto_kth_ops.kth_ops(ph, TOP_K, "prod"), 10),
+                             _time(lambda: proto_kth_ops.kth_ops_plain(ph, TOP_K, "prod"), 3),
+                             _selection_bound(ph, proto_kth_ops.kth_ops(ph, TOP_K, "prod")),
+                             library_kth_ms(ph, TOP_K, "P4"))
+    for k, row in times.items():
+        log_timing(k, row)
+    del k_inp, g_inp, e_inp, m_inp, p_inp
     torch.cuda.empty_cache()
     return got, errs, times
 
@@ -825,7 +925,7 @@ def main() -> int:
     metric_counts = phase_metrics(ts, x, prefixes, n_dead)
     del ts
     torch.cuda.empty_cache()
-    times, _ = phase_timing()
+    times = phase_timing()
     bench_counts, bench_errs, bench_times = phase_benches()
     errs |= bench_errs
     times |= bench_times
@@ -840,8 +940,7 @@ def main() -> int:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "launches": launches[k], "max_abs_err": errs[k], **times[k], "lib_ms": times[k]["library_ms"]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -64,7 +64,7 @@ def sweep_state_from_numpy(ts, device) -> SweepState:
 
 def init_sweep_state(
     sae_cfg: modeling.SparseAutoencoderConfig, n_sae: int,
-    generator: torch.Generator | None = None, device="cpu",
+    generator: torch.Generator | None = None, device="cuda",
 ) -> SweepState:
     """A fresh stacked sweep: `modeling.init` for each SAE, zero counters,
     zero Adam moments, step 0."""

@@ -145,7 +145,7 @@ class EncodeOut(tp.NamedTuple):
 def init(
     cfg: SparseAutoencoderConfig,
     generator: torch.Generator | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Params, State]:
     """W_dec ~ Kaiming-uniform (bound sqrt(6/d_model)), rows normalized,
     W_enc = W_dec^T, zero biases. The random stream differs from the JAX
@@ -164,7 +164,7 @@ def init(
     return params, init_state(cfg, device)
 
 
-def init_state(cfg: SparseAutoencoderConfig, device: torch.device | str = "cpu") -> State:
+def init_state(cfg: SparseAutoencoderConfig, device: torch.device | str = "cuda") -> State:
     return {"threshold": torch.zeros((), dtype=torch.float32, device=device)}
 
 

@@ -55,7 +55,7 @@ ObjectiveState = dict[str, torch.Tensor]
 # {"toks_since_active": int32 (d_sae,)}
 
 
-def init_state(sae_cfg: modeling.SparseAutoencoderConfig, device="cpu") -> ObjectiveState:
+def init_state(sae_cfg: modeling.SparseAutoencoderConfig, device="cuda") -> ObjectiveState:
     return {"toks_since_active": torch.zeros((sae_cfg.d_sae,), dtype=torch.int32, device=device)}
 
 

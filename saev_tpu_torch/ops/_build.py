@@ -43,6 +43,7 @@ SIGNATURES = {
     "saev_prefix_err_gouter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_encode_stats": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "saev_count_loop": [_P, _I, _I, _I, _P, _P],
+    "saev_kth_ops": [_P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -62,17 +63,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (nvcc, cuobjdump): on PATH, else in
+    the toolkit PyTorch finds."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found:
         return found
     if CUDA_HOME:
-        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        cand = pathlib.Path(CUDA_HOME) / "bin" / name
         if cand.exists():
             return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
 
 
 def library_path() -> pathlib.Path:
@@ -100,7 +103,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cu = [p for p in _sources() if p.suffix == ".cu"]

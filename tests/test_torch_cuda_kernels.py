@@ -1,4 +1,4 @@
-"""The ten CUDA kernels against their plain versions on the card, at small
+"""The eleven CUDA kernels against their plain versions on the card, at small
 shapes with edge cases. Every test here needs a CUDA device and skips
 without one. The file imports no JAX, so it runs on a machine without it:
 
@@ -14,7 +14,7 @@ import torch
 from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 from saev_tpu_torch.ops import cuda_matryoshka as cm
 from saev_tpu_torch.ops import matryoshka as tmat
-from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter
+from saev_tpu_torch.scripts import microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +280,31 @@ def test_bench_wrappers_refuse_bad_shapes(dev):
     with pytest.raises(ValueError, match="batch"):
         proto_gouter.grouped_prefix_err_gouter(f, w, torch.zeros((100, 128), device=dev),
                                                torch.zeros(128, device=dev), torch.ones(1, device=dev), m, m)
+
+
+@pytest.mark.parametrize("b,s,k", [(256, 4096, 32), (64, 100, 100), (33, 16384, 32), (8, 20000, 7), (16, 1000, 512),
+                                   (8, 700, 1)])
+@pytest.mark.parametrize("mode", proto_kth_ops.MODES)
+def test_kth_ops_kernel_matches_plain_and_k6(dev, mode, b, s, k):
+    h = _rows(b, s, b + s + 3).to(dev)
+    before = proto_kth_ops.kth_ops.launches
+    got = proto_kth_ops.kth_ops(h, k, mode)
+    torch.cuda.synchronize()
+    assert proto_kth_ops.kth_ops.launches == before + 1
+    assert torch.equal(got.view(torch.int32), proto_kth_ops.kth_ops_plain(h, k, mode).view(torch.int32))
+    if mode in proto_kth_ops.EXACT:
+        assert torch.equal(got.view(torch.int32), cuda_kth.kth_value_cuda(h, k).view(torch.int32))
+        assert _same_bits(got, topk._kth_plain(h, k))
+
+
+def test_kth_ops_refuses_bad_inputs(dev):
+    for bad in (torch.zeros((4, 8), dtype=torch.float64, device=dev),
+                torch.zeros((4, 8), dtype=torch.bfloat16, device=dev),
+                torch.zeros((8, 4), device=dev).T,
+                torch.zeros((2, proto_kth_ops.MAX_S + 1), device=dev)):
+        with pytest.raises(ValueError):
+            proto_kth_ops.kth_ops(bad, 2, "prod")
+    with pytest.raises(ValueError, match="mode"):
+        proto_kth_ops.kth_ops(torch.zeros((4, 8), device=dev), 2, "popc")
+    with pytest.raises(ValueError, match="k="):
+        proto_kth_ops.kth_ops(torch.zeros((4, 8), device=dev), 9, "mxu")

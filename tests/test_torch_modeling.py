@@ -64,7 +64,7 @@ def test_params_from_numpy_round_trips():
 
 def test_init_layout_and_norms():
     cfg = modeling.SparseAutoencoderConfig(d_model=16, d_sae=64)
-    params, state = modeling.init(cfg, torch.Generator().manual_seed(0))
+    params, state = modeling.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert params["W_enc"].shape == (16, 64) and params["W_dec"].shape == (64, 16)
     torch.testing.assert_close(torch.linalg.norm(params["W_dec"], dim=1), torch.ones(64))
     assert torch.equal(params["W_enc"], params["W_dec"].T)
@@ -80,7 +80,7 @@ def test_encode_topk_matches_jax():
     jout, _ = jmod.encode(jcfg, {k: jnp.asarray(v) for k, v in params.items()},
                           jmod.init_state(jcfg), jnp.asarray(x), training=True)
     out, _ = modeling.encode(cfg, modeling.params_from_numpy(params, "cpu"),
-                             modeling.init_state(cfg), torch.from_numpy(x), training=True)
+                             modeling.init_state(cfg, "cpu"), torch.from_numpy(x), training=True)
     np.testing.assert_allclose(out.h_x.numpy(), np.asarray(jout.h_x), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(out.f_x.numpy(), np.asarray(jout.f_x), rtol=1e-5, atol=1e-6)
     assert ((out.f_x != 0).sum(dim=1) == 4).all()

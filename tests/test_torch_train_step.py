@@ -170,7 +170,7 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="Muon"):
         train.make_train_step(cfg, obj, 10, optim="muon")
     step = train.make_train_step(cfg, obj, 10, aux_enabled=True)
-    ts = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(0))
+    ts = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(0), device="cpu")
     hp = {"lr": torch.ones(1), "n_lr_warmup": torch.ones(1), "grad_clip": torch.ones(1),
           "sparsity_coeff": torch.zeros(1)}
     x = torch.zeros((8, 8))
@@ -184,3 +184,25 @@ def test_unported_variants_raise():
         )
     ts, stats = step(ts, x + 1.0, torch.tensor([[3, 64]], dtype=torch.int32), hp)
     assert bool(torch.isfinite(stats["loss"]).all())
+
+
+def test_init_sweep_state_defaults_to_the_card(monkeypatch):
+    """With no device given the sweep state is built on CUDA: on a card it
+    lies there; without one the call raises at its first allocation, which
+    asked for the card, and builds nothing on the CPU."""
+    cfg = modeling.SparseAutoencoderConfig(d_model=8, d_sae=64)
+    asked = []
+    empty = torch.empty
+
+    def spy(*args, **kwargs):
+        asked.append(torch.device(kwargs.get("device", "cpu")).type)
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", spy)
+    if torch.cuda.is_available():
+        ts = train.init_sweep_state(cfg, 1)
+        assert all(v.is_cuda for v in ts.params.values()) and ts.step.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            train.init_sweep_state(cfg, 1)
+        assert asked == ["cuda"]
