@@ -8,7 +8,8 @@ script exits non-zero:
 1. device    -- a CUDA card must be present (no CPU fallback); prints its name
                 and the `nvidia-smi` name and power limit.
 2. build     -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py),
-                one nvcc for each source, all started together.
+                one nvcc for each source, all started together; K3's product
+                must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS.
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
                 16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K6
@@ -16,14 +17,17 @@ script exits non-zero:
                 both subspace rungs' shapes (16384 x 1024 and 16384 x 4096),
                 k_aux 512, under masks that leave the dead columns (819, 5%;
                 3276, 20%, on the wide rung; pinned at -1e6 as bench.py pins
-                them), fewer than k, none and all.
+                them), fewer than k, none and all; K3's dA bit for bit, on
+                both cut sets and on 64 cuts (1024 rows).
 4. reference -- the step on the card (kernel path) against the same step on
                 the CPU (plain f32 path) at a small shape: the warm-up step,
                 and the AuxK step, dense and subspace, with 1/16 of the
                 latents pinned dead.
 5. slice     -- the warm-up train step (TopK 32 + Matryoshka 10, Adam,
                 aux_enabled=False) at full width: 5 steps of one SAE and 2 of
-                a two-SAE sweep, counting kernel launches.
+                a two-SAE sweep, then one step at batch 1000 (padded to the
+                kernels' 128-row tile) held to the same step on the CPU,
+                counting kernel launches.
 6. steady    -- the step router (`make_step_router`) over the AuxK step at
                 full width, from aux_from_step - 1, on states with 5%, 2%, 20%
                 and 40% of the latents pinned dead, at n_sae 1 and 2: the
@@ -34,7 +38,9 @@ script exits non-zero:
                 not counted as the path's launches.
 7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
                 the two-SAE state at 5% dead.
-8. timing    -- each kernel's time against its plain version's.
+8. timing    -- each kernel's time against its plain version's; K3's two
+                launches by the profiler, each beside its own bound, and a
+                cuBLAS bmm of K3's main term as a yardstick.
 9. benches   -- the kernel-level entry points (saev_tpu_torch/scripts) at the
                 production shape: first K7, P1, P2, P3 and P4 held to their
                 plain versions (K7 also bit for bit to K2's xhat and E, with
@@ -49,8 +55,9 @@ script exits non-zero:
                 library's k-th value; then each new kernel timed against its
                 plain version.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
-                full width: wall and device ms/step, the device's idle share
-                and the kernels that take the most device time.
+                full width (warm and tight also at n_sae 2): wall and device
+                ms/step, the device's idle share and the 15 kernels that take
+                the most device time, K3's product among them.
 
 Kernel launches are counted per driven path (slice, steady, metrics,
 benches): every count is set to 0 just before the path and read just after.
@@ -76,13 +83,15 @@ B, D_MODEL, D_SAE, TOP_K, N_PREFIXES, GROUP = 16384, 1024, 16384, 32, 10, 1024
 K_AUX, TIGHT, WIDE = 512, 1024, 4096  # AuxK k and subspace_cap_ladder(16384, 512)
 N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
 N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
+RAGGED_B = 1000  # a batch that is not a multiple of the kernels' 128-row tile
+K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
 KERNELS = {
     "topk_stats": ("saev_tpu_torch/csrc/topk_stats.cu", "saev_tpu/ops/pallas_topk.py:136"),
     "grouped_prefix_err": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
-    "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
+    "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/dgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
     "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
     "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
@@ -180,6 +189,17 @@ def phase_build(verbose: bool = False) -> None:
     path = _build.build(verbose=verbose)
     _build.lib()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+    sass = _build.dump_sass()
+    for fragment in K3_NAMES:
+        found = _build.function_opcodes(sass, fragment)
+        require(len(found) > 0, f"build: no {fragment} in the library's SASS")
+        for name, ops in found.items():
+            if fragment == "dgrad_wgmma_kernel":
+                require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                        f"build: {name} has HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, "
+                        f"HMMA {ops['HMMA']}: not a wgmma product on TMA loads")
+            log(f"build SASS {name}: {sum(ops.values())} instructions, HGMMA {ops['HGMMA']}, "
+                f"UTMALDG {ops['UTMALDG']}, HMMA {ops['HMMA']}, LDG {ops['LDG']}, STG {ops['STG']}")
 
 
 def _gen(device="cuda") -> torch.Generator:
@@ -288,6 +308,23 @@ def _cuts(p: np.ndarray):
     return m, (pt - m * GROUP).to(torch.int32).contiguous()
 
 
+def _k3_case(w, e, m, r, scale, what: str) -> tuple[float, torch.Tensor]:
+    """K3 against its plain version: dA bit for bit, df (bf16) within
+    rel-norm 1e-2 (f32 sums in another order). Returns the max abs error and
+    the kernel's dA."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+
+    df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    pdf, pda = cm.grouped_matmul_dgrad_plain(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_diff = int((da.view(torch.int16) != pda.view(torch.int16)).sum())
+    require(n_diff == 0, f"K3 {what}: dA differs from its plain version at {n_diff} entries")
+    r_df = rel_norm(df, pdf)
+    require(r_df <= 1e-2, f"K3 {what}: df rel-norm {r_df:.3g} > 1e-2")
+    log(f"parity K3 {what} ({e.shape[0]} cuts, {e.shape[1]} rows): dA bitwise equal, df rel-norm {r_df:.3g}")
+    return max_abs(df, pdf), da
+
+
 def phase_parity() -> dict:
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
@@ -328,14 +365,8 @@ def phase_parity() -> dict:
         del e2, pe, pxhat
 
         scale = torch.full((1,), 2.0 / (B * j * D_MODEL), device="cuda")
-        df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
-        pdf, pda = cm.grouped_matmul_dgrad_plain(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        r_df, r_da = rel_norm(df, pdf), rel_norm(da, pda)
-        require(r_df <= 1e-2 and r_da <= 1e-2, f"K3 {what}: df {r_df:.3g} / dA {r_da:.3g} rel-norm > 1e-2")
-        errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], max_abs(df, pdf), max_abs(da, pda))
-        log(f"parity K3 {what}: df rel-norm {r_df:.3g}, dA rel-norm {r_da:.3g}")
-        del df, pdf, pda
+        k3_err, da = _k3_case(w, e, m, r, scale, what)
+        errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
 
         dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
         pdw = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP)
@@ -345,6 +376,16 @@ def phase_parity() -> dict:
         errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], max_abs(dw, pdw))
         log(f"parity K4 {what}: dW rel-norm {r_dw:.3g}")
         del dw, pdw, da, e
+    # K3 at its most cuts (MAX_PREFIXES, about four in each group), on the
+    # first 1024 rows.
+    n = 1024
+    p = np.sort(np.random.default_rng(SEED + 64).choice(np.arange(1, D_SAE), cm.MAX_PREFIXES - 1, replace=False))
+    m, r = _cuts(np.append(p, D_SAE).astype(np.int32))
+    e, _, _ = cm.grouped_prefix_err(f[:n], w, x[:n], b_dec, iu, m, r, group_size=GROUP)
+    scale = torch.full((1,), 2.0 / (n * cm.MAX_PREFIXES * D_MODEL), device="cuda")
+    k3_err, _ = _k3_case(w, e, m, r, scale, "64 cuts")
+    errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
+    del e
     torch.cuda.empty_cache()
     return errs
 
@@ -468,7 +509,40 @@ def phase_slice() -> dict:
             f"launches {[fn.launches - before[k] for k, fn in fns.items()]}")
         del ts, stats
         torch.cuda.empty_cache()
+    _ragged_step(cfg, step, rng)
     return counts(), results
+
+
+def _ragged_step(cfg, step, rng) -> None:
+    """One warm step of one SAE at batch RAGGED_B, which the Matryoshka
+    kernels take padded to their 128-row tile, against the same step on the
+    CPU (plain f32 path) from the same state: bf16 against f32, rel 1e-2, and
+    L0 equal. K1-K4 must launch once each."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import objectives
+
+    x = torch.from_numpy(rng.normal(size=(RAGGED_B, D_MODEL)).astype(np.float32))
+    prefixes = torch.from_numpy(objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng)[None])
+    ts_cpu = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(SEED), device="cpu")
+    ts_gpu = _to(ts_cpu, "cuda")
+    before = counts()
+    ts_gpu, s_gpu = step(ts_gpu, x.cuda(), prefixes.cuda(), _hp(1, "cuda"))
+    torch.cuda.synchronize()
+    rose = {k: v - before[k] for k, v in counts().items()}
+    want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1)
+    require(rose == want, f"slice batch {RAGGED_B}: launches {rose}, expected {want}")
+    ts_cpu, s_cpu = step(ts_cpu, x, prefixes, _hp(1, "cpu"))
+    rels = {}
+    for key in ("mse", "l1", "loss", "grad_norm"):
+        a, b = s_gpu[key].cpu(), s_cpu[key]
+        rels[key] = float(((a - b).abs() / b.abs()).max())
+        require(rels[key] <= 1e-2, f"slice batch {RAGGED_B}: {key} rel err {rels[key]:.3g} > 1e-2")
+    require(torch.equal(s_gpu["l0"].cpu(), s_cpu["l0"]), f"slice batch {RAGGED_B}: l0 differs")
+    for key, v in ts_gpu.params.items():
+        require(bool(torch.isfinite(v).all()), f"slice batch {RAGGED_B}: param {key} not finite")
+    log(f"slice batch {RAGGED_B}: one step through K1-K4 (batch padded to 1024) agrees with the CPU plain "
+        f"path: mse {s_gpu['mse'].tolist()} (CPU {s_cpu['mse'].tolist()}), rel errs "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
 
 # (fraction of latents pinned dead, the variant of each step from
 # aux_from_step - 1): the warm step, the dense step while no aux_risk readout
@@ -708,12 +782,21 @@ def phase_timing() -> dict:
         _time(lambda: cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP), 10),
         _time(lambda: cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=GROUP), 2),
         bound((f, w, x, b_dec, iu, m, r, e, xhat, loss), sparse_ops, BF16_OPS_S))
+    # K3's product: the main term over every latent and each cut's remainder
+    # over its r_j lanes (a cut at p_j = d_sae has r_j = 0).
+    k3_ops = 2 * B * D_MODEL * (D_SAE + int(r.sum()))
     out["grouped_matmul_dgrad"] = timed(
         _time(lambda: cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP,
                                               df_dtype=torch.bfloat16), 10),
         _time(lambda: cm.grouped_matmul_dgrad_plain(w, e, m, r, scale, group_size=GROUP,
                                                     df_dtype=torch.bfloat16), 2),
-        bound((w, e, m, r, scale, df, da), 2 * B * D_SAE * D_MODEL, BF16_OPS_S))
+        bound((w, e, m, r, scale, df, da), k3_ops, BF16_OPS_S))
+    del df
+    _k3_launches(w, e, m, r, scale, "sampled")
+    m_h, r_h = _cuts(cut_sets["hand-set"])
+    e_h, _, _ = cm.grouped_prefix_err(f, w, x, b_dec, iu, m_h, r_h, group_size=GROUP)
+    _k3_launches(w, e_h, m_h, r_h, scale, "hand-set")
+    del e_h
     out["grouped_matmul_wgrad"] = timed(
         _time(lambda: cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP), 10),
         _time(lambda: cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP), 2),
@@ -721,6 +804,43 @@ def phase_timing() -> dict:
     for k, row in out.items():
         log_timing(k, row, f" (cuts {cut_sets['sampled'].tolist()})" if k.startswith("grouped") else "")
     return out
+
+
+def _k3_launches(w, e, m, r, scale, what: str) -> None:
+    """K3's two launches by the profiler, each beside its own bound: the dA
+    build by bytes (the E_j that enter dA, m_j >= 1, read once; dA written
+    once), the product by operations (2 B D (S + sum r_j)). Then the cuBLAS
+    bmm of the main term alone, dA as (G, B, D) against W as (G, D, g): a
+    yardstick of what the card gives that product, which the port never
+    calls."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+    from saev_tpu_torch.scripts import kprof
+
+    rows = kprof.device_profile(lambda: cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP,
+                                                                 df_dtype=torch.bfloat16), n=10, warmup=2)
+    ms = {name: sum(t for k, t, _ in rows if name in k) for name in K3_NAMES}
+    require(all(v > 0 for v in ms.values()), f"timing K3 {what}: profiler rows {rows}")
+    n_groups = D_SAE // GROUP
+    entering = int(((m >= 1) & (m <= n_groups)).sum())
+    da_bytes = B * n_groups * D_MODEL * 2
+    build = bound((entering * B * D_MODEL * 2, da_bytes), 0, BF16_OPS_S)
+    n_rem = int((r > 0).sum())
+    ops = 2 * B * D_MODEL * (D_SAE + int(r.sum()))
+    prod = bound((w, da_bytes, n_rem * B * D_MODEL * 2, B * D_SAE * 2), ops, BF16_OPS_S)
+    log(f"timing K3 {what}: build_da_vec_kernel {ms[K3_NAMES[0]]:.3f} ms, bound {build['bound_ms']:.3f} "
+        f"({build['bound_by']}: {entering} E_j enter dA), "
+        f"{(entering * B * D_MODEL * 2 + da_bytes) / ms[K3_NAMES[0]] / 1e9:.2f} TB/s; "
+        f"dgrad_wgmma_kernel {ms[K3_NAMES[1]]:.3f} ms, bound {prod['bound_ms']:.3f} ({prod['bound_by']}: "
+        f"{n_rem} remainders, {int(r.sum())} lanes), {ops / ms[K3_NAMES[1]] / 1e9:.1f} TFLOP/s")
+    df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    del df
+    a = da.view(B, n_groups, D_MODEL).transpose(0, 1)
+    wt = w.view(n_groups, GROUP, D_MODEL).transpose(1, 2)
+    bmm_rows = kprof.device_profile(lambda: torch.bmm(a, wt), n=10, warmup=2)
+    bmm_ms = kprof.total_device_ms(bmm_rows)
+    log(f"timing K3 yardstick: cuBLAS bmm of the main term (G {n_groups}, B {B}, D {D_MODEL}) @ (D, g {GROUP}): "
+        f"{bmm_ms:.3f} ms device, {2 * B * D_SAE * D_MODEL / bmm_ms / 1e9:.1f} TFLOP/s; kernels "
+        + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in bmm_rows))
 
 
 def _k7_case(f, w, x, b_dec, iu, p: np.ndarray, what: str) -> float:
@@ -868,9 +988,10 @@ def phase_benches() -> tuple[dict, dict, dict]:
 
 def phase_profile() -> None:
     """torch.profiler over 3 steps (after 3 warm-up steps) of the warm,
-    tight-rung and dense steps at full width, n_sae 1, 5% dead: wall and
-    device ms/step, the device's idle share, and the 15 kernels that take the
-    most device time."""
+    tight-rung and dense steps at full width, n_sae 1, and of the warm and
+    tight-rung steps at n_sae 2, 5% dead: wall and device ms/step, the
+    device's idle share, the 15 kernels that take the most device time,
+    among which K3's product must be, and the rank of each K3 launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from saev_tpu_torch.framework import train
@@ -880,37 +1001,43 @@ def phase_profile() -> None:
     obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
     rng = np.random.default_rng(SEED + 1)
     x = torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda")
-    prefixes = torch.from_numpy(objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng)[None]).to("cuda")
-    hp = _steady_hp(1)
+    prefixes = torch.from_numpy(
+        np.stack([objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng) for _ in range(2)])
+    ).to("cuda")
     variants = {
         "warm": dict(aux_enabled=False),
         "tight": dict(aux_subspace_cap=TIGHT),
         "dense": {},
     }
-    for name, kwargs in variants.items():
-        step = train.make_train_step(cfg, obj, n_steps=6000, **kwargs)
-        ts = train.init_sweep_state(cfg, 1, _gen(), "cuda")
+    for n_sae, name in ((1, "warm"), (1, "tight"), (1, "dense"), (2, "warm"), (2, "tight")):
+        step = train.make_train_step(cfg, obj, n_steps=6000, **variants[name])
+        ts = train.init_sweep_state(cfg, n_sae, _gen(), "cuda")
         _pin_dead(ts, N_DEAD_5)
+        hp = _steady_hp(n_sae)
         for _ in range(3):
-            ts, _ = step(ts, x, prefixes, hp)
+            ts, _ = step(ts, x, prefixes[:n_sae], hp)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
-                ts, _ = step(ts, x, prefixes, hp)
+                ts, _ = step(ts, x, prefixes[:n_sae], hp)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / 3
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         dev = sum(e.self_device_time_total for e in events) / 1e3 / 3
         if dev == 0:  # a measurement, not a check: report and go on
-            log(f"profile {name}: wall {wall:.2f} ms/step; the profiler reported no device time")
+            log(f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step; the profiler reported no device time")
             continue
-        lines = [f"profile {name}: wall {wall:.2f} ms/step, device kernels {dev:.2f} ms/step, "
-                 f"idle {100 * (1 - dev / wall):.1f}%"]
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+        rank = {k3: next((i + 1 for i, e in enumerate(ranked) if k3 in e.key), None) for k3 in K3_NAMES}
+        lines = [f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step, device kernels {dev:.2f} ms/step, "
+                 f"idle {100 * (1 - dev / wall):.1f}%; K3's launches rank " + ", ".join(f"{k} #{v}" for k, v in rank.items())]
+        for e in ranked[:15]:
             ms = e.self_device_time_total / 1e3 / 3
             lines.append(f"  {ms:8.3f} ms/step {100 * ms / dev:5.1f}%  x{e.count // 3:<4d} {e.key[:110]}")
         log("\n".join(lines))
+        require(all(rank.values()), f"profile {name} n_sae={n_sae}: K3's launches {rank}")
+        require(rank["dgrad_wgmma_kernel"] <= 15, f"profile {name} n_sae={n_sae}: K3's product ranks {rank}")
         del ts
         torch.cuda.empty_cache()
 

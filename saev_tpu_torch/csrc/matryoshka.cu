@@ -1,22 +1,21 @@
-// K2-K4 and K7: the grouped Matryoshka prefix-MSE products (forward error,
-// dgrad, wgrad, forward base) on bf16 operands with f32 accumulation, and
-// P2, the group-outer forward error.
+// K2, K4 and K7: the grouped Matryoshka prefix-MSE products (forward error,
+// wgrad, forward base) on bf16 operands with f32 accumulation, and P2, the
+// group-outer forward error. K3, the dgrad, is dgrad.cu.
 //
 // Replaces saev_tpu/ops/pallas_matryoshka.py `_err_kernel`
-// (`grouped_prefix_err`), `_dgrad_kernel` (`grouped_matmul_dgrad`),
-// `_wgrad_kernel` (`grouped_matmul_wgrad`) and `_base_kernel`
-// (`grouped_prefix_base`), and scripts/proto_gouter.py `_err_kernel_gouter`
-// (`grouped_prefix_err_gouter`).
+// (`grouped_prefix_err`), `_wgrad_kernel` (`grouped_matmul_wgrad`) and
+// `_base_kernel` (`grouped_prefix_base`), and scripts/proto_gouter.py
+// `_err_kernel_gouter` (`grouped_prefix_err_gouter`).
 //
 // Notation: f (B, S) latents, W (S, D) decoder rows, J prefix cuts
 // p_j = m_j * g + r_j with groups of g latents, E_j (B, D) the per-prefix
 // errors, scale = 2 * t_loss / (B * J * D).
 //
-// What bounds them on the card: tensor-core throughput. The three products
-// are about 3 * 2 * B * S * D = 1.65 TFLOP at the production shape
-// (B = S = 16384, D = 1024) against 1.9 GB of operand traffic, far above the
-// card's ridge point; the cut snapshots and remainder terms add at most J
-// partial K steps (forward) or J tiles (backward).
+// What bounds them on the card: tensor-core throughput. Each product is
+// about 2 * B * S * D = 0.55 TFLOP at the production shape (B = S = 16384,
+// D = 1024) against well under 1 GB of operand traffic, far above the card's
+// ridge point; the cut snapshots and remainder terms add at most J partial K
+// steps (forward) or J tiles (wgrad).
 //
 // What the design does about it: each kernel is one 128x128-tile GEMM with
 // bf16 mma.sync and a two-stage cp.async pipeline (tile_mma.cuh), one CTA per
@@ -43,15 +42,11 @@
 //    the 64 MB accumulator (2 GB of device-memory traffic), 16 launch tails
 //    and 16 pipeline fills. The loss is one partial per CTA per group,
 //    summed in a fixed order, so repeated runs give the same bits.
-//  - K3 first builds dA_G = bf16(scale * sum_{m_j > G} E_j) with one thread
-//    per (b, d) walking the groups downward (the TPU kernel's descending
-//    carry, as a per-element loop). The df GEMM then accumulates the masked
-//    remainder products E_j @ W_G^T (columns < r_j) first, multiplies by
-//    scale, and adds dA_G @ W_G^T: one accumulator, one rounding to df's type.
-//  - K4 does the same for dW_G = f_G^T @ dA_G plus the row-masked remainder,
-//    each CTA reducing over the whole batch.
+//  - K4 takes K3's dA_G: dW_G = f_G^T @ dA_G plus the row-masked remainder
+//    products ([s < r_j] f_G)^T @ E_j, which it accumulates first and
+//    multiplies by scale; each CTA reduces over the whole batch.
 // This is the simple, correct first version: wgmma, TMA and deeper
-// pipelines are later work.
+// pipelines for these kernels are later work (dgrad.cu shows them for K3).
 
 #include "tile_mma.cuh"
 
@@ -279,67 +274,6 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[0] = s;
 }
 
-// --- K3: dgrad ------------------------------------------------------------------
-
-// dA[b, G, d] = bf16(scale * sum_{j: m_j > G} E_j[b, d]), summed while walking
-// G downward: E_j enters at G = m_j - 1, in ascending j within a group.
-__global__ void build_da_kernel(const __nv_bfloat16* __restrict__ e,
-                                const int* __restrict__ m, const float* __restrict__ scale,
-                                int J, long BD, int D, int n_groups,
-                                __nv_bfloat16* __restrict__ da) {
-  __shared__ int ms[MAXJ];
-  if (threadIdx.x < J) ms[threadIdx.x] = m[threadIdx.x];
-  __syncthreads();
-  const float s = *scale;
-  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < BD;
-       idx += (long)gridDim.x * blockDim.x) {
-    const long b = idx / D, d = idx - b * D;
-    float run = 0.f;
-    for (int G = n_groups - 1; G >= 0; --G) {
-      for (int j = 0; j < J; ++j)
-        if (ms[j] == G + 1) run += __bfloat162float(e[j * BD + idx]);
-      da[(b * n_groups + G) * D + d] = __float2bfloat16_rn(run * s);
-    }
-  }
-}
-
-// df[:, G*g + n0 ...] for one (n tile, row tile, group) = scale * sum_{m_j = G}
-// [col < r_j] E_j @ W_G^T + dA_G @ W_G^T.
-template <typename Out>
-__global__ void __launch_bounds__(THREADS)
-    dgrad_kernel(const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ e,
-                 const __nv_bfloat16* __restrict__ da, const int* __restrict__ m,
-                 const int* __restrict__ r, const float* __restrict__ scale, int J, int B,
-                 int S, int D, int g, int n_groups, Out* __restrict__ df) {
-  __shared__ __align__(16) __nv_bfloat16 smem[4 * STAGE_ELEMS];
-  __shared__ int ms[MAXJ], rs[MAXJ];
-  if (threadIdx.x < J) {
-    ms[threadIdx.x] = m[threadIdx.x];
-    rs[threadIdx.x] = r[threadIdx.x];
-  }
-  __syncthreads();
-  const long n0 = (long)blockIdx.x * BN, b0 = (long)blockIdx.y * BM;
-  const int G = blockIdx.z;
-  const long w_row = (long)G * g + n0;  // B[k = d, n] = W[w_row + n, d]
-
-  Acc acc;
-  zero(acc);
-  bool any_rem = false, any_main = false;
-  for (int j = 0; j < J; ++j) {
-    any_main |= ms[j] > G;
-    if (ms[j] == G && rs[j] > n0) {
-      gemm_range<true, true, true>(acc, smem, e + (long)j * B * D, D, b0, w, D, w_row, 0,
-                                   D, Masks{0, BK, BM, (int)(rs[j] - n0)});
-      any_rem = true;
-    }
-  }
-  if (any_rem) saev::scale(acc, *scale);
-  if (any_main)
-    gemm_range<true, true, false>(acc, smem, da + (long)G * D, (long)n_groups * D, b0,
-                                  w, D, w_row, 0, D, Masks{0, BK, BM, BN});
-  store_tile<Out>(acc, df, S, b0, w_row);
-}
-
 // --- K4: wgrad ------------------------------------------------------------------
 
 // dW[G*g + s0 ..., n0 ...] = scale * sum_{m_j = G} ([s < r_j] f_G)^T @ E_j
@@ -433,26 +367,6 @@ extern "C" int saev_prefix_err_gouter(const __nv_bfloat16* f, const __nv_bfloat1
     if (code != cudaSuccess) return code;
   }
   sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, n_groups * n_tiles, loss_sum);
-  return cudaGetLastError();
-}
-
-extern "C" int saev_dgrad(const __nv_bfloat16* w, const __nv_bfloat16* e, const int* m,
-                          const int* r, const float* scale, int J, int B, int S, int D,
-                          int g, int df_bf16, void* df, __nv_bfloat16* da,
-                          cudaStream_t stream) {
-  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
-  const int n_groups = S / g;
-  const long bd = (long)B * D;
-  build_da_kernel<<<(int)((bd + 255) / 256 < 65536 ? (bd + 255) / 256 : 65536), 256, 0,
-                    stream>>>(e, m, scale, J, bd, D, n_groups, da);
-  dim3 grid(g / BN, B / BM, n_groups);
-  if (df_bf16)
-    dgrad_kernel<__nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        w, e, da, m, r, scale, J, B, S, D, g, n_groups,
-        static_cast<__nv_bfloat16*>(df));
-  else
-    dgrad_kernel<float><<<grid, THREADS, 0, stream>>>(w, e, da, m, r, scale, J, B, S, D,
-                                                       g, n_groups, static_cast<float*>(df));
   return cudaGetLastError();
 }
 

@@ -2,10 +2,11 @@
 // 128x128 CTA output tile computed with bf16 mma.sync.m16n8k16 and f32
 // accumulation, staged through shared memory by cp.async in 32-deep K steps.
 //
-// Operands come in two storage layouts, so one tile routine serves all three
-// products of the Matryoshka loss:
-//   K-major  (rows = M or N, K contiguous): f in the forward (A), W_G^T in
-//            dgrad (B), read with ldmatrix;
+// Operands come in two storage layouts, so one tile routine serves the
+// forward and wgrad products of the Matryoshka loss (K3, the dgrad, runs on
+// wgmma in dgrad.cu and uses none of this):
+//   K-major  (rows = M or N, K contiguous): f in the forward (A), x in P1
+//            (A), read with ldmatrix;
 //   MN-major (rows = K, M or N contiguous): W in the forward (B), f_G^T and
 //            dA_G in wgrad (A and B), read with ldmatrix.trans.
 // Shared rows are padded by 8 bf16 (16 bytes), which makes every ldmatrix
@@ -155,7 +156,7 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4], const __nv_bfloat16* s,
 // Masks applied to a product in registers (all bounds are CTA-tile-relative):
 //   A columns (the K index) outside [k_lo, k_hi)      -- forward cut lanes;
 //   A rows    (the M index) at or above m_hi          -- wgrad remainder rows;
-//   B columns (the N index) at or above n_hi          -- dgrad remainder cols.
+//   B columns (the N index) at or above n_hi          -- unused (n_hi = BN).
 struct Masks {
   int k_lo, k_hi, m_hi, n_hi;
 };

@@ -11,10 +11,12 @@ Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -140,3 +142,30 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# A SASS instruction line: its address, an optional predicate, then the
+# opcode's base (the part before the first dot).
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def dump_sass() -> str:
+    """`cuobjdump --dump-sass` of the built library."""
+    return subprocess.run(
+        [cuda_tool("cuobjdump"), "--dump-sass", str(build())],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+
+
+def function_opcodes(sass: str, fragment: str) -> dict[str, collections.Counter]:
+    """Mangled name -> opcode counts (static, as written) of each function in
+    `cuobjdump --dump-sass` output whose name contains `fragment`."""
+    funcs: dict[str, collections.Counter] = {}
+    counts = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts = funcs.setdefault(name, collections.Counter()) if fragment in name else None
+        elif counts is not None and (m := SASS_OP.search(line)):
+            counts[m[2]] += 1
+    return funcs

@@ -1,5 +1,6 @@
 """Wrappers of kernels K2-K4 and K7, the grouped Matryoshka products
-(csrc/matryoshka.cu), each with its plain bf16-operand version beside it.
+(csrc/matryoshka.cu; K3 in csrc/dgrad.cu), each with its plain bf16-operand
+version beside it.
 
 Counterparts of saev_tpu/ops/pallas_matryoshka.py `grouped_prefix_err`,
 `grouped_matmul_dgrad`, `grouped_matmul_wgrad` and `grouped_prefix_base`. A CUDA tensor launches the
@@ -172,7 +173,9 @@ def grouped_matmul_dgrad_plain(w, e, m, r, scale, *, group_size=1024, df_dtype=_
 
 
 def grouped_matmul_dgrad(w, e, m, r, scale, *, group_size=1024, df_dtype=_F32):
-    """Kernel K3; same outputs as `grouped_matmul_dgrad_plain`."""
+    """Kernel K3; same outputs as `grouped_matmul_dgrad_plain`: dA bit for
+    bit, df up to the order of its f32 sums. Two launches: the dA build, then
+    the df product on wgmma with TMA-fed operands."""
     if e.device.type != "cuda":
         return grouped_matmul_dgrad_plain(
             w, e, m, r, scale, group_size=group_size, df_dtype=df_dtype

@@ -12,7 +12,9 @@ Two paths, chosen by `_use_kernels` on the latents' tensor:
 
 - **Kernel path (CUDA)**: f and W_dec are cast to bf16 and the three
   products run as kernels K2-K4 (ops/cuda_matryoshka.py). E is kept in bf16;
-  df comes back in the primal dtype of f (bf16 on the TopK stats path).
+  df comes back in the primal dtype of f (bf16 on the TopK stats path). A
+  batch that is not a multiple of the kernels' 128-row tile is padded with
+  rows whose error is exactly 0, and the results are cut back to it.
 - **Plain path (CPU)**: the same algebra in f32 with static slices.
 
 The second output is the full reconstruction xhat_J. It carries no gradient:
@@ -102,15 +104,25 @@ class _PrefixMSE(torch.autograd.Function):
         ctx.f_dtype = f_x.dtype
         ctx.kernel = _use_kernels(f_x)
         if ctx.kernel:
+            # The kernels take whole 128-row tiles: pad with f rows of 0 and
+            # x rows equal to b_dec, whose E rows are exactly 0, so the padded
+            # rows add nothing to the loss or to dW. The divisors keep the
+            # true batch, and xhat and df are cut back to it.
+            pad = -b % _cm.TILE
             fb = f_x.to(_BF16).contiguous()
             wb = w_dec.to(_BF16).contiguous()
+            xp = x
+            if pad:
+                fb = torch.cat([fb, fb.new_zeros((pad, d_sae))])
+                xp = torch.cat([x, b_dec.expand(pad, -1)])
             upper = torch.clamp(x.abs().max(), min=1e-12)
             e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
-                fb, wb, x.contiguous(), b_dec.contiguous(), 1.0 / upper,
+                fb, wb, xp.contiguous(), b_dec.contiguous(), 1.0 / upper,
                 m.contiguous(), r.contiguous(), group_size=g,
             )
             loss = loss_sum / (m.shape[0] * b * x.shape[1]) * upper * upper
-            xhat = xhat_nb + b_dec
+            xhat = xhat_nb[:b] + b_dec
+            ctx.b = b
             ctx.save_for_backward(fb, wb, e, m, r)
         else:
             ms, rs = m.tolist(), r.tolist()
@@ -127,12 +139,14 @@ class _PrefixMSE(torch.autograd.Function):
         g = ctx.g
         if ctx.kernel:
             fb, wb, e, m, r = ctx.saved_tensors
-            j_n, b, d_model = e.shape
+            j_n, _, d_model = e.shape
+            b = ctx.b
             scale = (t_loss.float() * 2.0 / (b * j_n * d_model)).reshape(1)
             db_dec = torch.sum(e, dim=(0, 1), dtype=torch.float32) * scale
             df, da = _cm.grouped_matmul_dgrad(
                 wb, e, m, r, scale, group_size=g, df_dtype=ctx.f_dtype
             )
+            df = df[:b]
             dw = _cm.grouped_matmul_wgrad(fb, da, e, m, r, scale, group_size=g)
         else:
             f, w, e = ctx.saved_tensors

@@ -27,7 +27,12 @@ SEED = 0
 def device_profile(fn, args=(), n: int = 10, warmup: int = 3) -> list[tuple[str, float, int]]:
     """Run `fn(*args)` `warmup` times, then `n` times under the profiler;
     return [(kernel name, device ms per iteration, calls per iteration)],
-    longest first. Raises without a CUDA device: it never profiles the CPU."""
+    longest first. Raises without a CUDA device: it never profiles the CPU.
+
+    The profiler can miss a launch (on the card, the first kernel after it
+    starts: 4 of 5 recorded), so a kernel launched about once a call or more
+    gets the mean of its recorded launches times its launches a call; one
+    launched in fewer calls gets its total over the n calls."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_profile needs a CUDA device; it does not profile the CPU")
     from torch.profiler import ProfilerActivity, profile
@@ -39,11 +44,15 @@ def device_profile(fn, args=(), n: int = 10, warmup: int = 3) -> list[tuple[str,
         for _ in range(n):
             fn(*args)
         torch.cuda.synchronize()
-    rows = [
-        (e.key, e.self_device_time_total / 1e3 / n, e.count // n if e.count >= n else e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        total_ms, calls = e.self_device_time_total / 1e3, round(e.count / n)
+        if calls:
+            rows.append((e.key, total_ms / e.count * calls, calls))
+        else:
+            rows.append((e.key, total_ms / n, e.count))
     rows.sort(key=lambda row: -row[1])
     return rows
 

@@ -25,7 +25,6 @@ counterpart here (one CTA a row, the device profiler times each kernel).
 
 import collections
 import re
-import subprocess
 
 import torch
 
@@ -215,14 +214,12 @@ def timing(inp: dict, n: int = 10, warmup: int = 3) -> dict[str, list]:
     return {name: kprof.device_profile(call, n=n, warmup=warmup) for name, call in cases.items()}
 
 
-# A SASS instruction line: its address, an optional predicate, the opcode's
-# base (the part before the first dot); a branch to an address.
-_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)")
+# A branch to an address.
 _SASS_BRANCH = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
 
 
 def _opcodes(lines) -> collections.Counter:
-    return collections.Counter(m[2] for line in lines if (m := _SASS_OP.search(line)))
+    return collections.Counter(m[2] for line in lines if (m := _build.SASS_OP.search(line)))
 
 
 def _pass_loop(lines: list[str]) -> list[str]:
@@ -231,7 +228,7 @@ def _pass_loop(lines: list[str]) -> list[str]:
     pass loop."""
     at, best = {}, []
     for i, line in enumerate(lines):
-        if m := _SASS_OP.search(line):
+        if m := _build.SASS_OP.search(line):
             at[int(m[1], 16)] = i
         if (m := _SASS_BRANCH.search(line)) and int(m[1], 16) in at:
             body = lines[at[int(m[1], 16)]:i + 1]
@@ -258,10 +255,7 @@ def parse_sass(sass: str) -> dict[tuple[str, int, int], dict[str, collections.Co
 
 def sass_opcodes() -> dict[tuple[str, int, int], dict[str, collections.Counter]]:
     """`parse_sass` of the built library."""
-    return parse_sass(subprocess.run(
-        [_build.cuda_tool("cuobjdump"), "--dump-sass", str(_build.build())],
-        capture_output=True, text=True, check=True, timeout=300,
-    ).stdout)
+    return parse_sass(_build.dump_sass())
 
 
 def hmma_by_mode(found: dict) -> dict[str, list[int]]:

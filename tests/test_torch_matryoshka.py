@@ -208,3 +208,83 @@ def test_prefix_mse_kernel_path_matches_jax_interpret(monkeypatch):
     assert rel_norm(tw.grad.numpy(), np.asarray(jgrads[0])) <= 1e-4
     assert rel_norm(tb.grad.numpy(), np.asarray(jgrads[1])) <= 1e-4
     assert rel_norm(tf.grad.float().numpy(), np.asarray(jgrads[2], np.float32)) <= 1e-2
+
+
+def _kernel_path_grads(w, b_dec, f, x, p, g):
+    tw, tb = _t(w).clone().requires_grad_(True), _t(b_dec).clone().requires_grad_(True)
+    tf = _t(f).to(torch.bfloat16).requires_grad_(True)
+    tl, txhat = tmat.prefix_mse(tw, tb, tf, _t(x), _t(p), g)
+    tl.backward()
+    return tl.detach(), txhat, (tw.grad, tb.grad, tf.grad)
+
+
+def test_prefix_mse_kernel_path_pads_batch_to_tile(monkeypatch):
+    """B = 1000 on the kernel path: the wrappers see the batch padded to a
+    multiple of 128, and the loss and gradients are those of the JAX op (XLA
+    path; bf16 against f32: loss rel 1e-3, gradients rel-norm 1e-2, the gate
+    of scripts/check_tpu_kernels.py:180) and of the same algebra unpadded
+    (1e-6)."""
+    monkeypatch.setattr(tmat, "_use_kernels", lambda t: True)
+    seen = []
+    real = cm.grouped_prefix_err
+
+    def spy(f, *args, **kwargs):
+        seen.append(f.shape[0])
+        return real(f, *args, **kwargs)
+
+    monkeypatch.setattr(cm, "grouped_prefix_err", spy)
+    rng = np.random.default_rng(5)
+    b, s, d, g = 1000, 2048, 64, 1024
+    w = (rng.normal(size=(s, d)) / np.sqrt(d)).astype(np.float32)
+    b_dec = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    f = (rng.normal(size=(b, s)) * (rng.random((b, s)) < 0.05)).astype(np.float32)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    p = np.asarray([7, 1024, 1500, s], np.int32)
+
+    loss, xhat, grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    assert seen == [1024]
+    assert tuple(xhat.shape) == (b, d) and tuple(grads[2].shape) == (b, s)
+
+    def jloss(w_, b_, f_):
+        return jmat.prefix_mse(w_, b_, f_, jnp.asarray(x), jnp.asarray(p), g, None)[0]
+
+    jl, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(w), jnp.asarray(b_dec), jnp.asarray(f)
+    )
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-3)
+    for got, want in zip(grads, jgrads):
+        assert rel_norm(got.float().numpy(), np.asarray(want)) <= 1e-2
+
+    monkeypatch.setattr(cm, "TILE", 1)  # no padding: the same algebra at B = 1000
+    u_loss, u_xhat, u_grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    assert seen == [1024, 1000]
+    np.testing.assert_allclose(loss.item(), u_loss.item(), rtol=1e-6)
+    assert rel_norm(xhat.numpy(), u_xhat.numpy()) <= 1e-6
+    for got, want in zip(grads, u_grads):
+        assert rel_norm(got.float().numpy(), want.float().numpy()) <= 1e-6
+
+
+K3_SASS = """
+	code for sm_90a
+		Function : _ZN40_GLOBAL__N__36c64d2c_8_dgrad_cu_f4886f4818dgrad_wgmma_kernelIfEEv14CUtensorMap_st
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                           /* 0x00000a00ff017b82 */
+        /*0010*/                   UTMALDG.3D [UR8], [UR4] ;                        /* 0x00000008040075b4 */
+        /*0020*/              @!P0 UTMALDG.2D [UR16], [UR6] ;                       /* 0x00000010060085b4 */
+        /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;  /* 0x00e00008181879f0 */
+        /*0040*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;
+		Function : _ZN40_GLOBAL__N__36c64d2c_8_dgrad_cu_f4886f4819build_da_vec_kernelEPK13__nv_bfloat16
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;                 /* 0x0000000402047981 */
+		Function : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f14kth_ops_kernelILi4ELi64ELi256EEEvPKfiiPf
+        /*0000*/                   HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
+"""
+
+
+def test_function_opcodes_counts_one_kernels_sass():
+    """The SASS count chip_smoke.py holds K3's product to: opcodes of the
+    functions whose name holds the fragment, predicates and suffixes dropped."""
+    from saev_tpu_torch.ops import _build
+
+    found = _build.function_opcodes(K3_SASS, "dgrad_wgmma_kernel")
+    assert list(found.values()) == [{"LDC": 1, "UTMALDG": 2, "HGMMA": 2}]
+    assert list(_build.function_opcodes(K3_SASS, "build_da_vec_kernel").values()) == [{"LDG": 1}]
+    assert _build.function_opcodes(K3_SASS, "wgrad_kernel") == {}
