@@ -8,8 +8,9 @@ script exits non-zero:
 1. device    -- a CUDA card must be present (no CPU fallback); prints its name
                 and the `nvidia-smi` name and power limit.
 2. build     -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py),
-                one nvcc for each source, all started together; K3's product
-                must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS.
+                one nvcc for each source, all started together; K3's and
+                K4's products must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+                in their SASS, and no mma.sync (HMMA).
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
                 16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K6
@@ -18,7 +19,9 @@ script exits non-zero:
                 k_aux 512, under masks that leave the dead columns (819, 5%;
                 3276, 20%, on the wide rung; pinned at -1e6 as bench.py pins
                 them), fewer than k, none and all; K3's dA bit for bit, on
-                both cut sets and on 64 cuts (1024 rows).
+                both cut sets and on 64 cuts (1024 rows); K4's dW within
+                rel-norm 1e-4 and the same bits in two calls, on the same
+                three cut sets.
 4. reference -- the step on the card (kernel path) against the same step on
                 the CPU (plain f32 path) at a small shape: the warm-up step,
                 and the AuxK step, dense and subspace, with 1/16 of the
@@ -38,9 +41,10 @@ script exits non-zero:
                 not counted as the path's launches.
 7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
                 the two-SAE state at 5% dead.
-8. timing    -- each kernel's time against its plain version's; K3's two
-                launches by the profiler, each beside its own bound, and a
-                cuBLAS bmm of K3's main term as a yardstick.
+8. timing    -- each kernel's time against its plain version's; K3's and
+                K4's two launches each by the profiler, at both cut sets,
+                each beside its own bound, and a cuBLAS bmm of each one's
+                main term as a yardstick.
 9. benches   -- the kernel-level entry points (saev_tpu_torch/scripts) at the
                 production shape: first K7, P1, P2, P3 and P4 held to their
                 plain versions (K7 also bit for bit to K2's xhat and E, with
@@ -57,7 +61,7 @@ script exits non-zero:
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
                 full width (warm and tight also at n_sae 2): wall and device
                 ms/step, the device's idle share and the 15 kernels that take
-                the most device time, K3's product among them.
+                the most device time, K3's and K4's products among them.
 
 Kernel launches are counted per driven path (slice, steady, metrics,
 benches): every count is set to 0 just before the path and read just after.
@@ -85,6 +89,8 @@ N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
 N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
 RAGGED_B = 1000  # a batch that is not a multiple of the kernels' 128-row tile
 K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
+K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
+WGMMA_PRODUCTS = ("dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
@@ -92,7 +98,7 @@ KERNELS = {
     "topk_stats": ("saev_tpu_torch/csrc/topk_stats.cu", "saev_tpu/ops/pallas_topk.py:136"),
     "grouped_prefix_err": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
     "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/dgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
-    "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
+    "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/wgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
     "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
     "grouped_prefix_base": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
@@ -190,11 +196,11 @@ def phase_build(verbose: bool = False) -> None:
     _build.lib()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     sass = _build.dump_sass()
-    for fragment in K3_NAMES:
+    for fragment in K3_NAMES + K4_NAMES:
         found = _build.function_opcodes(sass, fragment)
         require(len(found) > 0, f"build: no {fragment} in the library's SASS")
         for name, ops in found.items():
-            if fragment == "dgrad_wgmma_kernel":
+            if fragment in WGMMA_PRODUCTS:
                 require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                         f"build: {name} has HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, "
                         f"HMMA {ops['HMMA']}: not a wgmma product on TMA loads")
@@ -325,6 +331,23 @@ def _k3_case(w, e, m, r, scale, what: str) -> tuple[float, torch.Tensor]:
     return max_abs(df, pdf), da
 
 
+def _k4_case(f, da, e, m, r, scale, what: str) -> float:
+    """K4 against its plain version: dW within rel-norm 1e-4 (f32 sums in
+    another order), the same bits in a second call. Returns the max abs
+    error."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+
+    dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+    dw2 = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+    pdw = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP)
+    torch.cuda.synchronize()
+    require(same_bits(dw, dw2), f"K4 {what}: dW differs between two calls")
+    r_dw = rel_norm(dw, pdw)
+    require(r_dw <= 1e-4, f"K4 {what}: dW rel-norm {r_dw:.3g} > 1e-4")
+    log(f"parity K4 {what} ({e.shape[0]} cuts, {e.shape[1]} rows): dW rel-norm {r_dw:.3g}, bitwise repeatable")
+    return max_abs(dw, pdw)
+
+
 def phase_parity() -> dict:
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
@@ -368,24 +391,21 @@ def phase_parity() -> dict:
         k3_err, da = _k3_case(w, e, m, r, scale, what)
         errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
 
-        dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
-        pdw = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP)
-        torch.cuda.synchronize()
-        r_dw = rel_norm(dw, pdw)
-        require(r_dw <= 1e-4, f"K4 {what}: dW rel-norm {r_dw:.3g} > 1e-4")
-        errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], max_abs(dw, pdw))
-        log(f"parity K4 {what}: dW rel-norm {r_dw:.3g}")
-        del dw, pdw, da, e
-    # K3 at its most cuts (MAX_PREFIXES, about four in each group), on the
-    # first 1024 rows.
+        k4_err = _k4_case(f, da, e, m, r, scale, what)
+        errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], k4_err)
+        del da, e
+    # K3 and K4 at their most cuts (MAX_PREFIXES, about four in each group),
+    # on the first 1024 rows.
     n = 1024
     p = np.sort(np.random.default_rng(SEED + 64).choice(np.arange(1, D_SAE), cm.MAX_PREFIXES - 1, replace=False))
     m, r = _cuts(np.append(p, D_SAE).astype(np.int32))
     e, _, _ = cm.grouped_prefix_err(f[:n], w, x[:n], b_dec, iu, m, r, group_size=GROUP)
     scale = torch.full((1,), 2.0 / (n * cm.MAX_PREFIXES * D_MODEL), device="cuda")
-    k3_err, _ = _k3_case(w, e, m, r, scale, "64 cuts")
+    k3_err, da = _k3_case(w, e, m, r, scale, "64 cuts")
     errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
-    del e
+    k4_err = _k4_case(f[:n], da, e, m, r, scale, "64 cuts")
+    errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], k4_err)
+    del e, da
     torch.cuda.empty_cache()
     return errs
 
@@ -796,7 +816,12 @@ def phase_timing() -> dict:
     m_h, r_h = _cuts(cut_sets["hand-set"])
     e_h, _, _ = cm.grouped_prefix_err(f, w, x, b_dec, iu, m_h, r_h, group_size=GROUP)
     _k3_launches(w, e_h, m_h, r_h, scale, "hand-set")
-    del e_h
+    k4_sampled = _k4_launches(f, da, e, m, r, scale, "sampled")
+    _, da_h = cm.grouped_matmul_dgrad(w, e_h, m_h, r_h, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    k4_hand = _k4_launches(f, da_h, e_h, m_h, r_h, scale, "hand-set")
+    log(f"timing K4 sampled over hand-set cuts: {k4_sampled / k4_hand:.3f} (device ms {k4_sampled:.3f} / "
+        f"{k4_hand:.3f})")
+    del e_h, da_h
     out["grouped_matmul_wgrad"] = timed(
         _time(lambda: cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP), 10),
         _time(lambda: cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP), 2),
@@ -804,6 +829,50 @@ def phase_timing() -> dict:
     for k, row in out.items():
         log_timing(k, row, f" (cuts {cut_sets['sampled'].tolist()})" if k.startswith("grouped") else "")
     return out
+
+
+def _k4_launches(f, da, e, m, r, scale, what: str) -> float:
+    """K4's two launches by the profiler, each beside its own bound, and
+    the dense tensor-core floor of its design; returns their device ms. The
+    product's bound: f, dA and the E_j with a live remainder read once, dW
+    and the live partials written once, against 2 D operations for each
+    nonzero of f (main term) and of f's first r_j lanes of group m_j (each
+    remainder). The combine's: the live partials read once and their dW
+    tiles read and written once. The floor: 2 * 128 * 128 * B operations
+    for each item that runs (main items and live remainders) at the bf16
+    rate. Then the cuBLAS strided-batched product of the main term alone,
+    f_G^T as (G, g, B) against dA as (G, B, D): a yardstick of what the card
+    gives that product, which the port never calls."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+    from saev_tpu_torch.scripts import kprof
+
+    rows = kprof.device_profile(lambda: cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP),
+                                n=10, warmup=2, expect=K4_NAMES)
+    ms = {name: sum(t for k, t, _ in rows if name in k) for name in K4_NAMES}
+    require(all(v > 0 for v in ms.values()), f"timing K4 {what}: profiler rows {rows}")
+    n_groups, tiles = D_SAE // GROUP, 128 * 128
+    m_l, r_l = m.tolist(), r.tolist()
+    rem = [j for j in range(len(m_l)) if m_l[j] < n_groups and r_l[j] > 0]
+    n_live = (D_MODEL // 128) * sum(-(-r_l[j] // 128) for j in rem)
+    n_main = n_groups * (GROUP // 128) * (D_MODEL // 128)
+    live_tiles = (D_MODEL // 128) * len({(m_l[j], s0) for j in rem for s0 in range(0, r_l[j], 128)})
+    nnz_rem = sum(int((f[:, m_l[j] * GROUP: m_l[j] * GROUP + r_l[j]] != 0).sum()) for j in rem)
+    ops = 2 * D_MODEL * (int((f != 0).sum()) + nnz_rem)
+    prod = bound((f, da, len(rem) * B * D_MODEL * 2, D_SAE * D_MODEL * 4, n_live * tiles * 4), ops, BF16_OPS_S)
+    comb = bound((n_live * tiles * 4, 2 * live_tiles * tiles * 4), 0, F32_OPS_S)
+    floor = 2 * tiles * B * (n_main + n_live) / BF16_OPS_S * 1e3
+    log(f"timing K4 {what}: wgrad_wgmma_kernel {ms[K4_NAMES[0]]:.3f} ms, bound {prod['bound_ms']:.3f} "
+        f"({prod['bound_by']}), dense floor {floor:.3f} ({n_main} main + {n_live} live remainder items), "
+        f"{2 * tiles * B * (n_main + n_live) / ms[K4_NAMES[0]] / 1e9:.1f} TFLOP/s dense; "
+        f"wgrad_combine_kernel {ms[K4_NAMES[1]]:.3f} ms, bound {comb['bound_ms']:.4f} ({comb['bound_by']}: "
+        f"{live_tiles} dW tiles)")
+    a = f.view(B, n_groups, GROUP).permute(1, 2, 0)
+    bmm_rows = kprof.device_profile(lambda: torch.bmm(a, da.permute(1, 0, 2)), n=10, warmup=2)
+    bmm_ms = kprof.total_device_ms(bmm_rows)
+    log(f"timing K4 {what} yardstick: cuBLAS bmm of the main term (G {n_groups}, g {GROUP}, B {B}) @ (B, D {D_MODEL}): "
+        f"{bmm_ms:.3f} ms device, {2 * B * D_SAE * D_MODEL / bmm_ms / 1e9:.1f} TFLOP/s; kernels "
+        + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in bmm_rows))
+    return sum(ms.values())
 
 
 def _k3_launches(w, e, m, r, scale, what: str) -> None:
@@ -817,7 +886,8 @@ def _k3_launches(w, e, m, r, scale, what: str) -> None:
     from saev_tpu_torch.scripts import kprof
 
     rows = kprof.device_profile(lambda: cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP,
-                                                                 df_dtype=torch.bfloat16), n=10, warmup=2)
+                                                                 df_dtype=torch.bfloat16),
+                                n=10, warmup=2, expect=K3_NAMES)
     ms = {name: sum(t for k, t, _ in rows if name in k) for name in K3_NAMES}
     require(all(v > 0 for v in ms.values()), f"timing K3 {what}: profiler rows {rows}")
     n_groups = D_SAE // GROUP
@@ -991,7 +1061,8 @@ def phase_profile() -> None:
     tight-rung and dense steps at full width, n_sae 1, and of the warm and
     tight-rung steps at n_sae 2, 5% dead: wall and device ms/step, the
     device's idle share, the 15 kernels that take the most device time,
-    among which K3's product must be, and the rank of each K3 launch."""
+    among which K3's and K4's products must be, and the rank of each of
+    their launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from saev_tpu_torch.framework import train
@@ -1017,27 +1088,35 @@ def phase_profile() -> None:
         for _ in range(3):
             ts, _ = step(ts, x, prefixes[:n_sae], hp)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                ts, _ = step(ts, x, prefixes[:n_sae], hp)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 3
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev = sum(e.self_device_time_total for e in events) / 1e3 / 3
+        for attempt in range(3):  # the profiler can miss a whole profile (kprof.device_profile): take it again
+            if attempt:
+                log(f"profile {name} n_sae={n_sae}: the profiler missed device time or K3's or K4's launches; "
+                    f"taken again")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    ts, _ = step(ts, x, prefixes[:n_sae], hp)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 3
+            events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev = sum(e.self_device_time_total for e in events) / 1e3 / 3
+            if dev > 0 and all(any(k in e.key for e in events) for k in K3_NAMES + K4_NAMES):
+                break
         if dev == 0:  # a measurement, not a check: report and go on
             log(f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step; the profiler reported no device time")
             continue
         ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-        rank = {k3: next((i + 1 for i, e in enumerate(ranked) if k3 in e.key), None) for k3 in K3_NAMES}
+        rank = {k: next((i + 1 for i, e in enumerate(ranked) if k in e.key), None) for k in K3_NAMES + K4_NAMES}
         lines = [f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step, device kernels {dev:.2f} ms/step, "
-                 f"idle {100 * (1 - dev / wall):.1f}%; K3's launches rank " + ", ".join(f"{k} #{v}" for k, v in rank.items())]
+                 f"idle {100 * (1 - dev / wall):.1f}%; K3's and K4's launches rank "
+                 + ", ".join(f"{k} #{v}" for k, v in rank.items())]
         for e in ranked[:15]:
             ms = e.self_device_time_total / 1e3 / 3
             lines.append(f"  {ms:8.3f} ms/step {100 * ms / dev:5.1f}%  x{e.count // 3:<4d} {e.key[:110]}")
         log("\n".join(lines))
-        require(all(rank.values()), f"profile {name} n_sae={n_sae}: K3's launches {rank}")
-        require(rank["dgrad_wgmma_kernel"] <= 15, f"profile {name} n_sae={n_sae}: K3's product ranks {rank}")
+        require(all(rank.values()), f"profile {name} n_sae={n_sae}: K3's and K4's launches {rank}")
+        require(all(rank[k] <= 15 for k in WGMMA_PRODUCTS),
+                f"profile {name} n_sae={n_sae}: K3's and K4's products rank {rank}")
         del ts
         torch.cuda.empty_cache()
 
@@ -1057,6 +1136,8 @@ def main() -> int:
     errs |= bench_errs
     times |= bench_times
     phase_profile()
+    from saev_tpu_torch.scripts import kprof
+    log(f"kprof.device_profile took {kprof.device_profile.retakes} profiles again")
     launches = {k: warm_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),

@@ -40,130 +40,15 @@
 //    The epilogue stores pairs straight from the accumulator fragment. Every
 //    df element is written by one CTA: no atomics, the same bits every run.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int MAXJ = 64;
-constexpr int TM = 128;  // rows of B a CTA
-constexpr int TN = 128;  // latents a CTA
-constexpr int TK = 64;   // K step: one 128-byte swizzled bf16 row a TMA box
-constexpr int STAGES = 3;
-constexpr int TILE_BYTES = TM * TK * 2;  // one operand of one stage, 16 KB
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-constexpr int CONSUMER_WARPS = 8;  // two warpgroups
-constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // and one producer warp
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1 KB
-constexpr int NACC = 64;  // f32 accumulators a thread: 64 x 128 over 128 threads
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA ------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait until the phase of the given parity has completed. A wait that never
-// ends (a copy that never lands) traps after 2^26 tries, so the launch fails
-// with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// --- wgmma ------------------------------------------------------------------------
-
-// Shared-memory descriptor of a K-major bf16 tile written by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (the
-// stride offset), the leading offset unused (encoded 1). The tile starts on
-// a 1 KB boundary; a K offset of 16 elements inside the 128-byte row adds 32
-// bytes (2 in the encoded address).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin the accumulators in place around the asynchronous product, so that
-// the compiler moves no read or write of them across the fence or the wait.
-__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, f32) += A (64 x 16) @ B (16 x 128), both K-major bf16 in
-// shared memory. Fragment: warp w of the warpgroup holds rows 16w + lane/4
-// (d[4i], d[4i+1]) and 16w + lane/4 + 8 (d[4i+2], d[4i+3]) of columns
-// 8i + 2*(lane%4) + {0, 1}.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[NACC], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
+constexpr int TM = TILE;  // rows of B a CTA
+constexpr int TN = TILE;  // latents a CTA
 
 template <typename Out>
 __device__ __forceinline__ void store_pair(Out* p, float a, float b);
@@ -254,11 +139,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     n_rem_s = n;
     any_main_s = main;
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&empty[s]), CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    init_ring(full, empty);
   }
   __syncthreads();
   const int n_rem = n_rem_s;
@@ -297,12 +178,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int kt = 0; kt < n_k; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(smem_u32(&full[s]), (it / STAGES) & 1);
-      const uint64_t da = sw128_desc(ring + s * STAGE_BYTES + wg * (TILE_BYTES / 2));
-      const uint64_t db = sw128_desc(ring + s * STAGE_BYTES + TILE_BYTES);
+      const uint64_t da = kmajor_desc(ring + s * STAGE_BYTES + wg * HALF_BYTES);
+      const uint64_t db = kmajor_desc(ring + s * STAGE_BYTES + TILE_BYTES);
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+      for (int kk = 0; kk < TK / 16; ++kk) wgmma_m64n128k16<0, 0>(acc, da + 2 * kk, db + 2 * kk);
       wgmma_commit();
       wgmma_wait_all();
       fence_acc(acc);
@@ -334,45 +215,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // --- host side --------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 map of `rank` dims (innermost first; byte strides of dims 1..) with
-// the 128-byte swizzle, which the box's 64-element inner extent fills.
-bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <typename Out>
 cudaError_t launch_dgrad(dim3 grid, const CUtensorMap& mw, const CUtensorMap& me,

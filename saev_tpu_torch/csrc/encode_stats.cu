@@ -72,8 +72,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (long n0 = 0; n0 < S; n0 += BN) {
     Acc acc;
     zero(acc);
-    gemm_range<true, false, false>(acc, smem, xb, D, b0, w, S, n0, 0, D,
-                                   Masks{0, BK, BM, BN});
+    gemm_range(acc, smem, xb, D, b0, w, S, n0, 0, D);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll

@@ -1,21 +1,19 @@
-// K2, K4 and K7: the grouped Matryoshka prefix-MSE products (forward error,
-// wgrad, forward base) on bf16 operands with f32 accumulation, and P2, the
-// group-outer forward error. K3, the dgrad, is dgrad.cu.
+// K2 and K7: the grouped Matryoshka prefix-MSE forward products (error,
+// base) on bf16 operands with f32 accumulation, and P2, the group-outer
+// forward error. K3, the dgrad, is dgrad.cu; K4, the wgrad, is wgrad.cu.
 //
 // Replaces saev_tpu/ops/pallas_matryoshka.py `_err_kernel`
-// (`grouped_prefix_err`), `_wgrad_kernel` (`grouped_matmul_wgrad`) and
-// `_base_kernel` (`grouped_prefix_base`), and scripts/proto_gouter.py
-// `_err_kernel_gouter` (`grouped_prefix_err_gouter`).
+// (`grouped_prefix_err`) and `_base_kernel` (`grouped_prefix_base`), and
+// scripts/proto_gouter.py `_err_kernel_gouter` (`grouped_prefix_err_gouter`).
 //
 // Notation: f (B, S) latents, W (S, D) decoder rows, J prefix cuts
 // p_j = m_j * g + r_j with groups of g latents, E_j (B, D) the per-prefix
-// errors, scale = 2 * t_loss / (B * J * D).
+// errors.
 //
 // What bounds them on the card: tensor-core throughput. Each product is
 // about 2 * B * S * D = 0.55 TFLOP at the production shape (B = S = 16384,
 // D = 1024) against well under 1 GB of operand traffic, far above the card's
-// ridge point; the cut snapshots and remainder terms add at most J partial K
-// steps (forward) or J tiles (wgrad).
+// ridge point; the cut snapshots add at most J partial K steps.
 //
 // What the design does about it: each kernel is one 128x128-tile GEMM with
 // bf16 mma.sync and a two-stage cp.async pipeline (tile_mma.cuh), one CTA per
@@ -42,11 +40,9 @@
 //    the 64 MB accumulator (2 GB of device-memory traffic), 16 launch tails
 //    and 16 pipeline fills. The loss is one partial per CTA per group,
 //    summed in a fixed order, so repeated runs give the same bits.
-//  - K4 takes K3's dA_G: dW_G = f_G^T @ dA_G plus the row-masked remainder
-//    products ([s < r_j] f_G)^T @ E_j, which it accumulates first and
-//    multiplies by scale; each CTA reduces over the whole batch.
 // This is the simple, correct first version: wgmma, TMA and deeper
-// pipelines for these kernels are later work (dgrad.cu shows them for K3).
+// pipelines for these kernels are later work (dgrad.cu and wgrad.cu show
+// them for K3 and K4).
 
 #include "tile_mma.cuh"
 
@@ -241,16 +237,16 @@ __global__ void __launch_bounds__(THREADS)
     while (ci < J && cut_p[ci] < k0 + BK) {
       const int pr = cut_p[ci] - k0;
       if (pr > lo) {
-        mma_stage<true, false, true>(acc, a_s, b_s, Masks{lo, pr, BM, BN}, 0);
+        mma_stage<true>(acc, a_s, b_s, lo, pr);
         lo = pr;
       }
       emit(cut_j[ci]);
       ++ci;
     }
     if (lo == 0)
-      mma_stage<true, false, false>(acc, a_s, b_s, Masks{0, BK, BM, BN}, 0);
+      mma_stage<false>(acc, a_s, b_s, 0, BK);
     else if (lo < BK)
-      mma_stage<true, false, true>(acc, a_s, b_s, Masks{lo, BK, BM, BN}, 0);
+      mma_stage<true>(acc, a_s, b_s, lo, BK);
     __syncthreads();
   }
   // Cuts at p_j = S (the full decode): the snapshot is the whole product.
@@ -272,44 +268,6 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = threadIdx.x; i < n; i += THREADS) v += partials[i];
   const float s = block_sum(v, red);
   if (threadIdx.x == 0) out[0] = s;
-}
-
-// --- K4: wgrad ------------------------------------------------------------------
-
-// dW[G*g + s0 ..., n0 ...] = scale * sum_{m_j = G} ([s < r_j] f_G)^T @ E_j
-// + f_G^T @ dA_G, reduced over the whole batch inside the CTA.
-__global__ void __launch_bounds__(THREADS)
-    wgrad_kernel(const __nv_bfloat16* __restrict__ f, const __nv_bfloat16* __restrict__ da,
-                 const __nv_bfloat16* __restrict__ e, const int* __restrict__ m,
-                 const int* __restrict__ r, const float* __restrict__ scale, int J, int B,
-                 int S, int D, int g, int n_groups, float* __restrict__ dw) {
-  __shared__ __align__(16) __nv_bfloat16 smem[4 * STAGE_ELEMS];
-  __shared__ int ms[MAXJ], rs[MAXJ];
-  if (threadIdx.x < J) {
-    ms[threadIdx.x] = m[threadIdx.x];
-    rs[threadIdx.x] = r[threadIdx.x];
-  }
-  __syncthreads();
-  const long n0 = (long)blockIdx.x * BN, s0 = (long)blockIdx.y * BM;
-  const int G = blockIdx.z;
-  const long f_col = (long)G * g + s0;  // A[m = s, k = b] = f[b, f_col + s]
-
-  Acc acc;
-  zero(acc);
-  bool any_rem = false, any_main = false;
-  for (int j = 0; j < J; ++j) {
-    any_main |= ms[j] > G;
-    if (ms[j] == G && rs[j] > s0) {
-      gemm_range<false, false, true>(acc, smem, f, S, f_col, e + (long)j * B * D, D, n0,
-                                     0, B, Masks{0, BK, (int)(rs[j] - s0), BN});
-      any_rem = true;
-    }
-  }
-  if (any_rem) saev::scale(acc, *scale);
-  if (any_main)
-    gemm_range<false, false, false>(acc, smem, f, S, f_col, da + (long)G * D,
-                                    (long)n_groups * D, n0, 0, B, Masks{0, BK, BM, BN});
-  store_tile<float>(acc, dw, D, f_col, n0);
 }
 
 bool shapes_ok(int J, int B, int S, int D, int g) {
@@ -367,17 +325,5 @@ extern "C" int saev_prefix_err_gouter(const __nv_bfloat16* f, const __nv_bfloat1
     if (code != cudaSuccess) return code;
   }
   sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, n_groups * n_tiles, loss_sum);
-  return cudaGetLastError();
-}
-
-extern "C" int saev_wgrad(const __nv_bfloat16* f, const __nv_bfloat16* da,
-                          const __nv_bfloat16* e, const int* m, const int* r,
-                          const float* scale, int J, int B, int S, int D, int g, float* dw,
-                          cudaStream_t stream) {
-  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
-  const int n_groups = S / g;
-  dim3 grid(D / BN, g / BM, n_groups);
-  wgrad_kernel<<<grid, THREADS, 0, stream>>>(f, da, e, m, r, scale, J, B, S, D, g,
-                                             n_groups, dw);
   return cudaGetLastError();
 }

@@ -1,16 +1,14 @@
-// Shared building blocks of the Matryoshka kernels (matryoshka.cu): a
-// 128x128 CTA output tile computed with bf16 mma.sync.m16n8k16 and f32
-// accumulation, staged through shared memory by cp.async in 32-deep K steps.
+// Shared building blocks of the forward Matryoshka kernels (matryoshka.cu)
+// and P1 (encode_stats.cu): a 128x128 CTA output tile computed with bf16
+// mma.sync.m16n8k16 and f32 accumulation, staged through shared memory by
+// cp.async in 32-deep K steps. (K3 and K4 run on wgmma in dgrad.cu and
+// wgrad.cu and use none of this.)
 //
-// Operands come in two storage layouts, so one tile routine serves the
-// forward and wgrad products of the Matryoshka loss (K3, the dgrad, runs on
-// wgmma in dgrad.cu and uses none of this):
-//   K-major  (rows = M or N, K contiguous): f in the forward (A), x in P1
-//            (A), read with ldmatrix;
-//   MN-major (rows = K, M or N contiguous): W in the forward (B), f_G^T and
-//            dA_G in wgrad (A and B), read with ldmatrix.trans.
-// Shared rows are padded by 8 bf16 (16 bytes), which makes every ldmatrix
-// phase conflict-free for both layouts without a swizzle.
+// A is K-major (rows = M, K contiguous: f in the forward, x in P1), read
+// with ldmatrix; B is N-major (rows = K, N contiguous: W in the forward, W
+// in P1), read with ldmatrix.trans. Shared rows are padded by 8 bf16 (16
+// bytes), which makes every ldmatrix phase conflict-free for both layouts
+// without a swizzle.
 //
 // 256 threads = 8 warps laid out 2 (M) x 4 (N); a warp owns a 64x32 sub-tile,
 // i.e. 4 m16 x 4 n8 MMA tiles and 64 f32 accumulators a thread.
@@ -48,15 +46,6 @@ __device__ __forceinline__ void zero(Acc& a) {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) a.v[i][j][q] = 0.f;
-}
-
-__device__ __forceinline__ void scale(Acc& a, float s) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a.v[i][j][q] *= s;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -124,50 +113,30 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16*
   }
 }
 
-// A fragment of m16 tile `mt` (warp-relative rows wm + 16*mt) at k offset kk.
-template <bool KMAJOR>
+// A fragment (K-major) of m16 tile `mt` (warp-relative rows m_base) at k
+// offset kk.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
                                        int m_base, int kk) {
   const int l = threadIdx.x & 31;
-  if (KMAJOR) {
-    int row = m_base + (l & 15), col = kk + (l >> 4) * 8;
-    ldsm_x4(a, s + row * (BK + PAD) + col);
-  } else {
-    int k = kk + (l & 7) + (l >> 4) * 8, m = m_base + ((l >> 3) & 1) * 8;
-    ldsm_x4_t(a, s + k * (BM + PAD) + m);
-  }
+  int row = m_base + (l & 15), col = kk + (l >> 4) * 8;
+  ldsm_x4(a, s + row * (BK + PAD) + col);
 }
 
-// B fragments of two adjacent n8 tiles (n_base, n_base + 8) at k offset kk:
-// b[0], b[1] for the first tile, b[2], b[3] for the second.
-template <bool KMAJOR>
+// B fragments (N-major) of two adjacent n8 tiles (n_base, n_base + 8) at k
+// offset kk: b[0], b[1] for the first tile, b[2], b[3] for the second.
 __device__ __forceinline__ void load_b(uint32_t (&b)[4], const __nv_bfloat16* s,
                                        int n_base, int kk) {
   const int l = threadIdx.x & 31;
-  if (KMAJOR) {
-    int n = n_base + (l & 7) + (l >> 4) * 8, k = kk + ((l >> 3) & 1) * 8;
-    ldsm_x4(b, s + n * (BK + PAD) + k);
-  } else {
-    int k = kk + (l & 7) + ((l >> 3) & 1) * 8, n = n_base + (l >> 4) * 8;
-    ldsm_x4_t(b, s + k * (BN + PAD) + n);
-  }
+  int k = kk + (l & 7) + ((l >> 3) & 1) * 8, n = n_base + (l >> 4) * 8;
+  ldsm_x4_t(b, s + k * (BN + PAD) + n);
 }
 
-// Masks applied to a product in registers (all bounds are CTA-tile-relative):
-//   A columns (the K index) outside [k_lo, k_hi)      -- forward cut lanes;
-//   A rows    (the M index) at or above m_hi          -- wgrad remainder rows;
-//   B columns (the N index) at or above n_hi          -- unused (n_hi = BN).
-struct Masks {
-  int k_lo, k_hi, m_hi, n_hi;
-};
-
-// acc += A_tile(BM x BK) @ B_tile(BK x BN) for the tile staged in shared memory,
-// with optional masking of A's K lanes, A's rows or B's columns. `kbase` is
-// the K offset of the stage within the CTA's K range (for the K mask).
-template <bool A_KMAJOR, bool B_KMAJOR, bool MASKED>
+// acc += A_tile(BM x BK) @ B_tile(BK x BN) for the tile staged in shared
+// memory; MASKED zeroes A's K lanes (columns of the stage) outside
+// [k_lo, k_hi): the forward's cut lanes.
+template <bool MASKED>
 __device__ __forceinline__ void mma_stage(Acc& acc, const __nv_bfloat16* sa,
-                                          const __nv_bfloat16* sb, Masks mk,
-                                          int kbase) {
+                                          const __nv_bfloat16* sb, int k_lo, int k_hi) {
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
 #pragma unroll
@@ -175,30 +144,20 @@ __device__ __forceinline__ void mma_stage(Acc& acc, const __nv_bfloat16* sa,
     uint32_t a[MT][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      load_a<A_KMAJOR>(a[i], sa, wm + 16 * i, kk);
+      load_a(a[i], sa, wm + 16 * i, kk);
       if (MASKED) {
         // a0/a1 hold k = kk + 2*(l%4) + {0,1}; a2/a3 the same + 8.
-        // a0/a2 are rows l/4, a1/a3 rows l/4 + 8.
-        int k0 = kbase + kk + 2 * (l & 3);
-        int r0 = wm + 16 * i + (l >> 2);
-        a[i][0] = mask_pair(a[i][0], k0, mk.k_lo, mk.k_hi);
-        a[i][1] = mask_pair(a[i][1], k0, mk.k_lo, mk.k_hi);
-        a[i][2] = mask_pair(a[i][2], k0 + 8, mk.k_lo, mk.k_hi);
-        a[i][3] = mask_pair(a[i][3], k0 + 8, mk.k_lo, mk.k_hi);
-        if (r0 >= mk.m_hi) a[i][0] = a[i][2] = 0u;
-        if (r0 + 8 >= mk.m_hi) a[i][1] = a[i][3] = 0u;
+        int k0 = kk + 2 * (l & 3);
+        a[i][0] = mask_pair(a[i][0], k0, k_lo, k_hi);
+        a[i][1] = mask_pair(a[i][1], k0, k_lo, k_hi);
+        a[i][2] = mask_pair(a[i][2], k0 + 8, k_lo, k_hi);
+        a[i][3] = mask_pair(a[i][3], k0 + 8, k_lo, k_hi);
       }
     }
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       uint32_t b[4];
-      load_b<B_KMAJOR>(b, sb, wn + 8 * j, kk);
-      if (MASKED) {
-        // Every b register of an n8 tile belongs to column l/4 of that tile.
-        int n0 = wn + 8 * j + (l >> 2);
-        if (n0 >= mk.n_hi) b[0] = b[1] = 0u;
-        if (n0 + 8 >= mk.n_hi) b[2] = b[3] = 0u;
-      }
+      load_b(b, sb, wn + 8 * j, kk);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         mma_bf16(acc.v[i][j], a[i], b[0], b[1]);
@@ -210,32 +169,27 @@ __device__ __forceinline__ void mma_stage(Acc& acc, const __nv_bfloat16* sa,
 
 // acc += A[r_a .. r_a+BM, k_begin .. k_end) @ B[k_begin .. k_end, r_b .. r_b+BN)
 // streamed through a two-stage cp.async pipeline. (k_end - k_begin) % BK == 0.
-// Row/column masks (m_hi, n_hi) apply to every stage; the K-lane mask is not
-// used here. `smem` holds 2 stages of A then 2 stages of B.
-template <bool A_KMAJOR, bool B_KMAJOR, bool MASKED>
-__device__ void gemm_range(Acc& acc, __nv_bfloat16* smem, const __nv_bfloat16* A,
-                           long lda, long r_a, const __nv_bfloat16* B, long ldb,
-                           long r_b, long k_begin, long k_end, Masks mk) {
+// `smem` holds 2 stages of A then 2 stages of B.
+__device__ inline void gemm_range(Acc& acc, __nv_bfloat16* smem, const __nv_bfloat16* A, long lda,
+                           long r_a, const __nv_bfloat16* B, long ldb, long r_b, long k_begin,
+                           long k_end) {
   __nv_bfloat16* sa = smem;
   __nv_bfloat16* sb = smem + 2 * STAGE_ELEMS;
   const long n_k = (k_end - k_begin) / BK;
   if (n_k <= 0) return;
-  load_tile<A_KMAJOR>(sa, A, lda, r_a, k_begin);
-  load_tile<B_KMAJOR>(sb, B, ldb, r_b, k_begin);
+  load_tile<true>(sa, A, lda, r_a, k_begin);
+  load_tile<false>(sb, B, ldb, r_b, k_begin);
   cp_async_commit();
   for (long t = 0; t < n_k; ++t) {
     const int cur = t & 1;
     if (t + 1 < n_k) {
-      load_tile<A_KMAJOR>(sa + (cur ^ 1) * STAGE_ELEMS, A, lda, r_a,
-                          k_begin + (t + 1) * BK);
-      load_tile<B_KMAJOR>(sb + (cur ^ 1) * STAGE_ELEMS, B, ldb, r_b,
-                          k_begin + (t + 1) * BK);
+      load_tile<true>(sa + (cur ^ 1) * STAGE_ELEMS, A, lda, r_a, k_begin + (t + 1) * BK);
+      load_tile<false>(sb + (cur ^ 1) * STAGE_ELEMS, B, ldb, r_b, k_begin + (t + 1) * BK);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    mma_stage<A_KMAJOR, B_KMAJOR, MASKED>(acc, sa + cur * STAGE_ELEMS,
-                                          sb + cur * STAGE_ELEMS, mk, 0);
+    mma_stage<false>(acc, sa + cur * STAGE_ELEMS, sb + cur * STAGE_ELEMS, 0, BK);
     __syncthreads();
   }
 }

@@ -1,6 +1,6 @@
 """Wrappers of kernels K2-K4 and K7, the grouped Matryoshka products
-(csrc/matryoshka.cu; K3 in csrc/dgrad.cu), each with its plain bf16-operand
-version beside it.
+(csrc/matryoshka.cu; K3 in csrc/dgrad.cu, K4 in csrc/wgrad.cu), each with its
+plain bf16-operand version beside it.
 
 Counterparts of saev_tpu/ops/pallas_matryoshka.py `grouped_prefix_err`,
 `grouped_matmul_dgrad`, `grouped_matmul_wgrad` and `grouped_prefix_base`. A CUDA tensor launches the
@@ -233,8 +233,12 @@ def grouped_matmul_wgrad_plain(f, da, e, m, r, scale, *, group_size=1024):
 
 
 def grouped_matmul_wgrad(f, da, e, m, r, scale, *, group_size=1024):
-    """Kernel K4; same output as `grouped_matmul_wgrad_plain`. Each CTA owns a
-    (latent tile, d_model tile) and reduces over the whole batch: no atomics."""
+    """Kernel K4; same output as `grouped_matmul_wgrad_plain` up to the order
+    of its f32 sums, the same bits every run. Two launches: the products on
+    wgmma with TMA-fed operands, each CTA one 128 x 128 tile over the whole
+    batch (a group's main term into dW, or one cut's remainder into a
+    workspace of J x group x D floats), then the combine
+    dW += scale * (sum of the remainders in ascending j)."""
     if f.device.type != "cuda":
         return grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=group_size)
     dev = f.device
@@ -248,9 +252,11 @@ def grouped_matmul_wgrad(f, da, e, m, r, scale, *, group_size=1024):
     _check("r", r, torch.int32, (j,), dev)
     sc = _scalar(scale, dev)
     dw = torch.empty((s, d), dtype=_F32, device=dev)
+    ws = torch.empty((j, group_size, d), dtype=_F32, device=dev)
     code = _build.lib().saev_wgrad(
         f.data_ptr(), da.data_ptr(), e.data_ptr(), m.data_ptr(), r.data_ptr(),
-        sc.data_ptr(), j, b, s, d, group_size, dw.data_ptr(), _build.stream_ptr(f),
+        sc.data_ptr(), j, b, s, d, group_size, dw.data_ptr(), ws.data_ptr(),
+        _build.stream_ptr(f),
     )
     _build.check(code, "grouped_matmul_wgrad")
     grouped_matmul_wgrad.launches += 1

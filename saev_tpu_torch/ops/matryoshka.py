@@ -14,7 +14,9 @@ Two paths, chosen by `_use_kernels` on the latents' tensor:
   products run as kernels K2-K4 (ops/cuda_matryoshka.py). E is kept in bf16;
   df comes back in the primal dtype of f (bf16 on the TopK stats path). A
   batch that is not a multiple of the kernels' 128-row tile is padded with
-  rows whose error is exactly 0, and the results are cut back to it.
+  rows whose error is exactly 0, a group that is not a multiple of their
+  128-latent tile with latents that are exactly 0, and the results are cut
+  back to the true rows and latents.
 - **Plain path (CPU)**: the same algebra in f32 with static slices.
 
 The second output is the full reconstruction xhat_J. It carries no gradient:
@@ -22,6 +24,7 @@ callers detach it.
 """
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_matryoshka as _cm
 
@@ -104,25 +107,33 @@ class _PrefixMSE(torch.autograd.Function):
         ctx.f_dtype = f_x.dtype
         ctx.kernel = _use_kernels(f_x)
         if ctx.kernel:
-            # The kernels take whole 128-row tiles: pad with f rows of 0 and
-            # x rows equal to b_dec, whose E rows are exactly 0, so the padded
-            # rows add nothing to the loss or to dW. The divisors keep the
-            # true batch, and xhat and df are cut back to it.
-            pad = -b % _cm.TILE
+            # The kernels take whole 128-latent tiles: each group of g
+            # latents gets zero f columns and zero W rows at its end, up to
+            # gp latents. They add nothing to any prefix, and a cut keeps its
+            # (m, r), now at m * gp + r.
+            n_groups = d_sae // g
+            gp = g + (-g % _cm.TILE)
             fb = f_x.to(_BF16).contiguous()
             wb = w_dec.to(_BF16).contiguous()
+            if gp != g:
+                fb = F.pad(fb.reshape(b, n_groups, g), (0, gp - g)).reshape(b, n_groups * gp)
+                wb = F.pad(wb.reshape(n_groups, g, -1), (0, 0, 0, gp - g)).reshape(n_groups * gp, -1)
+            # And whole 128-row tiles: pad with f rows of 0 and x rows equal
+            # to b_dec, whose E rows are exactly 0, so the padded rows add
+            # nothing to the loss or to dW. The divisors keep the true batch.
+            pad = -b % _cm.TILE
             xp = x
             if pad:
-                fb = torch.cat([fb, fb.new_zeros((pad, d_sae))])
+                fb = torch.cat([fb, fb.new_zeros((pad, fb.shape[1]))])
                 xp = torch.cat([x, b_dec.expand(pad, -1)])
             upper = torch.clamp(x.abs().max(), min=1e-12)
             e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
                 fb, wb, xp.contiguous(), b_dec.contiguous(), 1.0 / upper,
-                m.contiguous(), r.contiguous(), group_size=g,
+                m.contiguous(), r.contiguous(), group_size=gp,
             )
             loss = loss_sum / (m.shape[0] * b * x.shape[1]) * upper * upper
             xhat = xhat_nb[:b] + b_dec
-            ctx.b = b
+            ctx.b, ctx.gp = b, gp
             ctx.save_for_backward(fb, wb, e, m, r)
         else:
             ms, rs = m.tolist(), r.tolist()
@@ -140,14 +151,16 @@ class _PrefixMSE(torch.autograd.Function):
         if ctx.kernel:
             fb, wb, e, m, r = ctx.saved_tensors
             j_n, _, d_model = e.shape
-            b = ctx.b
+            b, gp = ctx.b, ctx.gp
+            n_groups = fb.shape[1] // gp
             scale = (t_loss.float() * 2.0 / (b * j_n * d_model)).reshape(1)
             db_dec = torch.sum(e, dim=(0, 1), dtype=torch.float32) * scale
             df, da = _cm.grouped_matmul_dgrad(
-                wb, e, m, r, scale, group_size=g, df_dtype=ctx.f_dtype
+                wb, e, m, r, scale, group_size=gp, df_dtype=ctx.f_dtype
             )
-            df = df[:b]
-            dw = _cm.grouped_matmul_wgrad(fb, da, e, m, r, scale, group_size=g)
+            df = df[:b].reshape(b, n_groups, gp)[:, :, :g].reshape(b, n_groups * g)
+            dw = _cm.grouped_matmul_wgrad(fb, da, e, m, r, scale, group_size=gp)
+            dw = dw.reshape(n_groups, gp, d_model)[:, :g].reshape(n_groups * g, d_model)
         else:
             f, w, e = ctx.saved_tensors
             j_n, b, d_model = e.shape

@@ -24,7 +24,8 @@ TOP_K = 32
 SEED = 0
 
 
-def device_profile(fn, args=(), n: int = 10, warmup: int = 3) -> list[tuple[str, float, int]]:
+def device_profile(fn, args=(), n: int = 10, warmup: int = 3, expect=(), tries: int = 4
+                   ) -> list[tuple[str, float, int]]:
     """Run `fn(*args)` `warmup` times, then `n` times under the profiler;
     return [(kernel name, device ms per iteration, calls per iteration)],
     longest first. Raises without a CUDA device: it never profiles the CPU.
@@ -32,14 +33,32 @@ def device_profile(fn, args=(), n: int = 10, warmup: int = 3) -> list[tuple[str,
     The profiler can miss a launch (on the card, the first kernel after it
     starts: 4 of 5 recorded), so a kernel launched about once a call or more
     gets the mean of its recorded launches times its launches a call; one
-    launched in fewer calls gets its total over the n calls."""
+    launched in fewer calls gets its total over the n calls. It can also
+    miss a whole profile (on the card, one of a `chip_smoke.py` run's
+    profiles once recorded no device time at all), so a profile that
+    recorded no kernel, or lacks a kernel whose name holds one of `expect`,
+    is taken again, up to `tries` times in all; after that the last one's
+    rows are returned, empty or short.
+    `device_profile.retakes` counts the profiles taken again."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_profile needs a CUDA device; it does not profile the CPU")
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
+    for attempt in range(tries):
+        device_profile.retakes += attempt > 0
+        rows = _profile_once(fn, args, n)
+        if rows and all(any(name in k for k, _, _ in rows) for name in expect):
+            break
+    return rows
+
+
+device_profile.retakes = 0
+
+
+def _profile_once(fn, args, n: int) -> list[tuple[str, float, int]]:
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn(*args)

@@ -142,6 +142,32 @@ def test_prefix_mse_kernel_path_pads_ragged_batch(dev):
         assert rel_norm(got, want) <= 1e-2
 
 
+@pytest.mark.parametrize("s,g", [(64, 1024), (384, 192)], ids=["d_sae-64", "g-192"])
+def test_prefix_mse_kernel_path_pads_small_group(dev, s, g):
+    """A group that is not a multiple of the kernels' 128-latent tile (d_sae
+    64, so g 64; g 192): the kernel path pads each group, and K2-K4 run,
+    against the f32 plain algebra on the CPU."""
+    gen = torch.Generator().manual_seed(s + g)
+    b, d = 128, 128
+    w = torch.randn((s, d), generator=gen) / 8
+    b_dec = torch.randn((d,), generator=gen) * 0.1
+    f = torch.randn((b, s), generator=gen) * (torch.rand((b, s), generator=gen) < 0.2)
+    x = torch.randn((b, d), generator=gen)
+    p = torch.tensor([5, 40, s] if s <= g else [5, 100, g, g + 7, s], dtype=torch.int32)
+    fns = (cm.grouped_prefix_err, cm.grouped_matmul_dgrad, cm.grouped_matmul_wgrad)
+    before = [fn.launches for fn in fns]
+    outs = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (w, b_dec, f)]
+        loss, xhat = tmat.prefix_mse(*leaves, x.to(device), p.to(device), g)
+        loss.backward()
+        outs.append([loss.detach().cpu(), xhat.cpu()] + [t.grad.float().cpu() for t in leaves])
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    assert [tuple(t.shape) for t in outs[1][2:]] == [(s, d), (d,), (b, s)]
+    for got, want in zip(outs[1], outs[0]):
+        assert rel_norm(got, want) <= 1e-2
+
+
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bitwise equal, with -0.0 and +0.0 taken as one value (adding +0.0
     turns -0.0 into +0.0 and leaves every other value as it is)."""
@@ -262,6 +288,50 @@ def test_dgrad_kernel_matches_plain(dev, cuts, g, b, d, df_dtype):
     assert torch.equal(da2.view(torch.int16), da.view(torch.int16))
     assert torch.equal(df2, df) and bool(torch.isfinite(df).all())
     assert rel_norm(df, pdf) <= 1e-2
+
+
+# K4's cut sets over d_sae 2048, each read with groups of 128 and of 1024:
+# the seed-0 sampled cuts, hand-set cuts (two in one group, r 0 on a
+# boundary), 64 cuts, every cut but d_sae in group 0, two cuts in one
+# 128-latent tile, one cut with r < 64, r = 0 on a group boundary, and only
+# the full prefix.
+K4_CUTS = {
+    "sampled": [2, 5, 7, 8, 13, 24, 63, 87, 292, 2048],
+    "hand-set": [13, 87, 128, 256, 625, 626, 1125, 1536, 1875, 2048],
+    "64-cuts": K3_CUTS["64-cuts"][0],
+    "all-in-group-0": [3, 9, 17, 40, 64, 65, 100, 127, 2048],
+    "two-in-one-tile": [130, 190, 2048],
+    "r-below-64": [37, 2048],
+    "r-0-boundary": [1024, 2048],
+    "full-only": [2048],
+}
+
+
+@pytest.mark.parametrize("b", [128, 1024])  # 2 and 16 K steps: fewer and more than the stages
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("g", [128, 1024])
+@pytest.mark.parametrize("cuts", K4_CUTS.values(), ids=K4_CUTS.keys())
+def test_wgrad_kernel_matches_plain(dev, cuts, g, d, b):
+    """dW within rel-norm 1e-4 of the plain version (f32 sums in another
+    order) and the same bits in a second run (equal work items and a
+    fixed-order combine, no atomics)."""
+    s = 2048
+    gen = torch.Generator(device=dev).manual_seed(len(cuts) + g + d + b)
+    f = (torch.randn((b, s), generator=gen, device=dev)
+         * (torch.rand((b, s), generator=gen, device=dev) < 0.2)).to(torch.bfloat16)
+    da = torch.randn((b, s // g, d), generator=gen, device=dev).to(torch.bfloat16)
+    e = torch.randn((len(cuts), b, d), generator=gen, device=dev).to(torch.bfloat16)
+    m, r = _mr(cuts, g, dev)
+    scale = torch.tensor([0.37], device=dev)
+    before = cm.grouped_matmul_wgrad.launches
+    dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=g)
+    dw2 = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=g)
+    pdw = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=g)
+    torch.cuda.synchronize()
+    assert cm.grouped_matmul_wgrad.launches == before + 2
+    assert dw.dtype == torch.float32 and bool(torch.isfinite(dw).all())
+    assert _same_bits(dw, dw2)
+    assert rel_norm(dw, pdw) <= 1e-4
 
 
 @pytest.mark.parametrize("cuts,g", CUTS.values(), ids=CUTS.keys())

@@ -286,6 +286,50 @@ def test_device_profile_refuses_the_cpu(monkeypatch):
     assert kprof.total_device_ms([("a", 1.5, 1), ("b", 0.25, 2)], lambda name: name == "b") == 0.25
 
 
+class _Event:
+    device_type = torch.autograd.DeviceType.CUDA
+
+    def __init__(self, key, us, count):
+        self.key, self.self_device_time_total, self.count = key, us, count
+
+
+@pytest.mark.parametrize("expect, recorded, want_profiles", [
+    ((), [[], [], [("k_main", 3000.0, 2)]], 3),  # two empty profiles, then one with device time
+    (("k_main", "k_tail"), [[("k_main", 3000.0, 2)], [("k_main", 3000.0, 2), ("k_tail", 500.0, 2)]], 2),
+    ((), [[]] * 6, 4),  # never recorded: gives up after `tries` and returns no rows
+])
+def test_device_profile_takes_a_missed_profile_again(monkeypatch, expect, recorded, want_profiles):
+    """A profile that recorded no kernel, or missed an expected one, is taken
+    again; warm-up runs once, each profile runs fn n times."""
+    made = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            made.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [_Event(*e) for e in recorded[len(made) - 1]]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(kprof.device_profile, "retakes", 0)
+    calls = []
+    rows = kprof.device_profile(lambda: calls.append(1), n=2, warmup=1, expect=expect)
+    assert len(made) == want_profiles
+    assert kprof.device_profile.retakes == want_profiles - 1
+    assert len(calls) == 1 + 2 * want_profiles
+    want = sorted(((k, us / 1e3 / c * round(c / 2), round(c / 2)) for k, us, c in recorded[want_profiles - 1]),
+                  key=lambda row: -row[1])
+    assert rows == want
+
+
 def test_plain_stats_are_k1_plain():
     """P1's plain statistics are K1's plain version applied to its h."""
     x, w, b = _encode_operands()

@@ -264,6 +264,141 @@ def test_prefix_mse_kernel_path_pads_batch_to_tile(monkeypatch):
         assert rel_norm(got.float().numpy(), want.float().numpy()) <= 1e-6
 
 
+def _spy(monkeypatch, name: str, seen: list):
+    """Record (f or w rows, group size) of each call of a kernel wrapper."""
+    real = getattr(cm, name)
+
+    def spy(first, *args, group_size, **kwargs):
+        seen.append((name, first.shape, group_size))
+        return real(first, *args, group_size=group_size, **kwargs)
+
+    monkeypatch.setattr(cm, name, spy)
+
+
+@pytest.mark.parametrize("s,g", [(64, 1024), (384, 192)], ids=["d_sae-64", "g-192"])
+def test_prefix_mse_kernel_path_pads_group_to_tile(monkeypatch, s, g):
+    """A group that is not a multiple of 128 latents (d_sae 64, so g 64; g
+    192) on the kernel path: the wrappers see each group padded to whole
+    128-latent tiles, and the loss and gradients are those of the JAX op
+    (XLA path; bf16 against f32: loss rel 1e-3, gradients rel-norm 1e-2) and
+    of the same algebra unpadded (1e-6)."""
+    monkeypatch.setattr(tmat, "_use_kernels", lambda t: True)
+    seen = []
+    for name in ("grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad"):
+        _spy(monkeypatch, name, seen)
+    rng = np.random.default_rng(s + g)
+    b, d = 96, 32
+    gg = min(g, s)
+    w = (rng.normal(size=(s, d)) / np.sqrt(d)).astype(np.float32)
+    b_dec = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    f = (rng.normal(size=(b, s)) * (rng.random((b, s)) < 0.2)).astype(np.float32)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    # A cut in group 0, one on a group boundary (when there is one), d_sae.
+    p = np.asarray([5, 40, s] if gg == s else [5, 100, gg, gg + 7, s], np.int32)
+
+    loss, xhat, grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    gp = 128 * -(-gg // 128)
+    padded = (s // gg) * gp
+    assert [(n, tuple(shape), size) for n, shape, size in seen] == [
+        ("grouped_prefix_err", (128, padded), gp),
+        ("grouped_matmul_dgrad", (padded, d), gp),
+        ("grouped_matmul_wgrad", (128, padded), gp),
+    ]
+    assert tuple(xhat.shape) == (b, d)
+    assert [tuple(t.shape) for t in grads] == [(s, d), (d,), (b, s)]
+
+    def jloss(w_, b_, f_):
+        return jmat.prefix_mse(w_, b_, f_, jnp.asarray(x), jnp.asarray(p), g, None)[0]
+
+    jl, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(w), jnp.asarray(b_dec), jnp.asarray(f)
+    )
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-3)
+    for got, want in zip(grads, jgrads):
+        assert rel_norm(got.float().numpy(), np.asarray(want)) <= 1e-2
+
+    monkeypatch.setattr(cm, "TILE", 1)  # no padding: the same algebra unpadded
+    u_loss, u_xhat, u_grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    assert seen[-1][1:] == ((b, s), gg)
+    np.testing.assert_allclose(loss.item(), u_loss.item(), rtol=1e-6)
+    assert rel_norm(xhat.numpy(), u_xhat.numpy()) <= 1e-6
+    for got, want in zip(grads, u_grads):
+        assert rel_norm(got.float().numpy(), want.float().numpy()) <= 1e-6
+
+
+def _wgrad_by_items(f, da, e, m, r, scale, g, tile=128):
+    """K4's schedule (csrc/wgrad.cu) written out in torch: a main item per
+    (group, latent tile, d tile) stores f_G^T @ dA_G; a remainder slot per
+    (cut, latent tile, d tile) is live when m_j < n_groups and r_j > s0 and
+    stores its product with the rows at or above r_j zeroed; the combine adds
+    scale * (the live partials summed in ascending j) to each dW tile.
+    Returns dW and the number of live remainder items."""
+    ff, daf, ef = f.float(), da.float(), e.float()
+    s, d = f.shape[1], e.shape[2]
+    n_groups = s // g
+    ms, rs = m.tolist(), r.tolist()
+    dw = torch.empty((s, d))
+    parts = {}
+    for j in range(len(ms)):
+        for s0 in range(0, g, tile):
+            for d0 in range(0, d, tile):
+                if ms[j] < n_groups and rs[j] > s0:
+                    fg = ff[:, ms[j] * g + s0 : ms[j] * g + s0 + tile]
+                    part = fg.T @ ef[j][:, d0 : d0 + tile]
+                    part[rs[j] - s0 :] = 0.0
+                    parts[j, s0, d0] = part
+    for gi in range(n_groups):
+        for s0 in range(0, g, tile):
+            for d0 in range(0, d, tile):
+                fg = ff[:, gi * g + s0 : gi * g + s0 + tile]
+                dw[gi * g + s0 : gi * g + s0 + tile, d0 : d0 + tile] = fg.T @ daf[:, gi, d0 : d0 + tile]
+    for gi in range(n_groups):
+        for s0 in range(0, g, tile):
+            for d0 in range(0, d, tile):
+                live = [parts[j, s0, d0] for j in range(len(ms)) if (j, s0, d0) in parts and ms[j] == gi]
+                if live:
+                    total = live[0]
+                    for part in live[1:]:
+                        total = total + part
+                    rows = slice(gi * g + s0, gi * g + s0 + tile)
+                    dw[rows, d0 : d0 + tile] = dw[rows, d0 : d0 + tile] + scale * total
+    return dw, len(parts)
+
+
+@pytest.mark.parametrize("cuts", [[3, 9, 40, 100, 127, 2048], [130, 190, 2048], [37, 1024, 2048], [2048],
+                                  [5, 300, 301, 1100, 1536, 2048]])
+def test_wgrad_items_match_plain(cuts):
+    """K4's equal work items and fixed-order combine give the plain version's
+    dW (1e-6: f32 sums over the same terms, blocked per tile)."""
+    rng = np.random.default_rng(len(cuts))
+    b, s, d, g = 64, 2048, 256, 512
+    f = _tb(rng.normal(size=(b, s)) * (rng.random((b, s)) < 0.2))
+    da = _tb(rng.normal(size=(b, s // g, d)))
+    e = _tb(rng.normal(size=(len(cuts), b, d)))
+    m, r = (_t(v) for v in _cuts(cuts))
+    dw, n_live = _wgrad_by_items(f, da, e, m, r, 0.37, g)
+    want = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, torch.tensor(0.37), group_size=g)
+    assert n_live == (d // 128) * sum(-(-int(rv) // 128) for mv, rv in zip(m, r) if mv < s // g)
+    assert rel_norm(dw.numpy(), want.numpy()) <= 1e-6
+
+
+def test_wgrad_items_of_the_production_cuts():
+    """At the production shape (d_sae 16384, d_model 1024, groups of 1024) the
+    seed-0 sampled cuts give 96 live remainder items and the hand-set cuts of
+    chip_smoke.py 288, beside 1024 main items: the count is d_model / 128
+    times the sum over the cuts below d_sae of ceil(r_j / 128)."""
+    from saev_tpu_torch.nn import objectives
+
+    sampled = objectives.sample_prefixes(16384, 10, rng=np.random.default_rng(0))
+    assert sampled.tolist() == [2, 5, 7, 8, 14, 27, 77, 113, 487, 16384]
+    hand = [100, 700, 1024, 2048, 5000, 5001, 9000, 12288, 15000, 16384]
+    for cuts, want in ((sampled, 96), (hand, 288)):
+        m, r = np.asarray(cuts) // 1024, np.asarray(cuts) % 1024
+        live = sum(1 for j in range(len(cuts)) for s0 in range(0, 1024, 128) for _ in range(0, 1024, 128)
+                   if m[j] < 16 and r[j] > s0)
+        assert live == want
+
+
 K3_SASS = """
 	code for sm_90a
 		Function : _ZN40_GLOBAL__N__36c64d2c_8_dgrad_cu_f4886f4818dgrad_wgmma_kernelIfEEv14CUtensorMap_st
