@@ -8,9 +8,11 @@ script exits non-zero:
 1. device    -- a CUDA card must be present (no CPU fallback); prints its name
                 and the `nvidia-smi` name and power limit.
 2. build     -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py),
-                one nvcc for each source, all started together; K3's and
-                K4's products must hold wgmma (HGMMA) and TMA loads (UTMALDG)
-                in their SASS, and no mma.sync (HMMA).
+                one nvcc for each source, all started together; the wgmma
+                products (K2's and K7's `prefix_wgmma_kernel`, K3's and K4's)
+                must hold wgmma (HGMMA) and TMA loads (UTMALDG) in their
+                SASS, no mma.sync (HMMA), and no spills in ptxas's report;
+                K2's and K7's resident CTAs an SM are logged.
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
                 16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K6
@@ -23,9 +25,10 @@ script exits non-zero:
                 rel-norm 1e-4 and the same bits in two calls, on the same
                 three cut sets.
 4. reference -- the step on the card (kernel path) against the same step on
-                the CPU (plain f32 path) at a small shape: the warm-up step,
-                and the AuxK step, dense and subspace, with 1/16 of the
-                latents pinned dead.
+                the CPU (plain f32 path) at a small shape: the warm-up step
+                (also at d_model 64, which the Matryoshka kernels take padded
+                to 128), and the AuxK step, dense and subspace, with 1/16 of
+                the latents pinned dead; K1-K4 launch once a step and SAE.
 5. slice     -- the warm-up train step (TopK 32 + Matryoshka 10, Adam,
                 aux_enabled=False) at full width: 5 steps of one SAE and 2 of
                 a two-SAE sweep, then one step at batch 1000 (padded to the
@@ -41,10 +44,11 @@ script exits non-zero:
                 not counted as the path's launches.
 7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
                 the two-SAE state at 5% dead.
-8. timing    -- each kernel's time against its plain version's; K3's and
-                K4's two launches each by the profiler, at both cut sets,
-                each beside its own bound, and a cuBLAS bmm of each one's
-                main term as a yardstick.
+8. timing    -- each kernel's time against its plain version's; K2's, K3's
+                and K4's launches by the profiler, at both cut sets, each
+                beside its own bound (K2 and K4 also beside their dense
+                floor), and a cuBLAS product of each one's main term as a
+                yardstick (K2: f @ W with bf16 operands).
 9. benches   -- the kernel-level entry points (saev_tpu_torch/scripts) at the
                 production shape: first K7, P1, P2, P3 and P4 held to their
                 plain versions (K7 also bit for bit to K2's xhat and E, with
@@ -57,11 +61,13 @@ script exits non-zero:
                 P2 against K2, P1's fused-against-two-pass A/B, P3 at 32, 16
                 and 8 passes against K6, P4's five modes against K6 and the
                 library's k-th value; then each new kernel timed against its
-                plain version.
+                plain version. It logs the sha256 of P2's outputs on the
+                script's operands, to hold P2's bits across commits.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
                 full width (warm and tight also at n_sae 2): wall and device
                 ms/step, the device's idle share and the 15 kernels that take
-                the most device time, K3's and K4's products among them.
+                the most device time, K2's, K3's and K4's products among
+                them.
 
 Kernel launches are counted per driven path (slice, steady, metrics,
 benches): every count is set to 0 just before the path and read just after.
@@ -88,20 +94,21 @@ K_AUX, TIGHT, WIDE = 512, 1024, 4096  # AuxK k and subspace_cap_ladder(16384, 51
 N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
 N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
 RAGGED_B = 1000  # a batch that is not a multiple of the kernels' 128-row tile
+K2_NAMES = ("prefix_wgmma_kernel", "sum_partials_kernel")  # K2's two launches
 K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
-WGMMA_PRODUCTS = ("dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
+WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
 KERNELS = {
     "topk_stats": ("saev_tpu_torch/csrc/topk_stats.cu", "saev_tpu/ops/pallas_topk.py:136"),
-    "grouped_prefix_err": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
+    "grouped_prefix_err": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
     "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/dgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
     "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/wgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
     "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
-    "grouped_prefix_base": ("saev_tpu_torch/csrc/matryoshka.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
+    "grouped_prefix_base": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
     "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
     "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/matryoshka.cu", "scripts/proto_gouter.py:41"),
     "count_loop": ("saev_tpu_torch/csrc/kth.cu", "scripts/microbench_kth.py:39"),
@@ -196,7 +203,17 @@ def phase_build(verbose: bool = False) -> None:
     _build.lib()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     sass = _build.dump_sass()
-    for fragment in K3_NAMES + K4_NAMES:
+    ptxas = _build.ptxas_log().read_text()
+    for fragment in WGMMA_PRODUCTS:
+        res = _build.ptxas_resources(ptxas, fragment)
+        require(len(res) > 0, f"build: no {fragment} in ptxas's report")
+        for name, r in res.items():
+            require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"build: {name} spills: {r}")
+            log(f"build ptxas {name}: {r['registers']} registers, no spills")
+    ctas = [_build.lib().saev_prefix_occupancy(mode) for mode in range(3)]
+    require(all(n >= 1 for n in ctas), f"build: K2's and K7's resident CTAs an SM {ctas}")
+    log(f"build: prefix_wgmma_kernel (K2, K7 f32, K7 bf16) resident CTAs an SM {ctas}")
+    for fragment in (K2_NAMES[0],) + K3_NAMES + K4_NAMES:
         found = _build.function_opcodes(sass, fragment)
         require(len(found) > 0, f"build: no {fragment} in the library's SASS")
         for name, ops in found.items():
@@ -436,8 +453,9 @@ def _to(ts, device):
 def phase_reference() -> None:
     """Kernel path on the card against the plain f32 path on the CPU, from
     one state and batch at a small shape (bf16 against f32: rel 1e-2): the
-    warm-up step, then the AuxK step in its dense and subspace forms with
-    1/16 of the latents pinned dead."""
+    warm-up step, at d_model 128 and 64, then the AuxK step in its dense and
+    subspace forms with 1/16 of the latents pinned dead. K1-K4 must launch
+    once a step and SAE."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
 
@@ -449,9 +467,13 @@ def phase_reference() -> None:
     aux_cfg = modeling.SparseAutoencoderConfig(
         d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8, aux=modeling.AuxK(k_aux=64))
     )
+    # A d_model that is not a multiple of the kernels' 128-column tile: the
+    # kernel path pads it (ops/matryoshka.py).
+    narrow_cfg = modeling.SparseAutoencoderConfig(d_model=64, d_sae=2048, activation=modeling.TopK(top_k=8))
     n_dead = 2048 // 16
     cases = (
         ("warm-up", warm_cfg, 0, dict(aux_enabled=False), ("mse", "l1", "loss", "grad_norm")),
+        ("warm-up, d_model 64", narrow_cfg, 0, dict(aux_enabled=False), ("mse", "l1", "loss", "grad_norm")),
         ("AuxK dense, none dead", aux_cfg, 0, {}, ("mse", "l1", "loss", "grad_norm")),
         ("AuxK dense", aux_cfg, n_dead, {}, ("mse", "aux", "loss", "grad_norm")),
         ("AuxK subspace cap 128", aux_cfg, n_dead, dict(aux_subspace_cap=128), ("mse", "aux", "loss", "grad_norm")),
@@ -461,9 +483,11 @@ def phase_reference() -> None:
         _pin_dead(ts_cpu, dead)
         ts_gpu = _to(ts_cpu, "cuda")
         step = train.make_train_step(cfg, obj, n_steps=100, **variant)
+        xc = x[:, :cfg.d_model].contiguous()
+        before = counts()
         for i in range(3):
-            ts_cpu, s_cpu = step(ts_cpu, x, pf, _hp(2, "cpu"))
-            ts_gpu, s_gpu = step(ts_gpu, x.cuda(), pf.cuda(), _hp(2, "cuda"))
+            ts_cpu, s_cpu = step(ts_cpu, xc, pf, _hp(2, "cpu"))
+            ts_gpu, s_gpu = step(ts_gpu, xc.cuda(), pf.cuda(), _hp(2, "cuda"))
             for key in keys:
                 a, b = s_gpu[key].cpu(), s_cpu[key]
                 rel = float(((a - b).abs() / b.abs()).max())
@@ -472,9 +496,11 @@ def phase_reference() -> None:
                 require(torch.equal(s_gpu[key].cpu(), s_cpu[key]), f"reference {what} step {i}: {key} differs")
             require(s_cpu["n_dead"].tolist() == [dead, dead], f"reference {what}: n_dead {s_cpu['n_dead'].tolist()}")
             require((s_gpu["aux"] > 0).tolist() == [dead > 0] * 2, f"reference {what}: aux {s_gpu['aux'].tolist()}")
+        rose = {k: counts()[k] - before[k] for k in WARM_KERNELS}
+        require(rose == dict.fromkeys(WARM_KERNELS, 6), f"reference {what}: launches {rose}, expected 6 each")
         for key, v in ts_gpu.params.items():
             require(bool(torch.isfinite(v).all()), f"reference {what}: param {key} not finite")
-        log(f"reference {what}: 3 steps of a 2-SAE sweep (d_model 128, d_sae 2048, batch 256, "
+        log(f"reference {what}: 3 steps of a 2-SAE sweep (d_model {cfg.d_model}, d_sae 2048, batch 256, "
             f"{dead} dead) agree with the CPU plain path; last mse {s_gpu['mse'].tolist()}, "
             f"aux {s_gpu['aux'].tolist()} (CPU {s_cpu['aux'].tolist()})")
 
@@ -812,8 +838,12 @@ def phase_timing() -> dict:
                                                     df_dtype=torch.bfloat16), 2),
         bound((w, e, m, r, scale, df, da), k3_ops, BF16_OPS_S))
     del df
+    _k2_launches(f, w, x, b_dec, iu, m, r, "sampled")
     _k3_launches(w, e, m, r, scale, "sampled")
     m_h, r_h = _cuts(cut_sets["hand-set"])
+    _k2_launches(f, w, x, b_dec, iu, m_h, r_h, "hand-set")
+    # The walk with one snapshot, after it: what the other nine cost.
+    _k2_launches(f, w, x, b_dec, iu, *_cuts(np.asarray([D_SAE], np.int32)), "d_sae only")
     e_h, _, _ = cm.grouped_prefix_err(f, w, x, b_dec, iu, m_h, r_h, group_size=GROUP)
     _k3_launches(w, e_h, m_h, r_h, scale, "hand-set")
     k4_sampled = _k4_launches(f, da, e, m, r, scale, "sampled")
@@ -829,6 +859,41 @@ def phase_timing() -> dict:
     for k, row in out.items():
         log_timing(k, row, f" (cuts {cut_sets['sampled'].tolist()})" if k.startswith("grouped") else "")
     return out
+
+
+def _k2_launches(f, w, x, b_dec, iu, m, r, what: str) -> None:
+    """K2's two launches by the profiler: the product beside the bound of
+    the timing phase's K2 row (bytes: f, W, x, E and xhat once; operations:
+    2 D for each nonzero of f) and beside the dense tensor-core floor of
+    this design, 2 B S D at the bf16 rate; the partials' sum beside nothing
+    (1024 floats). Then a cuBLAS product of f @ W with bf16 operands (f32
+    out where torch has it): a yardstick of the main term, which the port
+    never calls."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+    from saev_tpu_torch.scripts import kprof, proto_encode_stats
+
+    rows = kprof.device_profile(lambda: cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP),
+                                n=10, warmup=2, expect=K2_NAMES)
+    ms = {name: sum(t for k, t, _ in rows if name in k) for name in K2_NAMES}
+    require(all(v > 0 for v in ms.values()), f"timing K2 {what}: profiler rows {rows}")
+    j = m.shape[0]
+    prod = bound((f, w, x, b_dec, j * B * D_MODEL * 2, B * D_MODEL * 4),
+                 2 * int((f != 0).sum()) * D_MODEL, BF16_OPS_S)
+    dense = 2 * B * D_SAE * D_MODEL
+    floor = dense / BF16_OPS_S * 1e3
+    lanes = sum(int(p) % 16 for p in (m * GROUP + r).tolist())
+    log(f"timing K2 {what}: prefix_wgmma_kernel {ms[K2_NAMES[0]]:.3f} ms, bound {prod['bound_ms']:.3f} "
+        f"({prod['bound_by']}), dense floor {floor:.3f}, {dense / ms[K2_NAMES[0]] / 1e9:.1f} TFLOP/s dense "
+        f"({j} snapshots, {lanes} correction lanes); sum_partials_kernel {ms[K2_NAMES[1]]:.4f} ms")
+    if proto_encode_stats.has_bf16_mm_f32():
+        mm, how = (lambda: torch.mm(f, w, out_dtype=torch.float32)), "bf16 operands, f32 out"
+    else:
+        mm, how = (lambda: torch.mm(f, w)), "bf16 operands and out"
+    mm_rows = kprof.device_profile(mm, n=10, warmup=2)
+    mm_ms = kprof.total_device_ms(mm_rows)
+    log(f"timing K2 {what} yardstick: cuBLAS f @ W ({how}, {B} x {D_SAE} @ {D_SAE} x {D_MODEL}): "
+        f"{mm_ms:.3f} ms device, {dense / mm_ms / 1e9:.1f} TFLOP/s; kernels "
+        + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in mm_rows))
 
 
 def _k4_launches(f, da, e, m, r, scale, what: str) -> float:
@@ -962,7 +1027,7 @@ def phase_benches() -> tuple[dict, dict, dict]:
     launch counts of their measured work, and each new kernel's max abs
     error and timing row (kernel ms, plain ms, bound, library ms)."""
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.scripts import kprof, microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
+    from saev_tpu_torch.scripts import digests, kprof, microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
 
     errs = {}
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
@@ -983,6 +1048,9 @@ def phase_benches() -> tuple[dict, dict, dict]:
             f"{res['loss_rel_k2']:.3g}; against plain E {res['e_rel']:.3g}, err_full {res['err_rel']:.3g}, "
             f"loss {res['loss_rel']:.3g}; bitwise repeatable")
     errs["grouped_prefix_err_gouter"] = max(res["max_abs"] for res in gouter.values())
+    p2_out = proto_gouter.grouped_prefix_err_gouter(*(g_inp[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r")))
+    log(f"P2 sha256 of e, err_full, loss on proto_gouter's operands: {digests.output_digest(*p2_out)}")
+    del p2_out
     e_inp = proto_encode_stats.inputs()
     res = proto_encode_stats.check(e_inp)
     errs["encode_stats"] = res["h_max_abs"]
@@ -1061,8 +1129,8 @@ def phase_profile() -> None:
     tight-rung and dense steps at full width, n_sae 1, and of the warm and
     tight-rung steps at n_sae 2, 5% dead: wall and device ms/step, the
     device's idle share, the 15 kernels that take the most device time,
-    among which K3's and K4's products must be, and the rank of each of
-    their launches."""
+    among which K2's, K3's and K4's products must be, and the rank of each
+    of their launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from saev_tpu_torch.framework import train
@@ -1090,8 +1158,8 @@ def phase_profile() -> None:
         torch.cuda.synchronize()
         for attempt in range(3):  # the profiler can miss a whole profile (kprof.device_profile): take it again
             if attempt:
-                log(f"profile {name} n_sae={n_sae}: the profiler missed device time or K3's or K4's launches; "
-                    f"taken again")
+                log(f"profile {name} n_sae={n_sae}: the profiler missed device time or K2's, K3's or K4's "
+                    f"launches; taken again")
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(3):
@@ -1100,23 +1168,24 @@ def phase_profile() -> None:
                 wall = (time.perf_counter() - t0) * 1e3 / 3
             events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
             dev = sum(e.self_device_time_total for e in events) / 1e3 / 3
-            if dev > 0 and all(any(k in e.key for e in events) for k in K3_NAMES + K4_NAMES):
+            if dev > 0 and all(any(k in e.key for e in events) for k in K2_NAMES + K3_NAMES + K4_NAMES):
                 break
         if dev == 0:  # a measurement, not a check: report and go on
             log(f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step; the profiler reported no device time")
             continue
         ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-        rank = {k: next((i + 1 for i, e in enumerate(ranked) if k in e.key), None) for k in K3_NAMES + K4_NAMES}
+        rank = {k: next((i + 1 for i, e in enumerate(ranked) if k in e.key), None)
+                for k in K2_NAMES + K3_NAMES + K4_NAMES}
         lines = [f"profile {name} n_sae={n_sae}: wall {wall:.2f} ms/step, device kernels {dev:.2f} ms/step, "
-                 f"idle {100 * (1 - dev / wall):.1f}%; K3's and K4's launches rank "
+                 f"idle {100 * (1 - dev / wall):.1f}%; K2's, K3's and K4's launches rank "
                  + ", ".join(f"{k} #{v}" for k, v in rank.items())]
         for e in ranked[:15]:
             ms = e.self_device_time_total / 1e3 / 3
             lines.append(f"  {ms:8.3f} ms/step {100 * ms / dev:5.1f}%  x{e.count // 3:<4d} {e.key[:110]}")
         log("\n".join(lines))
-        require(all(rank.values()), f"profile {name} n_sae={n_sae}: K3's and K4's launches {rank}")
+        require(all(rank.values()), f"profile {name} n_sae={n_sae}: K2's, K3's and K4's launches {rank}")
         require(all(rank[k] <= 15 for k in WGMMA_PRODUCTS),
-                f"profile {name} n_sae={n_sae}: K3's and K4's products rank {rank}")
+                f"profile {name} n_sae={n_sae}: K2's, K3's and K4's products rank {rank}")
         del ts
         torch.cuda.empty_cache()
 

@@ -1,8 +1,9 @@
-// The Hopper building blocks of K3 (dgrad.cu) and K4 (wgrad.cu): mbarriers,
-// TMA loads, wgmma shared-memory descriptors, the m64n128k16 product, and
-// tensor maps encoded without a link against libcuda.
+// The Hopper building blocks of K2 and K7 (prefix_fwd.cu), K3 (dgrad.cu) and
+// K4 (wgrad.cu): mbarriers, TMA loads, wgmma shared-memory descriptors, the
+// m64n128k16 product, and tensor maps encoded without a link against
+// libcuda.
 //
-// Both kernels run one mainloop: a 128 x 128 f32 output tile a CTA, one TMA
+// The kernels run one mainloop: a 128 x 128 f32 output tile a CTA, one TMA
 // producer warp filling a ring of STAGES stages of 32 KB (two 16 KB operand
 // tiles, 64 deep in K, 128-byte swizzled), and two consumer warpgroups that
 // each own 64 rows of the tile and run wgmma m64n128k16 on every stage.

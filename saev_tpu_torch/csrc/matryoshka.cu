@@ -1,48 +1,39 @@
-// K2 and K7: the grouped Matryoshka prefix-MSE forward products (error,
-// base) on bf16 operands with f32 accumulation, and P2, the group-outer
-// forward error. K3, the dgrad, is dgrad.cu; K4, the wgrad, is wgrad.cu.
+// P2, the group-outer Matryoshka forward error on bf16 operands with f32
+// accumulation, and the fixed-order sum of per-CTA loss partials that P2
+// and K2 share. K2 and K7, the forward error and base, are prefix_fwd.cu;
+// K3, the dgrad, is dgrad.cu; K4, the wgrad, is wgrad.cu.
 //
-// Replaces saev_tpu/ops/pallas_matryoshka.py `_err_kernel`
-// (`grouped_prefix_err`) and `_base_kernel` (`grouped_prefix_base`), and
-// scripts/proto_gouter.py `_err_kernel_gouter` (`grouped_prefix_err_gouter`).
+// Replaces scripts/proto_gouter.py `_err_kernel_gouter`
+// (`grouped_prefix_err_gouter`).
 //
 // Notation: f (B, S) latents, W (S, D) decoder rows, J prefix cuts
 // p_j = m_j * g + r_j with groups of g latents, E_j (B, D) the per-prefix
 // errors.
 //
-// What bounds them on the card: tensor-core throughput. Each product is
-// about 2 * B * S * D = 0.55 TFLOP at the production shape (B = S = 16384,
+// What bounds it on the card: tensor-core throughput. The product is about
+// 2 * B * S * D = 0.55 TFLOP at the production shape (B = S = 16384,
 // D = 1024) against well under 1 GB of operand traffic, far above the card's
 // ridge point; the cut snapshots add at most J partial K steps.
 //
-// What the design does about it: each kernel is one 128x128-tile GEMM with
-// bf16 mma.sync and a two-stage cp.async pipeline (tile_mma.cuh), one CTA per
-// output tile, so no CTA depends on another and every output element is
-// written by exactly one CTA (no atomics; results are bitwise reproducible).
-//  - K2 walks K = S in ascending order and snapshots E_j when it crosses p_j.
-//    A cut inside a 32-wide K step splits that step into K-lane-masked
-//    passes, so cuts may be any integers. The loss is one partial per CTA,
-//    summed by a second one-block pass in a fixed order.
-//  - K7 is K2's kernel (one template, `prefix_fwd_kernel`) with another
-//    snapshot: base_j = the f32 accumulator, stored as it is or rounded to
-//    bf16; no x, b_dec or loss. It walks K in K2's order, so its xhat is K2's
-//    bit for bit and bf16(base_j + (b_dec - x)) is K2's E_j.
-//  - P2 is the same template over one group's K range per launch, launched
-//    once per group in ascending order. A CUDA block cannot carry a (B, D)
-//    running sum across the grid, so the f32 accumulator lives in device
-//    memory (the err_full output, 64 MB at the production shape): each
-//    launch loads its tile of it (at group 0: b_dec - x), adds f_G @ W_G,
-//    snapshots E_j = bf16(acc) at the cuts inside the group (and at p_j = S
-//    after the last), and stores it back. Bytes: W_G (2 MB bf16) is read by
-//    all 128 row tiles of a launch while it sits in L2, so W leaves device
-//    memory about once (32 MB) where K2's 128 row tiles each stream all of W
-//    (4 GB through L2); against that P2 adds 16 read-modify-write passes over
-//    the 64 MB accumulator (2 GB of device-memory traffic), 16 launch tails
-//    and 16 pipeline fills. The loss is one partial per CTA per group,
-//    summed in a fixed order, so repeated runs give the same bits.
-// This is the simple, correct first version: wgmma, TMA and deeper
-// pipelines for these kernels are later work (dgrad.cu and wgrad.cu show
-// them for K3 and K4).
+// What the design does about it: one 128x128-tile GEMM with bf16 mma.sync
+// and a two-stage cp.async pipeline (tile_mma.cuh), one CTA per output tile,
+// so no CTA depends on another and every output element is written by
+// exactly one CTA (no atomics; results are bitwise reproducible). It walks
+// one group's K range per launch, launched once per group in ascending
+// order. A CUDA block cannot carry a (B, D) running sum across the grid, so
+// the f32 accumulator lives in device memory (the err_full output, 64 MB at
+// the production shape): each launch loads its tile of it (at group 0:
+// b_dec - x), adds f_G @ W_G, snapshots E_j = bf16(acc) when the walk
+// crosses p_j (a cut inside a 32-wide K step splits that step into
+// K-lane-masked passes, so cuts may be any integers; p_j = S after the last
+// group), and stores it back. Bytes: W_G (2 MB bf16) is read by all 128 row
+// tiles of a launch while it sits in L2, so W leaves device memory about
+// once (32 MB) where K2's 128 row tiles each stream all of W (4 GB through
+// L2); against that P2 adds 16 read-modify-write passes over the 64 MB
+// accumulator (2 GB of device-memory traffic), 16 launch tails and 16
+// pipeline fills. The loss is one partial per CTA per group, summed in a
+// fixed order, so repeated runs give the same bits. P2 is a bench kernel:
+// it stays on this mma.sync template (K2 moved to wgmma and TMA).
 
 #include "tile_mma.cuh"
 
@@ -52,26 +43,8 @@ namespace {
 
 constexpr int MAXJ = 64;
 
-// --- K2, K7, P2: the grouped prefix forward ------------------------------------
-
-template <typename Out>
-__device__ __forceinline__ void store_pair(Out* p, float a, float b);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                          float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16_rn(a);
-  v.y = __float2bfloat16_rn(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
-
-template <typename Out>
-__device__ __forceinline__ void store_tile(const Acc& acc, Out* out, long ld, long r0,
-                                           long c0) {
+// The f32 accumulator tile stored as it is.
+__device__ __forceinline__ void store_tile(const Acc& acc, float* out, long ld, long r0, long c0) {
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
 #pragma unroll
@@ -82,18 +55,15 @@ __device__ __forceinline__ void store_tile(const Acc& acc, Out* out, long ld, lo
       for (int h = 0; h < 2; ++h) {
         const long row = r0 + wm + 16 * i + (l >> 2) + 8 * h;
         const long col = c0 + wn + 8 * t + 2 * (l & 3);
-        store_pair<Out>(out + row * ld + col, acc.v[i][t][2 * h], acc.v[i][t][2 * h + 1]);
+        *reinterpret_cast<float2*>(out + row * ld + col) =
+            make_float2(acc.v[i][t][2 * h], acc.v[i][t][2 * h + 1]);
       }
 }
 
-// E_j = bf16(acc (+ b_dec - x)) for one output tile, and its loss terms
-// (f32(E_j) * inv_upper)^2 added to lsum. K2's accumulator holds f @ W only
-// (ADD_BX); P2's already starts at b_dec - x.
-template <bool ADD_BX>
-__device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long n0,
-                                           int B, int D, const float* __restrict__ x,
-                                           const float* __restrict__ bdec, float iu,
-                                           __nv_bfloat16* __restrict__ e, float& lsum) {
+// E_j = bf16(acc) for one output tile (the accumulator already starts at
+// b_dec - x), and its loss terms (f32(E_j) * inv_upper)^2 added to lsum.
+__device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long n0, int B, int D,
+                                           float iu, __nv_bfloat16* __restrict__ e, float& lsum) {
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
   __nv_bfloat16* ej = e + (long)j * B * D;
@@ -105,16 +75,9 @@ __device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long 
       for (int h = 0; h < 2; ++h) {
         const long row = b0 + wm + 16 * i + (l >> 2) + 8 * h;
         const long col = n0 + wn + 8 * t + 2 * (l & 3);
-        float v0 = acc.v[i][t][2 * h], v1 = acc.v[i][t][2 * h + 1];
-        if constexpr (ADD_BX) {
-          const float2 xv = *reinterpret_cast<const float2*>(x + row * D + col);
-          const float2 bv = *reinterpret_cast<const float2*>(bdec + col);
-          v0 = v0 + (bv.x - xv.x);
-          v1 = v1 + (bv.y - xv.y);
-        }
         __nv_bfloat162 ev;
-        ev.x = __float2bfloat16_rn(v0);
-        ev.y = __float2bfloat16_rn(v1);
+        ev.x = __float2bfloat16_rn(acc.v[i][t][2 * h]);
+        ev.y = __float2bfloat16_rn(acc.v[i][t][2 * h + 1]);
         *reinterpret_cast<__nv_bfloat162*>(ej + row * D + col) = ev;
         const float e0 = __bfloat162float(ev.x) * iu, e1 = __bfloat162float(ev.y) * iu;
         lsum += e0 * e0;
@@ -122,7 +85,7 @@ __device__ __forceinline__ void emit_error(const Acc& acc, int j, long b0, long 
       }
 }
 
-// P2's accumulator at the start of a group: b_dec - x at group 0, else the
+// The accumulator at the start of a group: b_dec - x at group 0, else the
 // running sum the previous group's launch stored.
 __device__ __forceinline__ void load_run(Acc& acc, long b0, long n0, int D, bool first,
                                          const float* __restrict__ x,
@@ -151,27 +114,17 @@ __device__ __forceinline__ void load_run(Acc& acc, long b0, long n0, int D, bool
       }
 }
 
-// What the forward kernel snapshots at each cut.
-enum class Fwd {
-  kErr,       // K2: E_j = bf16(acc + b_dec - x), loss partials; acc_io = xhat
-  kBaseF32,   // K7: base_j = acc (f32); acc_io = xhat
-  kBaseBf16,  // K7: base_j = bf16(acc); acc_io = xhat
-  kGouter,    // P2: E_j = bf16(acc), loss partials; acc_io = the running sum
-};
-
 // One 128x128 output tile (row tile blockIdx.y, d_model tile blockIdx.x) over
-// the K range [k_begin, k_end) of f @ W. The cuts p_j inside that range are
-// snapshotted as the walk crosses them; the cuts at p_j = S after the walk
-// when k_end == S. `out` is E (bf16) or base (f32 or bf16), (J, B, D).
-template <Fwd MODE>
+// the K range [k_begin, k_end) of f @ W, one group's. The cuts p_j inside
+// that range are snapshotted as the walk crosses them; the cuts at p_j = S
+// after the walk when k_end == S. acc_io is the running sum, read and written.
 __global__ void __launch_bounds__(THREADS)
-    prefix_fwd_kernel(const __nv_bfloat16* __restrict__ f,
-                      const __nv_bfloat16* __restrict__ w, const float* __restrict__ x,
-                      const float* __restrict__ bdec, const float* __restrict__ inv_upper,
-                      const int* __restrict__ m, const int* __restrict__ r, int J, int B,
-                      int S, int D, int g, int k_begin, int k_end, void* __restrict__ out,
-                      float* __restrict__ acc_io, float* __restrict__ partials) {
-  constexpr bool kLoss = MODE == Fwd::kErr || MODE == Fwd::kGouter;
+    gouter_kernel(const __nv_bfloat16* __restrict__ f, const __nv_bfloat16* __restrict__ w,
+                  const float* __restrict__ x, const float* __restrict__ bdec,
+                  const float* __restrict__ inv_upper, const int* __restrict__ m,
+                  const int* __restrict__ r, int J, int B, int S, int D, int g, int k_begin,
+                  int k_end, __nv_bfloat16* __restrict__ e, float* __restrict__ acc_io,
+                  float* __restrict__ partials) {
   __shared__ __align__(16) __nv_bfloat16 smem[4 * STAGE_ELEMS];
   __shared__ int cut_p[MAXJ], cut_j[MAXJ];
   __shared__ float red[THREADS / 32];
@@ -192,29 +145,13 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  const float iu = kLoss ? *inv_upper : 0.f;
+  const float iu = *inv_upper;
 
   Acc acc;
-  if constexpr (MODE == Fwd::kGouter)
-    load_run(acc, b0, n0, D, k_begin == 0, x, bdec, acc_io);
-  else
-    zero(acc);
+  load_run(acc, b0, n0, D, k_begin == 0, x, bdec, acc_io);
   float lsum = 0.f;
-  auto emit = [&](int j) {
-    if constexpr (MODE == Fwd::kErr)
-      emit_error<true>(acc, j, b0, n0, B, D, x, bdec, iu,
-                       static_cast<__nv_bfloat16*>(out), lsum);
-    else if constexpr (MODE == Fwd::kGouter)
-      emit_error<false>(acc, j, b0, n0, B, D, x, bdec, iu,
-                        static_cast<__nv_bfloat16*>(out), lsum);
-    else if constexpr (MODE == Fwd::kBaseF32)
-      store_tile<float>(acc, static_cast<float*>(out) + (long)j * B * D, D, b0, n0);
-    else
-      store_tile<__nv_bfloat16>(acc, static_cast<__nv_bfloat16*>(out) + (long)j * B * D, D,
-                                b0, n0);
-  };
   int ci = 0;
-  while (ci < J && cut_p[ci] < k_begin) ++ci;  // cuts of earlier groups (P2)
+  while (ci < J && cut_p[ci] < k_begin) ++ci;  // cuts of earlier groups
   __nv_bfloat16* sa = smem;
   __nv_bfloat16* sb = smem + 2 * STAGE_ELEMS;
   const int n_k = (k_end - k_begin) / BK;
@@ -240,7 +177,7 @@ __global__ void __launch_bounds__(THREADS)
         mma_stage<true>(acc, a_s, b_s, lo, pr);
         lo = pr;
       }
-      emit(cut_j[ci]);
+      emit_error(acc, cut_j[ci], b0, n0, B, D, iu, e, lsum);
       ++ci;
     }
     if (lo == 0)
@@ -249,15 +186,13 @@ __global__ void __launch_bounds__(THREADS)
       mma_stage<true>(acc, a_s, b_s, lo, BK);
     __syncthreads();
   }
-  // Cuts at p_j = S (the full decode): the snapshot is the whole product.
+  // Cuts at p_j = S (the full decode): the snapshot is the whole sum.
   if (k_end == S)
-    for (; ci < J; ++ci) emit(cut_j[ci]);
+    for (; ci < J; ++ci) emit_error(acc, cut_j[ci], b0, n0, B, D, iu, e, lsum);
 
-  store_tile<float>(acc, acc_io, D, b0, n0);
-  if constexpr (kLoss) {
-    const float s = block_sum(lsum, red);
-    if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
+  store_tile(acc, acc_io, D, b0, n0);
+  const float s = block_sum(lsum, red);
+  if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 // Fixed-order sum of the per-CTA loss partials: bitwise the same every run.
@@ -277,31 +212,8 @@ bool shapes_ok(int J, int B, int S, int D, int g) {
 
 }  // namespace
 
-extern "C" int saev_prefix_err(const __nv_bfloat16* f, const __nv_bfloat16* w,
-                               const float* x, const float* bdec, const float* inv_upper,
-                               const int* m, const int* r, int J, int B, int S, int D,
-                               int g, __nv_bfloat16* e, float* xhat, float* partials,
-                               float* loss_sum, cudaStream_t stream) {
-  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
-  dim3 grid(D / BN, B / BM);
-  prefix_fwd_kernel<Fwd::kErr><<<grid, THREADS, 0, stream>>>(
-      f, w, x, bdec, inv_upper, m, r, J, B, S, D, g, 0, S, e, xhat, partials);
-  sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, grid.x * grid.y, loss_sum);
-  return cudaGetLastError();
-}
-
-extern "C" int saev_prefix_base(const __nv_bfloat16* f, const __nv_bfloat16* w,
-                                const int* m, const int* r, int J, int B, int S, int D,
-                                int g, int base_bf16, void* base, float* xhat,
-                                cudaStream_t stream) {
-  if (!shapes_ok(J, B, S, D, g)) return cudaErrorInvalidValue;
-  dim3 grid(D / BN, B / BM);
-  if (base_bf16)
-    prefix_fwd_kernel<Fwd::kBaseBf16><<<grid, THREADS, 0, stream>>>(
-        f, w, nullptr, nullptr, nullptr, m, r, J, B, S, D, g, 0, S, base, xhat, nullptr);
-  else
-    prefix_fwd_kernel<Fwd::kBaseF32><<<grid, THREADS, 0, stream>>>(
-        f, w, nullptr, nullptr, nullptr, m, r, J, B, S, D, g, 0, S, base, xhat, nullptr);
+cudaError_t saev_sum_partials(const float* partials, int n, float* out, cudaStream_t stream) {
+  sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, n, out);
   return cudaGetLastError();
 }
 
@@ -318,12 +230,11 @@ extern "C" int saev_prefix_err_gouter(const __nv_bfloat16* f, const __nv_bfloat1
   dim3 grid(D / BN, B / BM);
   const int n_tiles = grid.x * grid.y, n_groups = S / g;
   for (int G = 0; G < n_groups; ++G) {
-    prefix_fwd_kernel<Fwd::kGouter><<<grid, THREADS, 0, stream>>>(
-        f, w, x, bdec, inv_upper, m, r, J, B, S, D, g, G * g, (G + 1) * g, e, err,
-        partials + (long)G * n_tiles);
+    gouter_kernel<<<grid, THREADS, 0, stream>>>(f, w, x, bdec, inv_upper, m, r, J, B, S, D, g,
+                                                G * g, (G + 1) * g, e, err,
+                                                partials + (long)G * n_tiles);
     const cudaError_t code = cudaGetLastError();
     if (code != cudaSuccess) return code;
   }
-  sum_partials_kernel<<<1, THREADS, 0, stream>>>(partials, n_groups * n_tiles, loss_sum);
-  return cudaGetLastError();
+  return saev_sum_partials(partials, n_groups * n_tiles, loss_sum, stream);
 }

@@ -9,6 +9,10 @@ library. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
+
+ptxas reports each kernel's registers and spills (`-Xptxas -v`); the build
+keeps that report beside the library (`ptxas_log`, read by
+`ptxas_resources`).
 """
 
 import collections
@@ -27,7 +31,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +46,7 @@ SIGNATURES = {
     "saev_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_prefix_base": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "saev_prefix_occupancy": [_I],
     "saev_prefix_err_gouter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_encode_stats": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "saev_count_loop": [_P, _I, _I, _I, _P, _P],
@@ -84,9 +89,9 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libsaev_kernels_{_digest()}.so"
 
 
-def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+def _run_all(cmds: list[list[str]], verbose: bool) -> list[str]:
     """Start the commands together, wait for every one, then raise on the
-    first that failed."""
+    first that failed; returns each one's standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     errs = [p.communicate()[1] for p in procs]
@@ -95,6 +100,7 @@ def _run_all(cmds: list[list[str]], verbose: bool) -> None:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
         if verbose:
             print(err, end="")
+    return errs
 
 
 def build(verbose: bool = False) -> pathlib.Path:
@@ -106,16 +112,43 @@ def build(verbose: bool = False) -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_tool("nvcc")
-    ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cu = [p for p in _sources() if p.suffix == ".cu"]
         objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)],
-                 verbose)
+        errs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)],
+                        verbose)
+        ptxas_log().write_text("".join(errs))
         lib_tmp = os.path.join(tmp, out.name)
         _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]], verbose)
         os.replace(lib_tmp, out)
     return out
+
+
+def ptxas_log():
+    """The ptxas report of the library's build, written beside it."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_resources(log: str, fragment: str) -> dict[str, dict[str, int]]:
+    """Mangled name -> registers and spill bytes, from a `-Xptxas -v`
+    report, of each kernel whose name contains `fragment`."""
+    found: dict[str, dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            current = found.setdefault(m[1], {}) if fragment in m[1] else None
+        elif current is None:
+            continue
+        elif m := _PTXAS_SPILL.search(line):
+            current.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif m := _PTXAS_REGS.search(line):
+            current["registers"] = int(m[1])
+    return found
 
 
 def lib() -> ctypes.CDLL:

@@ -1,6 +1,6 @@
-"""Wrappers of kernels K2-K4 and K7, the grouped Matryoshka products
-(csrc/matryoshka.cu; K3 in csrc/dgrad.cu, K4 in csrc/wgrad.cu), each with its
-plain bf16-operand version beside it.
+"""Wrappers of kernels K2-K4 and K7, the grouped Matryoshka products (K2 and
+K7 in csrc/prefix_fwd.cu, K3 in csrc/dgrad.cu, K4 in csrc/wgrad.cu), each
+with its plain bf16-operand version beside it.
 
 Counterparts of saev_tpu/ops/pallas_matryoshka.py `grouped_prefix_err`,
 `grouped_matmul_dgrad`, `grouped_matmul_wgrad` and `grouped_prefix_base`. A CUDA tensor launches the
@@ -61,8 +61,11 @@ def grouped_prefix_err_plain(f, w, x, b_dec, inv_upper, m, r, *, group_size=1024
 
 
 def grouped_prefix_err(f, w, x, b_dec, inv_upper, m, r, *, group_size=1024):
-    """Kernel K2; same outputs as `grouped_prefix_err_plain`. The loss is one
-    partial per CTA reduced in a fixed order, so it is the same bits every run."""
+    """Kernel K2; same outputs as `grouped_prefix_err_plain`. One launch on
+    wgmma with TMA-fed operands walks K = d_sae for each 128 x 128 tile and
+    snapshots E_j at each cut (16-lane steps plus a correction of the lanes
+    below the cut), then a fixed-order sum of the per-tile loss partials:
+    the same bits every run."""
     if f.device.type != "cuda":
         return grouped_prefix_err_plain(f, w, x, b_dec, inv_upper, m, r, group_size=group_size)
     dev = f.device
@@ -108,8 +111,8 @@ def grouped_prefix_base_plain(f, w, m, r, *, group_size=1024, base_dtype=_F32):
 
 
 def grouped_prefix_base(f, w, m, r, *, group_size=1024, base_dtype=_F32):
-    """Kernel K7; same outputs as `grouped_prefix_base_plain`. K2's kernel
-    without the error epilogue: its xhat is K2's bit for bit, and
+    """Kernel K7; same outputs as `grouped_prefix_base_plain`. K2's walk
+    with base_j in place of the error: its xhat is K2's bit for bit, and
     bf16(base[j] + (b_dec - x)) is K2's E[j]."""
     if f.device.type != "cuda":
         return grouped_prefix_base_plain(f, w, m, r, group_size=group_size, base_dtype=base_dtype)

@@ -15,8 +15,9 @@ Two paths, chosen by `_use_kernels` on the latents' tensor:
   df comes back in the primal dtype of f (bf16 on the TopK stats path). A
   batch that is not a multiple of the kernels' 128-row tile is padded with
   rows whose error is exactly 0, a group that is not a multiple of their
-  128-latent tile with latents that are exactly 0, and the results are cut
-  back to the true rows and latents.
+  128-latent tile with latents that are exactly 0, a d_model that is not a
+  multiple of their 128-column tile with columns whose error is exactly 0,
+  and the results are cut back to the true rows, latents and columns.
 - **Plain path (CPU)**: the same algebra in f32 with static slices.
 
 The second output is the full reconstruction xhat_J. It carries no gradient:
@@ -118,22 +119,30 @@ class _PrefixMSE(torch.autograd.Function):
             if gp != g:
                 fb = F.pad(fb.reshape(b, n_groups, g), (0, gp - g)).reshape(b, n_groups * gp)
                 wb = F.pad(wb.reshape(n_groups, g, -1), (0, 0, 0, gp - g)).reshape(n_groups * gp, -1)
+            # Whole 128-column tiles: W, b_dec and x get zero columns, whose
+            # E columns are exactly 0.
+            d_model = x.shape[1]
+            dpad = -d_model % _cm.TILE
+            xp, bp = x, b_dec
+            if dpad:
+                wb = F.pad(wb, (0, dpad))
+                xp, bp = F.pad(x, (0, dpad)), F.pad(b_dec, (0, dpad))
             # And whole 128-row tiles: pad with f rows of 0 and x rows equal
             # to b_dec, whose E rows are exactly 0, so the padded rows add
-            # nothing to the loss or to dW. The divisors keep the true batch.
+            # nothing to the loss or to dW. The divisors keep the true batch
+            # and d_model.
             pad = -b % _cm.TILE
-            xp = x
             if pad:
                 fb = torch.cat([fb, fb.new_zeros((pad, fb.shape[1]))])
-                xp = torch.cat([x, b_dec.expand(pad, -1)])
+                xp = torch.cat([xp, bp.expand(pad, -1)])
             upper = torch.clamp(x.abs().max(), min=1e-12)
             e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
-                fb, wb, xp.contiguous(), b_dec.contiguous(), 1.0 / upper,
+                fb, wb, xp.contiguous(), bp.contiguous(), 1.0 / upper,
                 m.contiguous(), r.contiguous(), group_size=gp,
             )
-            loss = loss_sum / (m.shape[0] * b * x.shape[1]) * upper * upper
-            xhat = xhat_nb[:b] + b_dec
-            ctx.b, ctx.gp = b, gp
+            loss = loss_sum / (m.shape[0] * b * d_model) * upper * upper
+            xhat = xhat_nb[:b, :d_model] + b_dec
+            ctx.b, ctx.gp, ctx.d_model = b, gp, d_model
             ctx.save_for_backward(fb, wb, e, m, r)
         else:
             ms, rs = m.tolist(), r.tolist()
@@ -150,17 +159,17 @@ class _PrefixMSE(torch.autograd.Function):
         g = ctx.g
         if ctx.kernel:
             fb, wb, e, m, r = ctx.saved_tensors
-            j_n, _, d_model = e.shape
-            b, gp = ctx.b, ctx.gp
+            j_n, _, dp = e.shape
+            b, gp, d_model = ctx.b, ctx.gp, ctx.d_model
             n_groups = fb.shape[1] // gp
             scale = (t_loss.float() * 2.0 / (b * j_n * d_model)).reshape(1)
-            db_dec = torch.sum(e, dim=(0, 1), dtype=torch.float32) * scale
+            db_dec = torch.sum(e, dim=(0, 1), dtype=torch.float32)[:d_model] * scale
             df, da = _cm.grouped_matmul_dgrad(
                 wb, e, m, r, scale, group_size=gp, df_dtype=ctx.f_dtype
             )
             df = df[:b].reshape(b, n_groups, gp)[:, :, :g].reshape(b, n_groups * g)
             dw = _cm.grouped_matmul_wgrad(fb, da, e, m, r, scale, group_size=gp)
-            dw = dw.reshape(n_groups, gp, d_model)[:, :g].reshape(n_groups * g, d_model)
+            dw = dw.reshape(n_groups, gp, dp)[:, :g, :d_model].reshape(n_groups * g, d_model)
         else:
             f, w, e = ctx.saved_tensors
             j_n, b, d_model = e.shape

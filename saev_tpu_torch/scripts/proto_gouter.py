@@ -7,7 +7,7 @@ K2 (`grouped_prefix_err`) gives every 128-row tile the whole K = S walk, so
 each row tile streams all of W. P2 walks the groups outermost: one launch per
 group, each row tile adding f_G @ W_G to an f32 (B, D) accumulator kept in
 device memory, so W_G is read while it sits in L2 (csrc/matryoshka.cu,
-`Fwd::kGouter`). The accumulator starts at b_dec - x, so the second output is
+`gouter_kernel`). The accumulator starts at b_dec - x, so the second output is
 the full f32 error err_full = xhat + b_dec - x, not K2's xhat, and E matches
 K2 to f32 noise, not bitwise.
 

@@ -63,6 +63,10 @@ CUTS = {
     "two-in-group": ([100, 101, 1536, 2048], 512),
     "single": ([2048], 1024),
     "boundaries": ([1024, 2048], 1024),
+    # Cuts inside and on K2's 16-lane steps, and a small copy of the seed-0
+    # sampled cuts (five in the first 16-lane step).
+    "k16-steps": ([1, 2, 15, 16, 17, 63, 64, 65, 2048], 1024),
+    "sampled": ([2, 5, 7, 8, 14, 27, 77, 113, 487, 2048], 512),
 }
 
 
@@ -164,6 +168,32 @@ def test_prefix_mse_kernel_path_pads_small_group(dev, s, g):
         outs.append([loss.detach().cpu(), xhat.cpu()] + [t.grad.float().cpu() for t in leaves])
     assert [fn.launches for fn in fns] == [n + 1 for n in before]
     assert [tuple(t.shape) for t in outs[1][2:]] == [(s, d), (d,), (b, s)]
+    for got, want in zip(outs[1], outs[0]):
+        assert rel_norm(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("d", [64, 192])
+def test_prefix_mse_kernel_path_pads_d_model(dev, d):
+    """A d_model that is not a multiple of the kernels' 128-column tile (64,
+    192): the kernel path pads W, b_dec and x with zero columns, and K2-K4
+    run, against the f32 plain algebra on the CPU."""
+    gen = torch.Generator().manual_seed(d)
+    b, s = 128, 2048
+    w = torch.randn((s, d), generator=gen) / 32
+    b_dec = torch.randn((d,), generator=gen) * 0.1
+    f = torch.randn((b, s), generator=gen) * (torch.rand((b, s), generator=gen) < 0.05)
+    x = torch.randn((b, d), generator=gen)
+    p = torch.tensor([7, 1024, 1500, s], dtype=torch.int32)
+    fns = (cm.grouped_prefix_err, cm.grouped_matmul_dgrad, cm.grouped_matmul_wgrad)
+    before = [fn.launches for fn in fns]
+    outs = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (w, b_dec, f)]
+        loss, xhat = tmat.prefix_mse(*leaves, x.to(device), p.to(device), 1024)
+        loss.backward()
+        outs.append([loss.detach().cpu(), xhat.cpu()] + [t.grad.float().cpu() for t in leaves])
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    assert [tuple(t.shape) for t in outs[1][1:]] == [(b, d), (s, d), (d,), (b, s)]
     for got, want in zip(outs[1], outs[0]):
         assert rel_norm(got, want) <= 1e-2
 
@@ -349,6 +379,61 @@ def test_prefix_base_kernel_matches_plain_and_k2(dev, cuts, g):
     assert _same_bits(xhat, k2_xhat)
     rebuilt = (base + (b_dec - x)).to(torch.bfloat16)
     assert torch.equal(rebuilt.view(torch.int16), e.view(torch.int16))
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("cuts,g", CUTS.values(), ids=CUTS.keys())
+def test_prefix_fwd_kernels_match_plain(dev, cuts, g, d):
+    """K2 at its tolerances (loss rel 1e-5, xhat rel-norm 1e-4, E rel-norm
+    1e-2, the same bits in two calls) and K7 against its plain version and
+    against K2 bit for bit (xhat, and bf16(base + b_dec - x) = E), at one
+    and eight 128-column tiles of d_model."""
+    f, w, x, b_dec = _matryoshka_operands(dev, len(cuts) + g + d, d=d)
+    m, r = _mr(cuts, g, dev)
+    iu = 1.0 / x.abs().max()
+    before = cm.grouped_prefix_err.launches, cm.grouped_prefix_base.launches
+    e, xhat, loss = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=g)
+    e2, xhat2, loss2 = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=g)
+    base, base_xhat = cm.grouped_prefix_base(f, w, m, r, group_size=g)
+    base16, _ = cm.grouped_prefix_base(f, w, m, r, group_size=g, base_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (cm.grouped_prefix_err.launches, cm.grouped_prefix_base.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(e.view(torch.int16), e2.view(torch.int16)) and torch.equal(loss, loss2)
+    assert _same_bits(xhat, xhat2)
+    pe, pxhat, ploss = cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=g)
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    assert rel_norm(xhat, pxhat) <= 1e-4 and rel_norm(e, pe) <= 1e-2
+    pbase, _ = cm.grouped_prefix_base_plain(f, w, m, r, group_size=g)
+    assert rel_norm(base, pbase) <= 1e-4
+    assert _same_bits(base_xhat, xhat)
+    rebuilt = (base + (b_dec - x)).to(torch.bfloat16)
+    assert torch.equal(rebuilt.view(torch.int16), e.view(torch.int16))
+    assert torch.equal(base16.view(torch.int16), base.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.parametrize("w_holds", ["column", "lane"])
+def test_prefix_fwd_kernels_read_one_hot_layouts(dev, w_holds):
+    """Layout probe of K2's and K7's operands: each row of f is one-hot at a
+    permuted lane, and W holds its column index or its lane index (integers
+    below 256, exact in bf16), with x = b_dec = 0. Every E_j, base_j and
+    xhat entry is then an exact integer, so a wrong offset in either
+    operand's swizzle or in the epilogue's stores shows as a mismatch."""
+    b, s, d, g = 256, 256, 256, 128
+    lane = torch.from_numpy(np.random.default_rng(7).permutation(s)).to(dev)
+    f = torch.zeros((b, s), device=dev)
+    f[torch.arange(b, device=dev), lane] = 1.0
+    f = f.to(torch.bfloat16)
+    grid = torch.arange(d, device=dev)[None, :] if w_holds == "column" else torch.arange(s, device=dev)[:, None]
+    w = grid.expand(s, d).float().contiguous().to(torch.bfloat16)
+    x = torch.zeros((b, d), device=dev)
+    b_dec = torch.zeros((d,), device=dev)
+    m, r = _mr([1, 15, 16, 17, 100, 128, 200, 256], g, dev)
+    e, xhat, _ = cm.grouped_prefix_err(f, w, x, b_dec, torch.ones(1, device=dev), m, r, group_size=g)
+    base, base_xhat = cm.grouped_prefix_base(f, w, m, r, group_size=g)
+    pe, pxhat, _ = cm.grouped_prefix_err_plain(f, w, x, b_dec, torch.ones(1, device=dev), m, r, group_size=g)
+    torch.cuda.synchronize()
+    assert torch.equal(xhat, pxhat) and torch.equal(base_xhat, pxhat)
+    assert torch.equal(e.float(), pe.float()) and torch.equal(base, pe.float())
 
 
 @pytest.mark.parametrize("cuts,g", CUTS.values(), ids=CUTS.keys())

@@ -301,7 +301,7 @@ def test_prefix_mse_kernel_path_pads_group_to_tile(monkeypatch, s, g):
     padded = (s // gg) * gp
     assert [(n, tuple(shape), size) for n, shape, size in seen] == [
         ("grouped_prefix_err", (128, padded), gp),
-        ("grouped_matmul_dgrad", (padded, d), gp),
+        ("grouped_matmul_dgrad", (padded, 128), gp),  # d_model 32, padded to the tile too
         ("grouped_matmul_wgrad", (128, padded), gp),
     ]
     assert tuple(xhat.shape) == (b, d)
@@ -324,6 +324,130 @@ def test_prefix_mse_kernel_path_pads_group_to_tile(monkeypatch, s, g):
     assert rel_norm(xhat.numpy(), u_xhat.numpy()) <= 1e-6
     for got, want in zip(grads, u_grads):
         assert rel_norm(got.float().numpy(), want.float().numpy()) <= 1e-6
+
+
+# Where each wrapper's d_model is: w (S, D) of K2 and K3, e (J, B, D) of K4.
+_D_SEEN = {
+    "grouped_prefix_err": lambda args: args[1].shape[1],
+    "grouped_matmul_dgrad": lambda args: args[0].shape[1],
+    "grouped_matmul_wgrad": lambda args: args[2].shape[2],
+}
+
+
+@pytest.mark.parametrize("d", [64, 192])
+def test_prefix_mse_kernel_path_pads_d_model_to_tile(monkeypatch, d):
+    """A d_model that is not a multiple of 128 (64, 192) on the kernel path,
+    with a batch of 96: the wrappers see d_model padded to whole 128-column
+    tiles (W, b_dec and x get zero columns, so E's padded columns are 0),
+    and the loss and gradients are those of the JAX op (XLA path; bf16
+    against f32: loss rel 1e-3, gradients rel-norm 1e-2) and of the same
+    algebra unpadded (1e-6)."""
+    monkeypatch.setattr(tmat, "_use_kernels", lambda t: True)
+    seen = []
+    for name, d_of in _D_SEEN.items():
+        real = getattr(cm, name)
+
+        def spy(*args, real=real, name=name, d_of=d_of, **kwargs):
+            seen.append((name, d_of(args)))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(cm, name, spy)
+    rng = np.random.default_rng(d)
+    b, s, g = 96, 2048, 1024
+    w = (rng.normal(size=(s, d)) / np.sqrt(d)).astype(np.float32)
+    b_dec = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    f = (rng.normal(size=(b, s)) * (rng.random((b, s)) < 0.05)).astype(np.float32)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    p = np.asarray([7, 1024, 1500, s], np.int32)
+
+    loss, xhat, grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    dp = 128 * -(-d // 128)
+    assert seen == [(name, dp) for name in _D_SEEN]
+    assert tuple(xhat.shape) == (b, d)
+    assert [tuple(t.shape) for t in grads] == [(s, d), (d,), (b, s)]
+
+    def jloss(w_, b_, f_):
+        return jmat.prefix_mse(w_, b_, f_, jnp.asarray(x), jnp.asarray(p), g, None)[0]
+
+    jl, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(w), jnp.asarray(b_dec), jnp.asarray(f)
+    )
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-3)
+    for got, want in zip(grads, jgrads):
+        assert rel_norm(got.float().numpy(), np.asarray(want)) <= 1e-2
+
+    monkeypatch.setattr(cm, "TILE", 1)  # no padding: the same algebra unpadded
+    u_loss, u_xhat, u_grads = _kernel_path_grads(w, b_dec, f, x, p, g)
+    assert seen[-3:] == [(name, d) for name in _D_SEEN]
+    np.testing.assert_allclose(loss.item(), u_loss.item(), rtol=1e-6)
+    assert rel_norm(xhat.numpy(), u_xhat.numpy()) <= 1e-6
+    for got, want in zip(grads, u_grads):
+        assert rel_norm(got.float().numpy(), want.float().numpy()) <= 1e-6
+
+
+def _prefix_err_by_k16(f, w, x, b_dec, inv_upper, m, r, g, step=16):
+    """K2's walk (csrc/prefix_fwd.cu) written out in torch: K = d_sae in
+    16-lane steps accumulated in f32; each cut, met in ascending p (stable
+    in j) in the step that holds it, snapshots acc + the correction
+    f[:, k0:p] @ W[k0:p] of the lanes below it (none when p is on a step),
+    a cut at p = d_sae the whole sum. Then E = bf16(base + (b_dec - x)) and
+    the loss sum. Returns E, xhat, the loss sum and the f32 base (K7's)."""
+    ff, wf = f.float(), w.float()
+    p = (m * g + r).tolist()
+    order = sorted(range(len(p)), key=lambda j: p[j])
+    acc = torch.zeros((f.shape[0], w.shape[1]))
+    base = [None] * len(p)
+    ci = 0
+    for k0 in range(0, f.shape[1], step):
+        while ci < len(order) and p[order[ci]] < k0 + step:
+            pj = p[order[ci]]
+            base[order[ci]] = acc + ff[:, k0:pj] @ wf[k0:pj] if pj > k0 else acc
+            ci += 1
+        acc = acc + ff[:, k0 : k0 + step] @ wf[k0 : k0 + step]
+    for j in order[ci:]:
+        base[j] = acc
+    base = torch.stack(base)
+    e = (base + (b_dec - x)).to(torch.bfloat16)
+    return e, acc, ((e.float() * inv_upper) ** 2).sum(), base
+
+
+# Several cuts in one 16-lane step (a small copy of the seed-0 sampled cuts),
+# cuts on and beside 16- and 64-lane steps, cuts on group boundaries; each
+# ends at d_sae.
+K16_CUTS = {
+    "sampled": [2, 5, 7, 8, 14, 27, 77, 113, 487, S],
+    "k16-edges": [1, 15, 16, 17, 63, 64, 65, S],
+    "group-boundaries": [G, 2 * G, 2 * G + 1, 3 * G, S],
+}
+
+
+@pytest.mark.parametrize("cuts", K16_CUTS.values(), ids=K16_CUTS.keys())
+def test_prefix_err_k16_walk_matches_pallas_and_plain(data, cuts):
+    """K2's schedule gives the Pallas kernel's (interpret mode) and the plain
+    version's outputs at K2's tolerances: loss rel 1e-5, xhat rel-norm 1e-4,
+    E rel-norm 1e-2; and its base gives its own E bit for bit after
+    + (b_dec - x), K7's contract."""
+    f, w, _, _, x, b_dec = data
+    m, r = _cuts(cuts)
+    upper = max(float(np.abs(x).max()), 1e-12)
+    je, jxhat, jloss_p = pk.grouped_prefix_err(
+        jnp.asarray(f, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), jnp.asarray(x),
+        jnp.asarray(b_dec), jnp.asarray(1.0 / upper, jnp.float32),
+        jnp.asarray(m), jnp.asarray(r), group_size=G, block_rows=64, interpret=True,
+    )
+    args = (_tb(f), _tb(w), _t(x), _t(b_dec), torch.tensor(1.0 / upper), _t(m), _t(r))
+    e, xhat, loss, base = _prefix_err_by_k16(*args, G)
+    pe, pxhat, ploss = cm.grouped_prefix_err_plain(*args, group_size=G)
+    wants = (
+        (np.asarray(je, np.float32), np.asarray(jxhat), float(np.asarray(jloss_p)[::8, 0].sum())),
+        (pe.float().numpy(), pxhat.numpy(), float(ploss)),
+    )
+    for want_e, want_xhat, want_loss in wants:
+        assert rel_norm(e.float().numpy(), want_e) <= 1e-2
+        assert rel_norm(xhat.numpy(), want_xhat) <= 1e-4
+        np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+    rebuilt = (base + (_t(b_dec) - _t(x))).to(torch.bfloat16)
+    assert torch.equal(rebuilt.view(torch.int16), e.view(torch.int16))
 
 
 def _wgrad_by_items(f, da, e, m, r, scale, g, tile=128):
@@ -423,3 +547,28 @@ def test_function_opcodes_counts_one_kernels_sass():
     assert list(found.values()) == [{"LDC": 1, "UTMALDG": 2, "HGMMA": 2}]
     assert list(_build.function_opcodes(K3_SASS, "build_da_vec_kernel").values()) == [{"LDG": 1}]
     assert _build.function_opcodes(K3_SASS, "wgrad_kernel") == {}
+
+
+PTXAS_LOG = """
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119prefix_wgmma_kernelILNS_4ModeE0EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119prefix_wgmma_kernelILNS_4ModeE0EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 104 registers, used 2 barriers, 1064 bytes smem, 592 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118dgrad_wgmma_kernelIfEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118dgrad_wgmma_kernelIfEEv14CUtensorMap_st
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 540 bytes smem, 592 bytes cmem[0]
+"""
+
+
+def test_ptxas_resources_reads_registers_and_spills():
+    """The ptxas report chip_smoke.py holds the wgmma products to: each
+    kernel's registers and spill bytes, found by a fragment of its name."""
+    from saev_tpu_torch.ops import _build
+
+    found = _build.ptxas_resources(PTXAS_LOG, "prefix_wgmma_kernel")
+    assert list(found.values()) == [{"spill_stores": 0, "spill_loads": 0, "registers": 104}]
+    found = _build.ptxas_resources(PTXAS_LOG, "dgrad_wgmma_kernel")
+    assert list(found.values()) == [{"spill_stores": 4, "spill_loads": 12, "registers": 90}]
+    assert _build.ptxas_resources(PTXAS_LOG, "wgrad_wgmma_kernel") == {}
