@@ -12,15 +12,20 @@ script exits non-zero:
                 products (K2's and K7's `prefix_wgmma_kernel`, K3's and K4's)
                 must hold wgmma (HGMMA) and TMA loads (UTMALDG) in their
                 SASS, no mma.sync (HMMA), and no spills in ptxas's report;
-                K2's and K7's resident CTAs an SM are logged.
+                K2's and K7's resident CTAs an SM are logged, and K1's, P1's
+                and K5's registers and spills.
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
-                16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K6
-                also against K1's kth; K5 at the dense (16384 x 16384) and
-                both subspace rungs' shapes (16384 x 1024 and 16384 x 4096),
-                k_aux 512, under masks that leave the dead columns (819, 5%;
-                3276, 20%, on the wide rung; pinned at -1e6 as bench.py pins
-                them), fewer than k, none and all; K3's dA bit for bit, on
+                16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K1
+                with the count of rows that took its whole-row fallback
+                (rows 0, 3 and 4 of the production batch: zeros, ties over
+                twice the candidate buffer, -0.0 over half the row; none of
+                the Gaussian rows); K6 also against K1's kth; K5 at the
+                dense (16384 x 16384) and both subspace rungs' shapes (16384
+                x 1024 and 16384 x 4096), k_aux 512, under masks that leave
+                the dead columns (819, 5%; 3276, 20%, on the wide rung;
+                pinned at -1e6 as bench.py pins them) as a prefix and
+                scattered, fewer than k, none and all; K3's dA bit for bit, on
                 both cut sets and on 64 cuts (1024 rows); K4's dW within
                 rel-norm 1e-4 and the same bits in two calls, on the same
                 three cut sets.
@@ -44,8 +49,10 @@ script exits non-zero:
                 not counted as the path's launches.
 7. metrics   -- the log-step metrics (`make_metrics_fn`) once at full width on
                 the two-SAE state at 5% dead.
-8. timing    -- each kernel's time against its plain version's; K2's, K3's
-                and K4's launches by the profiler, at both cut sets, each
+8. timing    -- each kernel's time against its plain version's; K1 also by
+                the profiler, with the count of rows that fell back (on
+                Gaussian rows and on the two-SAE state's pre-activations);
+                K2's, K3's and K4's launches by the profiler, at both cut sets, each
                 beside its own bound (K2 and K4 also beside their dense
                 floor), and a cuBLAS product of each one's main term as a
                 yardstick (K2: f @ W with bf16 operands).
@@ -98,6 +105,8 @@ K2_NAMES = ("prefix_wgmma_kernel", "sum_partials_kernel")  # K2's two launches
 K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
 WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
+# K1 (streamed rows, and one CTA a row), P1, K5
+SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats_kernel", "kth_masked_kernel")
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
@@ -106,7 +115,7 @@ KERNELS = {
     "grouped_prefix_err": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:161"),
     "grouped_matmul_dgrad": ("saev_tpu_torch/csrc/dgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:287"),
     "grouped_matmul_wgrad": ("saev_tpu_torch/csrc/wgrad.cu", "saev_tpu/ops/pallas_matryoshka.py:424"),
-    "kth_value_masked": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:248"),
+    "kth_value_masked": ("saev_tpu_torch/csrc/kth_masked.cu", "saev_tpu/ops/pallas_topk.py:248"),
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
     "grouped_prefix_base": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
     "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
@@ -210,6 +219,12 @@ def phase_build(verbose: bool = False) -> None:
         for name, r in res.items():
             require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"build: {name} spills: {r}")
             log(f"build ptxas {name}: {r['registers']} registers, no spills")
+    for fragment in SELECT_KERNELS:
+        res = _build.ptxas_resources(ptxas, fragment)
+        require(len(res) > 0, f"build: no {fragment} in ptxas's report")
+        for name, r in res.items():
+            log(f"build ptxas {name}: {r['registers']} registers, stack frame {r.get('stack_frame')}, "
+                f"spill stores {r.get('spill_stores')}, spill loads {r.get('spill_loads')}")
     ctas = [_build.lib().saev_prefix_occupancy(mode) for mode in range(3)]
     require(all(n >= 1 for n in ctas), f"build: K2's and K7's resident CTAs an SM {ctas}")
     log(f"build: prefix_wgmma_kernel (K2, K7 f32, K7 bf16) resident CTAs an SM {ctas}")
@@ -229,12 +244,25 @@ def _gen(device="cuda") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(SEED)
 
 
-def _k1_case(h: torch.Tensor, k: int, what: str) -> float:
+def _k1_fallbacks(h: torch.Tensor, k: int) -> int:
+    """How many rows of h take K1's whole-row fallback."""
+    from saev_tpu_torch.ops import cuda_topk
+
+    fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cuda_topk.topk_stats_cuda(h, k, fallback)
+    return int(fallback)
+
+
+def _k1_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
+    """K1 against its plain version; `fallbacks` rows of h must take the
+    whole-row bisection, the rest the candidate filter."""
     from saev_tpu_torch.ops import cuda_topk, topk
 
-    got = cuda_topk.topk_stats_cuda(h, k)
+    fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = cuda_topk.topk_stats_cuda(h, k, fallback)
     want = topk._topk_stats_plain(h, k)
     torch.cuda.synchronize()
+    require(int(fallback) == fallbacks, f"K1 {what}: {int(fallback)} rows fell back, expected {fallbacks}")
     require(torch.equal(got.kth, want.kth), f"K1 {what}: kth differs")
     require(torch.equal(got.f, want.f), f"K1 {what}: f differs")
     require(torch.equal(got.live, want.live), f"K1 {what}: live differs")
@@ -242,7 +270,8 @@ def _k1_case(h: torch.Tensor, k: int, what: str) -> float:
     l1_rel = float(((got.l1 - want.l1).abs() / want.l1.abs().clamp_min(1e-30)).max())
     require(l1_rel <= 1e-6, f"K1 {what}: l1 rel err {l1_rel:.3g} > 1e-6")
     err = max(max_abs(got.kth, want.kth), max_abs(got.f, want.f), max_abs(got.l1, want.l1))
-    log(f"parity K1 {what}: kth/f/live/l0 equal, l1 max rel {l1_rel:.3g}")
+    log(f"parity K1 {what}: kth/f/live/l0 equal, l1 max rel {l1_rel:.3g}; {int(fallback)} of {h.shape[0]} rows "
+        f"took the whole-row fallback, {h.shape[0] - int(fallback)} the candidate filter")
     return err
 
 
@@ -252,7 +281,7 @@ def _k1_inputs() -> torch.Tensor:
     h[1] = -h[1].abs()  # all negative
     h[2] = -h[2].abs()
     h[2, :5] = 1.0 + torch.arange(5, device="cuda")  # fewer than k positive
-    h[3, :100] = 7.0  # ties across the boundary
+    h[3, :2048] = 7.0  # ties across the boundary, over twice K1's candidate buffer
     h[4, ::2] = -0.0  # signed zeros beside positives
     h[4, 1::2] = -h[4, 1::2].abs()
     h[4, 1:40:2] = 0.5
@@ -282,8 +311,11 @@ def _k5_inputs(s: int, n_dead: int = N_DEAD_5) -> torch.Tensor:
 
 def _k5_masks(s: int, n_dead: int) -> dict:
     cols = torch.arange(s, device="cuda")
+    scattered = torch.zeros(s, dtype=torch.bool, device="cuda")
+    scattered[torch.randperm(s, generator=_gen(), device="cuda")[:n_dead]] = True
     return {
         f"{n_dead} dead ({n_dead / D_SAE:.0%})": cols < n_dead,
+        f"{n_dead} dead, scattered": scattered,
         f"{K_AUX - 3} unmasked (< k)": cols < K_AUX - 3,
         "all masked": torch.zeros(s, dtype=torch.bool, device="cuda"),
         "none masked": torch.ones(s, dtype=torch.bool, device="cuda"),
@@ -370,9 +402,16 @@ def phase_parity() -> dict:
 
     errs = {name: 0.0 for name in KERNELS}
     h = _k1_inputs()
-    errs["topk_stats"] = _k1_case(h, TOP_K, "production")
-    errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256].contiguous(), D_SAE, "k = d_sae"))
-    errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000"))
+    fell = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], TOP_K)]
+    require(fell == [0, 3, 4], f"K1: edge rows {fell} took the fallback, expected [0, 3, 4]")
+    log(f"parity K1: of the edge rows 0-7, rows {fell} take the whole-row fallback (zeros; 2048 ties at 7.0; "
+        f"-0.0 over half the row), the rest the candidate filter")
+    errs["topk_stats"] = _k1_case(h, TOP_K, "production", len(fell))
+    errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256].contiguous(), D_SAE, "k = d_sae", 256))
+    # At 1000 and 1001 columns every edge row fits the 1024-key buffer.
+    errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000", 0))
+    errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256, :1001].contiguous(), TOP_K,
+                                                          "ragged row 1001 (scalar loads and stores)", 0))
     errs["kth_value"] = max(
         _k6_case(h, TOP_K, "production"),
         _k6_case(h[:256].contiguous(), D_SAE, "k = d_sae"),
@@ -791,12 +830,18 @@ def phase_timing() -> dict:
     from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
+    from saev_tpu_torch.scripts import kprof
+
     out = {}
     h = torch.randn((B, D_SAE), generator=_gen(), device="cuda")
     stats = cuda_topk.topk_stats_cuda(h, TOP_K)
     out["topk_stats"] = timed(_time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10),
                               _time(lambda: topk._topk_stats_plain(h, TOP_K), 3),
                               bound((h, *stats), h.numel(), F32_OPS_S))
+    rows = kprof.device_profile(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), n=10, warmup=2,
+                                expect=("topk_stats",))
+    log("timing K1 by the profiler: " + "; ".join(f"{k[:70]} {t:.3f} ms x{c}" for k, t, c in rows[:3])
+        + f"; {_k1_fallbacks(h, TOP_K)} of {B} Gaussian rows took the whole-row fallback")
     out["kth_value"] = timed(_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 10),
                              _time(lambda: topk._kth_plain(h, TOP_K), 3),
                              _selection_bound(h, stats.kth), library_kth_ms(h, TOP_K, "K6"))
@@ -813,6 +858,14 @@ def phase_timing() -> dict:
         log_timing("kth_value_masked", masked[s], f" {B}x{s} k {K_AUX} ({n_dead} unmasked)")
         del h
     out["kth_value_masked"] = masked[TIGHT]
+    # The tight rung's call on Gaussian rows, not pinned near -1e6: K5's
+    # bisection starts below the common prefix of a row's least and largest
+    # unmasked key, so its steps depend on how close those keys lie.
+    h = torch.randn((B, TIGHT), generator=_gen(), device="cuda")
+    mask = torch.arange(TIGHT, device="cuda") < N_DEAD_5
+    log(f"timing kth_value_masked {B}x{TIGHT} k {K_AUX} on Gaussian rows, not pinned: kernel "
+        f"{_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 10):.3f} ms")
+    del h
     torch.cuda.empty_cache()
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
     m, r = _cuts(cut_sets["sampled"])
@@ -1198,7 +1251,11 @@ def main() -> int:
     warm_counts, _ = phase_slice()
     steady_counts, _, (ts, x, prefixes, n_dead) = phase_steady()
     metric_counts = phase_metrics(ts, x, prefixes, n_dead)
-    del ts
+    with torch.no_grad():
+        h = x @ ts.params["W_enc"][0] + ts.params["b_enc"][0]
+    log(f"K1 on the two-SAE state's pre-activations ({n_dead} latents pinned dead): {_k1_fallbacks(h, TOP_K)} "
+        f"of {B} rows took the whole-row fallback")
+    del ts, h
     torch.cuda.empty_cache()
     times = phase_timing()
     bench_counts, bench_errs, bench_times = phase_benches()

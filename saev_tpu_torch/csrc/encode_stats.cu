@@ -9,8 +9,8 @@
 // What bounds it on the card: the product's tensor-core work, 2 * B * D * S
 // = 0.55 TFLOP at B = S = 16384, D = 1024 (about 0.6 ms at the card's dense
 // bf16 rate, several ms at this kernel's mma.sync rate), then K1's row work:
-// 32 bisection passes over registers a row, and h read back (1 GiB) and f
-// written (0.5 GiB).
+// its candidate-filter select over registers a row, and h read back (1 GiB)
+// and f written (0.5 GiB).
 //
 // The hard part: a row's bisection needs all S of its h values (64 KB in
 // f32). The TPU kernel kept a 256-row tile of h in VMEM; here a 128-row tile
@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                         int* __restrict__ live, float* __restrict__ l0,
                         float* __restrict__ l1) {
   __shared__ __align__(16) __nv_bfloat16 smem[4 * STAGE_ELEMS];
-  __shared__ TopkRowSmem sm;
+  __shared__ TopkRowSmem<THREADS> sm;
   const long b0 = (long)blockIdx.x * BM;
 
   // 1. This CTA's rows of x, rounded to bf16 to nearest even.
@@ -89,10 +89,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   __threadfence();
   __syncthreads();
 
-  // 3. K1's statistics on each of this CTA's rows of h.
+  // 3. K1's statistics on each of this CTA's rows of h (S is a multiple of
+  // BN and h and f are the wrapper's own tensors, so rows take 16-byte loads).
   for (int i = 0; i < BM; ++i) {
     const long row = b0 + i;
-    topk_stats_row<VPT>(h + row * S, S, k, row, sm, kth, f, live, l0, l1);
+    topk_stats_row<VPT, THREADS, true>(h + row * S, S, k, row, sm, kth, f, live, l0, l1, nullptr,
+                                       [] {});
     __syncthreads();
   }
 }

@@ -1,7 +1,7 @@
 // The Hopper building blocks of K2 and K7 (prefix_fwd.cu), K3 (dgrad.cu) and
 // K4 (wgrad.cu): mbarriers, TMA loads, wgmma shared-memory descriptors, the
 // m64n128k16 product, and tensor maps encoded without a link against
-// libcuda.
+// libcuda; K1 (topk_stats.cu) streams its rows with `bulk_load`.
 //
 // The kernels run one mainloop: a 128 x 128 f32 output tile a CTA, one TMA
 // producer warp filling a ring of STAGES stages of 32 KB (two 16 KB operand
@@ -58,6 +58,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (tries == (1u << 26)) __trap();
   }
+}
+
+// One contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, counted on `bar`'s transactions.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Thread 0 sets up the ring's barriers: a full barrier a stage completed by

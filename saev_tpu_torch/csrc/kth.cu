@@ -1,17 +1,10 @@
-// K6 and K5: the exact per-row k-th largest value of a (B, S) f32 batch,
-// the second over the columns a (S,) mask keeps.
+// K6: the exact per-row k-th largest value of a (B, S) f32 batch.
 //
-// K6 replaces saev_tpu/ops/pallas_topk.py `_kernel` (via
-// `exact_kth_value_pallas`); K5 replaces `_kernel_masked` (via
-// `exact_kth_value_masked_pallas`). Both are K1's bisection (topk_stats.cu)
-// without its epilogue: the k-th largest order key of the row, found bit by
-// bit over 32 compare-and-count passes, mapped back to a float.
-//
-// K5 applies the column mask to the keys as they are loaded: a masked column
-// takes 0x007FFFFF, the key of -inf, so the result equals the k-th largest of
-// where(mask, h, -inf) and that tensor is never written. A row with fewer
-// than k unmasked columns therefore returns -inf. The ragged end of a row
-// beyond S takes key 0, which no candidate reaches, so it never counts.
+// Replaces saev_tpu/ops/pallas_topk.py `_kernel` (via
+// `exact_kth_value_pallas`): the k-th largest order key of the row, found bit
+// by bit over 32 compare-and-count passes, mapped back to a float. The ragged
+// end of a row beyond S takes key 0, which no candidate reaches, so it never
+// counts. (K5, the column-masked form, is kth_masked.cu.)
 //
 // What bounds it on the card: device memory. Each element of h is read once
 // (4 bytes), 1 GiB at 16384 x 16384, about 0.32 ms at 3.35 TB/s; the output
@@ -25,7 +18,7 @@
 // (via `count_loop`): the same row layout and per-pass reduction with the
 // bisection's data dependence taken out, sum_{i < n} count(key >= i) over
 // int32 keys. It measures what n compare-and-count passes cost on their own,
-// the floor under K1's and K6's 32 passes.
+// the floor under K6's 32 passes and K1's whole-row fallback.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -35,12 +28,9 @@
 
 namespace {
 
-constexpr uint32_t kKeyNegInf = 0x007FFFFFu;  // float_key(-inf)
-
-template <bool MASKED, int VPT, int MAXT>
+template <int VPT, int MAXT>
 __global__ void __launch_bounds__(MAXT)
-    kth_kernel(const float* __restrict__ h, const uint8_t* __restrict__ mask,
-               int S, int k, float* __restrict__ out) {
+    kth_kernel(const float* __restrict__ h, int S, int k, float* __restrict__ out) {
   __shared__ int counts[2][32];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
@@ -51,9 +41,7 @@ __global__ void __launch_bounds__(MAXT)
 #pragma unroll
   for (int j = 0; j < VPT; ++j) {
     const int i = tid + j * nt;
-    uint32_t kj = 0u;
-    if (i < S) kj = (MASKED && !mask[i]) ? kKeyNegInf : float_key(hr[i]);
-    key[j] = kj;
+    key[j] = i < S ? float_key(hr[i]) : 0u;
   }
 
   // Largest t with count(key >= t) >= k: the k-th largest key.
@@ -74,26 +62,11 @@ __global__ void __launch_bounds__(MAXT)
   if (tid == 0) out[row] = key_float(cur);
 }
 
-template <bool MASKED, int VPT, int MAXT>
-void launch(const float* h, const uint8_t* mask, int B, int S, int k, float* out,
-            cudaStream_t stream) {
+template <int VPT, int MAXT>
+void launch(const float* h, int B, int S, int k, float* out, cudaStream_t stream) {
   int threads = (S + VPT - 1) / VPT;
   threads = (threads + 31) / 32 * 32;
-  kth_kernel<MASKED, VPT, MAXT><<<B, threads, 0, stream>>>(h, mask, S, k, out);
-}
-
-template <bool MASKED>
-int dispatch(const float* h, const uint8_t* mask, int B, int S, int k, float* out,
-             cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
-  if (S <= 256 * 4) launch<MASKED, 4, 256>(h, mask, B, S, k, out, stream);
-  else if (S <= 256 * 8) launch<MASKED, 8, 256>(h, mask, B, S, k, out, stream);
-  else if (S <= 256 * 16) launch<MASKED, 16, 256>(h, mask, B, S, k, out, stream);
-  else if (S <= 256 * 32) launch<MASKED, 32, 256>(h, mask, B, S, k, out, stream);
-  else if (S <= 256 * 64) launch<MASKED, 64, 256>(h, mask, B, S, k, out, stream);
-  else if (S <= 512 * 64) launch<MASKED, 64, 512>(h, mask, B, S, k, out, stream);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  kth_kernel<VPT, MAXT><<<B, threads, 0, stream>>>(h, S, k, out);
 }
 
 // P3: out[row] = sum_{i < n_passes} count(key[row, :] >= i). The ragged end
@@ -153,10 +126,13 @@ extern "C" int saev_count_loop(const int* key, int B, int S, int n_passes, int* 
 
 extern "C" int saev_kth(const float* h, int B, int S, int k, float* out,
                         cudaStream_t stream) {
-  return dispatch<false>(h, nullptr, B, S, k, out, stream);
-}
-
-extern "C" int saev_kth_masked(const float* h, const uint8_t* mask, int B, int S,
-                               int k, float* out, cudaStream_t stream) {
-  return dispatch<true>(h, mask, B, S, k, out, stream);
+  if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
+  if (S <= 256 * 4) launch<4, 256>(h, B, S, k, out, stream);
+  else if (S <= 256 * 8) launch<8, 256>(h, B, S, k, out, stream);
+  else if (S <= 256 * 16) launch<16, 256>(h, B, S, k, out, stream);
+  else if (S <= 256 * 32) launch<32, 256>(h, B, S, k, out, stream);
+  else if (S <= 256 * 64) launch<64, 256>(h, B, S, k, out, stream);
+  else if (S <= 512 * 64) launch<64, 512>(h, B, S, k, out, stream);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

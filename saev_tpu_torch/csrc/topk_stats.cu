@@ -1,65 +1,131 @@
 // K1: the fused TopK statistics of one (B, S) f32 pre-activation batch.
 //
 // Replaces saev_tpu/ops/pallas_topk.py `_kernel_stats` (via
-// `topk_stats_pallas`). For each row: the exact k-th largest value kth by
-// 32-step bisection over the order-preserving uint32 key of each float, then
-// f = bf16(where(h >= kth, h, 0)), liveness (any bf16 f != 0 over the batch),
-// L0 = count(h >= kth and h != 0) and L1 = sum |f32 f|.
+// `topk_stats_pallas`). For each row: the exact k-th largest value kth, then
+// f = bf16(where(h >= kth, h, 0)), liveness (any bf16 f != 0 over the
+// batch), L0 = count(h >= kth and h != 0) and L1 = sum |f32 f|.
 //
 // What bounds it on the card: device memory. Each row of h is read once
 // (4 bytes an element) and f written once (2 bytes), 1.5 GiB at the
-// production shape (16384 x 16384), about 0.5 ms at 3.35 TB/s. The 32
-// bisection passes are compare-and-count work that must stay on chip.
+// production shape (16384 x 16384), about 0.5 ms at 3.35 TB/s.
 //
-// What the design does about it: one CTA per row keeps the whole row in
-// registers (VPT keys a thread, up to 64 at 256 threads for S = 16384), so
-// the 32 passes read registers, not memory, and each pass costs one block
-// reduction of integer counts. Loads are coalesced (thread t holds elements
-// t, t + T, t + 2T, ...). Liveness crosses rows, so it is an int32 (S,)
-// buffer zeroed by the caller and set with atomicOr, which does not depend on
-// order. L1 is reduced in a fixed order and is deterministic. The per-row
-// routine is in topk_row.cuh, shared with P1 (encode_stats.cu).
+// What the design does about it: a CTA keeps a whole row in registers (VPT
+// keys a thread, 64 at 256 threads for S = 16384) and selects its k-th
+// largest key by a candidate filter (topk_row.cuh): a lower bound from the
+// per-thread maxima, the few keys above it compacted into shared memory and
+// ranked, so a row pays four block barriers and not one a bisection step; a
+// row whose candidates overflow the buffer takes the whole-row bisection in
+// the same kernel. With the select that short, a row's load is what a CTA
+// waits on, so where S % 4 == 0 the CTAs are persistent and stream: each
+// walks rows blockIdx.x, + gridDim.x, .., and as soon as a row is in its
+// registers one thread starts the bulk copy (cp.async.bulk on an mbarrier)
+// of its next row into shared memory, which lands while this row is
+// selected. Other rows (S % 4 != 0) take one CTA a row and scalar loads.
+// Liveness crosses rows, so it is an int32 (S,) buffer zeroed by the caller
+// and set with atomicOr, which does not depend on order. L1 is reduced in a
+// fixed order and is deterministic. The per-row routine is shared with P1
+// (encode_stats.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "topk_row.cuh"
 
 namespace {
+
+constexpr uint32_t kCopyBytes = 16 * 1024;  // one bulk copy's bytes
+
+// Thread 0: the row at src into shared memory at dst, on bar's next phase.
+__device__ __forceinline__ void fetch_row(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
+  hopper::mbar_expect_tx(bar, bytes);
+  for (uint32_t off = 0; off < bytes; off += kCopyBytes)
+    hopper::bulk_load(dst + off, reinterpret_cast<const char*>(src) + off, min(kCopyBytes, bytes - off), bar);
+}
+
+template <int VPT, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    topk_stats_stream_kernel(const float* __restrict__ h, int B, int S, int k,
+                             float* __restrict__ kth_out, __nv_bfloat16* __restrict__ f,
+                             int* __restrict__ live, float* __restrict__ l0_out,
+                             float* __restrict__ l1_out, int* __restrict__ fallback) {
+  extern __shared__ __align__(16) float row_buf[];  // S floats
+  __shared__ TopkRowSmem<MAXT> sm;
+  __shared__ __align__(8) uint64_t full;
+  const uint32_t bar = hopper::smem_u32(&full), buf = hopper::smem_u32(row_buf);
+  const uint32_t bytes = 4u * static_cast<uint32_t>(S);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fetch_row(buf, h + static_cast<long>(blockIdx.x) * S, bytes, bar);
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  for (long row = blockIdx.x; row < B; row += gridDim.x, parity ^= 1) {
+    hopper::mbar_wait(bar, parity);
+    const long next = row + gridDim.x;
+    topk_stats_row<VPT, MAXT, true>(row_buf, S, k, row, sm, kth_out, f, live, l0_out, l1_out, fallback,
+                                    [&] {
+                                      if (threadIdx.x == 0 && next < B) {
+                                        // The buffer's reads are done: order them before the copy's writes.
+                                        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                                        fetch_row(buf, h + next * S, bytes, bar);
+                                      }
+                                    });
+  }
+}
 
 template <int VPT, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     topk_stats_kernel(const float* __restrict__ h, int S, int k,
                       float* __restrict__ kth_out, __nv_bfloat16* __restrict__ f,
                       int* __restrict__ live, float* __restrict__ l0_out,
-                      float* __restrict__ l1_out) {
-  __shared__ TopkRowSmem sm;
+                      float* __restrict__ l1_out, int* __restrict__ fallback) {
+  __shared__ TopkRowSmem<MAXT> sm;
   const long row = blockIdx.x;
-  topk_stats_row<VPT>(h + row * S, S, k, row, sm, kth_out, f, live, l0_out, l1_out);
+  topk_stats_row<VPT, MAXT, false>(h + row * S, S, k, row, sm, kth_out, f, live, l0_out, l1_out, fallback,
+                                   [] {});
 }
 
 template <int VPT, int MAXT>
-void launch(const float* h, int B, int S, int k, float* kth, __nv_bfloat16* f,
-            int* live, float* l0, float* l1, cudaStream_t stream) {
+int launch(const float* h, int B, int S, int k, float* kth, __nv_bfloat16* f, int* live,
+           float* l0, float* l1, int* fallback, cudaStream_t stream) {
   int threads = (S + VPT - 1) / VPT;
   threads = (threads + 31) / 32 * 32;
-  topk_stats_kernel<VPT, MAXT>
-      <<<B, threads, 0, stream>>>(h, S, k, kth, f, live, l0, l1);
+  const bool stream_rows = S % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                           reinterpret_cast<uintptr_t>(f) % 8 == 0;
+  if (!stream_rows) {
+    topk_stats_kernel<VPT, MAXT><<<B, threads, 0, stream>>>(h, S, k, kth, f, live, l0, l1, fallback);
+    return cudaGetLastError();
+  }
+  auto kernel = topk_stats_stream_kernel<VPT, MAXT>;
+  const int smem = 4 * S;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = B < sms * per_sm ? B : sms * per_sm;
+  kernel<<<grid, threads, smem, stream>>>(h, B, S, k, kth, f, live, l0, l1, fallback);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// live must be zeroed by the caller; fallback, when not null, gains 1 for
+// each row that took the whole-row bisection.
 extern "C" int saev_topk_stats(const float* h, int B, int S, int k, float* kth,
                                __nv_bfloat16* f, int* live, float* l0, float* l1,
-                               cudaStream_t stream) {
+                               int* fallback, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
-  if (S <= 256 * 4) launch<4, 256>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else if (S <= 256 * 8) launch<8, 256>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else if (S <= 256 * 16) launch<16, 256>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else if (S <= 256 * 32) launch<32, 256>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else if (S <= 256 * 64) launch<64, 256>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else if (S <= 512 * 64) launch<64, 512>(h, B, S, k, kth, f, live, l0, l1, stream);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (S <= 256 * 4) return launch<4, 256>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (S <= 256 * 8) return launch<8, 256>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (S <= 256 * 16) return launch<16, 256>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (S <= 256 * 32) return launch<32, 256>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (S <= 256 * 64) return launch<64, 256>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (S <= 512 * 64) return launch<64, 512>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  return cudaErrorInvalidValue;
 }

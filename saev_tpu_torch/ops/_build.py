@@ -39,7 +39,7 @@ _I = ctypes.c_int
 
 # Entry point -> argument types (pointers and the stream as void*, ints as int).
 SIGNATURES = {
-    "saev_topk_stats": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "saev_topk_stats": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "saev_kth": [_P, _I, _I, _I, _P, _P],
     "saev_kth_masked": [_P, _P, _I, _I, _I, _P, _P],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -130,13 +130,13 @@ def ptxas_log():
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def ptxas_resources(log: str, fragment: str) -> dict[str, dict[str, int]]:
-    """Mangled name -> registers and spill bytes, from a `-Xptxas -v`
-    report, of each kernel whose name contains `fragment`."""
+    """Mangled name -> registers, stack frame and spill bytes, from a
+    `-Xptxas -v` report, of each kernel whose name contains `fragment`."""
     found: dict[str, dict[str, int]] = {}
     current = None
     for line in log.splitlines():
@@ -145,7 +145,7 @@ def ptxas_resources(log: str, fragment: str) -> dict[str, dict[str, int]]:
         elif current is None:
             continue
         elif m := _PTXAS_SPILL.search(line):
-            current.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            current.update(stack_frame=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
         elif m := _PTXAS_REGS.search(line):
             current["registers"] = int(m[1])
     return found

@@ -1,5 +1,5 @@
-"""Wrappers of kernels K6 and K5, the exact per-row k-th largest value
-(csrc/kth.cu), plain and with a column mask.
+"""Wrappers of kernels K6 and K5, the exact per-row k-th largest value, plain
+(csrc/kth.cu) and with a column mask (csrc/kth_masked.cu).
 
 Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
@@ -12,8 +12,9 @@ import torch
 from . import _build
 from .topk import _kth_masked_plain, _kth_plain
 
-# The kernel stages a row in registers, as K1 does: at most 64 keys a thread,
-# 512 threads.
+# K6 stages a row in registers, as K1 does: at most 64 keys a thread, 512
+# threads. K5 compacts the mask into uint16 column indices and takes the same
+# widths.
 MAX_S = 512 * 64
 
 

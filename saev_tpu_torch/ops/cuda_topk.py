@@ -1,4 +1,5 @@
-"""Wrapper of kernel K1, the fused TopK statistics (csrc/topk_stats.cu).
+"""Wrapper of kernel K1, the fused TopK statistics (csrc/topk_stats.cu,
+csrc/topk_row.cuh).
 
 Counterpart of saev_tpu/ops/pallas_topk.py `topk_stats_pallas`. A CUDA tensor
 launches the kernel; a CPU tensor takes the plain version,
@@ -14,9 +15,13 @@ from .topk import TopKStats, _topk_stats_plain
 MAX_D_SAE = 512 * 64
 
 
-def topk_stats_cuda(h: torch.Tensor, k: int) -> TopKStats:
+def topk_stats_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None) -> TopKStats:
     """(kth, f bf16, live bool (S,), l0, l1) of a (B, S) f32 batch, in one
-    read of h."""
+    read of h.
+
+    `fallback`, a (1,) int32 tensor on h's device, gains the number of rows
+    whose candidate filter overflowed and took the whole-row bisection (a
+    measurement; the step passes none)."""
     if h.device.type != "cuda":
         return _topk_stats_plain(h, k)
     if h.dtype != torch.float32 or h.ndim != 2 or not h.is_contiguous():
@@ -28,6 +33,9 @@ def topk_stats_cuda(h: torch.Tensor, k: int) -> TopKStats:
     k = min(k, s)
     if not (1 <= k and 1 <= s <= MAX_D_SAE and b >= 1):
         raise ValueError(f"topk_stats: unsupported shape {tuple(h.shape)} with k={k}")
+    if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1
+                                 or fallback.device != h.device):
+        raise ValueError(f"topk_stats wants a (1,) int32 fallback count on {h.device}")
     dev = h.device
     kth = torch.empty((b, 1), dtype=torch.float32, device=dev)
     f = torch.empty((b, s), dtype=torch.bfloat16, device=dev)
@@ -36,7 +44,8 @@ def topk_stats_cuda(h: torch.Tensor, k: int) -> TopKStats:
     l1 = torch.empty((b, 1), dtype=torch.float32, device=dev)
     code = _build.lib().saev_topk_stats(
         h.data_ptr(), b, s, k, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
-        l0.data_ptr(), l1.data_ptr(), _build.stream_ptr(h),
+        l0.data_ptr(), l1.data_ptr(), None if fallback is None else fallback.data_ptr(),
+        _build.stream_ptr(h),
     )
     _build.check(code, "topk_stats")
     topk_stats_cuda.launches += 1

@@ -10,7 +10,7 @@ tensor it launches kernel K1 (ops/cuda_topk.py, csrc/topk_stats.cu); on a CPU
 tensor it runs `_topk_stats_plain`, the same outputs composed from plain
 torch operations. `exact_kth_value` (K6) and `exact_kth_value_masked` (K5,
 the AuxK threshold among dead latents) dispatch the same way
-(ops/cuda_kth.py, csrc/kth.cu).
+(ops/cuda_kth.py; csrc/kth.cu and csrc/kth_masked.cu).
 """
 
 import typing

@@ -1,0 +1,256 @@
+"""Where K1's and K5's time goes on the card, measured on instrumented or
+re-bounded copies of the committed sources (csrc/topk_row.cuh and
+csrc/topk_stats.cu; csrc/kth_masked.cu); the library itself is untouched.
+
+    python -m saev_tpu_torch.scripts.select_probe
+
+- `k1_phases`: a copy of K1 with a clock64 stamp, from thread 0, at each
+  phase boundary of every row: the row into registers, the lower bound, the
+  filter, the select, the epilogue's loop, the reductions and stores. Prints
+  the mean cycles a row spends in each phase, and the CUDA-event times of
+  the copy with and without stamps and of the library's K1, at the
+  production shape (16384 x 16384 Gaussian rows, k 32).
+- `k5_phases`: a copy of K5 with clock64 stamps: each CTA's start and the
+  end of its mask compaction (thread 0), and each row's gather start, keys
+  gathered and bisection done (the first lane of the row's first warp).
+  Prints the mean cycles of each phase at the train step's three shapes
+  (dead columns pinned near -1e6 as bench.py pins them) and at the tight
+  shape on Gaussian rows, and the kernel's device time by the profiler.
+- `k5_caps`: K5 built with launch bounds that ask for 1, 2 and 3 CTAs an SM
+  (the KPL 32 kernel's registers held to 128, 64 and 40), timed by CUDA
+  events at the train step's three shapes (16384 x 1024 with 819 unmasked
+  columns, x 4096 with 3276, x 16384 with 819), each held bitwise to the
+  plain version.
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from ..ops import _build, cuda_kth, cuda_topk, topk
+from . import kprof
+
+B, S, K = 16384, 16384, 32
+K_AUX = 512
+K5_SHAPES = ((1024, 819), (4096, 3276), (16384, 819))
+PHASES = ("row into registers", "lower bound", "filter", "select", "epilogue loop", "reductions and stores")
+SEED = 0
+
+# Where each stamp goes in topk_row.cuh: (text, stamp index, before or after).
+_STAMPS = (
+    ("  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;\n", 0, "after"),
+    ("  __syncthreads();\n  released();\n", 1, "after"),
+    ("  // 2. The keys >= t0", 2, "before"),
+    ("  const int n_cand = sm.n_cand;\n", 3, "after"),
+    ("  const float kth = key_float(kth_key);\n", 4, "before"),
+    ("  l0 = __reduce_add_sync(0xffffffffu, l0);\n", 5, "before"),
+    ("    l1_out[row] = l1_total;\n", 6, "after"),
+)
+_K5_BOUNDS = "__launch_bounds__(kMaxWarps * 32, KPL == 32 ? 2 : 1)"
+# Where each stamp goes in kth_masked.cu: (text, array and index, before or after).
+_K5_STAMPS = (
+    ("  const int lane = tid & 31, warp = tid >> 5, W = nt >> 5;\n", "cta", 0, "after"),
+    ("  // 2. Fewer than k unmasked columns", "cta", 1, "before"),
+    ("    const float* hr = h + row * S;\n", "row", 0, "after"),
+    ("    // The k-th largest key, in [lo, hi].\n", "row", 1, "before"),
+    ("    if (g == 0 && lane == 0) out[row] = key_float(kth);\n", "row", 2, "before"),
+)
+K5_PHASES = ("mask compaction (a CTA)", "keys gathered (a row)", "bisection (a row)")
+
+
+def stamped_row_source() -> str:
+    """topk_row.cuh with a clock64 stamp of thread 0 at each phase boundary,
+    into g_stamps[row * 8 + i] (a device pointer, null for no stamps)."""
+    src = (_build.CSRC / "topk_row.cuh").read_text()
+    for text, i, where in _STAMPS:
+        if src.count(text) != 1:
+            raise ValueError(f"topk_row.cuh: the probe's marker {text!r} is not there once")
+        stamp = f"  if (threadIdx.x == 0 && g_stamps) g_stamps[row * 8 + {i}] = clock64();\n"
+        src = src.replace(text, stamp + text if where == "before" else text + stamp)
+    return src.replace("namespace {\n", "__device__ long long* g_stamps;\n\nnamespace {\n", 1)
+
+
+def k5_capped_source(min_blocks: int) -> str:
+    """kth_masked.cu with launch bounds that ask for min_blocks CTAs an SM."""
+    src = (_build.CSRC / "kth_masked.cu").read_text()
+    if src.count(_K5_BOUNDS) != 1:
+        raise ValueError("kth_masked.cu: the probe's launch bounds are not there once")
+    return src.replace(_K5_BOUNDS, f"__launch_bounds__(kMaxWarps * 32, {min_blocks})")
+
+
+def stamped_k5_source() -> str:
+    """kth_masked.cu with clock64 stamps: g_cta[blockIdx.x * 2 + i] from
+    thread 0, g_row[row * 3 + i] from the first lane of each row's first warp
+    (device pointers, null for no stamps)."""
+    src = (_build.CSRC / "kth_masked.cu").read_text()
+    for text, where, i, place in _K5_STAMPS:
+        if src.count(text) != 1:
+            raise ValueError(f"kth_masked.cu: the probe's marker {text!r} is not there once")
+        if where == "cta":
+            stamp = f"  if (tid == 0 && g_cta) g_cta[blockIdx.x * 2 + {i}] = clock64();\n"
+        else:
+            stamp = f"    if (g == 0 && lane == 0 && g_row) g_row[row * 3 + {i}] = clock64();\n"
+        src = src.replace(text, stamp + text if place == "before" else text + stamp)
+    pointers = "__device__ long long* g_cta;\n__device__ long long* g_row;\n"
+    return src.replace("namespace {\n", pointers + "\nnamespace {\n", 1)
+
+
+def _compile(tmp: pathlib.Path, source: pathlib.Path, name: str) -> tuple[ctypes.CDLL, str]:
+    out = tmp / f"{name}.so"
+    res = subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(source)],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+    return ctypes.CDLL(str(out)), res.stderr
+
+
+def _events_ms(fn, n: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def k1_phases(tmp: pathlib.Path) -> list[str]:
+    d = tmp / "k1"
+    d.mkdir()
+    for name in ("topk_stats.cu", "hopper.cuh", "order_key.cuh"):
+        shutil.copy(_build.CSRC / name, d / name)
+    (d / "topk_row.cuh").write_text(stamped_row_source())
+    with open(d / "topk_stats.cu", "a") as fh:
+        fh.write('\nextern "C" int saev_probe_stamps(long long* p) {\n'
+                 "  return cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n")
+    lib, _ = _compile(d, d / "topk_stats.cu", "k1_probe")
+    lib.saev_topk_stats.argtypes = _build.SIGNATURES["saev_topk_stats"]
+    lib.saev_probe_stamps.argtypes = [ctypes.c_void_p]
+    h = torch.randn((B, S), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    kth = torch.empty((B, 1), device="cuda")
+    f = torch.empty((B, S), dtype=torch.bfloat16, device="cuda")
+    live = torch.zeros(S, dtype=torch.int32, device="cuda")
+    l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
+    stamps = torch.zeros((B, 8), dtype=torch.int64, device="cuda")
+
+    def call():
+        code = lib.saev_topk_stats(h.data_ptr(), B, S, K, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
+                                   l0.data_ptr(), l1.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "select_probe K1")
+
+    lib.saev_probe_stamps(None)
+    plain_ms = _events_ms(call)
+    lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()))
+    stamped_ms = _events_ms(call)
+    lib.saev_probe_stamps(None)
+    library_ms = _events_ms(lambda: cuda_topk.topk_stats_cuda(h, K))
+    want = topk._topk_stats_plain(h, K)
+    if not torch.equal(kth, want.kth):
+        raise AssertionError("select_probe: the stamped K1's kth differs from the plain version")
+    st = stamps.double()
+    cycles = (st[:, 1:7] - st[:, 0:6]).mean(0).tolist()
+    total = float((st[:, 6] - st[:, 0]).mean())
+    return [f"K1 {B}x{S} k {K}: library {library_ms:.3f} ms, the probe's copy {plain_ms:.3f} ms, with stamps "
+            f"{stamped_ms:.3f} ms; mean cycles a row: "
+            + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, cycles)) + f"; in all {total:.0f}"]
+
+
+def k5_phases(tmp: pathlib.Path) -> list[str]:
+    d = tmp / "k5"
+    d.mkdir()
+    shutil.copy(_build.CSRC / "order_key.cuh", d / "order_key.cuh")
+    src = stamped_k5_source() + ('\nextern "C" int saev_probe_stamps(long long* cta, long long* row) {\n'
+                                 "  cudaError_t e = cudaMemcpyToSymbol(g_cta, &cta, sizeof(cta));\n"
+                                 "  return e != cudaSuccess ? e : cudaMemcpyToSymbol(g_row, &row, sizeof(row));\n}\n")
+    (d / "kth_masked.cu").write_text(src)
+    lib, _ = _compile(d, d / "kth_masked.cu", "k5_probe")
+    lib.saev_kth_masked.argtypes = _build.SIGNATURES["saev_kth_masked"]
+    lib.saev_probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lines = []
+    for s, n, pinned in [(s, n, True) for s, n in K5_SHAPES] + [(K5_SHAPES[0][0], K5_SHAPES[0][1], False)]:
+        h = torch.randn((B, s), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        if pinned:
+            h[:, :n] = h[:, :n] * 4.0 - 1e6
+        mask = torch.arange(s, device="cuda") < n
+        out = torch.empty((B, 1), device="cuda")
+        cta = torch.zeros((B, 2), dtype=torch.int64, device="cuda")
+        row = torch.zeros((B, 3), dtype=torch.int64, device="cuda")
+
+        def call():
+            code = lib.saev_kth_masked(h.data_ptr(), mask.data_ptr(), B, s, K_AUX, out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "select_probe K5")
+
+        lib.saev_probe_stamps(None, None)
+        plain_ms = _events_ms(call, 20)
+        lib.saev_probe_stamps(ctypes.c_void_p(cta.data_ptr()), ctypes.c_void_p(row.data_ptr()))
+        stamped_ms = _events_ms(call, 20)
+        lib.saev_probe_stamps(None, None)
+        want = topk._kth_masked_plain(h, mask, K_AUX)
+        if not torch.equal((out + 0.0).view(torch.int32), (want + 0.0).view(torch.int32)):
+            raise AssertionError(f"select_probe: the stamped K5 differs at {B}x{s}")
+        rows = kprof.device_profile(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), n=10, warmup=2,
+                                    expect=("kth_masked_kernel",))
+        dev_ms = sum(t for name, t, _ in rows if "kth_masked_kernel" in name)
+        c, r = cta[cta[:, 1] > 0].double(), row.double()  # the CTAs that ran
+        cycles = [float((c[:, 1] - c[:, 0]).mean()), float((r[:, 1] - r[:, 0]).mean()),
+                  float((r[:, 2] - r[:, 1]).mean())]
+        kind = "pinned near -1e6" if pinned else "Gaussian"
+        lines.append(f"K5 {B}x{s}, {n} unmasked ({kind}), k {K_AUX}: probe's copy {plain_ms:.4f} ms, with stamps "
+                     f"{stamped_ms:.4f} ms, library by the profiler {dev_ms:.4f} ms; mean cycles: "
+                     + ", ".join(f"{name} {v:.0f}" for name, v in zip(K5_PHASES, cycles))
+                     + f"; {len(c)} CTAs")
+    return lines
+
+
+def k5_caps(tmp: pathlib.Path) -> list[str]:
+    lines, libs = [], {}
+    for min_blocks in (1, 2, 3):
+        src = tmp / f"k5_{min_blocks}.cu"
+        src.write_text(k5_capped_source(min_blocks))
+        shutil.copy(_build.CSRC / "order_key.cuh", tmp / "order_key.cuh")
+        lib, log = _compile(tmp, src, f"k5_{min_blocks}")
+        lib.saev_kth_masked.argtypes = _build.SIGNATURES["saev_kth_masked"]
+        libs[min_blocks] = lib
+        res = _build.ptxas_resources(log, "kth_masked_kernelILi32E")
+        lines.append(f"K5 at least {min_blocks} CTAs an SM: KPL 32 kernel {list(res.values())}")
+    for s, n in K5_SHAPES:
+        h = torch.randn((B, s), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        h[:, :n] = h[:, :n] * 4.0 - 1e6
+        mask = torch.arange(s, device="cuda") < n
+        want = topk._kth_masked_plain(h, mask, K_AUX)
+        times = []
+        for min_blocks, lib in libs.items():
+            out = torch.empty((B, 1), device="cuda")
+
+            def call(lib=lib, out=out):
+                code = lib.saev_kth_masked(h.data_ptr(), mask.data_ptr(), B, s, K_AUX, out.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream)
+                _build.check(code, "select_probe K5")
+
+            ms = _events_ms(call, 20)
+            if not torch.equal((out + 0.0).view(torch.int32), (want + 0.0).view(torch.int32)):
+                raise AssertionError(f"select_probe: K5 with {min_blocks} CTAs an SM differs at {B}x{s}")
+            times.append(f"{min_blocks} CTAs {ms:.4f} ms")
+        lines.append(f"K5 {B}x{s}, {n} unmasked, k {K_AUX}: " + "; ".join(times) + " (bitwise equal)")
+    return lines
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("select_probe needs a CUDA device")
+    print(kprof.card())
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for line in k1_phases(pathlib.Path(tmp)) + k5_phases(pathlib.Path(tmp)) + k5_caps(pathlib.Path(tmp)):
+            print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,187 @@
+"""Plain torch models of the selects of kernels K1 (csrc/topk_row.cuh) and K5
+(csrc/kth_masked.cu), step by step as the kernels run them, for the CPU tests
+(test_torch_kth_select.py, against the JAX package) and the card tests
+(test_torch_cuda_kernels.py, against the kernels: which rows take K1's
+fallback, and K1's L1 in the kernel's order). Imports no JAX.
+
+- K1: the dispatch of topk_stats.cu (VPT keys a thread, T threads), runs of 4
+  columns a thread, key 0 past the row's end, the per-thread maxima and their
+  k-th largest cut to its bits down to kBoundBit, t0 (when k <= T', the
+  threads that hold a column), the keys >= t0 counted against the candidate
+  buffer's capacity (kCandCap; both constants read from the source), the
+  k-th largest candidate (ranked up to T candidates, bisected past them),
+  and the whole-row bisection where k > T' or the buffer overflows; each
+  bisection from the common prefix of its bounds (`bisect`). Then the
+  epilogue, L1 in the kernel's order.
+- K5: the dispatch of kth_masked.cu (KPL keys a lane, W warps a CTA), the
+  mask compacted by threads over contiguous runs of columns, -inf where
+  fewer than k columns are unmasked, G warps a row and the lane layout of
+  the gathered keys (each unmasked column held once), the bisection from
+  the common prefix of the row's least and largest unmasked key.
+"""
+
+import functools
+import pathlib
+import re
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "saev_tpu_torch" / "csrc"
+
+
+@functools.cache
+def _source(name: str) -> str:
+    return (CSRC / name).read_text()
+
+
+def cand_cap() -> int:
+    return int(re.search(r"constexpr int kCandCap = (\d+);", _source("topk_row.cuh"))[1])
+
+
+def bound_bit() -> int:
+    return int(re.search(r"constexpr int kBoundBit = (\d+);", _source("topk_row.cuh"))[1])
+
+
+def k1_dispatch(s: int) -> tuple[int, int]:
+    """(VPT, MAXT) of topk_stats.cu's table for a row of s."""
+    for n_t, vpt, vpt_t, maxt in re.findall(r"S <= (\d+) \* (\d+)\) return launch<(\d+), (\d+)>",
+                                            _source("topk_stats.cu")):
+        if s <= int(n_t) * int(vpt):
+            return int(vpt_t), int(maxt)
+    raise ValueError(s)
+
+
+def k5_dispatch(s: int) -> tuple[int, int]:
+    """(KPL, warps a CTA) of kth_masked.cu's table for a row of s."""
+    for w, kpl, kpl_t, warps in re.findall(
+            r"S <= (\d+) \* 32 \* (\d+)\) return launch<(\d+)>\(h, mask, B, S, k, out, (\d+), stream\)",
+            _source("kth_masked.cu")):
+        if s <= int(w) * 32 * int(kpl):
+            return int(kpl_t), int(warps)
+    raise ValueError(s)
+
+
+# --- order keys (csrc/order_key.cuh) as int64 in [0, 2**32) ---
+
+
+def order_key(h: torch.Tensor) -> torch.Tensor:
+    u = h.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def key_float(key: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(key >> 31 == 1, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def bisect(lo: torch.Tensor, hi: torch.Tensor, k: int, count, lowest: int = 0) -> torch.Tensor:
+    """topk_row.cuh `bisect`, row by row: from lo's and hi's common prefix,
+    one step for each bit below it down to `lowest`; count(t) gives each
+    row's count of keys >= t[row]."""
+    diff = lo ^ hi
+    top = torch.full_like(lo, -1)
+    for b in range(32):
+        top = torch.where((diff >> b) != 0, b, top)
+    cur = lo & ~((torch.ones_like(lo) << (top + 1)) - 1)
+    for b in range(31, -1, -1):
+        cand = cur | (1 << b)
+        cur = torch.where((b <= top) & (b >= lowest) & (count(cand) >= k), cand, cur)
+    return cur
+
+
+# --- K1 ---
+
+
+def k1_layout(s: int) -> tuple[torch.Tensor, int]:
+    """(T, VPT) column of each thread's key slot (runs of 4: slot 4r + q of
+    thread t is column 4(t + rT) + q), and T."""
+    vpt, maxt = k1_dispatch(s)
+    nt = -(-(-(-s // vpt)) // 32) * 32
+    assert nt <= maxt and nt * vpt >= s
+    t = torch.arange(nt)[:, None]
+    j = torch.arange(vpt)[None, :]
+    return 4 * (t + (j // 4) * nt) + j % 4, nt
+
+
+def k1_model(h: torch.Tensor, k: int) -> dict:
+    """K1 on a (B, S) f32 batch: kth, f, live, l0, l1 and, per row, whether
+    the filter ran, its candidate count and whether the row fell back."""
+    b, s = h.shape
+    k = min(k, s)
+    cols, nt = k1_layout(s)
+    inside = cols < s
+    key = torch.where(inside, order_key(h)[:, cols.clamp(max=s - 1)], 0)  # (B, T, VPT)
+    mx = key.amax(-1)  # (B, T)
+    t_live = min(nt, -(-s // 4))
+    bounded = k <= t_live
+    lo, hi = mx.amin(-1), mx.amax(-1)
+    if bounded:
+        t0 = bisect(lo, hi, k, lambda t: (mx >= t[:, None]).sum(-1), lowest=bound_bit())
+    else:
+        t0 = torch.zeros_like(hi)
+    filt = bounded & (t0 > 0)
+    n_cand = torch.where(filt, (key >= t0[:, None, None]).flatten(1).sum(-1), 0)
+    by_cand = filt & (n_cand <= cand_cap())
+    flat = key.flatten(1)
+    cand_key = torch.where(flat >= t0[:, None], flat, 0)  # the buffer: the keys >= t0
+    # Up to T candidates: the one with fewer than k above it and at least k
+    # at or above it, the k-th of them in descending order; past T, a
+    # bisection over them.
+    ranked = torch.sort(cand_key, dim=-1, descending=True).values[:, k - 1]
+    sel_cand = torch.where(n_cand <= nt, ranked, bisect(t0, hi, k, lambda t: (cand_key >= t[:, None]).sum(-1)))
+    sel_full = bisect(t0, hi, k, lambda t: (flat >= t[:, None]).sum(-1))
+    kth = key_float(torch.where(by_cand, sel_cand, sel_full))[:, None]
+
+    x = torch.where(inside, h[:, cols.clamp(max=s - 1)], 0.0)  # (B, T, VPT)
+    keep = x >= kth[:, :, None]
+    fv = torch.where(keep, x, 0.0)
+    acc = torch.zeros((b, nt), dtype=torch.float32)
+    for j in range(fv.shape[-1]):  # each thread's keys in turn
+        acc = acc + torch.where(inside[:, j], fv[:, :, j].abs(), 0.0)
+    acc = acc.view(b, nt // 32, 32)
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):  # the warp's xor tree
+        acc = acc + acc[:, :, lane ^ o]
+    l1 = torch.zeros(b, dtype=torch.float32)
+    for w in range(nt // 32):  # the warps in turn
+        l1 = l1 + acc[:, w, 0]
+    f = torch.where(h >= kth, h, 0.0).to(torch.bfloat16)
+    return {
+        "kth": kth, "f": f, "live": (f != 0).any(0), "l0": ((h >= kth) & (h != 0)).sum(1, keepdim=True).float(),
+        "l1": l1[:, None], "filter": filt, "n_cand": n_cand, "fallback": ~by_cand,
+    }
+
+
+def k5_model(h: torch.Tensor, mask: torch.Tensor, k: int) -> tuple[torch.Tensor, int, int]:
+    """K5 on a (B, S) batch and a (S,) bool mask: (value (B, 1), n, G)."""
+    b, s = h.shape
+    k = min(k, s)
+    kpl, warps = k5_dispatch(s)
+    nt = 32 * warps
+    per = -(-s // nt)
+    assert per <= 64
+    # Each thread's run of columns, its count, and its offset (a block scan).
+    runs = [torch.arange(min(t * per, s), min((t + 1) * per, s)) for t in range(nt)]
+    counts = torch.tensor([int(mask[r].sum()) for r in runs])
+    offsets = torch.cumsum(counts, 0) - counts
+    n = int(counts.sum())
+    idx = torch.full((n,), -1, dtype=torch.int64)
+    for r, o in zip(runs, offsets.tolist()):
+        kept = r[mask[r]]
+        idx[o : o + len(kept)] = kept
+    assert torch.equal(idx, torch.nonzero(mask).flatten())  # ascending, each once
+    if n < k:
+        return torch.full((b, 1), float("-inf")), n, 0
+    g_warps = 1
+    while g_warps * 32 * kpl < n:
+        g_warps *= 2
+    assert g_warps <= warps
+    i, g, lane = torch.meshgrid(torch.arange(kpl), torch.arange(g_warps), torch.arange(32), indexing="ij")
+    j = ((i * g_warps + g) * 32 + lane).flatten()  # the compacted key each lane slot holds
+    assert torch.equal(torch.sort(j[j < n]).values, torch.arange(n))
+    key = torch.where(j < n, order_key(h)[:, idx[j.clamp(max=n - 1)]], 0)
+    valid = (j < n)[None, :]
+    lo = torch.where(valid, key, 2**32 - 1).amin(-1)
+    hi = key.amax(-1)
+    cur = bisect(lo, hi, k, lambda t: (key >= t[:, None]).sum(-1))
+    return key_float(cur)[:, None], n, g_warps

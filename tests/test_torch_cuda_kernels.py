@@ -10,6 +10,7 @@ without one. The file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+from kth_select_model import cand_cap, k1_layout, k1_model, k5_model
 
 from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 from saev_tpu_torch.ops import cuda_matryoshka as cm
@@ -56,6 +57,58 @@ def test_topk_stats_kernel_matches_plain(dev, b, s, k):
     for name in ("kth", "f", "live", "l0"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     torch.testing.assert_close(got.l1, want.l1, rtol=1e-6, atol=0)
+
+
+def _k1_select_rows(b: int, s: int, seed: int) -> torch.Tensor:
+    """`_rows` with rows that overflow K1's candidate buffer: tied at the
+    top over twice its capacity, and all -inf beside one finite value."""
+    h = _rows(b, s, seed)
+    h[5, : min(2 * cand_cap(), s)] = 3.5
+    h[6] = -np.inf
+    h[6, s // 2] = 1.0
+    return h
+
+
+# (b, s, k): k just below, at and above T' (the threads that hold a column:
+# 256 at s 2048 and 16384), S not a multiple of 4 (scalar loads and stores),
+# and the production row width.
+K1_SELECT = [(16, 2048, 255), (16, 2048, 256), (16, 2048, 257), (33, 16384, 32), (16, 16384, 257),
+             (16, 1001, 32), (8, 16383, 32), (8, 20001, 321), (8, 32765, 32), (8, 30, 8)]
+
+
+@pytest.mark.parametrize("b,s,k", K1_SELECT)
+def test_topk_stats_kernel_select_branches(dev, b, s, k):
+    """K1's candidate filter and its fallback against the plain version
+    (kth, f, live, L0 bitwise; L1 within 1e-6) and against the model of its
+    select (kth_select_model.k1_model): the same rows fall back, and L1 has
+    the model's bits (the kernel's reduction order); two calls agree."""
+    h = _k1_select_rows(b, s, b + s + k)
+    model = k1_model(h, k)
+    h = h.to(dev)
+    fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = cuda_topk.topk_stats_cuda(h, k, fallback)
+    again = cuda_topk.topk_stats_cuda(h, k)
+    want = topk._topk_stats_plain(h, k)
+    torch.cuda.synchronize()
+    for name in ("kth", "f", "live", "l0"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    torch.testing.assert_close(got.l1, want.l1, rtol=1e-6, atol=0)
+    assert int(fallback) == int(model["fallback"].sum())
+    assert torch.equal(got.l1.cpu().view(torch.int32), model["l1"].view(torch.int32))
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    if k == 32 and s >= 2 * cand_cap():
+        assert 0 < int(fallback) < b  # both branches ran (rows 0, 5 and 6 fall back)
+    if k > min(k1_layout(s)[1], -(-s // 4)):
+        assert int(fallback) == b  # no lower bound: every row falls back
+
+
+def test_topk_stats_fallback_count_is_checked(dev):
+    h = torch.zeros((4, 64), device=dev)
+    for bad in (torch.zeros(1, dtype=torch.int64, device=dev), torch.zeros(2, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="fallback"):
+            cuda_topk.topk_stats_cuda(h, 2, bad)
 
 
 CUTS = {
@@ -247,6 +300,47 @@ def test_kth_masked_kernel_matches_plain(dev, b, s, k):
         assert _same_bits(got, want), name
         if mask.sum() < k:
             assert bool(torch.isneginf(got).all()), name
+
+
+# (s, n unmasked, k): n = 1, n = k, n = k - 1, n just above one warp's 1024
+# keys (2 warps a row) and above 4 and 8 warps' (8 and 16 warps a row).
+K5_SIZES = [(1024, 1, 1), (1024, 512, 512), (1024, 511, 512), (2048, 1025, 512), (8192, 4097, 512),
+            (16384, 8193, 512), (4096, 3276, 512)]
+
+
+@pytest.mark.parametrize("s,n,k", K5_SIZES)
+def test_kth_masked_kernel_group_sizes(dev, s, n, k):
+    """Prefix and scattered masks of n columns, against the plain version
+    and the model of K5's select, bitwise."""
+    h = _rows(64, s, s + n)
+    n_dead = max(s // 20, 1)
+    h[:, :n_dead] = h[:, :n_dead] * 4.0 - 1e6
+    rng = np.random.default_rng(n)
+    for name, cols in (("prefix", np.arange(n)), ("scattered", np.sort(rng.choice(s, n, replace=False)))):
+        mask = np.zeros(s, bool)
+        mask[cols] = True
+        want_model, n_model, _ = k5_model(h, torch.from_numpy(mask), k)
+        assert n_model == n
+        mt = torch.from_numpy(mask).to(dev)
+        got = topk.exact_kth_value_masked(h.to(dev), mt, k)
+        want = topk._kth_masked_plain(h.to(dev), mt, k)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), name
+        assert torch.equal(got.cpu().view(torch.int32), want_model.view(torch.int32)), name
+        assert bool(torch.isneginf(got).all()) == (n < k), name
+
+
+@pytest.mark.parametrize("s", [16384, 32768])
+def test_kth_masked_kernel_scattered_wide(dev, s):
+    """A scattered 5% mask, half and all columns at the widest rows."""
+    h = _rows(16, s, s).to(dev)
+    rng = np.random.default_rng(s)
+    for name, mask in (("5%", rng.random(s) < 0.05), ("half", rng.random(s) < 0.5), ("all", np.ones(s, bool))):
+        mt = torch.from_numpy(mask).to(dev)
+        got = topk.exact_kth_value_masked(h, mt, 512)
+        want = topk._kth_masked_plain(h, mt, 512)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), name
 
 
 def test_wrappers_refuse_bad_shapes(dev):

@@ -1,0 +1,208 @@
+"""The selects of kernels K1 (csrc/topk_row.cuh) and K5 (csrc/kth_masked.cu),
+modelled in plain torch (kth_select_model.py), against the JAX package and the
+port's plain versions, bit for bit. No kernel runs here.
+
+kth (and K5's value) must equal `saev_tpu.ops.pallas_topk`'s kernels in
+interpret mode bit for bit, and `_kth_plain` / `_kth_masked_plain` with -0.0
+and +0.0 taken as one value; K1's f, live and L0 too, L1 within 1e-6. The
+rows are Gaussian with edge rows: all zeros, all negative, fewer than k
+positive, ties across the boundary and at the top, signed zeros, -inf; at k
+1, T', T' + 1 and S and a ragged S. Both of K1's branches are reached.
+K5's masks: prefixes, scattered, n = k and k - 1, one column, all and none.
+Hypothesis draws random rows and masks.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from kth_select_model import cand_cap, k1_layout, k1_model, k5_model
+
+from saev_tpu.ops import pallas_topk
+from saev_tpu_torch.ops import topk
+
+
+def same_value_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal f32, -0.0 and +0.0 taken as one value: the plain
+    versions rank them as one (torch.topk), the kernels' order key puts -0.0
+    just below +0.0 (adding +0.0 turns -0.0 into +0.0 and leaves every other
+    value as it is)."""
+    return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
+
+
+def _rows(b: int, s: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(b, s)).astype(np.float32)
+    h[0] = 0.0  # all tied at zero: every key reaches t0
+    h[1] = -np.abs(h[1])  # all negative
+    h[2] = -np.abs(h[2])
+    h[2, :3] = [1.0, 2.0, 3.0]  # fewer than k positive values
+    h[3, : min(40, s)] = 7.0  # ties across the boundary
+    h[4, ::2] = -0.0  # signed zeros beside a few positives
+    h[4, 1::2] = -np.abs(h[4, 1::2])
+    h[4, 1:12:2] = 0.5
+    h[5, ::3] = -np.inf  # -inf beside finite values
+    h[6] = -np.inf  # all -inf
+    h[7, : min(2 * cand_cap(), s)] = 3.5  # tied at the top, beyond the buffer
+    h[:, 8:12] = 0.0  # exact zeros (L0 counts h != 0)
+    return h
+
+
+def _t_live(s: int) -> int:
+    return min(k1_layout(s)[1], -(-s // 4))
+
+
+def _k1_cases():
+    cases = []
+    for s in (512, 1000, 2048, 20000):
+        t = _t_live(s)
+        cases += [(s, k) for k in sorted({1, 32, t, t + 1, s}) if k <= s]
+    return cases
+
+
+@pytest.mark.parametrize("s,k", _k1_cases())
+def test_k1_model_matches_pallas_and_plain(s, k):
+    h = _rows(32, s, s + k)
+    got = k1_model(torch.from_numpy(h), k)
+    kth, f, live_p, l0, l1 = pallas_topk.topk_stats_pallas(jnp.asarray(h), k, 32, True)
+    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(kth).view(np.int32))
+    np.testing.assert_array_equal(got["f"].float().numpy(), np.asarray(f, np.float32))
+    np.testing.assert_array_equal(got["live"].numpy(), np.asarray(live_p).sum(0) > 0)
+    np.testing.assert_array_equal(got["l0"].numpy(), np.asarray(l0))
+    np.testing.assert_allclose(got["l1"].numpy(), np.asarray(l1), rtol=1e-6)
+    plain = topk._topk_stats_plain(torch.from_numpy(h), k)
+    assert same_value_bits(got["kth"], plain.kth)
+    for name in ("f", "live", "l0"):
+        assert torch.equal(got[name], getattr(plain, name)), name
+    torch.testing.assert_close(got["l1"], plain.l1, rtol=1e-6, atol=0)
+    if k > _t_live(s):
+        assert bool(got["fallback"].all()) and not bool(got["filter"].any())
+
+
+def test_k1_model_reaches_both_branches():
+    """At k 32 the Gaussian rows fit the buffer; the rows of zeros, of -0.0
+    beside a few positives, of -inf and tied at the top beyond the buffer
+    take the whole-row bisection."""
+    for s in (2048, 16384):
+        got = k1_model(torch.from_numpy(_rows(64, s, 5)), 32)
+        fell = set(np.flatnonzero(got["fallback"].numpy()).tolist())
+        assert fell == {0, 4, 6, 7}, (s, fell)
+        ok = ~got["fallback"]
+        assert bool(got["filter"].all())
+        assert int(got["n_cand"][ok].min()) >= 32 and int(got["n_cand"][ok].max()) <= cand_cap()
+        assert int(got["n_cand"][8:].max()) < 400  # Gaussian rows: a few dozen to a few hundred
+
+
+def test_k1_model_production_row_width():
+    """Gaussian rows at d_sae 16384, k 32: no row falls back, and the
+    candidates are the keys at or above the 32nd largest maximum of 256."""
+    h = torch.from_numpy(np.random.default_rng(9).normal(size=(32, 16384)).astype(np.float32))
+    got = k1_model(h, 32)
+    assert k1_layout(16384)[1] == 256 and not bool(got["fallback"].any())
+    assert same_value_bits(got["kth"], topk._kth_plain(h, 32))
+
+
+@settings(max_examples=60, deadline=None)
+@given(s=st.integers(1, 3000), k_frac=st.floats(0.0, 1.0), seed=st.integers(0, 2**16),
+       levels=st.sampled_from([0, 3, 50]))
+def test_k1_model_matches_plain_on_random_rows(s, k_frac, seed, levels):
+    """Random rows, a few levels (ties) or continuous, k anywhere in 1..S."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(4, s)).astype(np.float32)
+    if levels:
+        h = np.round(h * levels / 3).astype(np.float32) * np.float32(0.25)
+    h[rng.random(h.shape) < 0.05] = -0.0
+    k = max(1, min(s, round(k_frac * s)))
+    ht = torch.from_numpy(h)
+    got = k1_model(ht, k)
+    assert same_value_bits(got["kth"], topk._kth_plain(ht, k))
+    want = np.sort(h, axis=1)[:, ::-1][:, k - 1 : k]
+    np.testing.assert_array_equal(got["kth"].numpy(), want)
+
+
+# --- K5 ---
+
+
+def _masked_rows(b: int, s: int, seed: int) -> np.ndarray:
+    """`_rows` with a twentieth of the columns pinned as bench.py pins dead
+    latents: bias -1e6, where f32 values lie 0.0625 apart and tie exactly."""
+    h = _rows(b, s, seed)
+    n = max(s // 20, 1)
+    h[:, :n] = h[:, :n] * 4.0 - 1e6
+    return h
+
+
+def _k5_masks(s: int, k: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    cols = np.arange(s)
+    return {
+        "prefix-5%": cols < max(s // 20, 1),
+        "prefix-20%": cols < s // 5,
+        "scattered-5%": rng.random(s) < 0.05,
+        "scattered-half": rng.random(s) < 0.5,
+        "n-is-k": cols < k,
+        "n-is-k-1": cols < k - 1,
+        "one": cols == s // 2,
+        "all-masked": np.zeros(s, bool),
+        "none-masked": np.ones(s, bool),
+    }
+
+
+@pytest.mark.parametrize("s,k", [(1024, 512), (4096, 512), (1000, 64), (16384, 512), (2048, 1), (20000, 7)])
+def test_k5_model_matches_pallas_and_plain(s, k):
+    h = _masked_rows(32, s, s + k)
+    ht = torch.from_numpy(h)
+    for name, mask in _k5_masks(s, k, s).items():
+        got, n, _ = k5_model(ht, torch.from_numpy(mask), k)
+        want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
+                                                         k, True)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32), err_msg=name)
+        plain = topk._kth_masked_plain(ht, torch.from_numpy(mask), min(k, s))
+        assert same_value_bits(got, plain), name
+        assert bool(torch.isneginf(got).all()) == (n < k), name
+
+
+def test_k5_model_group_sizes():
+    """A warp a row at the tight rung and the dense step's 5% (819 of 1024
+    and of 16384), 4 warps at the wide rung (3276 of 4096), 16 for a row of
+    16384 with nothing masked."""
+    rng = np.random.default_rng(3)
+    for s, n, want in ((1024, 819, 1), (16384, 819, 1), (4096, 3276, 4), (16384, 16384, 16), (1024, 1025 - 1, 1)):
+        h = torch.from_numpy(rng.normal(size=(2, s)).astype(np.float32))
+        mask = torch.arange(s) < n
+        got, n_got, g = k5_model(h, mask, 512)
+        assert (n_got, g) == (n, want), (s, n, g)
+        assert same_value_bits(got, topk._kth_masked_plain(h, mask, 512))
+
+
+@settings(max_examples=60, deadline=None)
+@given(s=st.integers(1, 5000), k_frac=st.floats(0.0, 1.0), p=st.floats(0.0, 1.0), seed=st.integers(0, 2**16))
+def test_k5_model_matches_plain_on_random_masks(s, k_frac, p, seed):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(np.round(rng.normal(size=(3, s)) * 8).astype(np.float32))
+    mask = torch.from_numpy(rng.random(s) < p)
+    k = max(1, min(s, math.ceil(k_frac * s)))
+    got, n, _ = k5_model(h, mask, k)
+    assert same_value_bits(got, topk._kth_masked_plain(h, mask, k))
+    assert n == int(mask.sum())
+
+
+def test_select_probe_finds_its_markers():
+    """scripts/select_probe.py rewrites the committed K1 and K5 sources: a
+    clock64 stamp at each of K1's seven phase boundaries and K5's five, and
+    K5's launch bounds; each marker is there once."""
+    from saev_tpu_torch.scripts import select_probe
+
+    src = select_probe.stamped_row_source()
+    assert [src.count(f"g_stamps[row * 8 + {i}]") for i in range(8)] == [1] * 7 + [0]
+    assert src.count("__device__ long long* g_stamps;") == 1
+    src = select_probe.stamped_k5_source()
+    assert [src.count(f"g_cta[blockIdx.x * 2 + {i}]") for i in range(3)] == [1, 1, 0]
+    assert [src.count(f"g_row[row * 3 + {i}]") for i in range(4)] == [1, 1, 1, 0]
+    assert src.count("__device__ long long* g_row;") == 1
+    for min_blocks in (1, 2, 3):
+        assert f"__launch_bounds__(kMaxWarps * 32, {min_blocks})\n" in select_probe.k5_capped_source(min_blocks)

@@ -564,11 +564,12 @@ ptxas info    : Used 90 registers, used 1 barriers, 540 bytes smem, 592 bytes cm
 
 def test_ptxas_resources_reads_registers_and_spills():
     """The ptxas report chip_smoke.py holds the wgmma products to: each
-    kernel's registers and spill bytes, found by a fragment of its name."""
+    kernel's registers, stack frame and spill bytes, found by a fragment of
+    its name."""
     from saev_tpu_torch.ops import _build
 
     found = _build.ptxas_resources(PTXAS_LOG, "prefix_wgmma_kernel")
-    assert list(found.values()) == [{"spill_stores": 0, "spill_loads": 0, "registers": 104}]
+    assert list(found.values()) == [{"stack_frame": 0, "spill_stores": 0, "spill_loads": 0, "registers": 104}]
     found = _build.ptxas_resources(PTXAS_LOG, "dgrad_wgmma_kernel")
-    assert list(found.values()) == [{"spill_stores": 4, "spill_loads": 12, "registers": 90}]
+    assert list(found.values()) == [{"stack_frame": 8, "spill_stores": 4, "spill_loads": 12, "registers": 90}]
     assert _build.ptxas_resources(PTXAS_LOG, "wgrad_wgmma_kernel") == {}
