@@ -12,15 +12,19 @@ script exits non-zero:
                 products (K2's and K7's `prefix_wgmma_kernel`, K3's and K4's)
                 must hold wgmma (HGMMA) and TMA loads (UTMALDG) in their
                 SASS, no mma.sync (HMMA), and no spills in ptxas's report;
-                K2's and K7's resident CTAs an SM are logged, and K1's, P1's
-                and K5's registers and spills.
+                K2's and K7's resident CTAs an SM are logged, and K1's, P1's,
+                K5's and K6's registers and spills; K1's streamed kernel at
+                the production width may use at most 126 registers and P1 at
+                most 146, neither spilling (K6 runs K1's select).
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
                 16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K1
                 with the count of rows that took its whole-row fallback
                 (rows 0, 3 and 4 of the production batch: zeros, ties over
                 twice the candidate buffer, -0.0 over half the row; none of
-                the Gaussian rows); K6 also against K1's kth; K5 at the
+                the Gaussian rows); K6 also against K1's kth and P4's exact
+                modes, streamed and one CTA a row, with the count of rows
+                that took its whole-row fallback (K1's rows); K5 at the
                 dense (16384 x 16384) and both subspace rungs' shapes (16384
                 x 1024 and 16384 x 4096), k_aux 512, under masks that leave
                 the dead columns (819, 5%; 3276, 20%, on the wide rung;
@@ -29,16 +33,21 @@ script exits non-zero:
                 both cut sets and on 64 cuts (1024 rows); K4's dW within
                 rel-norm 1e-4 and the same bits in two calls, on the same
                 three cut sets.
-4. reference -- the step on the card (kernel path) against the same step on
-                the CPU (plain f32 path) at a small shape: the warm-up step
-                (also at d_model 64, which the Matryoshka kernels take padded
-                to 128), and the AuxK step, dense and subspace, with 1/16 of
-                the latents pinned dead; K1-K4 launch once a step and SAE.
+4. reference -- the step on the card (kernel path, matmul_precision
+                "default": bf16 operands with f32 results) against the same
+                step on the CPU (plain f32 path) at a small shape: the
+                warm-up step (also at d_model 64, which the Matryoshka
+                kernels take padded to 128), and the AuxK step, dense and
+                subspace, with 1/16 of the latents pinned dead; K1-K4 launch
+                once a step and SAE; the card's encoder product against the
+                bf16 algebra of its operands on the CPU. First it logs how
+                far "default" products lie from the exact sum by K.
 5. slice     -- the warm-up train step (TopK 32 + Matryoshka 10, Adam,
                 aux_enabled=False) at full width: 5 steps of one SAE and 2 of
                 a two-SAE sweep, then one step at batch 1000 (padded to the
-                kernels' 128-row tile) held to the same step on the CPU,
-                counting kernel launches.
+                kernels' 128-row tile) held to the same step on the CPU, its
+                encoder product to the bf16 algebra on the CPU, counting
+                kernel launches.
 6. steady    -- the step router (`make_step_router`) over the AuxK step at
                 full width, from aux_from_step - 1, on states with 5%, 2%, 20%
                 and 40% of the latents pinned dead, at n_sae 1 and 2: the
@@ -87,6 +96,7 @@ call computing the same function, null where there is none; lib_ms repeats
 it). The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -105,8 +115,13 @@ K2_NAMES = ("prefix_wgmma_kernel", "sum_partials_kernel")  # K2's two launches
 K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
 WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
-# K1 (streamed rows, and one CTA a row), P1, K5
-SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats_kernel", "kth_masked_kernel")
+# K1 (streamed rows, and one CTA a row), P1, K5, K6 (streamed rows, and one CTA a row)
+SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats_kernel", "kth_masked_kernel",
+                  "kth_stream_kernel", "kth_kernel")
+# Registers K1's streamed kernel may not exceed at the production width,
+# where two 256-thread CTAs share an SM, and P1's: their counts before K6
+# took K1's select.
+SELECT_REGISTERS = {"topk_stats_stream_kernelILi64ELi256E": 126, "encode_stats_kernel": 146}
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
@@ -225,6 +240,12 @@ def phase_build(verbose: bool = False) -> None:
         for name, r in res.items():
             log(f"build ptxas {name}: {r['registers']} registers, stack frame {r.get('stack_frame')}, "
                 f"spill stores {r.get('spill_stores')}, spill loads {r.get('spill_loads')}")
+    for fragment, most in SELECT_REGISTERS.items():
+        res = _build.ptxas_resources(ptxas, fragment)
+        require(len(res) > 0, f"build: no {fragment} in ptxas's report")
+        for name, r in res.items():
+            require(r["registers"] <= most and r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                    f"build: {name} {r}: more than {most} registers, or spills")
     ctas = [_build.lib().saev_prefix_occupancy(mode) for mode in range(3)]
     require(all(n >= 1 for n in ctas), f"build: K2's and K7's resident CTAs an SM {ctas}")
     log(f"build: prefix_wgmma_kernel (K2, K7 f32, K7 bf16) resident CTAs an SM {ctas}")
@@ -288,16 +309,26 @@ def _k1_inputs() -> torch.Tensor:
     return h
 
 
-def _k6_case(h: torch.Tensor, k: int, what: str) -> float:
+def _k6_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
+    """K6 bit for bit against its plain version, K1's kth and P4's exact
+    modes; `fallbacks` rows of h (K1's) must take its whole-row bisection."""
     from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
+    from saev_tpu_torch.scripts import proto_kth_ops
 
-    got = cuda_kth.kth_value_cuda(h, k)
+    fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = cuda_kth.kth_value_cuda(h, k, fallback)
     want = topk._kth_plain(h, min(k, h.shape[1]))
     k1 = cuda_topk.topk_stats_cuda(h, k).kth
+    p4 = {mode: proto_kth_ops.kth_ops(h, min(k, h.shape[1]), mode) for mode in proto_kth_ops.EXACT}
     torch.cuda.synchronize()
     require(same_bits(got, want), f"K6 {what}: differs from its plain version")
-    require(same_bits(got, k1), f"K6 {what}: differs from K1's kth")
-    log(f"parity K6 {what}: kth bitwise equal to the plain version and to K1's kth")
+    require(torch.equal(got, k1), f"K6 {what}: differs from K1's kth")
+    for mode, v in p4.items():
+        require(torch.equal(got, v), f"K6 {what}: differs from P4's {mode}")
+    require(int(fallback) == fallbacks, f"K6 {what}: {int(fallback)} rows fell back, expected {fallbacks}")
+    form = "streamed" if h.shape[1] % 4 == 0 else "one CTA a row"
+    log(f"parity K6 {what} ({form}): kth bitwise equal to the plain version, K1's kth and P4's "
+        f"{', '.join(p4)}; {int(fallback)} of {h.shape[0]} rows took the whole-row fallback")
     return kth_err(got, want)
 
 
@@ -413,9 +444,10 @@ def phase_parity() -> dict:
     errs["topk_stats"] = max(errs["topk_stats"], _k1_case(h[:256, :1001].contiguous(), TOP_K,
                                                           "ragged row 1001 (scalar loads and stores)", 0))
     errs["kth_value"] = max(
-        _k6_case(h, TOP_K, "production"),
-        _k6_case(h[:256].contiguous(), D_SAE, "k = d_sae"),
-        _k6_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000"),
+        _k6_case(h, TOP_K, "production", len(fell)),
+        _k6_case(h[:256].contiguous(), D_SAE, "k = d_sae", 256),
+        _k6_case(h[:256, :1000].contiguous(), TOP_K, "ragged row 1000", 0),
+        _k6_case(h[:256, :1001].contiguous(), TOP_K, "ragged row 1001", 0),
     )
     del h
     torch.cuda.empty_cache()
@@ -483,10 +515,80 @@ def _pin_dead(ts, n_dead: int) -> None:
     ts.obj_state["toks_since_active"][:, :n_dead] = 1 << 30
 
 
+@contextlib.contextmanager
+def encoder_spy(rows: int = 256):
+    """Wraps the step's encoder (modeling._linear_bias) for the duration and
+    keeps, in the list it yields, the first card call's precision and the
+    first `rows` rows of its x and h, with W and b, on the CPU."""
+    from saev_tpu_torch.nn import modeling
+
+    real, seen = modeling._linear_bias, []
+
+    def spy(x, w, b, precision):
+        out = real(x, w, b, precision)
+        if out.is_cuda and not seen:
+            seen.append((x[:rows].detach().cpu(), w.detach().cpu(), b.detach().cpu(), precision,
+                         out[:rows].detach().cpu()))
+        return out
+
+    modeling._linear_bias = spy
+    try:
+        yield seen
+    finally:
+        modeling._linear_bias = real
+
+
+# The card's bf16 product with f32 accumulation against the same algebra on
+# the CPU (f32 sums of the exact bf16 products): the sums run in another
+# order, and the tensor cores do not round every f32 add to nearest, so the
+# card's sums drift from the exact one with K (`product_drift` logs it: on
+# an H100 about 1e-6 at K 1024 and 3.5e-6 at K 16384, the CPU's about 1e-7).
+# 1e-5 holds the encoder (K = d_model) and is a hundredth of what rounding
+# the operands to bf16 moves.
+ENCODER_REL = 1e-5
+
+
+def check_encoder(seen: list, what: str) -> str:
+    """The card's encoder product at "default" against bf16(x) @ bf16(W) + b
+    on the CPU (rel-norm ENCODER_REL) and not the f32 product, over the
+    latents whose bias is not pinned at -1e6: there the sum lies on f32's
+    grid of 0.0625, which hides the product's low bits."""
+    require(len(seen) == 1, f"{what}: the step's encoder never ran on the card")
+    x, w, b, precision, h = seen[0]
+    require(precision == "default", f"{what}: the step's encoder ran at {precision!r}")
+    cols = b.abs() < 1e3
+    h, w, b = h[:, cols], w[:, cols], b[cols]
+    r16 = rel_norm(h, x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float() + b)
+    r32 = rel_norm(h, x @ w + b)
+    require(r16 <= ENCODER_REL, f"{what}: encoder rel-norm {r16:.3g} against the bf16 algebra > {ENCODER_REL}")
+    require(r32 > 1e-4, f"{what}: encoder rel-norm {r32:.3g} against the f32 product: not bf16 operands")
+    return (f"encoder h ({h.shape[0]} rows, {h.shape[1]} latents not pinned) against the bf16 algebra on the "
+            f"CPU rel-norm {r16:.3g}, against f32 {r32:.3g}")
+
+
 def _to(ts, device):
     from saev_tpu_torch.framework import train
 
     return train.SweepState(*(train._tree_map(lambda t: t.to(device), v) for v in ts))
+
+
+def product_drift() -> None:
+    """How far the card's "default" products lie from the exact (f64) sum of
+    their bf16 operands, by the length K of the sums, beside the CPU's f32
+    sums of the same operands: a measurement, the reason for ENCODER_REL."""
+    from saev_tpu_torch.nn import modeling
+
+    g = torch.Generator().manual_seed(SEED)
+    parts = []
+    for m, k, n in ((256, 128, 2048), (256, 1024, 2048), (256, 2048, 256), (256, 16384, 256)):
+        a = torch.randn((m, k), generator=g).to(torch.bfloat16).float()
+        b = torch.randn((k, n), generator=g).to(torch.bfloat16).float()
+        exact = a.double() @ b.double()
+        card = modeling.matmul(a.cuda(), b.cuda(), "default").cpu().double()
+        parts.append(f"K {k}: card {float((card - exact).norm() / exact.norm()):.3g}, "
+                     f"CPU f32 {float(((a @ b).double() - exact).norm() / exact.norm()):.3g}")
+    log('reference products at "default" against the exact sum of their bf16 operands, rel-norm: '
+        + "; ".join(parts))
 
 
 def phase_reference() -> None:
@@ -494,10 +596,12 @@ def phase_reference() -> None:
     one state and batch at a small shape (bf16 against f32: rel 1e-2): the
     warm-up step, at d_model 128 and 64, then the AuxK step in its dense and
     subspace forms with 1/16 of the latents pinned dead. K1-K4 must launch
-    once a step and SAE."""
+    once a step and SAE; each step's encoder product on the card is held to
+    the bf16 algebra of its operands on the CPU."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
 
+    product_drift()
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
     pf = torch.from_numpy(np.stack([objectives.sample_prefixes(2048, 4, rng=rng) for _ in range(2)]))
@@ -524,13 +628,17 @@ def phase_reference() -> None:
         step = train.make_train_step(cfg, obj, n_steps=100, **variant)
         xc = x[:, :cfg.d_model].contiguous()
         before = counts()
+        worst = dict.fromkeys(keys, 0.0)
         for i in range(3):
             ts_cpu, s_cpu = step(ts_cpu, xc, pf, _hp(2, "cpu"))
-            ts_gpu, s_gpu = step(ts_gpu, xc.cuda(), pf.cuda(), _hp(2, "cuda"))
+            with encoder_spy() as seen:
+                ts_gpu, s_gpu = step(ts_gpu, xc.cuda(), pf.cuda(), _hp(2, "cuda"))
+            enc = check_encoder(seen, f"reference {what} step {i}")
             for key in keys:
                 a, b = s_gpu[key].cpu(), s_cpu[key]
                 rel = float(((a - b).abs() / b.abs()).max())
                 require(rel <= 1e-2, f"reference {what} step {i}: {key} rel err {rel:.3g} > 1e-2")
+                worst[key] = max(worst[key], rel)
             for key in ("l0", "n_dead"):
                 require(torch.equal(s_gpu[key].cpu(), s_cpu[key]), f"reference {what} step {i}: {key} differs")
             require(s_cpu["n_dead"].tolist() == [dead, dead], f"reference {what}: n_dead {s_cpu['n_dead'].tolist()}")
@@ -541,7 +649,8 @@ def phase_reference() -> None:
             require(bool(torch.isfinite(v).all()), f"reference {what}: param {key} not finite")
         log(f"reference {what}: 3 steps of a 2-SAE sweep (d_model {cfg.d_model}, d_sae 2048, batch 256, "
             f"{dead} dead) agree with the CPU plain path; last mse {s_gpu['mse'].tolist()}, "
-            f"aux {s_gpu['aux'].tolist()} (CPU {s_cpu['aux'].tolist()})")
+            f"aux {s_gpu['aux'].tolist()} (CPU {s_cpu['aux'].tolist()}); worst rel errs "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f"; last step's {enc}")
 
 
 def phase_slice() -> dict:
@@ -602,7 +711,8 @@ def _ragged_step(cfg, step, rng) -> None:
     """One warm step of one SAE at batch RAGGED_B, which the Matryoshka
     kernels take padded to their 128-row tile, against the same step on the
     CPU (plain f32 path) from the same state: bf16 against f32, rel 1e-2, and
-    L0 equal. K1-K4 must launch once each."""
+    L0 equal; its encoder product against the bf16 algebra on the CPU. K1-K4
+    must launch once each."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import objectives
 
@@ -611,8 +721,10 @@ def _ragged_step(cfg, step, rng) -> None:
     ts_cpu = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(SEED), device="cpu")
     ts_gpu = _to(ts_cpu, "cuda")
     before = counts()
-    ts_gpu, s_gpu = step(ts_gpu, x.cuda(), prefixes.cuda(), _hp(1, "cuda"))
+    with encoder_spy() as seen:
+        ts_gpu, s_gpu = step(ts_gpu, x.cuda(), prefixes.cuda(), _hp(1, "cuda"))
     torch.cuda.synchronize()
+    enc = check_encoder(seen, f"slice batch {RAGGED_B}")
     rose = {k: v - before[k] for k, v in counts().items()}
     want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1)
     require(rose == want, f"slice batch {RAGGED_B}: launches {rose}, expected {want}")
@@ -627,7 +739,7 @@ def _ragged_step(cfg, step, rng) -> None:
         require(bool(torch.isfinite(v).all()), f"slice batch {RAGGED_B}: param {key} not finite")
     log(f"slice batch {RAGGED_B}: one step through K1-K4 (batch padded to 1024) agrees with the CPU plain "
         f"path: mse {s_gpu['mse'].tolist()} (CPU {s_cpu['mse'].tolist()}), rel errs "
-        + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
+        + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()) + f"; {enc}")
 
 # (fraction of latents pinned dead, the variant of each step from
 # aux_from_step - 1): the warm step, the dense step while no aux_risk readout
@@ -731,6 +843,8 @@ def phase_steady():
                 _, s_sub = sub_fn(ts, xs[0], prefixes, hp)
                 for k, v in counts().items():
                     check_launches[k] += v - before[k]
+                # Two bf16-operand products of different shapes, each summed
+                # in f32 in its own order; both keep the same dead columns.
                 rel = float(((s_sub["aux"] - s_dense["aux"]).abs() / s_dense["aux"].abs()).max())
                 require(rel <= 1e-4, f"steady n_sae={n_sae} {frac:.0%}: cap {cap} aux rel err {rel:.3g} > 1e-4")
                 log(f"steady n_sae={n_sae} {frac:.0%} dead: subspace (cap {cap}) aux {s_sub['aux'].tolist()} "
@@ -842,6 +956,12 @@ def phase_timing() -> dict:
                                 expect=("topk_stats",))
     log("timing K1 by the profiler: " + "; ".join(f"{k[:70]} {t:.3f} ms x{c}" for k, t, c in rows[:3])
         + f"; {_k1_fallbacks(h, TOP_K)} of {B} Gaussian rows took the whole-row fallback")
+    k6_fell = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cuda_kth.kth_value_cuda(h, TOP_K, k6_fell)
+    rows = kprof.device_profile(lambda: cuda_kth.kth_value_cuda(h, TOP_K), n=10, warmup=2, expect=("kth",))
+    require(int(k6_fell) == 0, f"timing K6: {int(k6_fell)} of {B} Gaussian rows took the whole-row fallback")
+    log("timing K6 by the profiler: " + "; ".join(f"{k[:70]} {t:.3f} ms x{c}" for k, t, c in rows[:3])
+        + f"; {int(k6_fell)} of {B} Gaussian rows took the whole-row fallback")
     out["kth_value"] = timed(_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 10),
                              _time(lambda: topk._kth_plain(h, TOP_K), 3),
                              _selection_bound(h, stats.kth), library_kth_ms(h, TOP_K, "K6"))
@@ -922,8 +1042,9 @@ def _k2_launches(f, w, x, b_dec, iu, m, r, what: str) -> None:
     (1024 floats). Then a cuBLAS product of f @ W with bf16 operands (f32
     out where torch has it): a yardstick of the main term, which the port
     never calls."""
+    from saev_tpu_torch.nn import modeling
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.scripts import kprof, proto_encode_stats
+    from saev_tpu_torch.scripts import kprof
 
     rows = kprof.device_profile(lambda: cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP),
                                 n=10, warmup=2, expect=K2_NAMES)
@@ -938,7 +1059,7 @@ def _k2_launches(f, w, x, b_dec, iu, m, r, what: str) -> None:
     log(f"timing K2 {what}: prefix_wgmma_kernel {ms[K2_NAMES[0]]:.3f} ms, bound {prod['bound_ms']:.3f} "
         f"({prod['bound_by']}), dense floor {floor:.3f}, {dense / ms[K2_NAMES[0]] / 1e9:.1f} TFLOP/s dense "
         f"({j} snapshots, {lanes} correction lanes); sum_partials_kernel {ms[K2_NAMES[1]]:.4f} ms")
-    if proto_encode_stats.has_bf16_mm_f32():
+    if modeling.has_bf16_mm_f32():
         mm, how = (lambda: torch.mm(f, w, out_dtype=torch.float32)), "bf16 operands, f32 out"
     else:
         mm, how = (lambda: torch.mm(f, w)), "bf16 operands and out"

@@ -1,11 +1,12 @@
 // K1's per-row routine: the TopK statistics of one f32 row of S values, run
-// by a whole CTA. Shared by K1 (topk_stats.cu, one CTA per row) and P1
-// (encode_stats.cu, one CTA walking its own rows in turn).
+// by a whole CTA. Shared by K1 (topk_stats.cu, streamed rows or one CTA a
+// row) and P1 (encode_stats.cu, one CTA walking its own rows in turn); K6
+// (kth.cu) runs its first part, the select, alone.
 //
 // The exact k-th largest value kth, then f = bf16(where(h >= kth, h, 0)),
 // liveness (any bf16 f != 0 over the batch), L0 = count(h >= kth and h != 0)
 // and L1 = sum |f32 f|. kth is the k-th largest order key (order_key.cuh)
-// mapped back to a float, found by a candidate filter:
+// mapped back to a float, found by a candidate filter (`select_kth_key`):
 //  1. Lower bound. Each of the T threads keeps the maximum of its keys; the
 //     T' threads that hold a column give T' keys of T' distinct columns, so
 //     if k <= T' the k-th largest of the T maxima is at most the row's k-th
@@ -27,13 +28,14 @@
 // for bit. The epilogue touches only the keys at or above kth (an integer
 // compare of keys first), so most of a row costs a compare and a zero store.
 //
-// The row lives in registers: thread t holds runs of 4 columns, 4t..4t+3,
-// then 4(t+T).., VPT keys in all, so a row with S % 4 == 0 is read in 16-byte
-// loads and f written in 8-byte stores (VEC); otherwise each column alone.
-// The ragged end beyond S takes key 0, which no step's candidate reaches.
-// Liveness crosses rows: an int32 (S,) buffer zeroed by the caller and set
-// with atomicOr, which does not depend on order. L1 is reduced in a fixed
-// order (each thread's keys in turn, a warp's xor tree, the warps in turn).
+// The row lives in registers (`row_keys`): thread t holds runs of 4 columns,
+// 4t..4t+3, then 4(t+T).., VPT keys in all, so a row with S % 4 == 0 is read
+// in 16-byte loads and f written in 8-byte stores (VEC); otherwise each
+// column alone. The ragged end beyond S takes key 0, which no step's
+// candidate reaches. Liveness crosses rows: an int32 (S,) buffer zeroed by
+// the caller and set with atomicOr, which does not depend on order. L1 is
+// reduced in a fixed order (each thread's keys in turn, a warp's xor tree,
+// the warps in turn).
 
 #pragma once
 
@@ -52,42 +54,33 @@ constexpr int kCandCap = 1024;
 // maximum, in a few bisection steps.
 constexpr int kBoundBit = 17;
 
+// The select's shared memory.
 template <int MAXT>
-struct TopkRowSmem {
+struct SelectSmem {
   uint32_t maxima[MAXT];
   uint32_t cand[kCandCap];
   int n_cand;
   uint32_t kth_key;
   int counts[2][32];
+};
+
+template <int MAXT>
+struct TopkRowSmem {
+  SelectSmem<MAXT> sel;
   float l1_warp[32];
   int l0_warp[32];
 };
 
-// Writes kth_out[row], f[row, :], live, l0_out[row] and l1_out[row] for the
-// row `hr` of S values (in device or shared memory), and adds 1 to
-// *fallback (when not null) if the row took the full-row bisection. Every
-// thread of the CTA must call it, with blockDim.x <= MAXT, blockDim.x * VPT
-// >= S and, for VEC, S % 4 == 0 and hr and f 16- and 8-byte aligned. Every
-// thread calls released() once the row is in its registers and no thread
-// reads hr again.
-template <int VPT, int MAXT, bool VEC, class Released>
-__device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int S, int k,
-                                               long row, TopkRowSmem<MAXT>& sm,
-                                               float* __restrict__ kth_out,
-                                               __nv_bfloat16* __restrict__ f,
-                                               int* __restrict__ live,
-                                               float* __restrict__ l0_out,
-                                               float* __restrict__ l1_out,
-                                               int* __restrict__ fallback, Released released) {
+// The row `hr` of S values (in device or shared memory) into this thread's
+// VPT keys, in runs of 4 columns; returns their maximum. For VEC, S % 4 == 0
+// and hr is 16-byte aligned.
+template <int VPT, bool VEC>
+__device__ __forceinline__ uint32_t row_keys(const float* __restrict__ hr, int S, uint32_t (&key)[VPT]) {
   static_assert(VPT % 4 == 0, "a thread holds whole runs of 4 columns");
-  constexpr int RUNS = VPT / 4, MW = MAXT / 32;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
-
-  uint32_t key[VPT];
   uint32_t mx = 0;
 #pragma unroll
-  for (int r = 0; r < RUNS; ++r) {
+  for (int r = 0; r < VPT / 4; ++r) {
     const int c = 4 * (tid + r * nt);
     if (VEC) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -104,6 +97,23 @@ __device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int
 #pragma unroll
     for (int q = 0; q < 4; ++q) mx = max(mx, key[4 * r + q]);
   }
+  return mx;
+}
+
+// Phases 1-4: the k-th largest key of the row whose keys the CTA holds
+// (`row_keys`; mx, this thread's maximum). Every thread of the CTA calls it,
+// with blockDim.x <= MAXT, blockDim.x * VPT >= S and 1 <= k <= S, and gets
+// the key. It calls released() once every thread's keys are in registers,
+// and adds 1 to *fallback (when not null) if the row took the whole-row
+// bisection. The CTA passes a block barrier between its return and the next
+// call on the same sm.
+template <int VPT, int MAXT, class Released>
+__device__ __forceinline__ uint32_t select_kth_key(const uint32_t (&key)[VPT], uint32_t mx, int S, int k,
+                                                   SelectSmem<MAXT>& sm, int* __restrict__ fallback,
+                                                   Released released) {
+  constexpr int MW = MAXT / 32;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
   sm.maxima[tid] = mx;
   if (tid == 0) sm.n_cand = 0;
   __syncthreads();
@@ -202,6 +212,32 @@ __device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int
     });
     if (fallback != nullptr && tid == 0) atomicAdd(fallback, 1);
   }
+  return kth_key;
+}
+
+// Writes kth_out[row], f[row, :], live, l0_out[row] and l1_out[row] for the
+// row `hr` of S values (in device or shared memory), and adds 1 to
+// *fallback (when not null) if the row took the full-row bisection. Every
+// thread of the CTA must call it, with blockDim.x <= MAXT, blockDim.x * VPT
+// >= S and, for VEC, S % 4 == 0 and hr and f 16- and 8-byte aligned. Every
+// thread calls released() once the row is in its registers and no thread
+// reads hr again.
+template <int VPT, int MAXT, bool VEC, class Released>
+__device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int S, int k,
+                                               long row, TopkRowSmem<MAXT>& sm,
+                                               float* __restrict__ kth_out,
+                                               __nv_bfloat16* __restrict__ f,
+                                               int* __restrict__ live,
+                                               float* __restrict__ l0_out,
+                                               float* __restrict__ l1_out,
+                                               int* __restrict__ fallback, Released released) {
+  constexpr int RUNS = VPT / 4;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+
+  uint32_t key[VPT];
+  const uint32_t mx = row_keys<VPT, VEC>(hr, S, key);
+  const uint32_t kth_key = select_kth_key<VPT, MAXT>(key, mx, S, k, sm.sel, fallback, released);
   const float kth = key_float(kth_key);
   // x >= kth, a float compare, needs key(x) >= key(kth), or x = -0.0 beside
   // kth = +0.0 (key 0x80000000, the key of -0.0 just below it).

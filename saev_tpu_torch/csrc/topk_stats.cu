@@ -20,29 +20,21 @@
 // walks rows blockIdx.x, + gridDim.x, .., and as soon as a row is in its
 // registers one thread starts the bulk copy (cp.async.bulk on an mbarrier)
 // of its next row into shared memory, which lands while this row is
-// selected. Other rows (S % 4 != 0) take one CTA a row and scalar loads.
+// selected (row_stream.cuh, shared with K6). Other rows (S % 4 != 0) take
+// one CTA a row and scalar loads.
 // Liveness crosses rows, so it is an int32 (S,) buffer zeroed by the caller
 // and set with atomicOr, which does not depend on order. L1 is reduced in a
 // fixed order and is deterministic. The per-row routine is shared with P1
-// (encode_stats.cu).
+// (encode_stats.cu), and its select with K6 (kth.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "row_stream.cuh"
 #include "topk_row.cuh"
 
 namespace {
-
-constexpr uint32_t kCopyBytes = 16 * 1024;  // one bulk copy's bytes
-
-// Thread 0: the row at src into shared memory at dst, on bar's next phase.
-__device__ __forceinline__ void fetch_row(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
-  hopper::mbar_expect_tx(bar, bytes);
-  for (uint32_t off = 0; off < bytes; off += kCopyBytes)
-    hopper::bulk_load(dst + off, reinterpret_cast<const char*>(src) + off, min(kCopyBytes, bytes - off), bar);
-}
 
 template <int VPT, int MAXT>
 __global__ void __launch_bounds__(MAXT)
@@ -52,28 +44,9 @@ __global__ void __launch_bounds__(MAXT)
                              float* __restrict__ l1_out, int* __restrict__ fallback) {
   extern __shared__ __align__(16) float row_buf[];  // S floats
   __shared__ TopkRowSmem<MAXT> sm;
-  __shared__ __align__(8) uint64_t full;
-  const uint32_t bar = hopper::smem_u32(&full), buf = hopper::smem_u32(row_buf);
-  const uint32_t bytes = 4u * static_cast<uint32_t>(S);
-  if (threadIdx.x == 0) {
-    hopper::mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    fetch_row(buf, h + static_cast<long>(blockIdx.x) * S, bytes, bar);
-  }
-  __syncthreads();
-  uint32_t parity = 0;
-  for (long row = blockIdx.x; row < B; row += gridDim.x, parity ^= 1) {
-    hopper::mbar_wait(bar, parity);
-    const long next = row + gridDim.x;
-    topk_stats_row<VPT, MAXT, true>(row_buf, S, k, row, sm, kth_out, f, live, l0_out, l1_out, fallback,
-                                    [&] {
-                                      if (threadIdx.x == 0 && next < B) {
-                                        // The buffer's reads are done: order them before the copy's writes.
-                                        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                                        fetch_row(buf, h + next * S, bytes, bar);
-                                      }
-                                    });
-  }
+  stream_rows(h, B, S, row_buf, [&](const float* hr, long row, auto released) {
+    topk_stats_row<VPT, MAXT, true>(hr, S, k, row, sm, kth_out, f, live, l0_out, l1_out, fallback, released);
+  });
 }
 
 template <int VPT, int MAXT>
@@ -93,24 +66,14 @@ int launch(const float* h, int B, int S, int k, float* kth, __nv_bfloat16* f, in
            float* l0, float* l1, int* fallback, cudaStream_t stream) {
   int threads = (S + VPT - 1) / VPT;
   threads = (threads + 31) / 32 * 32;
-  const bool stream_rows = S % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-                           reinterpret_cast<uintptr_t>(f) % 8 == 0;
-  if (!stream_rows) {
+  const bool streamed = S % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(f) % 8 == 0;
+  if (!streamed) {
     topk_stats_kernel<VPT, MAXT><<<B, threads, 0, stream>>>(h, S, k, kth, f, live, l0, l1, fallback);
     return cudaGetLastError();
   }
-  auto kernel = topk_stats_stream_kernel<VPT, MAXT>;
-  const int smem = 4 * S;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = B < sms * per_sm ? B : sms * per_sm;
-  kernel<<<grid, threads, smem, stream>>>(h, B, S, k, kth, f, live, l0, l1, fallback);
-  return cudaGetLastError();
+  return launch_stream(topk_stats_stream_kernel<VPT, MAXT>, B, S, threads, stream, h, B, S, k, kth, f, live,
+                       l0, l1, fallback);
 }
 
 }  // namespace

@@ -9,7 +9,8 @@ on its own and only its gradients are kept, then the decoder-norm constraints,
 the per-SAE gradient clip, the warmup-cosine learning rate and Adam are
 applied to the stacked state.
 
-Ported, with Adam at `matmul_precision="default"`: the step in its three
+Ported, with Adam at `matmul_precision="default"` (bf16 operands with f32
+accumulation on the card, f32 on the CPU: nn/modeling.py): the step in its three
 forms (warm-up without AuxK, AuxK dense, AuxK in a dead subspace), the
 router that picks one for each step of the loop (`StepRouter`,
 `make_step_router`), and the log-step metrics (`make_metrics_fn`). Muon and
@@ -166,7 +167,7 @@ def make_train_step(
         loss, _, obj_state_i = objectives.matryoshka_loss(
             obj_cfg, sae_cfg, leaves, sae_state_i, obj_state_i, x, prefixes_i,
             training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha},
-            any_dead=any_dead, aux_subspace_cap=aux_subspace_cap,
+            precision=matmul_precision, any_dead=any_dead, aux_subspace_cap=aux_subspace_cap,
         )
         keys = sorted(leaves)
         grads = torch.autograd.grad(loss.loss, [leaves[k] for k in keys])
@@ -259,7 +260,9 @@ def dictionary_coherence(w: torch.Tensor, block: int = 1024) -> torch.Tensor:
 def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
     """The heavy per-SAE metrics the loop computes every log_every steps:
     explained variance, dead %, coherence, SSE terms, from a fresh forward on
-    the current params. Its TopK threshold is kernel K6 on the card.
+    the current params, at "highest" (as the JAX package's, whose `encode`
+    and `decode` take no precision there). Its TopK threshold is kernel K6 on
+    the card.
 
     Signature: metrics(sweep_state, x, prefixes) -> {name: (n_sae,) tensor}
     (`prefixes` is accepted for the JAX package's signature and not read).

@@ -8,11 +8,17 @@ a plain dict with the JAX package's keys and layouts:
 `{"W_enc": (d_model, d_sae), "b_enc": (d_sae,), "W_dec": (d_sae, d_model),
 "b_dec": (d_model,)}`.
 
-Matmul precision: the plain f32 matmuls here (the encoder and its backward)
-run in full float32, torch's default with TF32 off. That is what the train
-step's `matmul_precision="default"` maps to in this package; the bf16
-operands that "default" means on the TPU enter only through the kernels'
-inputs, as on the TPU's fused path.
+Matmul precision, as the JAX package names it (saev_tpu/nn/modeling.py:38-50):
+the products here take a `precision`, "highest" or "default" (`matmul`).
+"highest", the default of `encode`, `decode` and the log-step metrics, is a
+full float32 product (torch's float32 matmul precision "highest", its default,
+TF32 off). "default", the train step's, means bf16 operands with float32
+accumulation and result on the card, as on the TPU: each operand rounded to
+bf16 to nearest even, `torch.mm(..., out_dtype=torch.float32)`, the bias
+added in float32 after the product; the backward's products take bf16
+operands too. On a CPU tensor "default" is a float32 product, as JAX-CPU's
+DEFAULT is. "high" (bf16x3 in the JAX package) belongs to the decode path,
+which is not ported yet, and raises.
 """
 
 import dataclasses
@@ -180,30 +186,115 @@ def params_from_numpy(params: dict[str, np.ndarray], device) -> Params:
 # ---------------------------------------------------------------------------
 
 
-class _LinearBias(torch.autograd.Function):
-    """x @ w + b whose backward computes dW and db in one product:
-    d[W; b] = [x; 1]^T @ dh (saev_tpu/nn/modeling.py:288-322)."""
+# saev_tpu/nn/modeling.py:44: eval and inference always run at "highest".
+MATMUL_PRECISION = "highest"
+PRECISIONS = ("highest", "high", "default")
+
+
+def has_bf16_mm_f32() -> bool:
+    """Whether the installed torch has `torch.mm(..., out_dtype=...)`, a
+    product of bf16 operands with an f32 result."""
+    return "dtype" in torch.ops.aten.mm.overloads()
+
+
+def _bf16_operands(t: torch.Tensor) -> bool:
+    """Whether "default" takes bf16 operands for a product on t's device: on
+    the card, as on the TPU; JAX-CPU's DEFAULT is f32, and so is this
+    package's on the CPU. Tests monkeypatch this to run the card's algebra on
+    the CPU, where `_mm_bf16` then takes its plain version."""
+    return t.is_cuda
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(a) @ bf16(b) with f32 accumulation and result (2-D operands,
+    either may be a transposed view). On a CUDA tensor one cuBLAS product;
+    on a CPU tensor its plain version, an f32 product of the rounded
+    operands (the products of two bf16 values are exact in f32)."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if not a.is_cuda:
+        return a16.float() @ b16.float()
+    if not has_bf16_mm_f32():
+        raise RuntimeError(
+            f'matmul_precision "default" takes bf16 operands with an f32 result, and torch '
+            f"{torch.__version__} has no torch.mm(..., out_dtype=torch.float32)"
+        )
+    return torch.mm(a16, b16, out_dtype=torch.float32)
+
+
+class _MatmulBF16(torch.autograd.Function):
+    """a @ b at "default": bf16 operands, f32 result; the backward's two
+    products take bf16 operands too, as the transpose of the JAX package's
+    dot at DEFAULT does. Saves the bf16 operands, not the f32 ones."""
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        return _mm_bf16(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        da = _mm_bf16(g, b16.T) if ctx.needs_input_grad[0] else None
+        db = _mm_bf16(a16.T, g) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def _check_precision(precision: str) -> None:
+    if precision == "high":
+        raise NotImplementedError('matmul_precision "high" (bf16x3) takes the decode path, not ported yet')
+    if precision not in PRECISIONS:
+        raise ValueError(f"Unknown matmul precision: {precision!r}; expected one of {PRECISIONS}")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b for 2-D f32 operands at `precision` ("highest" or "default", as
+    the module docstring defines them)."""
+    _check_precision(precision)
+    if precision == "default" and _bf16_operands(a):
+        return _MatmulBF16.apply(a, b)
+    return a @ b
+
+
+class _LinearBias(torch.autograd.Function):
+    """x @ w + b whose backward computes dW and db in one product:
+    d[W; b] = [x; 1]^T @ dh (saev_tpu/nn/modeling.py:288-318), at the
+    forward's precision, so db takes the same rounding as dW; dx only when it
+    is asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, precision):
+        _check_precision(precision)
+        ctx.bf16 = precision == "default" and _bf16_operands(x)
+        if ctx.bf16:
+            # The rounded operands are what the backward reads: save them.
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            ctx.save_for_backward(x, w if ctx.needs_input_grad[0] else None)
+            return _mm_bf16(x, w) + b
         ctx.save_for_backward(x, w)
         return x @ w + b
 
     @staticmethod
     def backward(ctx, dh):
         x, w = ctx.saved_tensors
+        mm = _mm_bf16 if ctx.bf16 else torch.mm
         dx = dw = db = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            xa = torch.cat([x, torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)], dim=1)
-            dwb = xa.T @ dh.to(x.dtype)
-            dw, db = dwb[:-1], dwb[-1]
+            # [x; 1], padded with zero columns to a multiple of 8 so that a
+            # bf16 operand's rows stay 16-byte aligned for cuBLAS.
+            d = x.shape[1]
+            xa = torch.zeros((x.shape[0], -(-(d + 1) // 8) * 8), dtype=x.dtype, device=x.device)
+            xa[:, :d] = x
+            xa[:, d] = 1
+            dwb = mm(xa.T, dh)
+            dw, db = dwb[:d], dwb[d]
         if ctx.needs_input_grad[0]:
-            dx = (dh.to(w.dtype) @ w.T).to(x.dtype)
-        return dx, dw, db
+            dx = mm(dh, w.T)
+        return dx, dw, db, None
 
 
-def _linear_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _LinearBias.apply(x, w, b)
+def _linear_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    return _LinearBias.apply(x, w, b, precision)
 
 
 def topk_activation(h: torch.Tensor, k: int) -> torch.Tensor:
@@ -215,10 +306,11 @@ def topk_activation(h: torch.Tensor, k: int) -> torch.Tensor:
 
 def encode(
     cfg: SparseAutoencoderConfig, params: Params, state: State, x: torch.Tensor, *,
-    training: bool,
+    training: bool, precision: str | None = None,
 ) -> tuple[EncodeOut, State]:
-    """x @ W_enc + b_enc, then the activation. Ported for TopK (the
-    threshold mask is the same in train and eval mode)."""
+    """x @ W_enc + b_enc at `precision` (None: MATMUL_PRECISION), then the
+    activation. Ported for TopK (the threshold mask is the same in train
+    and eval mode)."""
     if x.ndim != 2 or x.shape[1] != params["W_enc"].shape[0]:
         raise ValueError(
             f"x has shape {tuple(x.shape)}; expected (batch, {cfg.d_model}) "
@@ -227,7 +319,7 @@ def encode(
     act = cfg.activation
     if not isinstance(act, TopK):
         raise NotImplementedError(f"encode for {type(act).__name__} is not ported yet")
-    h_x = _linear_bias(x, params["W_enc"], params["b_enc"])
+    h_x = _linear_bias(x, params["W_enc"], params["b_enc"], precision or MATMUL_PRECISION)
     return EncodeOut(h_x=h_x, f_x=topk_activation(h_x, act.top_k)), state
 
 
@@ -238,11 +330,12 @@ def encode(
 
 def decode(
     cfg: SparseAutoencoderConfig, params: Params, f_x: torch.Tensor,
-    prefixes: torch.Tensor | None = None,
+    prefixes: torch.Tensor | None = None, *, precision: str | None = None,
 ) -> torch.Tensor:
     """Decode latents to per-prefix reconstructions (batch, n_prefixes,
     d_model). Ported for prefixes=None and a single prefix (which must be
-    d_sae): one f32 product plus b_dec, returned as (batch, 1, d_model).
+    d_sae): one product at `precision` (None: MATMUL_PRECISION) plus b_dec,
+    returned as (batch, 1, d_model).
 
     The multi-prefix decode (saev_tpu/nn/modeling.py:413-467), which eval and
     high-precision training take, raises NotImplementedError.
@@ -254,7 +347,7 @@ def decode(
         )
     if prefixes is not None and prefixes.shape[0] > 1:
         raise NotImplementedError("the multi-prefix decode is not ported yet")
-    return (f_x @ params["W_dec"] + params["b_dec"])[:, None, :]
+    return (matmul(f_x, params["W_dec"], precision or MATMUL_PRECISION) + params["b_dec"])[:, None, :]
 
 
 # ---------------------------------------------------------------------------

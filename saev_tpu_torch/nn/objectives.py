@@ -7,9 +7,12 @@ jax-free copy of the original) and passed in as a small int32 tensor.
 
 Ported: the fused training path (`use_fused`), with the TopK statistics pass
 on CUDA (`use_stats`), and AuxK in its dense and dead-subspace forms, whose
-dead-latent threshold is kernel K5 on CUDA. Not ported yet: the
-autodiff-through-decode path that eval and high-precision training take; it
-raises NotImplementedError rather than being skipped.
+dead-latent threshold is kernel K5 on CUDA. Their products take the JAX
+package's `precision` (modeling.matmul: "default" is bf16 operands with f32
+results on the card, f32 on the CPU; None is modeling.MATMUL_PRECISION,
+"highest"). Not ported yet: the autodiff-through-decode path that eval and
+high-precision training take; it raises NotImplementedError rather than
+being skipped.
 """
 
 import dataclasses
@@ -116,8 +119,10 @@ def _aux_loss(
     x_hat_full: torch.Tensor,
     dead_mask: torch.Tensor,
     alpha: torch.Tensor | float | None = None,
+    precision: str | None = None,
 ) -> torch.Tensor:
-    """AuxK dead-latent loss, dense form (saev_tpu/nn/objectives.py:131-167).
+    """AuxK dead-latent loss, dense form (saev_tpu/nn/objectives.py:131-167),
+    its decode at `precision`.
 
     The k_aux largest pre-activations among dead latents reconstruct the
     detached residual of the main reconstruction. With kth the k_aux-th
@@ -133,7 +138,7 @@ def _aux_loss(
     kth = ops.exact_kth_value_masked(h_x, dead_mask, k_aux)
     keep = (h_x >= kth) & dead_mask[None, :]
     aux_acts = torch.where(keep, h_x, torch.zeros((), dtype=h_x.dtype, device=h_x.device))
-    aux_recon = modeling.decode(sae_cfg, params, aux_acts)[:, -1, :]
+    aux_recon = modeling.decode(sae_cfg, params, aux_acts, precision=precision)[:, -1, :]
     return _aux_mse(aux_cfg, aux_recon, residual, dead_mask.sum(), alpha)
 
 
@@ -171,26 +176,32 @@ def _aux_loss_subspace(
     dead_threshold: int,
     cap: int,
     alpha: torch.Tensor | float | None = None,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """AuxK loss in the gathered subspace of the `cap` stalest latents
-    (saev_tpu/nn/objectives.py:190-250).
+    (saev_tpu/nn/objectives.py:190-250), its two products at `precision`
+    (None: "highest", as in `decode`; the JAX package's dots take the
+    backend's default there).
 
     Every dead latent sorts above every live one, so whenever n_dead <= cap
     the subspace holds all dead latents and this loss and its gradients equal
     `_aux_loss`; callers guarantee n_dead <= cap (the step router). The
     subspace pre-activations are recomputed as x @ W_enc[:, idx] + b_enc[idx];
-    the gradients scatter back through the same indices.
+    the gradients scatter back through the same indices. At "default" the
+    gathered columns are rounded to bf16, the same bits as gathering the
+    rounded matrices.
     """
+    precision = precision or modeling.MATMUL_PRECISION
     residual = (x - x_hat_full).detach()
     cap = min(cap, sae_cfg.d_sae)
     k_aux = min(aux_cfg.k_aux, cap)
     idx = stalest_columns(toks, cap)
     dead_sub = toks[idx] >= dead_threshold
-    h_sub = x @ params["W_enc"][:, idx] + params["b_enc"][idx]
+    h_sub = modeling.matmul(x, params["W_enc"][:, idx], precision) + params["b_enc"][idx]
     kth = ops.exact_kth_value_masked(h_sub, dead_sub, k_aux)
     keep = (h_sub >= kth) & dead_sub[None, :]
     aux_acts = torch.where(keep, h_sub, torch.zeros((), dtype=h_sub.dtype, device=h_sub.device))
-    aux_recon = aux_acts @ params["W_dec"][idx] + params["b_dec"]
+    aux_recon = modeling.matmul(aux_acts, params["W_dec"][idx], precision) + params["b_dec"]
     return _aux_mse(aux_cfg, aux_recon, residual, dead_sub.sum(), alpha)
 
 
@@ -205,6 +216,7 @@ def matryoshka_loss(
     *,
     training: bool,
     hp: dict[str, torch.Tensor] | None = None,
+    precision: str | None = None,
     any_dead: bool | None = None,
     aux_subspace_cap: int | None = None,
 ) -> tuple[MatryoshkaLoss, modeling.State, ObjectiveState]:
@@ -219,6 +231,11 @@ def matryoshka_loss(
 
     `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
     n_dead <= cap: the caller's contract (the step router keeps it).
+
+    `precision` is the products' (the encoder and AuxK's): None or "default"
+    takes the fused path, whose encoder is at `precision or
+    modeling.MATMUL_PRECISION`, as in the JAX package; "high" and "highest"
+    take the decode path, which raises.
     """
     if any_dead is not None and not isinstance(any_dead, bool):
         raise TypeError(f"any_dead must be None or a bool, got {type(any_dead).__name__}")
@@ -228,6 +245,7 @@ def matryoshka_loss(
         and prefixes is not None
         and prefixes.shape[0] > 1
         and sae_cfg.d_sae % min(1024, sae_cfg.d_sae) == 0
+        and precision in (None, "default")
     )
     if not use_fused:
         raise NotImplementedError(
@@ -236,12 +254,12 @@ def matryoshka_loss(
     # The TopK statistics pass (kernel K1) runs on the kernel path only.
     use_stats = isinstance(sae_cfg.activation, modeling.TopK) and _fused._use_kernels(x)
     if use_stats:
-        h_x = modeling._linear_bias(x, params["W_enc"], params["b_enc"])
+        h_x = modeling._linear_bias(x, params["W_enc"], params["b_enc"], precision or modeling.MATMUL_PRECISION)
         st = ops.topk_stats(h_x, sae_cfg.activation.top_k)
         f_x = st.f
     else:
         st = None
-        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=training)
+        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=training, precision=precision)
         f_x = enc.f_x
     bsz = x.shape[0]
 
@@ -264,11 +282,12 @@ def matryoshka_loss(
         if aux_subspace_cap is not None and aux_subspace_cap < sae_cfg.d_sae:
             aux = _aux_loss_subspace(
                 aux_cfg, sae_cfg, params, x, xhat_full, toks,
-                obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha,
+                obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha, precision=precision,
             )
         else:
             h_aux = h_x if st is not None else enc.h_x
-            aux = _aux_loss(aux_cfg, sae_cfg, params, x, h_aux, xhat_full, dead_mask, alpha=alpha)
+            aux = _aux_loss(aux_cfg, sae_cfg, params, x, h_aux, xhat_full, dead_mask, alpha=alpha,
+                            precision=precision)
     else:
         aux = torch.zeros((), dtype=x.dtype, device=x.device)
     n_dead = dead_mask.sum().to(torch.int32)
@@ -279,14 +298,17 @@ def matryoshka_loss(
     else:
         l1_full = f_x.abs().sum(dim=1).mean(dim=0)
         l0_full = (f_x != 0).to(x.dtype).sum(dim=1).mean(dim=0)
-    if hp.get("sparsity_coeff") is not None and isinstance(
-        sae_cfg.activation.sparsity, modeling.L1Sparsity
-    ):
+    sparsity_cfg = sae_cfg.activation.sparsity
+    if hp.get("sparsity_coeff") is not None and isinstance(sparsity_cfg, modeling.L1Sparsity):
         sparsity = l1_full * hp["sparsity_coeff"]
+    elif isinstance(sparsity_cfg, modeling.NoSparsity):
+        # Its loss reads no latent: the f32 latents are not built (XLA drops
+        # them in the JAX package, saev_tpu/nn/objectives.py:330-332).
+        sparsity = torch.zeros((), dtype=x.dtype, device=x.device)
     else:
         # The f32 latents, as the JAX package's Output.f_x on either path.
         f_api = f_x if st is None else torch.where(h_x >= st.kth, h_x, 0.0)
-        sparsity = sae_cfg.activation.sparsity.loss(f_api)
+        sparsity = sparsity_cfg.loss(f_api)
 
     loss = MatryoshkaLoss(
         mse=mse, sparsity=sparsity, l0=l0_full, l1=l1_full, aux=aux, n_dead=n_dead

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 # Entry point -> argument types (pointers and the stream as void*, ints as int).
 SIGNATURES = {
     "saev_topk_stats": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "saev_kth": [_P, _I, _I, _I, _P, _P],
+    "saev_kth": [_P, _I, _I, _I, _P, _P, _P],
     "saev_kth_masked": [_P, _P, _I, _I, _I, _P, _P],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -1,5 +1,6 @@
 """Wrappers of kernels K6 and K5, the exact per-row k-th largest value, plain
-(csrc/kth.cu) and with a column mask (csrc/kth_masked.cu).
+(csrc/kth.cu, on K1's select in csrc/topk_row.cuh) and with a column mask
+(csrc/kth_masked.cu).
 
 Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
@@ -12,7 +13,7 @@ import torch
 from . import _build
 from .topk import _kth_masked_plain, _kth_plain
 
-# K6 stages a row in registers, as K1 does: at most 64 keys a thread, 512
+# K6 stages a row in registers with K1's select: at most 64 keys a thread, 512
 # threads. K5 compacts the mask into uint16 column indices and takes the same
 # widths.
 MAX_S = 512 * 64
@@ -31,14 +32,23 @@ def _check_h(h: torch.Tensor, k: int, what: str) -> int:
     return k
 
 
-def kth_value_cuda(h: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, 1) exact k-th largest of each row of a (B, S) f32 batch."""
+def kth_value_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, 1) exact k-th largest of each row of a (B, S) f32 batch.
+
+    `fallback`, a (1,) int32 tensor on h's device, gains the number of rows
+    whose candidate filter overflowed, or whose k exceeds the threads that
+    hold a column, and which took the whole-row bisection (a measurement;
+    the callers of the main path pass none)."""
     if h.device.type != "cuda":
         return _kth_plain(h, min(k, h.shape[-1]))
     k = _check_h(h, k, "kth_value")
+    if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1
+                                 or fallback.device != h.device):
+        raise ValueError(f"kth_value wants a (1,) int32 fallback count on {h.device}")
     out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
     code = _build.lib().saev_kth(
-        h.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(), _build.stream_ptr(h)
+        h.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(),
+        None if fallback is None else fallback.data_ptr(), _build.stream_ptr(h),
     )
     _build.check(code, "kth_value")
     kth_value_cuda.launches += 1

@@ -9,9 +9,10 @@ statistics of that same h in one kernel (csrc/encode_stats.cu). `--check`
 holds h to the plain version (rel-norm 1e-5) and the statistics, bitwise, to
 K1 and to K1's plain version applied to P1's own h. The A/B times the fused
 kernel against two two-pass forms under the device profiler: the port's
-step encoder as it runs today (`modeling._linear_bias`, f32) followed by K1,
-and a bf16-operand product with an f32 result (`torch.mm(..., out_dtype=
-torch.float32)`, where the installed torch has it) followed by K1.
+encoder (`modeling._linear_bias`) at "highest", an f32 product, and at
+"default", the train step's bf16-operand product with an f32 result
+(`torch.mm(..., out_dtype=torch.float32)`, where the installed torch has
+it), each followed by K1.
 """
 
 import contextlib
@@ -130,12 +131,6 @@ def check(inp: dict, k: int = K) -> dict:
     return out
 
 
-def has_bf16_mm_f32() -> bool:
-    """Whether the installed torch has `torch.mm(..., out_dtype=...)`, a
-    product of bf16 operands with an f32 result."""
-    return "dtype" in torch.ops.aten.mm.overloads()
-
-
 def ab(inp: dict, n: int = 10, warmup: int = 3) -> dict[str, list]:
     """Device-profiler rows of one call of the fused kernel and of each
     two-pass form (the bf16 one only where torch has the product)."""
@@ -144,11 +139,11 @@ def ab(inp: dict, n: int = 10, warmup: int = 3) -> dict[str, list]:
     x, w, wb, b_enc = inp["x"], inp["w"], inp["wb"], inp["b_enc"]
     cases = {
         "fused P1": lambda: encode_stats(x, wb, b_enc, K),
-        "two-pass f32 encoder + K1": lambda: cuda_topk.topk_stats_cuda(modeling._linear_bias(x, w, b_enc), K),
+        "two-pass f32 encoder + K1": lambda: cuda_topk.topk_stats_cuda(modeling._linear_bias(x, w, b_enc, "highest"), K),
     }
-    if has_bf16_mm_f32():
+    if modeling.has_bf16_mm_f32():
         cases["two-pass bf16 encoder + K1"] = lambda: cuda_topk.topk_stats_cuda(
-            torch.mm(x.to(torch.bfloat16), wb, out_dtype=torch.float32) + b_enc, K)
+            modeling._linear_bias(x, w, b_enc, "default"), K)
     with torch.no_grad(), _f32_matmul():
         return {name: kprof.device_profile(fn, n=n, warmup=warmup) for name, fn in cases.items()}
 
@@ -163,7 +158,9 @@ def main(argv: list[str] | None = None) -> None:
               f"version; kth, f, live ({res['n_live']} live), l0 bitwise equal to K1 and to its plain "
               f"version on P1's own h, l1 within {L1_REL}")
         return
-    if not has_bf16_mm_f32():
+    from ..nn import modeling
+
+    if not modeling.has_bf16_mm_f32():
         print("two-pass bf16 encoder: not timed, this torch has no bf16 product with an f32 result")
     for name, rows in ab(inp).items():
         print(kprof.report(name, rows, top=4))

@@ -1,6 +1,7 @@
-"""Where K1's and K5's time goes on the card, measured on instrumented or
-re-bounded copies of the committed sources (csrc/topk_row.cuh and
-csrc/topk_stats.cu; csrc/kth_masked.cu); the library itself is untouched.
+"""Where K1's, K6's and K5's time goes on the card, measured on instrumented
+or re-bounded copies of the committed sources (csrc/topk_row.cuh,
+csrc/topk_stats.cu and csrc/kth.cu; csrc/kth_masked.cu); the library itself
+is untouched.
 
     python -m saev_tpu_torch.scripts.select_probe
 
@@ -10,6 +11,12 @@ csrc/topk_stats.cu; csrc/kth_masked.cu); the library itself is untouched.
   the mean cycles a row spends in each phase, and the CUDA-event times of
   the copy with and without stamps and of the library's K1, at the
   production shape (16384 x 16384 Gaussian rows, k 32).
+- `k6_phases`: the same stamps in a copy of K6, which runs K1's select
+  alone: the row into registers, the lower bound, the filter, the select.
+- `k6_caps`: K6's streamed kernel built with launch bounds that ask for 2
+  and 3 CTAs an SM (three 64 KB row buffers fit in shared memory; the
+  registers are the question), timed by CUDA events at the production
+  shape and held bitwise to the plain version.
 - `k5_phases`: a copy of K5 with clock64 stamps: each CTA's start and the
   end of its mask compaction (thread 0), and each row's gather start, keys
   gathered and bisection done (the first lane of the row's first warp).
@@ -21,6 +28,10 @@ csrc/topk_stats.cu; csrc/kth_masked.cu); the library itself is untouched.
   events at the train step's three shapes (16384 x 1024 with 819 unmasked
   columns, x 4096 with 3276, x 16384 with 819), each held bitwise to the
   plain version.
+
+Thread 0 stamps a CTA's slots (g_cta[blockIdx.x * 8 + i]) as its row goes
+through the phases, and copies them to the row's (g_stamps[row * 8 + i])
+when the row is done: the select's routine does not know the row.
 """
 
 import ctypes
@@ -38,11 +49,12 @@ B, S, K = 16384, 16384, 32
 K_AUX = 512
 K5_SHAPES = ((1024, 819), (4096, 3276), (16384, 819))
 PHASES = ("row into registers", "lower bound", "filter", "select", "epilogue loop", "reductions and stores")
+K6_PHASES = PHASES[:4]
 SEED = 0
 
 # Where each stamp goes in topk_row.cuh: (text, stamp index, before or after).
 _STAMPS = (
-    ("  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;\n", 0, "after"),
+    ("  uint32_t key[VPT];\n", 0, "before"),
     ("  __syncthreads();\n  released();\n", 1, "after"),
     ("  // 2. The keys >= t0", 2, "before"),
     ("  const int n_cand = sm.n_cand;\n", 3, "after"),
@@ -50,6 +62,33 @@ _STAMPS = (
     ("  l0 = __reduce_add_sync(0xffffffffu, l0);\n", 5, "before"),
     ("    l1_out[row] = l1_total;\n", 6, "after"),
 )
+# The same in kth.cu's row: its start, the select's end, and the row done.
+_K6_STAMPS = (
+    ("  uint32_t key[VPT];\n", 0, "before"),
+    ("  const uint32_t kth = select_kth_key<VPT, MAXT>(key, mx, S, k, sm, fallback, released);\n", 4, "after"),
+)
+_K6_DONE = "  if (threadIdx.x == 0) out[row] = key_float(kth);\n"
+_K6_BOUNDS = "__global__ void __launch_bounds__(MAXT)\n    kth_stream_kernel("
+_POINTERS = "__device__ long long* g_stamps;\n__device__ long long* g_cta;\n"
+
+
+def _stamp(i: int) -> str:
+    return f"  if (threadIdx.x == 0 && g_stamps) g_cta[blockIdx.x * 8 + {i}] = clock64();\n"
+
+
+def _copy(indent: str, n: int) -> str:
+    return (f"{indent}if (threadIdx.x == 0 && g_stamps)\n{indent}  for (int i = 0; i < {n}; ++i) "
+            f"g_stamps[row * 8 + i] = g_cta[blockIdx.x * 8 + i];\n")
+
+
+def _insert(src: str, name: str, stamps) -> str:
+    for text, i, where in stamps:
+        if src.count(text) != 1:
+            raise ValueError(f"{name}: the probe's marker {text!r} is not there once")
+        src = src.replace(text, _stamp(i) + text if where == "before" else text + _stamp(i))
+    return src
+
+
 _K5_BOUNDS = "__launch_bounds__(kMaxWarps * 32, KPL == 32 ? 2 : 1)"
 # Where each stamp goes in kth_masked.cu: (text, array and index, before or after).
 _K5_STAMPS = (
@@ -63,15 +102,23 @@ K5_PHASES = ("mask compaction (a CTA)", "keys gathered (a row)", "bisection (a r
 
 
 def stamped_row_source() -> str:
-    """topk_row.cuh with a clock64 stamp of thread 0 at each phase boundary,
-    into g_stamps[row * 8 + i] (a device pointer, null for no stamps)."""
-    src = (_build.CSRC / "topk_row.cuh").read_text()
-    for text, i, where in _STAMPS:
-        if src.count(text) != 1:
-            raise ValueError(f"topk_row.cuh: the probe's marker {text!r} is not there once")
-        stamp = f"  if (threadIdx.x == 0 && g_stamps) g_stamps[row * 8 + {i}] = clock64();\n"
-        src = src.replace(text, stamp + text if where == "before" else text + stamp)
-    return src.replace("namespace {\n", "__device__ long long* g_stamps;\n\nnamespace {\n", 1)
+    """topk_row.cuh with a clock64 stamp of thread 0 at each phase boundary
+    into its CTA's slots, copied to g_stamps[row * 8 + i] when K1's row is
+    done (device pointers, g_stamps null for no stamps)."""
+    src = _insert((_build.CSRC / "topk_row.cuh").read_text(), "topk_row.cuh", _STAMPS)
+    done = "    l1_out[row] = l1_total;\n" + _stamp(6)
+    src = src.replace(done, done + _copy("    ", 7))
+    return src.replace("namespace {\n", _POINTERS + "\nnamespace {\n", 1)
+
+
+def stamped_k6_source() -> str:
+    """kth.cu with stamps at its row's start and the select's end, copied to
+    g_stamps[row * 8 + i] when the row is done; the select's own stamps come
+    from `stamped_row_source`'s header (the pointers are declared there)."""
+    src = _insert((_build.CSRC / "kth.cu").read_text(), "kth.cu", _K6_STAMPS)
+    if src.count(_K6_DONE) != 1:
+        raise ValueError(f"kth.cu: the probe's marker {_K6_DONE!r} is not there once")
+    return src.replace(_K6_DONE, _K6_DONE + _copy("  ", 5))
 
 
 def k5_capped_source(min_blocks: int) -> str:
@@ -99,6 +146,15 @@ def stamped_k5_source() -> str:
     return src.replace("namespace {\n", pointers + "\nnamespace {\n", 1)
 
 
+def k6_capped_source(min_blocks: int) -> str:
+    """kth.cu with launch bounds on the streamed kernel that ask for
+    min_blocks CTAs an SM."""
+    src = (_build.CSRC / "kth.cu").read_text()
+    if src.count(_K6_BOUNDS) != 1:
+        raise ValueError("kth.cu: the probe's launch bounds are not there once")
+    return src.replace(_K6_BOUNDS, _K6_BOUNDS.replace("(MAXT)", f"(MAXT, {min_blocks})"))
+
+
 def _compile(tmp: pathlib.Path, source: pathlib.Path, name: str) -> tuple[ctypes.CDLL, str]:
     out = tmp / f"{name}.so"
     res = subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(source)],
@@ -120,45 +176,112 @@ def _events_ms(fn, n: int = 10) -> float:
     return a.elapsed_time(b) / n
 
 
-def k1_phases(tmp: pathlib.Path) -> list[str]:
-    d = tmp / "k1"
+def _probe_dir(tmp: pathlib.Path, name: str) -> pathlib.Path:
+    d = tmp / name
     d.mkdir()
-    for name in ("topk_stats.cu", "hopper.cuh", "order_key.cuh"):
-        shutil.copy(_build.CSRC / name, d / name)
+    for f in ("topk_stats.cu", "kth.cu", "hopper.cuh", "order_key.cuh", "row_stream.cuh"):
+        shutil.copy(_build.CSRC / f, d / f)
     (d / "topk_row.cuh").write_text(stamped_row_source())
-    with open(d / "topk_stats.cu", "a") as fh:
-        fh.write('\nextern "C" int saev_probe_stamps(long long* p) {\n'
-                 "  return cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n")
+    return d
+
+
+def _stamp_setter(src: pathlib.Path) -> None:
+    with open(src, "a") as fh:
+        fh.write('\nextern "C" int saev_probe_stamps(long long* p, long long* cta) {\n'
+                 "  cudaError_t e = cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n"
+                 "  return e != cudaSuccess ? e : cudaMemcpyToSymbol(g_cta, &cta, sizeof(cta));\n}\n")
+
+
+def _run_stamped(lib: ctypes.CDLL, call, library_call, n_phases: int) -> tuple[float, float, float, list, float]:
+    """The copy's CUDA-event time without and with stamps, the library's, and
+    the mean cycles a row spends in each of n_phases phases and in all."""
+    lib.saev_probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    stamps = torch.zeros((B, 8), dtype=torch.int64, device="cuda")
+    cta = torch.zeros((B, 8), dtype=torch.int64, device="cuda")
+    lib.saev_probe_stamps(None, None)
+    plain_ms = _events_ms(call)
+    lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()), ctypes.c_void_p(cta.data_ptr()))
+    stamped_ms = _events_ms(call)
+    lib.saev_probe_stamps(None, None)
+    library_ms = _events_ms(library_call)
+    st = stamps.double()
+    cycles = (st[:, 1:n_phases + 1] - st[:, 0:n_phases]).mean(0).tolist()
+    return plain_ms, stamped_ms, library_ms, cycles, float((st[:, n_phases] - st[:, 0]).mean())
+
+
+def k1_phases(tmp: pathlib.Path) -> list[str]:
+    d = _probe_dir(tmp, "k1")
+    _stamp_setter(d / "topk_stats.cu")
     lib, _ = _compile(d, d / "topk_stats.cu", "k1_probe")
     lib.saev_topk_stats.argtypes = _build.SIGNATURES["saev_topk_stats"]
-    lib.saev_probe_stamps.argtypes = [ctypes.c_void_p]
     h = torch.randn((B, S), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     kth = torch.empty((B, 1), device="cuda")
     f = torch.empty((B, S), dtype=torch.bfloat16, device="cuda")
     live = torch.zeros(S, dtype=torch.int32, device="cuda")
     l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
-    stamps = torch.zeros((B, 8), dtype=torch.int64, device="cuda")
 
     def call():
         code = lib.saev_topk_stats(h.data_ptr(), B, S, K, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
                                    l0.data_ptr(), l1.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
         _build.check(code, "select_probe K1")
 
-    lib.saev_probe_stamps(None)
-    plain_ms = _events_ms(call)
-    lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()))
-    stamped_ms = _events_ms(call)
-    lib.saev_probe_stamps(None)
-    library_ms = _events_ms(lambda: cuda_topk.topk_stats_cuda(h, K))
+    plain_ms, stamped_ms, library_ms, cycles, total = _run_stamped(
+        lib, call, lambda: cuda_topk.topk_stats_cuda(h, K), len(PHASES))
     want = topk._topk_stats_plain(h, K)
     if not torch.equal(kth, want.kth):
         raise AssertionError("select_probe: the stamped K1's kth differs from the plain version")
-    st = stamps.double()
-    cycles = (st[:, 1:7] - st[:, 0:6]).mean(0).tolist()
-    total = float((st[:, 6] - st[:, 0]).mean())
     return [f"K1 {B}x{S} k {K}: library {library_ms:.3f} ms, the probe's copy {plain_ms:.3f} ms, with stamps "
             f"{stamped_ms:.3f} ms; mean cycles a row: "
             + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, cycles)) + f"; in all {total:.0f}"]
+
+
+def k6_phases(tmp: pathlib.Path) -> list[str]:
+    d = _probe_dir(tmp, "k6")
+    (d / "kth.cu").write_text(stamped_k6_source())
+    _stamp_setter(d / "kth.cu")
+    lib, _ = _compile(d, d / "kth.cu", "k6_probe")
+    lib.saev_kth.argtypes = _build.SIGNATURES["saev_kth"]
+    h = torch.randn((B, S), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    out = torch.empty((B, 1), device="cuda")
+
+    def call():
+        code = lib.saev_kth(h.data_ptr(), B, S, K, out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "select_probe K6")
+
+    plain_ms, stamped_ms, library_ms, cycles, total = _run_stamped(
+        lib, call, lambda: cuda_kth.kth_value_cuda(h, K), len(K6_PHASES))
+    if not torch.equal(out, topk._kth_plain(h, K)):
+        raise AssertionError("select_probe: the stamped K6 differs from the plain version")
+    return [f"K6 {B}x{S} k {K}: library {library_ms:.3f} ms, the probe's copy {plain_ms:.3f} ms, with stamps "
+            f"{stamped_ms:.3f} ms; mean cycles a row: "
+            + ", ".join(f"{name} {c:.0f}" for name, c in zip(K6_PHASES, cycles)) + f"; in all {total:.0f}"]
+
+
+def k6_caps(tmp: pathlib.Path) -> list[str]:
+    h = torch.randn((B, S), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    want = topk._kth_plain(h, K)
+    lines = []
+    for min_blocks in (2, 3):
+        d = tmp / f"k6_{min_blocks}"
+        d.mkdir()
+        for f in ("topk_row.cuh", "hopper.cuh", "order_key.cuh", "row_stream.cuh"):
+            shutil.copy(_build.CSRC / f, d / f)
+        (d / "kth.cu").write_text(k6_capped_source(min_blocks))
+        lib, log = _compile(d, d / "kth.cu", f"k6_{min_blocks}")
+        lib.saev_kth.argtypes = _build.SIGNATURES["saev_kth"]
+        out = torch.empty((B, 1), device="cuda")
+
+        def call(lib=lib, out=out):
+            code = lib.saev_kth(h.data_ptr(), B, S, K, out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "select_probe K6")
+
+        ms = _events_ms(call, 20)
+        if not torch.equal(out, want):
+            raise AssertionError(f"select_probe: K6 with {min_blocks} CTAs an SM differs from the plain version")
+        res = _build.ptxas_resources(log, "kth_stream_kernelILi64ELi256E")
+        lines.append(f"K6 {B}x{S} k {K}, streamed kernel asking for {min_blocks} CTAs an SM "
+                     f"{list(res.values())}: {ms:.4f} ms (bitwise equal)")
+    return lines
 
 
 def k5_phases(tmp: pathlib.Path) -> list[str]:
@@ -248,8 +371,9 @@ def main() -> None:
     print(kprof.card())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        for line in k1_phases(pathlib.Path(tmp)) + k5_phases(pathlib.Path(tmp)) + k5_caps(pathlib.Path(tmp)):
-            print(line, flush=True)
+        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps):
+            for line in probe(pathlib.Path(tmp)):
+                print(line, flush=True)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,18 @@
-"""Plain torch models of the selects of kernels K1 (csrc/topk_row.cuh) and K5
-(csrc/kth_masked.cu), step by step as the kernels run them, for the CPU tests
-(test_torch_kth_select.py, against the JAX package) and the card tests
-(test_torch_cuda_kernels.py, against the kernels: which rows take K1's
-fallback, and K1's L1 in the kernel's order). Imports no JAX.
+"""Plain torch models of the selects of kernels K1 and K6 (csrc/topk_row.cuh)
+and K5 (csrc/kth_masked.cu), step by step as the kernels run them, for the
+CPU tests (test_torch_kth_select.py, against the JAX package) and the card
+tests (test_torch_cuda_kernels.py, against the kernels: which rows take K1's
+and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
 
-- K1: the dispatch of topk_stats.cu (VPT keys a thread, T threads), runs of 4
+- K1 and K6 (`select_model`): the dispatch of topk_stats.cu or kth.cu (VPT
+  keys a thread, T threads), runs of 4
   columns a thread, key 0 past the row's end, the per-thread maxima and their
   k-th largest cut to its bits down to kBoundBit, t0 (when k <= T', the
   threads that hold a column), the keys >= t0 counted against the candidate
   buffer's capacity (kCandCap; both constants read from the source), the
   k-th largest candidate (ranked up to T candidates, bisected past them),
   and the whole-row bisection where k > T' or the buffer overflows; each
-  bisection from the common prefix of its bounds (`bisect`). Then the
+  bisection from the common prefix of its bounds (`bisect`). Then K1's
   epilogue, L1 in the kernel's order.
 - K5: the dispatch of kth_masked.cu (KPL keys a lane, W warps a CTA), the
   mask compacted by threads over contiguous runs of columns, -inf where
@@ -42,13 +43,23 @@ def bound_bit() -> int:
     return int(re.search(r"constexpr int kBoundBit = (\d+);", _source("topk_row.cuh"))[1])
 
 
-def k1_dispatch(s: int) -> tuple[int, int]:
-    """(VPT, MAXT) of topk_stats.cu's table for a row of s."""
+def _select_dispatch(name: str, s: int) -> tuple[int, int]:
+    """(VPT, MAXT) of the table in csrc/`name` for a row of s."""
     for n_t, vpt, vpt_t, maxt in re.findall(r"S <= (\d+) \* (\d+)\) return launch<(\d+), (\d+)>",
-                                            _source("topk_stats.cu")):
+                                            _source(name)):
         if s <= int(n_t) * int(vpt):
             return int(vpt_t), int(maxt)
     raise ValueError(s)
+
+
+def k1_dispatch(s: int) -> tuple[int, int]:
+    """(VPT, MAXT) of topk_stats.cu's table for a row of s."""
+    return _select_dispatch("topk_stats.cu", s)
+
+
+def k6_dispatch(s: int) -> tuple[int, int]:
+    """(VPT, MAXT) of kth.cu's table for a row of s."""
+    return _select_dispatch("kth.cu", s)
 
 
 def k5_dispatch(s: int) -> tuple[int, int]:
@@ -92,10 +103,10 @@ def bisect(lo: torch.Tensor, hi: torch.Tensor, k: int, count, lowest: int = 0) -
 # --- K1 ---
 
 
-def k1_layout(s: int) -> tuple[torch.Tensor, int]:
+def k1_layout(s: int, dispatch=k1_dispatch) -> tuple[torch.Tensor, int]:
     """(T, VPT) column of each thread's key slot (runs of 4: slot 4r + q of
     thread t is column 4(t + rT) + q), and T."""
-    vpt, maxt = k1_dispatch(s)
+    vpt, maxt = dispatch(s)
     nt = -(-(-(-s // vpt)) // 32) * 32
     assert nt <= maxt and nt * vpt >= s
     t = torch.arange(nt)[:, None]
@@ -103,12 +114,13 @@ def k1_layout(s: int) -> tuple[torch.Tensor, int]:
     return 4 * (t + (j // 4) * nt) + j % 4, nt
 
 
-def k1_model(h: torch.Tensor, k: int) -> dict:
-    """K1 on a (B, S) f32 batch: kth, f, live, l0, l1 and, per row, whether
-    the filter ran, its candidate count and whether the row fell back."""
-    b, s = h.shape
+def select_model(h: torch.Tensor, k: int, dispatch=k1_dispatch) -> dict:
+    """The select (`row_keys` and `select_kth_key`) of a (B, S) f32 batch
+    under a kernel's dispatch: kth and, per row, whether the filter ran, its
+    candidate count and whether the row fell back."""
+    s = h.shape[1]
     k = min(k, s)
-    cols, nt = k1_layout(s)
+    cols, nt = k1_layout(s, dispatch)
     inside = cols < s
     key = torch.where(inside, order_key(h)[:, cols.clamp(max=s - 1)], 0)  # (B, T, VPT)
     mx = key.amax(-1)  # (B, T)
@@ -131,6 +143,22 @@ def k1_model(h: torch.Tensor, k: int) -> dict:
     sel_cand = torch.where(n_cand <= nt, ranked, bisect(t0, hi, k, lambda t: (cand_key >= t[:, None]).sum(-1)))
     sel_full = bisect(t0, hi, k, lambda t: (flat >= t[:, None]).sum(-1))
     kth = key_float(torch.where(by_cand, sel_cand, sel_full))[:, None]
+    return {"kth": kth, "filter": filt, "n_cand": n_cand, "fallback": ~by_cand}
+
+
+def k6_model(h: torch.Tensor, k: int) -> dict:
+    """K6 on a (B, S) f32 batch: `select_model` under kth.cu's dispatch."""
+    return select_model(h, k, k6_dispatch)
+
+
+def k1_model(h: torch.Tensor, k: int) -> dict:
+    """K1 on a (B, S) f32 batch: kth, f, live, l0, l1 and, per row, whether
+    the filter ran, its candidate count and whether the row fell back."""
+    b, s = h.shape
+    sel = select_model(h, k)
+    kth = sel["kth"]
+    cols, nt = k1_layout(s)
+    inside = cols < s
 
     x = torch.where(inside, h[:, cols.clamp(max=s - 1)], 0.0)  # (B, T, VPT)
     keep = x >= kth[:, :, None]
@@ -146,9 +174,9 @@ def k1_model(h: torch.Tensor, k: int) -> dict:
     for w in range(nt // 32):  # the warps in turn
         l1 = l1 + acc[:, w, 0]
     f = torch.where(h >= kth, h, 0.0).to(torch.bfloat16)
-    return {
-        "kth": kth, "f": f, "live": (f != 0).any(0), "l0": ((h >= kth) & (h != 0)).sum(1, keepdim=True).float(),
-        "l1": l1[:, None], "filter": filt, "n_cand": n_cand, "fallback": ~by_cand,
+    return sel | {
+        "f": f, "live": (f != 0).any(0), "l0": ((h >= kth) & (h != 0)).sum(1, keepdim=True).float(),
+        "l1": l1[:, None],
     }
 
 

@@ -81,7 +81,7 @@ def _torch_losses(cfg, params, x, xhat, toks, alpha=None):
         return loss.detach().numpy(), {k: g.numpy() for k, g in zip(KEYS, grads)}
 
     def dense(p):
-        h = modeling._linear_bias(xt, p["W_enc"], p["b_enc"])
+        h = modeling._linear_bias(xt, p["W_enc"], p["b_enc"], "highest")
         return objectives._aux_loss(aux, cfg, p, xt, h, xh, tt >= THRESHOLD, alpha=alpha)
 
     def sub(p):

@@ -1,6 +1,8 @@
 """The eleven CUDA kernels against their plain versions on the card, at small
-shapes with edge cases. Every test here needs a CUDA device and skips
-without one. The file imports no JAX, so it runs on a machine without it:
+shapes with edge cases, and the train step's products at
+matmul_precision="default" (bf16 operands, f32 results) against their
+algebra on the CPU. Every test here needs a CUDA device and skips without
+one. The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
@@ -10,8 +12,10 @@ without one. The file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
-from kth_select_model import cand_cap, k1_layout, k1_model, k5_model
+from kth_select_model import cand_cap, k1_layout, k1_model, k5_model, k6_model
 
+from saev_tpu_torch.framework import train
+from saev_tpu_torch.nn import modeling, objectives
 from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
 from saev_tpu_torch.ops import cuda_matryoshka as cm
 from saev_tpu_torch.ops import matryoshka as tmat
@@ -269,6 +273,49 @@ def test_kth_kernel_matches_plain(dev, b, s, k):
     assert _same_bits(got, cuda_topk.topk_stats_cuda(h, k).kth)
 
 
+def _at_offset(h: torch.Tensor, dev, offset: int) -> torch.Tensor:
+    """h on the card, its first element `offset` floats into an allocation
+    (offset 1: not 16-byte aligned, so K6 takes one CTA a row)."""
+    buf = torch.empty(h.numel() + offset, device=dev)
+    out = buf[offset:].view(h.shape)
+    out.copy_(h)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("b,s,k", K1_SELECT)
+def test_kth_kernel_select_branches(dev, b, s, k, offset):
+    """K6 on K1's select, streamed (S % 4 == 0, h 16-byte aligned) and one
+    CTA a row (otherwise): kth bitwise against the plain version, K1's kth
+    and the model of its select (kth_select_model.k6_model), whose rows fall
+    back; two calls agree."""
+    h = _k1_select_rows(b, s, b + s + k)
+    model = k6_model(h, k)
+    hd = _at_offset(h, dev, offset)
+    fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = cuda_kth.kth_value_cuda.launches
+    got = cuda_kth.kth_value_cuda(hd, k, fallback)
+    again = cuda_kth.kth_value_cuda(hd, k)
+    torch.cuda.synchronize()
+    assert cuda_kth.kth_value_cuda.launches == before + 2
+    assert _same_bits(got, topk._kth_plain(hd, min(k, s)))
+    assert torch.equal(got.cpu().view(torch.int32), model["kth"].view(torch.int32))
+    assert torch.equal(got, cuda_topk.topk_stats_cuda(hd.contiguous(), k).kth)
+    assert torch.equal(got, again)
+    assert int(fallback) == int(model["fallback"].sum())
+    if k == 32 and s >= 2 * cand_cap():
+        assert 0 < int(fallback) < b  # both branches ran (rows 0, 5 and 6 fall back)
+
+
+def test_kth_kernel_gaussian_rows_take_the_filter(dev):
+    """No Gaussian row of the production width falls back, streamed or not."""
+    h = torch.randn((264, 16384), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    for hd in (h, _at_offset(h, dev, 1)):
+        fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = cuda_kth.kth_value_cuda(hd, 32, fallback)
+        assert int(fallback) == 0 and _same_bits(got, topk._kth_plain(h, 32))
+
+
 def _masks(s: int, k: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     return {
@@ -362,6 +409,8 @@ def test_wrappers_refuse_bad_shapes(dev):
             topk.exact_kth_value_masked(bad, torch.ones(bad.shape[-1], dtype=torch.bool, device=dev), 2)
     with pytest.raises(ValueError, match="mask"):
         topk.exact_kth_value_masked(torch.zeros((4, 8), device=dev), torch.ones(8, device=dev), 2)
+    with pytest.raises(ValueError, match="fallback"):
+        cuda_kth.kth_value_cuda(torch.zeros((4, 8), device=dev), 2, torch.zeros(1, dtype=torch.int64, device=dev))
 
 
 def _matryoshka_operands(dev, seed: int, b: int = 256, s: int = 2048, d: int = 128):
@@ -616,3 +665,109 @@ def test_kth_ops_refuses_bad_inputs(dev):
         proto_kth_ops.kth_ops(torch.zeros((4, 8), device=dev), 2, "popc")
     with pytest.raises(ValueError, match="k="):
         proto_kth_ops.kth_ops(torch.zeros((4, 8), device=dev), 9, "mxu")
+
+
+# --- The train step's products at matmul_precision="default" ---
+
+
+# The card's bf16 products with f32 accumulation against the same algebra on
+# the CPU (f32 sums of the exact bf16 products): the sums run in another
+# order, and the tensor cores do not round every f32 add to nearest, so the
+# card's sums drift from the exact one with K (chip_smoke.py's
+# `product_drift`: on an H100 about 1e-6 at K 1024). These products' K is at
+# most 2048; 1e-5 is a hundredth of what rounding the operands moves.
+BF16_PRODUCT_REL = 1e-5
+
+
+def _bf16_algebra(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(a) @ bf16(b) with f32 accumulation, on the CPU."""
+    return a.cpu().to(torch.bfloat16).float() @ b.cpu().to(torch.bfloat16).float()
+
+
+def test_linear_bias_default_is_bf16_algebra(dev):
+    """The encoder at "default" on the card: h, dW, db and dx against the
+    bf16 algebra of the same operands on the CPU (rel-norm BF16_PRODUCT_REL),
+    and h not the f32 product."""
+    gen = torch.Generator().manual_seed(5)
+    x, w, b, dh = (torch.randn(s, generator=gen) for s in ((256, 128), (128, 2048), (2048,), (256, 2048)))
+    leaves = [t.to(dev).requires_grad_(True) for t in (x, w, b)]
+    h = modeling._linear_bias(*leaves, "default")
+    h.backward(dh.to(dev))
+    xa = torch.cat([x, torch.ones((256, 1))], dim=1)
+    dwb = _bf16_algebra(xa.T, dh)
+    for what, got, want in (("h", h, _bf16_algebra(x, w) + b), ("dW", leaves[1].grad, dwb[:-1]),
+                            ("db", leaves[2].grad, dwb[-1]), ("dx", leaves[0].grad, _bf16_algebra(dh, w.T))):
+        err = rel_norm(got.detach().cpu(), want)
+        assert got.dtype == torch.float32 and err <= BF16_PRODUCT_REL, (what, err)
+    assert rel_norm(h.detach().cpu(), x @ w + b) > 1e-4
+
+
+def test_matmul_default_is_bf16_algebra(dev):
+    """The AuxK products (modeling.matmul) at "default", forward and
+    backward, against the bf16 algebra; at "highest" the f32 product."""
+    gen = torch.Generator().manual_seed(6)
+    a, b, g = (torch.randn(s, generator=gen) for s in ((256, 1024), (1024, 128), (256, 128)))
+    leaves = [t.to(dev).requires_grad_(True) for t in (a, b)]
+    out = modeling.matmul(*leaves, "default")
+    out.backward(g.to(dev))
+    for what, got, want in (("out", out, _bf16_algebra(a, b)), ("da", leaves[0].grad, _bf16_algebra(g, b.T)),
+                            ("db", leaves[1].grad, _bf16_algebra(a.T, g))):
+        err = rel_norm(got.detach().cpu(), want)
+        assert got.dtype == torch.float32 and err <= BF16_PRODUCT_REL, (what, err)
+    assert rel_norm(modeling.matmul(a.to(dev), b.to(dev), "highest").cpu(), a @ b) <= 1e-6
+
+
+def test_bf16_route_refuses_without_the_product(dev, monkeypatch):
+    """A torch with no bf16 product of f32 result raises; it does not fall
+    back to f32 unsaid."""
+    monkeypatch.setattr(modeling, "has_bf16_mm_f32", lambda: False)
+    with pytest.raises(RuntimeError, match="out_dtype"):
+        modeling.matmul(torch.ones((8, 8), device=dev), torch.ones((8, 8), device=dev), "default")
+
+
+STEP_VARIANTS = {"warm": dict(aux_enabled=False), "dense": {}, "subspace": dict(aux_subspace_cap=128)}
+
+
+@pytest.mark.parametrize("variant", STEP_VARIANTS)
+def test_train_step_default_precision_on_the_card(dev, monkeypatch, variant):
+    """The train step at "default" on the card: its encoder output is the
+    bf16 algebra of its operands (rel-norm BF16_PRODUCT_REL) and not their
+    f32 product,
+    and its loss and grad_norm are within 1e-2 of the CPU's f32 step."""
+    cfg = modeling.SparseAutoencoderConfig(
+        d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8, aux=modeling.AuxK(k_aux=64))
+    )
+    obj = objectives.Matryoshka(n_prefixes=4)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
+    pf = torch.from_numpy(np.stack([objectives.sample_prefixes(2048, 4, rng=rng) for _ in range(2)]))
+    ts = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(0), device="cpu")
+    ts.obj_state["toks_since_active"][:, :100] = 1 << 30
+
+    def hp(device):
+        return {"lr": torch.full((2,), 1e-3, device=device), "n_lr_warmup": torch.ones(2, device=device),
+                "grad_clip": torch.ones(2, device=device), "sparsity_coeff": torch.zeros(2, device=device),
+                "aux_alpha": torch.full((2,), 1 / 32, device=device)}
+
+    step = train.make_train_step(cfg, obj, n_steps=10, **STEP_VARIANTS[variant])
+    _, want = step(ts, x, pf, hp("cpu"))
+    seen = []
+    real = modeling._linear_bias
+
+    def spy(*args):
+        out = real(*args)
+        seen.append(([a.detach() if torch.is_tensor(a) else a for a in args], out.detach()))
+        return out
+
+    monkeypatch.setattr(modeling, "_linear_bias", spy)
+    ts_d = train.SweepState(*(train._tree_map(lambda t: t.to(dev), v) for v in ts))
+    _, got = step(ts_d, x.to(dev), pf.to(dev), hp(dev))
+    torch.cuda.synchronize()
+    assert len(seen) == 2
+    for (xs, w, b, precision), h in seen:
+        assert precision == "default" and h.is_cuda
+        assert rel_norm(h.cpu(), _bf16_algebra(xs, w) + b.cpu()) <= BF16_PRODUCT_REL
+        assert rel_norm(h.cpu(), xs.cpu() @ w.cpu() + b.cpu()) > 1e-4
+    for key in ("loss", "grad_norm"):
+        rel = float(((got[key].cpu() - want[key]).abs() / want[key].abs()).max())
+        assert rel <= 1e-2, (key, rel)

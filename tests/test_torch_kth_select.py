@@ -1,13 +1,15 @@
-"""The selects of kernels K1 (csrc/topk_row.cuh) and K5 (csrc/kth_masked.cu),
-modelled in plain torch (kth_select_model.py), against the JAX package and the
-port's plain versions, bit for bit. No kernel runs here.
+"""The selects of kernels K1 and K6 (csrc/topk_row.cuh) and K5
+(csrc/kth_masked.cu), modelled in plain torch (kth_select_model.py), against
+the JAX package and the port's plain versions, bit for bit. No kernel runs
+here.
 
 kth (and K5's value) must equal `saev_tpu.ops.pallas_topk`'s kernels in
 interpret mode bit for bit, and `_kth_plain` / `_kth_masked_plain` with -0.0
 and +0.0 taken as one value; K1's f, live and L0 too, L1 within 1e-6. The
 rows are Gaussian with edge rows: all zeros, all negative, fewer than k
 positive, ties across the boundary and at the top, signed zeros, -inf; at k
-1, T', T' + 1 and S and a ragged S. Both of K1's branches are reached.
+1, T', T' + 1 and S and a ragged S. Both branches of K1's and K6's select
+are reached.
 K5's masks: prefixes, scattered, n = k and k - 1, one column, all and none.
 Hypothesis draws random rows and masks.
 """
@@ -20,7 +22,7 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from kth_select_model import cand_cap, k1_layout, k1_model, k5_model
+from kth_select_model import cand_cap, k1_dispatch, k1_layout, k1_model, k5_model, k6_dispatch, k6_model
 
 from saev_tpu.ops import pallas_topk
 from saev_tpu_torch.ops import topk
@@ -52,8 +54,9 @@ def _rows(b: int, s: int, seed: int) -> np.ndarray:
     return h
 
 
-def _t_live(s: int) -> int:
-    return min(k1_layout(s)[1], -(-s // 4))
+def _t_live(s: int, dispatch=k1_dispatch) -> int:
+    """T', the threads that hold a column."""
+    return min(k1_layout(s, dispatch)[1], -(-s // 4))
 
 
 def _k1_cases():
@@ -124,6 +127,45 @@ def test_k1_model_matches_plain_on_random_rows(s, k_frac, seed, levels):
     np.testing.assert_array_equal(got["kth"].numpy(), want)
 
 
+# --- K6 ---
+
+
+def _k6_cases():
+    cases = []
+    for s in (512, 1000, 1001, 2048, 16384):
+        t = _t_live(s, k6_dispatch)
+        cases += [(s, k) for k in sorted({1, 32, t, t + 1, s}) if k <= s]
+    return cases
+
+
+@pytest.mark.parametrize("s,k", _k6_cases())
+def test_k6_model_matches_pallas_and_plain(s, k):
+    """K6's kth, bit for bit, against the TPU kernel (32-step bisection, in
+    interpret mode) and the plain version; with k above T' every row takes
+    the whole-row bisection."""
+    h = _rows(32, s, s + k + 1)
+    got = k6_model(torch.from_numpy(h), k)
+    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
+    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+    assert same_value_bits(got["kth"], topk._kth_plain(torch.from_numpy(h), k))
+    if k > _t_live(s, k6_dispatch):
+        assert bool(got["fallback"].all()) and not bool(got["filter"].any())
+
+
+@pytest.mark.parametrize("s,fell_want", [(1000, set()), (1001, set()), (2048, {0, 4, 6, 7}),
+                                         (16384, {0, 4, 6, 7})])
+def test_k6_model_reaches_both_branches(s, fell_want):
+    """At k 32 the Gaussian rows take the candidate filter; at 2048 columns
+    and more the rows of zeros, of -0.0 beside a few positives, of -inf and
+    tied at the top beyond the buffer take the whole-row bisection, and at
+    1000 and 1001 every row fits the buffer."""
+    h = torch.from_numpy(_rows(64, s, 6))
+    got = k6_model(h, 32)
+    assert set(np.flatnonzero(got["fallback"].numpy()).tolist()) == fell_want
+    assert bool(got["filter"].all())
+    assert same_value_bits(got["kth"], topk._kth_plain(h, 32))
+
+
 # --- K5 ---
 
 
@@ -192,17 +234,25 @@ def test_k5_model_matches_plain_on_random_masks(s, k_frac, p, seed):
 
 
 def test_select_probe_finds_its_markers():
-    """scripts/select_probe.py rewrites the committed K1 and K5 sources: a
-    clock64 stamp at each of K1's seven phase boundaries and K5's five, and
+    """scripts/select_probe.py rewrites the committed K1, K6 and K5 sources:
+    a clock64 stamp into the CTA's slots at each of K1's seven phase
+    boundaries (K6: its row's start and the select's end, the select's own
+    three from the header), copied to the row's slots once, K5's five, and
     K5's launch bounds; each marker is there once."""
     from saev_tpu_torch.scripts import select_probe
 
+    copy = "g_stamps[row * 8 + i] = g_cta[blockIdx.x * 8 + i];"
     src = select_probe.stamped_row_source()
-    assert [src.count(f"g_stamps[row * 8 + {i}]") for i in range(8)] == [1] * 7 + [0]
+    assert [src.count(f"g_cta[blockIdx.x * 8 + {i}] = clock64();") for i in range(8)] == [1] * 7 + [0]
+    assert src.count(copy) == 1
     assert src.count("__device__ long long* g_stamps;") == 1
+    src = select_probe.stamped_k6_source()
+    assert [src.count(f"g_cta[blockIdx.x * 8 + {i}] = clock64();") for i in range(8)] == [1, 0, 0, 0, 1, 0, 0, 0]
+    assert src.count(copy) == 1
     src = select_probe.stamped_k5_source()
     assert [src.count(f"g_cta[blockIdx.x * 2 + {i}]") for i in range(3)] == [1, 1, 0]
     assert [src.count(f"g_row[row * 3 + {i}]") for i in range(4)] == [1, 1, 1, 0]
     assert src.count("__device__ long long* g_row;") == 1
     for min_blocks in (1, 2, 3):
         assert f"__launch_bounds__(kMaxWarps * 32, {min_blocks})\n" in select_probe.k5_capped_source(min_blocks)
+        assert f"__launch_bounds__(MAXT, {min_blocks})\n    kth_stream_kernel(" in select_probe.k6_capped_source(min_blocks)

@@ -91,7 +91,7 @@ def test_linear_bias_grads_match_autograd():
     x, w, b, dh = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                    for s in ((8, 5), (5, 7), (7,), (8, 7)))
     leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    modeling._linear_bias(*leaves).backward(dh)
+    modeling._linear_bias(*leaves, "highest").backward(dh)
     ref = [t.clone().requires_grad_(True) for t in (x, w, b)]
     (ref[0] @ ref[1] + ref[2]).backward(dh)
     for a, r in zip(leaves, ref):
