@@ -13,9 +13,13 @@ script exits non-zero:
                 must hold wgmma (HGMMA) and TMA loads (UTMALDG) in their
                 SASS, no mma.sync (HMMA), and no spills in ptxas's report;
                 K2's and K7's resident CTAs an SM are logged, and K1's, P1's,
-                K5's and K6's registers and spills; K1's streamed kernel at
-                the production width may use at most 126 registers and P1 at
-                most 146, neither spilling (K6 runs K1's select).
+                K5's and K6's registers and spills (their wide route's too);
+                K1's streamed kernel at the production width may use at most
+                126 registers and P1 at most 146, neither spilling (K6 runs
+                K1's select); P2's product
+                (`gouter_wgmma_kernel`) must hold HGMMA, no HMMA, no spills,
+                and the multicast form of the TMA load
+                (UTMALDG.2D.MULTICAST).
 3. parity    -- each kernel against its plain PyTorch version on the same
                 CUDA tensors at the production shape (batch 16384, d_sae
                 16384, d_model 1024, k 32, 10 prefixes), plus edge cases; K1
@@ -30,9 +34,20 @@ script exits non-zero:
                 the dead columns (819, 5%; 3276, 20%, on the wide rung;
                 pinned at -1e6 as bench.py pins them) as a prefix and
                 scattered, fewer than k, none and all; K3's dA bit for bit, on
-                both cut sets and on 64 cuts (1024 rows); K4's dW within
-                rel-norm 1e-4 and the same bits in two calls, on the same
-                three cut sets.
+                both cut sets and on 64, 65 and 128 cuts (1024 rows); K4's
+                dW within rel-norm 1e-4 and the same bits in two calls, on
+                the same five cut sets; K2 and K7 at 65 and 128 cuts against
+                their plain versions; K2 (E, xhat, loss, the same bits in
+                two calls), K3 and K4 also at batch 16384 on the wide steps'
+                shapes: d_sae 65536 with 10 sampled cuts and d_sae 16384
+                with 65. No card call of a parity case runs a plain version
+                (a spy on them).
+   wide      -- K1, K6 (k 32 and 512) and K5 (k 512) at 16384 x 65536 and
+                16384 x 131072, where their wrappers take the two-level
+                select of csrc/kth_wide.cu, on the parity phase's edge rows
+                and masks, bit for bit against their plain versions (rows 0
+                and 4 take its whole-row fallback), then timed against their
+                plain versions, torch.topk and their byte bounds.
 4. reference -- the step on the card (kernel path, matmul_precision
                 "default": bf16 operands with f32 results) against the same
                 step on the CPU (plain f32 path) at a small shape: the
@@ -48,6 +63,13 @@ script exits non-zero:
                 kernels' 128-row tile) held to the same step on the CPU, its
                 encoder product to the bf16 algebra on the CPU, counting
                 kernel launches.
+   wide steps -- the step at shapes the card refused before: d_sae 65536
+                (TopK 32, AuxK 512, Matryoshka 10, Adam; warm, tight rung and
+                dense, 5% of the latents pinned dead) and the production
+                shape with 65 prefixes (warm), each held to the CPU's f32
+                step at batch 1024 (1e-2, L0 and n_dead equal, no plain
+                version run), then 3 steps at batch 16384: ms/step and peak
+                memory.
 6. steady    -- the step router (`make_step_router`) over the AuxK step at
                 full width, from aux_from_step - 1, on states with 5%, 2%, 20%
                 and 40% of the latents pinned dead, at n_sae 1 and 2: the
@@ -77,16 +99,18 @@ script exits non-zero:
                 P2 against K2, P1's fused-against-two-pass A/B, P3 at 32, 16
                 and 8 passes against K6, P4's five modes against K6 and the
                 library's k-th value; then each new kernel timed against its
-                plain version. It logs the sha256 of P2's outputs on the
-                script's operands, to hold P2's bits across commits.
+                plain version. It logs the sha256 of P2's and K2's outputs
+                on the P2 script's operands and of K7's on kprof's, to hold
+                their bits across commits.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
                 full width (warm and tight also at n_sae 2): wall and device
                 ms/step, the device's idle share and the 15 kernels that take
                 the most device time, K2's, K3's and K4's products among
                 them.
 
-Kernel launches are counted per driven path (slice, steady, metrics,
-benches): every count is set to 0 just before the path and read just after.
+Kernel launches are counted per driven path (slice, wide steps, steady,
+metrics, benches): every count is set to 0 just before the path and read
+just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -111,17 +135,29 @@ K_AUX, TIGHT, WIDE = 512, 1024, 4096  # AuxK k and subspace_cap_ladder(16384, 51
 N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
 N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
 RAGGED_B = 1000  # a batch that is not a multiple of the kernels' 128-row tile
+WIDE_S = (65536, 131072)  # rows wider than the narrow select kernels' 32768 columns
+D_SAE_WIDE = 65536  # the "64x" dictionary at d_model 1024
+N_PREFIXES_MANY = 65  # past 64 prefixes, as fault ROADMAP §3.6 reproduces it
+REFERENCE_B = 1024  # the batch at which a full-width step is held to the CPU's
 K2_NAMES = ("prefix_wgmma_kernel", "sum_partials_kernel")  # K2's two launches
 K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
 WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
+P2_PRODUCT = "gouter_wgmma_kernel"
 # K1 (streamed rows, and one CTA a row), P1, K5, K6 (streamed rows, and one CTA a row)
 SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats_kernel", "kth_masked_kernel",
-                  "kth_stream_kernel", "kth_kernel")
+                  "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel")
 # Registers K1's streamed kernel may not exceed at the production width,
 # where two 256-thread CTAs share an SM, and P1's: their counts before K6
 # took K1's select.
 SELECT_REGISTERS = {"topk_stats_stream_kernelILi64ELi256E": 126, "encode_stats_kernel": 146}
+# The plain versions the kernel wrappers take on a CPU tensor: no card call
+# may reach one (`plain_spy`).
+PLAIN_VERSIONS = (
+    ("cuda_topk", "_topk_stats_plain"), ("cuda_kth", "_kth_plain"), ("cuda_kth", "_kth_masked_plain"),
+    ("cuda_matryoshka", "grouped_prefix_err_plain"), ("cuda_matryoshka", "grouped_matmul_dgrad_plain"),
+    ("cuda_matryoshka", "grouped_matmul_wgrad_plain"), ("cuda_matryoshka", "grouped_prefix_base_plain"),
+)
 WARM_KERNELS = ("topk_stats", "grouped_prefix_err", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
 SEED = 0
 
@@ -134,7 +170,7 @@ KERNELS = {
     "kth_value": ("saev_tpu_torch/csrc/kth.cu", "saev_tpu/ops/pallas_topk.py:50"),
     "grouped_prefix_base": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
     "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
-    "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/matryoshka.cu", "scripts/proto_gouter.py:41"),
+    "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/prefix_gouter.cu", "scripts/proto_gouter.py:41"),
     "count_loop": ("saev_tpu_torch/csrc/kth.cu", "scripts/microbench_kth.py:39"),
     "kth_ops": ("saev_tpu_torch/csrc/kth_ops.cu", "scripts/proto_kth_ops.py:55"),
 }
@@ -167,6 +203,31 @@ def wrappers() -> dict:
         "count_loop": microbench_kth.count_loop,
         "kth_ops": proto_kth_ops.kth_ops,
     }
+
+
+@contextlib.contextmanager
+def plain_spy():
+    """Counts, for the duration, each call of a plain version that a kernel
+    wrapper would take on a CPU tensor; yields the counts by name (empty
+    while none runs)."""
+    import importlib
+
+    calls, saved = {}, []
+    for mod_name, fn_name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"saev_tpu_torch.ops.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def spy(*args, real=real, key=f"{mod_name}.{fn_name}", **kwargs):
+            calls[key] = calls.get(key, 0) + 1
+            return real(*args, **kwargs)
+
+        saved.append((mod, fn_name, real))
+        setattr(mod, fn_name, spy)
+    try:
+        yield calls
+    finally:
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
 
 
 def reset_counts() -> None:
@@ -228,7 +289,7 @@ def phase_build(verbose: bool = False) -> None:
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     sass = _build.dump_sass()
     ptxas = _build.ptxas_log().read_text()
-    for fragment in WGMMA_PRODUCTS:
+    for fragment in WGMMA_PRODUCTS + (P2_PRODUCT,):
         res = _build.ptxas_resources(ptxas, fragment)
         require(len(res) > 0, f"build: no {fragment} in ptxas's report")
         for name, r in res.items():
@@ -249,16 +310,22 @@ def phase_build(verbose: bool = False) -> None:
     ctas = [_build.lib().saev_prefix_occupancy(mode) for mode in range(3)]
     require(all(n >= 1 for n in ctas), f"build: K2's and K7's resident CTAs an SM {ctas}")
     log(f"build: prefix_wgmma_kernel (K2, K7 f32, K7 bf16) resident CTAs an SM {ctas}")
-    for fragment in (K2_NAMES[0],) + K3_NAMES + K4_NAMES:
+    for fragment in (K2_NAMES[0],) + K3_NAMES + K4_NAMES + (P2_PRODUCT,):
         found = _build.function_opcodes(sass, fragment)
         require(len(found) > 0, f"build: no {fragment} in the library's SASS")
         for name, ops in found.items():
-            if fragment in WGMMA_PRODUCTS:
+            if fragment in WGMMA_PRODUCTS + (P2_PRODUCT,):
                 require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                         f"build: {name} has HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, "
                         f"HMMA {ops['HMMA']}: not a wgmma product on TMA loads")
             log(f"build SASS {name}: {sum(ops.values())} instructions, HGMMA {ops['HGMMA']}, "
                 f"UTMALDG {ops['UTMALDG']}, HMMA {ops['HMMA']}, LDG {ops['LDG']}, STG {ops['STG']}")
+    # P2 loads its half of each W stage once and multicasts it to both CTAs
+    # of its cluster: the multicast form of the TMA load must be there.
+    for name, forms in _build.function_forms(sass, P2_PRODUCT).items():
+        loads = {f: n for f, n in forms.items() if f.startswith("UTMALDG")}
+        require("UTMALDG.2D.MULTICAST" in loads, f"build: {name} has no multicast TMA load: {loads}")
+        log(f"build SASS {name}: TMA loads {loads}")
 
 
 def _gen(device="cuda") -> torch.Generator:
@@ -280,7 +347,10 @@ def _k1_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
     from saev_tpu_torch.ops import cuda_topk, topk
 
     fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
-    got = cuda_topk.topk_stats_cuda(h, k, fallback)
+    with plain_spy() as plain:
+        got = cuda_topk.topk_stats_cuda(h, k, fallback)
+        torch.cuda.synchronize()
+    require(not plain, f"K1 {what}: the card call ran plain versions {plain}")
     want = topk._topk_stats_plain(h, k)
     torch.cuda.synchronize()
     require(int(fallback) == fallbacks, f"K1 {what}: {int(fallback)} rows fell back, expected {fallbacks}")
@@ -296,8 +366,8 @@ def _k1_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
     return err
 
 
-def _k1_inputs() -> torch.Tensor:
-    h = torch.randn((B, D_SAE), generator=_gen(), device="cuda")
+def _k1_inputs(s: int = D_SAE) -> torch.Tensor:
+    h = torch.randn((B, s), generator=_gen(), device="cuda")
     h[0] = 0.0  # all tied at zero
     h[1] = -h[1].abs()  # all negative
     h[2] = -h[2].abs()
@@ -311,24 +381,33 @@ def _k1_inputs() -> torch.Tensor:
 
 def _k6_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
     """K6 bit for bit against its plain version, K1's kth and P4's exact
-    modes; `fallbacks` rows of h (K1's) must take its whole-row bisection."""
+    modes (where P4 takes the width); `fallbacks` rows of h (K1's) must take
+    its whole-row bisection."""
     from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
     from saev_tpu_torch.scripts import proto_kth_ops
 
     fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
-    got = cuda_kth.kth_value_cuda(h, k, fallback)
+    with plain_spy() as plain:
+        got = cuda_kth.kth_value_cuda(h, k, fallback)
+        k1 = cuda_topk.topk_stats_cuda(h, k).kth
+        torch.cuda.synchronize()
+    require(not plain, f"K6 {what}: the card call ran plain versions {plain}")
     want = topk._kth_plain(h, min(k, h.shape[1]))
-    k1 = cuda_topk.topk_stats_cuda(h, k).kth
-    p4 = {mode: proto_kth_ops.kth_ops(h, min(k, h.shape[1]), mode) for mode in proto_kth_ops.EXACT}
+    modes = proto_kth_ops.EXACT if h.shape[1] <= proto_kth_ops.MAX_S else ()
+    p4 = {mode: proto_kth_ops.kth_ops(h, min(k, h.shape[1]), mode) for mode in modes}
     torch.cuda.synchronize()
     require(same_bits(got, want), f"K6 {what}: differs from its plain version")
     require(torch.equal(got, k1), f"K6 {what}: differs from K1's kth")
     for mode, v in p4.items():
         require(torch.equal(got, v), f"K6 {what}: differs from P4's {mode}")
     require(int(fallback) == fallbacks, f"K6 {what}: {int(fallback)} rows fell back, expected {fallbacks}")
-    form = "streamed" if h.shape[1] % 4 == 0 else "one CTA a row"
-    log(f"parity K6 {what} ({form}): kth bitwise equal to the plain version, K1's kth and P4's "
-        f"{', '.join(p4)}; {int(fallback)} of {h.shape[0]} rows took the whole-row fallback")
+    if h.shape[1] > cuda_kth.NARROW_S:
+        form = "two-level select, kth_wide.cu"
+    else:
+        form = "streamed" if h.shape[1] % 4 == 0 else "one CTA a row"
+    log(f"parity K6 {what} k {k} ({form}): kth bitwise equal to the plain version, K1's kth and P4's "
+        f"{', '.join(p4) or '(none: P4 takes 32768 columns at most)'}; {int(fallback)} of {h.shape[0]} rows "
+        f"took the whole-row fallback")
     return kth_err(got, want)
 
 
@@ -340,12 +419,12 @@ def _k5_inputs(s: int, n_dead: int = N_DEAD_5) -> torch.Tensor:
     return h
 
 
-def _k5_masks(s: int, n_dead: int) -> dict:
+def _k5_masks(s: int, n_dead: int, d_sae: int = D_SAE) -> dict:
     cols = torch.arange(s, device="cuda")
     scattered = torch.zeros(s, dtype=torch.bool, device="cuda")
     scattered[torch.randperm(s, generator=_gen(), device="cuda")[:n_dead]] = True
     return {
-        f"{n_dead} dead ({n_dead / D_SAE:.0%})": cols < n_dead,
+        f"{n_dead} dead ({n_dead / d_sae:.0%})": cols < n_dead,
         f"{n_dead} dead, scattered": scattered,
         f"{K_AUX - 3} unmasked (< k)": cols < K_AUX - 3,
         "all masked": torch.zeros(s, dtype=torch.bool, device="cuda"),
@@ -353,13 +432,16 @@ def _k5_masks(s: int, n_dead: int) -> dict:
     }
 
 
-def _k5_cases(s: int, n_dead: int = N_DEAD_5) -> float:
+def _k5_cases(s: int, n_dead: int = N_DEAD_5, d_sae: int = D_SAE) -> float:
     from saev_tpu_torch.ops import cuda_kth, topk
 
     h = _k5_inputs(s, n_dead)
     err = 0.0
-    for what, mask in _k5_masks(s, n_dead).items():
-        got = cuda_kth.kth_value_masked_cuda(h, mask, K_AUX)
+    for what, mask in _k5_masks(s, n_dead, d_sae).items():
+        with plain_spy() as plain:
+            got = cuda_kth.kth_value_masked_cuda(h, mask, K_AUX)
+            torch.cuda.synchronize()
+        require(not plain, f"K5 {B}x{s} {what}: the card call ran plain versions {plain}")
         want = topk._kth_masked_plain(h, mask, K_AUX)
         torch.cuda.synchronize()
         require(same_bits(got, want), f"K5 {B}x{s} {what}: differs from its plain version")
@@ -372,15 +454,22 @@ def _k5_cases(s: int, n_dead: int = N_DEAD_5) -> float:
     return err
 
 
+def _grouped_operands(s: int = D_SAE):
+    """Seeded operands of the Matryoshka kernels at batch B and d_sae s:
+    f (10% of the latents nonzero, bf16), W (bf16), x and b_dec."""
+    g = _gen()
+    f = (torch.randn((B, s), generator=g, device="cuda")
+         * (torch.rand((B, s), generator=g, device="cuda") < 0.1)).to(torch.bfloat16)
+    w = (torch.randn((s, D_MODEL), generator=g, device="cuda") / 32).to(torch.bfloat16)
+    x = torch.randn((B, D_MODEL), generator=g, device="cuda")
+    b_dec = torch.randn((D_MODEL,), generator=g, device="cuda") * 0.1
+    return f, w, x, b_dec
+
+
 def _matryoshka_inputs():
     from saev_tpu_torch.nn import objectives
 
-    g = _gen()
-    f = (torch.randn((B, D_SAE), generator=g, device="cuda")
-         * (torch.rand((B, D_SAE), generator=g, device="cuda") < 0.1)).to(torch.bfloat16)
-    w = (torch.randn((D_SAE, D_MODEL), generator=g, device="cuda") / 32).to(torch.bfloat16)
-    x = torch.randn((B, D_MODEL), generator=g, device="cuda")
-    b_dec = torch.randn((D_MODEL,), generator=g, device="cuda") * 0.1
+    f, w, x, b_dec = _grouped_operands()
     rng = np.random.default_rng(SEED)
     sampled = objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng)
     # m = 0 (p < g), two cuts in one group, r = 0 (p on a boundary), p = d_sae.
@@ -394,13 +483,74 @@ def _cuts(p: np.ndarray):
     return m, (pt - m * GROUP).to(torch.int32).contiguous()
 
 
+def _k2_case(f, w, x, b_dec, iu, m, r, what: str) -> tuple[float, torch.Tensor]:
+    """K2 against its plain version: the same bits in two calls, xhat within
+    rel-norm 1e-4, E (bf16) within 1e-2 and the loss within rel 1e-5, both
+    of the plain version's loss and of the f64 sum of the kernel's own E.
+    Past d_sae 16384 the plain version's loss is logged, not held: the
+    tensor cores' f32 sums drift from the exact sum with K (`product_drift`),
+    which moves bf16(E) and so the loss; the log measures that drift on
+    xhat, the kernel's and the plain version's against an f64 product of
+    1024 rows. Returns the max abs error and the kernel's E."""
+    from saev_tpu_torch.ops import cuda_matryoshka as cm
+
+    with plain_spy() as plain:
+        e, xhat, loss = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
+        e2, _, loss2 = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
+        torch.cuda.synchronize()
+    require(not plain, f"K2 {what}: the card call ran plain versions {plain}")
+    require(torch.equal(loss, loss2) and torch.equal(e, e2), f"K2 {what}: not bitwise reproducible")
+    del e2
+    own = sum(float(((ej.double() * float(iu)) ** 2).sum()) for ej in e)
+    own_rel = abs(float(loss) - own) / own
+    require(own_rel <= 1e-5, f"K2 {what}: loss rel err {own_rel:.3g} > 1e-5 against the sum of its own E")
+    pe, pxhat, ploss = cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=GROUP)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    drift = ""
+    if f.shape[1] <= D_SAE:
+        require(loss_rel <= 1e-5, f"K2 {what}: loss rel err {loss_rel:.3g} > 1e-5")
+    else:
+        exact = f[:1024].double() @ w.double()
+        parts = []
+        for name, got in (("kernel", xhat), ("plain", pxhat)):
+            d = got[:1024].double() - exact
+            parts.append(f"{name} rel-norm {float(d.norm() / exact.norm()):.3g}, "
+                         f"signed {float((d * exact.sign()).sum() / exact.abs().sum()):.3g}")
+        drift = "; xhat against an f64 product (1024 rows): " + ", ".join(parts)
+        del exact
+    r_xhat, r_e = rel_norm(xhat, pxhat), rel_norm(e, pe)
+    require(r_xhat <= 1e-4, f"K2 {what}: xhat rel-norm {r_xhat:.3g} > 1e-4")
+    require(r_e <= 1e-2, f"K2 {what}: E rel-norm {r_e:.3g} > 1e-2")
+    log(f"parity K2 {what} ({e.shape[0]} cuts, {e.shape[1]} rows): loss rel {loss_rel:.3g} against the plain "
+        f"version, {own_rel:.3g} against its own E (bitwise repeatable), xhat rel-norm {r_xhat:.3g}, E rel-norm "
+        f"{r_e:.3g}{drift}")
+    return max(max_abs(xhat, pxhat), max_abs(e, pe)), e
+
+
+def _grouped_cases(f, w, x, b_dec, iu, p: np.ndarray, what: str, errs: dict) -> None:
+    """K2, K3 and K4 on one cut set p against their plain versions
+    (`_k2_case`, `_k3_case`, `_k4_case`), K3 and K4 on K2's E with the
+    loss's scale; raises errs' entries to their max abs errors."""
+    m, r = _cuts(p)
+    k2_err, e = _k2_case(f, w, x, b_dec, iu, m, r, what)
+    errs["grouped_prefix_err"] = max(errs["grouped_prefix_err"], k2_err)
+    scale = torch.full((1,), 2.0 / (f.shape[0] * len(p) * D_MODEL), device="cuda")
+    k3_err, da = _k3_case(w, e, m, r, scale, what)
+    errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
+    errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], _k4_case(f, da, e, m, r, scale, what))
+
+
 def _k3_case(w, e, m, r, scale, what: str) -> tuple[float, torch.Tensor]:
     """K3 against its plain version: dA bit for bit, df (bf16) within
     rel-norm 1e-2 (f32 sums in another order). Returns the max abs error and
     the kernel's dA."""
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
-    df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+    with plain_spy() as plain:
+        df, da = cm.grouped_matmul_dgrad(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    require(not plain, f"K3 {what}: the card call ran plain versions {plain}")
     pdf, pda = cm.grouped_matmul_dgrad_plain(w, e, m, r, scale, group_size=GROUP, df_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_diff = int((da.view(torch.int16) != pda.view(torch.int16)).sum())
@@ -417,8 +567,11 @@ def _k4_case(f, da, e, m, r, scale, what: str) -> float:
     error."""
     from saev_tpu_torch.ops import cuda_matryoshka as cm
 
-    dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
-    dw2 = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+    with plain_spy() as plain:
+        dw = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+        dw2 = cm.grouped_matmul_wgrad(f, da, e, m, r, scale, group_size=GROUP)
+        torch.cuda.synchronize()
+    require(not plain, f"K4 {what}: the card call ran plain versions {plain}")
     pdw = cm.grouped_matmul_wgrad_plain(f, da, e, m, r, scale, group_size=GROUP)
     torch.cuda.synchronize()
     require(same_bits(dw, dw2), f"K4 {what}: dW differs between two calls")
@@ -455,47 +608,100 @@ def phase_parity() -> dict:
     torch.cuda.empty_cache()
 
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
-    upper = x.abs().max().clamp_min(1e-12)
-    iu = (1.0 / upper).reshape(1)
+    iu = (1.0 / x.abs().max().clamp_min(1e-12)).reshape(1)
     for what, p in cut_sets.items():
-        m, r = _cuts(p)
-        j = len(p)
-        e, xhat, loss = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
-        e2, _, loss2 = cm.grouped_prefix_err(f, w, x, b_dec, iu, m, r, group_size=GROUP)
-        pe, pxhat, ploss = cm.grouped_prefix_err_plain(f, w, x, b_dec, iu, m, r, group_size=GROUP)
-        torch.cuda.synchronize()
-        require(torch.equal(loss, loss2) and torch.equal(e, e2), f"K2 {what}: not bitwise reproducible")
-        loss_rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
-        require(loss_rel <= 1e-5, f"K2 {what}: loss rel err {loss_rel:.3g} > 1e-5")
-        r_xhat, r_e = rel_norm(xhat, pxhat), rel_norm(e, pe)
-        require(r_xhat <= 1e-4, f"K2 {what}: xhat rel-norm {r_xhat:.3g} > 1e-4")
-        require(r_e <= 1e-2, f"K2 {what}: E rel-norm {r_e:.3g} > 1e-2")
-        errs["grouped_prefix_err"] = max(errs["grouped_prefix_err"], max_abs(xhat, pxhat), max_abs(e, pe))
-        log(f"parity K2 {what} cuts {p.tolist()}: loss rel {loss_rel:.3g} (bitwise repeatable), "
-            f"xhat rel-norm {r_xhat:.3g}, E rel-norm {r_e:.3g}")
-        del e2, pe, pxhat
-
-        scale = torch.full((1,), 2.0 / (B * j * D_MODEL), device="cuda")
-        k3_err, da = _k3_case(w, e, m, r, scale, what)
-        errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
-
-        k4_err = _k4_case(f, da, e, m, r, scale, what)
-        errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], k4_err)
-        del da, e
-    # K3 and K4 at their most cuts (MAX_PREFIXES, about four in each group),
-    # on the first 1024 rows.
+        _grouped_cases(f, w, x, b_dec, iu, p, f"{what} cuts {p.tolist()}", errs)
+    # K3 and K4 at 64 cuts (about four in each group), 65 and 128 on the
+    # first 1024 rows; K2 and K7 at 65 and 128 against their plain versions
+    # too.
     n = 1024
-    p = np.sort(np.random.default_rng(SEED + 64).choice(np.arange(1, D_SAE), cm.MAX_PREFIXES - 1, replace=False))
-    m, r = _cuts(np.append(p, D_SAE).astype(np.int32))
-    e, _, _ = cm.grouped_prefix_err(f[:n], w, x[:n], b_dec, iu, m, r, group_size=GROUP)
-    scale = torch.full((1,), 2.0 / (n * cm.MAX_PREFIXES * D_MODEL), device="cuda")
-    k3_err, da = _k3_case(w, e, m, r, scale, "64 cuts")
-    errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
-    k4_err = _k4_case(f[:n], da, e, m, r, scale, "64 cuts")
-    errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], k4_err)
-    del e, da
+    for j in (64, N_PREFIXES_MANY, 128):
+        p = np.sort(np.random.default_rng(SEED + j).choice(np.arange(1, D_SAE), j - 1, replace=False))
+        m, r = _cuts(np.append(p, D_SAE).astype(np.int32))
+        e, xhat, loss = cm.grouped_prefix_err(f[:n], w, x[:n], b_dec, iu, m, r, group_size=GROUP)
+        if j > 64:
+            pe, pxhat, ploss = cm.grouped_prefix_err_plain(f[:n], w, x[:n], b_dec, iu, m, r, group_size=GROUP)
+            base, _ = cm.grouped_prefix_base(f[:n], w, m, r, group_size=GROUP)
+            pbase, _ = cm.grouped_prefix_base_plain(f[:n], w, m, r, group_size=GROUP)
+            rels = (rel_norm(e, pe), rel_norm(xhat, pxhat), abs(float(loss) - float(ploss)) / abs(float(ploss)),
+                    rel_norm(base, pbase))
+            require(rels[0] <= 1e-2 and rels[1] <= 1e-4 and rels[2] <= 1e-5 and rels[3] <= 1e-4,
+                    f"K2/K7 {j} cuts: E, xhat, loss, base rel errs {rels}")
+            log(f"parity K2 and K7 {j} cuts ({n} rows): E rel-norm {rels[0]:.3g}, xhat {rels[1]:.3g}, loss rel "
+                f"{rels[2]:.3g}, K7 base {rels[3]:.3g}")
+            del pe, pxhat, base, pbase
+        scale = torch.full((1,), 2.0 / (n * j * D_MODEL), device="cuda")
+        k3_err, da = _k3_case(w, e, m, r, scale, f"{j} cuts")
+        errs["grouped_matmul_dgrad"] = max(errs["grouped_matmul_dgrad"], k3_err)
+        k4_err = _k4_case(f[:n], da, e, m, r, scale, f"{j} cuts")
+        errs["grouped_matmul_wgrad"] = max(errs["grouped_matmul_wgrad"], k4_err)
+        del e, da
+    del f, w, x, b_dec
     torch.cuda.empty_cache()
+    _grouped_full_batch(errs)
     return errs
+
+
+def _grouped_full_batch(errs: dict) -> None:
+    """K2, K3 and K4 at batch 16384 on the other shapes the wide steps phase
+    trains: d_sae 65536 with the 10 cuts sample_prefixes gives (64 groups),
+    and d_sae 16384 with 65."""
+    from saev_tpu_torch.nn import objectives
+
+    rng = np.random.default_rng(SEED + 1)
+    for s, j in ((D_SAE_WIDE, N_PREFIXES), (D_SAE, N_PREFIXES_MANY)):
+        f, w, x, b_dec = _grouped_operands(s)
+        iu = (1.0 / x.abs().max().clamp_min(1e-12)).reshape(1)
+        p = objectives.sample_prefixes(s, j, rng=rng)
+        _grouped_cases(f, w, x, b_dec, iu, p, f"d_sae {s} sampled", errs)
+        del f, w, x, b_dec
+        torch.cuda.empty_cache()
+
+
+def phase_wide() -> dict:
+    """K1, K6 and K5 on rows wider than their narrow kernels hold (the
+    two-level select of csrc/kth_wide.cu), at 16384 x 65536 and x 131072,
+    bit for bit against their plain versions with no plain version run by
+    the card's call: K1 at k 32, K6 at k 32 and k_aux 512 on Gaussian rows
+    with the parity phase's edge rows (rows 0 and 4 overflow the candidate
+    buffer and bisect the whole row), K5 at k_aux 512 under the parity
+    phase's masks. Then each one's time against its plain version,
+    torch.topk and its byte bound. Returns those rows by width."""
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
+
+    errs, times = {}, {}
+    for s in WIDE_S:
+        h = _k1_inputs(s)
+        fell = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], TOP_K)]
+        require(fell == [0, 4], f"K1 {B}x{s}: edge rows {fell} took the fallback, expected [0, 4]")
+        errs[s] = max(_k1_case(h, TOP_K, f"{B}x{s}", len(fell)),
+                      _k6_case(h, TOP_K, f"{B}x{s}", len(fell)),
+                      _k6_case(h, K_AUX, f"{B}x{s}", len(fell)))
+        del h
+        torch.cuda.empty_cache()
+        n_dead = int(s * 0.05)
+        errs[s] = max(errs[s], _k5_cases(s, n_dead, s))
+        torch.cuda.empty_cache()
+
+        h = torch.randn((B, s), generator=_gen(), device="cuda")
+        stats = cuda_topk.topk_stats_cuda(h, TOP_K)
+        row = {"topk_stats": timed(_time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 5),
+                                   _time(lambda: topk._topk_stats_plain(h, TOP_K), 2),
+                                   bound((h, *stats), h.numel(), F32_OPS_S))}
+        del stats
+        row["kth_value"] = timed(_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 5),
+                                 _time(lambda: topk._kth_plain(h, TOP_K), 2),
+                                 _selection_bound(h, h[:, :1]), library_kth_ms(h, TOP_K, f"K6 {B}x{s}"))
+        mask = torch.arange(s, device="cuda") < n_dead
+        row["kth_value_masked"] = timed(_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 5),
+                                        _time(lambda: topk._kth_masked_plain(h, mask, K_AUX), 2),
+                                        bound((B * n_dead * 4, mask, h[:, :1]), B * n_dead, F32_OPS_S))
+        for k, r in row.items():
+            log_timing(k, r, f" {B}x{s} (wide route), k {K_AUX if k == 'kth_value_masked' else TOP_K}")
+        times[s] = row
+        del h
+        torch.cuda.empty_cache()
+    return times
 
 
 def _hp(n_sae: int, device) -> dict:
@@ -740,6 +946,107 @@ def _ragged_step(cfg, step, rng) -> None:
     log(f"slice batch {RAGGED_B}: one step through K1-K4 (batch padded to 1024) agrees with the CPU plain "
         f"path: mse {s_gpu['mse'].tolist()} (CPU {s_cpu['mse'].tolist()}), rel errs "
         + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()) + f"; {enc}")
+
+def _held_step(cfg, obj, variant: dict, n_dead: int, what: str, rng) -> str:
+    """One step of one SAE at batch REFERENCE_B on the card against the same
+    step on the CPU (plain f32 path) from one state with n_dead latents
+    pinned: the loss terms within 1e-2 (bf16 against f32), L0 and n_dead
+    equal, and no plain version of a kernel run by the card's step."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import objectives
+
+    x = torch.from_numpy(rng.normal(size=(REFERENCE_B, cfg.d_model)).astype(np.float32))
+    prefixes = torch.from_numpy(objectives.sample_prefixes(cfg.d_sae, obj.n_prefixes, rng=rng)[None])
+    step = train.make_train_step(cfg, obj, n_steps=6000, **variant)
+    ts_cpu = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(SEED), device="cpu")
+    _pin_dead(ts_cpu, n_dead)
+    ts_gpu = _to(ts_cpu, "cuda")
+    with plain_spy() as plain:
+        ts_gpu, s_gpu = step(ts_gpu, x.cuda(), prefixes.cuda(), _hp(1, "cuda"))
+        torch.cuda.synchronize()
+    require(not plain, f"{what}: the card's step ran plain versions {plain}")
+    ts_cpu, s_cpu = step(ts_cpu, x, prefixes, _hp(1, "cpu"))
+    keys = ("mse", "l1", "loss", "grad_norm") + (("aux",) if n_dead and variant.get("aux_enabled", True) else ())
+    rels = {}
+    for key in keys:
+        a, b = s_gpu[key].cpu(), s_cpu[key]
+        rels[key] = float(((a - b).abs() / b.abs()).max())
+        require(rels[key] <= 1e-2, f"{what}: {key} rel err {rels[key]:.3g} > 1e-2")
+    for key in ("l0", "n_dead"):
+        require(torch.equal(s_gpu[key].cpu(), s_cpu[key]), f"{what}: {key} differs")
+    for key, v in ts_gpu.params.items():
+        require(bool(torch.isfinite(v).all()), f"{what}: param {key} not finite")
+    return (f"{what}: one step at batch {REFERENCE_B} agrees with the CPU plain path, L0 {s_gpu['l0'].tolist()} "
+            f"and n_dead {s_gpu['n_dead'].tolist()} equal, rel errs " + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
+
+
+def _timed_steps(cfg, obj, variant: dict, n_dead: int, what: str, want: dict) -> dict:
+    """Three steps of one SAE at full batch from a state with n_dead latents
+    pinned, each launching `want`: the median of the last two ms/step (host
+    clock, each step ending in a synchronize) and the peak memory."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import objectives
+
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.normal(size=(B, cfg.d_model)).astype(np.float32)).to("cuda")
+    prefixes = torch.from_numpy(objectives.sample_prefixes(cfg.d_sae, obj.n_prefixes, rng=rng)[None]).to("cuda")
+    step = train.make_train_step(cfg, obj, n_steps=6000, **variant)
+    ts = train.init_sweep_state(cfg, 1, _gen(), "cuda")
+    _pin_dead(ts, n_dead)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        before = counts()
+        t0 = time.perf_counter()
+        ts, stats = step(ts, x, prefixes, _steady_hp(1))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rose = {k: v - before[k] for k, v in counts().items()}
+        require(rose == want, f"{what}: launches {rose}, expected {want}")
+        for key, v in stats.items():
+            require(bool(torch.isfinite(v.float()).all()), f"{what}: stat {key} not finite: {v}")
+        require(all(TOP_K <= v <= TOP_K + 4 / B for v in stats["l0"].tolist()), f"{what}: L0 {stats['l0'].tolist()}")
+    ms, peak = statistics.median(times[1:]), torch.cuda.max_memory_allocated() / 2**30
+    log(f"{what}: median {ms:.2f} ms/step ({B / (ms / 1e3):.1f} patches/s), step times ms "
+        f"{[round(t, 2) for t in times]}, peak {peak:.2f} GiB, n_dead {stats['n_dead'].tolist()}")
+    del ts, stats
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak}
+
+
+def phase_wide_steps():
+    """The train step at shapes the card refused before (fault ROADMAP
+    §3.6): d_sae 65536 at d_model 1024 (TopK 32, AuxK 512, Matryoshka 10,
+    Adam), in the warm, tight-rung and dense variants from a state with 5%
+    of the latents pinned dead, and the production shape with 65 prefixes
+    (warm). Each is held to the CPU's f32 step at batch 1024, then timed at
+    batch 16384. Returns the launch counts of the path and the timings."""
+    from saev_tpu_torch.nn import modeling, objectives
+
+    wide = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE_WIDE, activation=modeling.TopK(top_k=TOP_K))
+    obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
+    tight = objectives.subspace_cap_ladder(D_SAE_WIDE, K_AUX)[0]
+    n_dead = int(D_SAE_WIDE * 0.05)
+    require(n_dead <= tight, f"wide steps: {n_dead} dead above the tight rung's cap {tight}")
+    variants = {"warm": dict(aux_enabled=False), f"tight (cap {tight})": dict(aux_subspace_cap=tight), "dense": {}}
+    many = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+    obj_many = objectives.Matryoshka(n_prefixes=N_PREFIXES_MANY)
+    rng = np.random.default_rng(SEED + 2)
+    reset_counts()
+    for name, variant in variants.items():
+        log(_held_step(wide, obj, variant, n_dead, f"wide step d_sae {D_SAE_WIDE} {name}", rng))
+    log(_held_step(many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", rng))
+    results = {}
+    once = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1)
+    for name, variant in variants.items():
+        want = once | ({} if name == "warm" else {"kth_value_masked": 1})
+        results[f"d_sae {D_SAE_WIDE} {name}"] = _timed_steps(
+            wide, obj, variant, n_dead, f"wide step d_sae {D_SAE_WIDE} {name}, {n_dead} dead", want)
+    results[f"{N_PREFIXES_MANY} prefixes warm"] = _timed_steps(
+        many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", once)
+    return counts(), results
+
 
 # (fraction of latents pinned dead, the variant of each step from
 # aux_from_step - 1): the warm step, the dense step while no aux_risk readout
@@ -1225,6 +1532,9 @@ def phase_benches() -> tuple[dict, dict, dict]:
     p2_out = proto_gouter.grouped_prefix_err_gouter(*(g_inp[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r")))
     log(f"P2 sha256 of e, err_full, loss on proto_gouter's operands: {digests.output_digest(*p2_out)}")
     del p2_out
+    k2_out = cm.grouped_prefix_err(*(g_inp[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r")))
+    log(f"K2 sha256 of e, xhat, loss on proto_gouter's operands: {digests.output_digest(*k2_out)}")
+    del k2_out
     e_inp = proto_encode_stats.inputs()
     res = proto_encode_stats.check(e_inp)
     errs["encode_stats"] = res["h_max_abs"]
@@ -1243,6 +1553,9 @@ def phase_benches() -> tuple[dict, dict, dict]:
         f"{', '.join(proto_kth_ops.EXACT)} bitwise equal to torch.topk and K6")
     _p4_sass()
     k_inp = kprof.inputs()
+    k7_out = cm.grouped_prefix_base(k_inp["f"], k_inp["w"], k_inp["m"], k_inp["r"], group_size=GROUP)
+    log(f"K7 sha256 of base, xhat on kprof's operands: {digests.output_digest(*k7_out)}")
+    del k7_out
     torch.cuda.synchronize()
 
     reset_counts()
@@ -1368,8 +1681,10 @@ def main() -> int:
     name = phase_device()
     phase_build()
     errs = phase_parity()
+    phase_wide()
     phase_reference()
     warm_counts, _ = phase_slice()
+    wide_counts, _ = phase_wide_steps()
     steady_counts, _, (ts, x, prefixes, n_dead) = phase_steady()
     metric_counts = phase_metrics(ts, x, prefixes, n_dead)
     with torch.no_grad():
@@ -1385,9 +1700,10 @@ def main() -> int:
     phase_profile()
     from saev_tpu_torch.scripts import kprof
     log(f"kprof.device_profile took {kprof.device_profile.retakes} profiles again")
-    launches = {k: warm_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
+    launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
+                               ("wide steps", wide_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("steady", steady_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("metrics", metric_counts, ("kth_value",)),
                                ("benches", bench_counts, BENCH_KERNELS)):

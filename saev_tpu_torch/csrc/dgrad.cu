@@ -4,7 +4,7 @@
 // Replaces saev_tpu/ops/pallas_matryoshka.py `_dgrad_kernel`
 // (`grouped_matmul_dgrad`).
 //
-// Notation as in matryoshka.cu: W (S, D) decoder rows, E_j (B, D) the
+// Notation as in prefix_fwd.cu: W (S, D) decoder rows, E_j (B, D) the
 // per-prefix errors, cuts p_j = m_j * g + r_j with groups of g latents. It
 // computes
 //   dA_G     = bf16(scale * sum_{j: m_j > G} E_j)    (B, n_groups, D), for K4;
@@ -46,7 +46,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int MAXJ = 64;
 constexpr int TM = TILE;  // rows of B a CTA
 constexpr int TN = TILE;  // latents a CTA
 
@@ -67,8 +66,8 @@ __global__ void __launch_bounds__(256)
     build_da_vec_kernel(const __nv_bfloat16* __restrict__ e, const int* __restrict__ m,
                         const float* __restrict__ scale, int J, int B, int D, int n_groups,
                         __nv_bfloat16* __restrict__ da) {
-  __shared__ int ms[MAXJ];
-  if (threadIdx.x < J) ms[threadIdx.x] = m[threadIdx.x];
+  extern __shared__ int ms[];  // J entries
+  for (int j = threadIdx.x; j < J; j += blockDim.x) ms[j] = m[j];
   __syncthreads();
   const long bd = (long)B * D;
   const long idx = 8 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
@@ -103,6 +102,8 @@ __global__ void __launch_bounds__(256)
 // CTA (n tile blockIdx.x, row tile blockIdx.y, group blockIdx.z). Maps:
 // map_w over W as (D, S), box (64, 128); map_e over E as (D, B, J), box
 // (64, 128, 1); map_da over dA as (D, n_groups, B), box (64, 1, 128).
+// Dynamic shared memory: the ring (SMEM_BYTES), then the remainder table
+// (rem_r, rem_j: 8 J bytes).
 template <typename Out>
 __global__ void __launch_bounds__(THREADS, 2)
     dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
@@ -112,30 +113,33 @@ __global__ void __launch_bounds__(THREADS, 2)
                        int D, int g, Out* __restrict__ df) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
-  __shared__ int rem_j[MAXJ], rem_r[MAXJ];
   __shared__ int n_rem_s, any_main_s;
+  int* rem_r = reinterpret_cast<int*>(smem_raw + SMEM_BYTES);
+  int* rem_j = rem_r + J;
 
   const int n0 = blockIdx.x * TN, b0 = blockIdx.y * TM, G = blockIdx.z;
   const int w_row = G * g + n0;
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
 
+  // The cuts of this group whose remainder reaches this tile, by ascending r
+  // (stable in j): every thread ranks its share of them.
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    const int rj = r[j];
+    if (m[j] != G || rj <= n0) continue;
+    int q = 0;
+    for (int i = 0; i < J; ++i) {
+      const int ri = r[i];
+      q += m[i] == G && ri > n0 && (ri < rj || (ri == rj && i < j));
+    }
+    rem_r[q] = rj;
+    rem_j[q] = j;
+  }
   if (threadIdx.x == 0) {
-    // The cuts of this group whose remainder reaches this tile, by ascending
-    // r (stable in j); and whether any cut lies above the group (dA_G != 0).
+    // How many there are, and whether any cut lies above the group (dA_G != 0).
     int n = 0, main = 0;
     for (int j = 0; j < J; ++j) {
-      const int mj = m[j], rj = r[j];
-      main |= mj > G;
-      if (mj == G && rj > n0) {
-        int q = n++;
-        while (q > 0 && rem_r[q - 1] > rj) {
-          rem_r[q] = rem_r[q - 1];
-          rem_j[q] = rem_j[q - 1];
-          --q;
-        }
-        rem_r[q] = rj;
-        rem_j[q] = j;
-      }
+      main |= m[j] > G;
+      n += m[j] == G && r[j] > n0;
     }
     n_rem_s = n;
     any_main_s = main;
@@ -220,10 +224,11 @@ template <typename Out>
 cudaError_t launch_dgrad(dim3 grid, const CUtensorMap& mw, const CUtensorMap& me,
                          const CUtensorMap& mda, const int* m, const int* r, const float* scale,
                          int J, int S, int D, int g, void* df, cudaStream_t stream) {
+  const int smem = SMEM_BYTES + 8 * J;
   const cudaError_t err = cudaFuncSetAttribute(
-      dgrad_wgmma_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      dgrad_wgmma_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dgrad_wgmma_kernel<Out><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  dgrad_wgmma_kernel<Out><<<grid, THREADS, smem, stream>>>(
       mw, me, mda, m, r, scale, J, S, D, g, static_cast<Out*>(df));
   return cudaGetLastError();
 }
@@ -231,19 +236,19 @@ cudaError_t launch_dgrad(dim3 grid, const CUtensorMap& mw, const CUtensorMap& me
 }  // namespace
 
 // df (B, S) in bf16 (df_bf16) or f32, dA (B, S / g, D) bf16. The shapes
-// matryoshka.cu's kernels take: B, D and g multiples of 128, g dividing S,
-// 1 <= J <= 64.
+// kernels of prefix_fwd.cu take: B, D and g multiples of 128, g dividing S,
+// 1 <= J <= MAX_CUTS.
 extern "C" int saev_dgrad(const __nv_bfloat16* w, const __nv_bfloat16* e, const int* m,
                           const int* r, const float* scale, int J, int B, int S, int D,
                           int g, int df_bf16, void* df, __nv_bfloat16* da,
                           cudaStream_t stream) {
-  if (!(J > 0 && J <= MAXJ && B > 0 && B % TM == 0 && D > 0 && D % 128 == 0 && g > 0 &&
+  if (!(J > 0 && J <= MAX_CUTS && B > 0 && B % TM == 0 && D > 0 && D % 128 == 0 && g > 0 &&
         g % TN == 0 && S % g == 0))
     return cudaErrorInvalidValue;
   const int n_groups = S / g;
   const long n_vec = (long)B * D / 8;
-  build_da_vec_kernel<<<(unsigned)((n_vec + 255) / 256), 256, 0, stream>>>(e, m, scale, J, B, D,
-                                                                            n_groups, da);
+  build_da_vec_kernel<<<(unsigned)((n_vec + 255) / 256), 256, 4 * J, stream>>>(e, m, scale, J, B, D,
+                                                                                n_groups, da);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

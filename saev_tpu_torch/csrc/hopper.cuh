@@ -1,7 +1,9 @@
-// The Hopper building blocks of K2 and K7 (prefix_fwd.cu), K3 (dgrad.cu) and
-// K4 (wgrad.cu): mbarriers, TMA loads, wgmma shared-memory descriptors, the
-// m64n128k16 product, and tensor maps encoded without a link against
-// libcuda; K1 (topk_stats.cu) streams its rows with `bulk_load`.
+// The Hopper building blocks of K2 and K7 (prefix_fwd.cu), P2
+// (prefix_gouter.cu), K3 (dgrad.cu) and K4 (wgrad.cu): mbarriers, TMA loads
+// (P2's multicast across a cluster), wgmma shared-memory descriptors, the
+// m64n128k16 product, the sorted prefix cuts, and tensor maps encoded
+// without a link against libcuda; K1 (topk_stats.cu) streams its rows with
+// `bulk_load`.
 //
 // The kernels run one mainloop: a 128 x 128 f32 output tile a CTA, one TMA
 // producer warp filling a ring of STAGES stages of 32 KB (two 16 KB operand
@@ -26,6 +28,9 @@ constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // and one producer warp
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1 KB
 constexpr int NACC = 64;  // f32 accumulators a thread: 64 x 128 over 128 threads
+// Prefix cuts a call takes: K2's, K7's, P2's and K3's cut tables live in
+// dynamic shared memory beside the ring, 8 bytes a cut (64 KB at most).
+constexpr int MAX_CUTS = 8192;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -95,6 +100,59 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// --- thread block clusters (P2, prefix_gouter.cu) ---------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster; also a barrier of the CTA.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// One arrival on the mbarrier at shared address `bar` of CTA `cta` of the
+// cluster (the same offset as in this CTA), with the default (CTA-scope)
+// release, as CUTLASS's ClusterBarrier::arrive does: P2 with a
+// cluster-scope release ran slower than K2 on the card.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// A 2-D TMA load into the shared address `dst` of every CTA of the cluster
+// in `cta_mask`, each counting the bytes it receives on its own mbarrier at
+// `bar`.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                                      int c0, int c1, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(cta_mask)
+      : "memory");
+}
+
+// --- prefix cuts -------------------------------------------------------------------
+
+// The J cuts p_j = m_j * g + r_j in ascending order of p, stable in j, into
+// cut_p and cut_j (shared memory), so one K walk meets them all: every
+// thread of the CTA ranks its share of the cuts. The caller syncs after.
+__device__ __forceinline__ void sort_cuts(const int* __restrict__ m, const int* __restrict__ r, int J, int g,
+                                          int* cut_p, int* cut_j) {
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    const int p = m[j] * g + r[j];
+    int q = 0;
+    for (int i = 0; i < J; ++i) {
+      const int pi = m[i] * g + r[i];
+      q += pi < p || (pi == p && i < j);
+    }
+    cut_p[q] = p;
+    cut_j[q] = j;
+  }
 }
 
 // --- wgmma ------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-// Shared building blocks of P2 (matryoshka.cu) and P1 (encode_stats.cu): a
-// 128x128 CTA output tile computed with bf16 mma.sync.m16n8k16 and f32
-// accumulation, staged through shared memory by cp.async in 32-deep K
-// steps. (K2 and K7 run on wgmma in prefix_fwd.cu, K3 and K4 in dgrad.cu
-// and wgrad.cu, and use none of this.)
+// The building blocks of P1 (encode_stats.cu), and the block sum of
+// matryoshka.cu's loss partials: a 128x128 CTA output tile computed with
+// bf16 mma.sync.m16n8k16 and f32 accumulation, staged through shared memory
+// by cp.async in 32-deep K steps. (K2, K7 and P2 run on wgmma in
+// prefix_fwd.cu and prefix_gouter.cu, K3 and K4 in dgrad.cu and wgrad.cu,
+// and use none of the product.)
 //
 // A is K-major (rows = M, K contiguous: f in the forward, x in P1), read
 // with ldmatrix; B is N-major (rows = K, N contiguous: W in the forward, W

@@ -4,7 +4,7 @@
 // Replaces saev_tpu/ops/pallas_matryoshka.py `_wgrad_kernel`
 // (`grouped_matmul_wgrad`).
 //
-// Notation as in matryoshka.cu: f (B, S) latents, dA (B, n_groups, D) from
+// Notation as in prefix_fwd.cu: f (B, S) latents, dA (B, n_groups, D) from
 // K3, E_j (B, D) the per-prefix errors, cuts p_j = m_j * g + r_j with groups
 // of g latents. It computes, in f32,
 //   dW_G = f_G^T @ dA_G + scale * sum_{j: m_j = G} ([s < r_j] f_G)^T @ E_j.
@@ -42,7 +42,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int MAXJ = 64;
 constexpr int COMBINE_THREADS = 256;
 
 // Item blockIdx.x: remainder slots first, then main items, each laid out
@@ -146,18 +145,12 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
                          const int* __restrict__ r, const float* __restrict__ scale, int J, int D,
                          int g, float* __restrict__ dw) {
   constexpr int V = TILE * TILE / 4 / COMBINE_THREADS;
-  __shared__ int js[MAXJ];
-  __shared__ int n_s;
   const int d0 = blockIdx.x * TILE, s0 = blockIdx.y * TILE, G = blockIdx.z;
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int j = 0; j < J; ++j)
-      if (m[j] == G && r[j] > s0) js[n++] = j;
-    n_s = n;
-  }
-  __syncthreads();
-  const int n = n_s;
-  if (n == 0) return;
+  // The first cut whose remainder reaches this tile (the same j for every
+  // thread), then the others in ascending j.
+  int j0 = 0;
+  while (j0 < J && !(m[j0] == G && r[j0] > s0)) ++j0;
+  if (j0 == J) return;
   const long slice = (long)g * D;
   long off[V];
   float4 sum[V];
@@ -166,10 +159,11 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
     const int v = threadIdx.x + i * COMBINE_THREADS;
     const int row = v / (TILE / 4), c = 4 * (v % (TILE / 4));
     off[i] = (long)(s0 + row) * D + d0 + c;
-    sum[i] = *reinterpret_cast<const float4*>(ws + js[0] * slice + off[i]);
+    sum[i] = *reinterpret_cast<const float4*>(ws + j0 * slice + off[i]);
   }
-  for (int q = 1; q < n; ++q) {
-    const float* part = ws + js[q] * slice;
+  for (int j = j0 + 1; j < J; ++j) {
+    if (m[j] != G || r[j] <= s0) continue;
+    const float* part = ws + j * slice;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const float4 p = *reinterpret_cast<const float4*>(part + off[i]);
@@ -195,13 +189,13 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
 }  // namespace
 
 // dW (S, D) f32; ws (J, g, D) f32 workspace for the remainder partials,
-// which the call overwrites where it reads. The shapes matryoshka.cu's
-// kernels take: B, D and g multiples of 128, g dividing S, 1 <= J <= 64.
+// which the call overwrites where it reads. The shapes prefix_fwd.cu's
+// kernels take: B, D and g multiples of 128, g dividing S, 1 <= J <= MAX_CUTS.
 extern "C" int saev_wgrad(const __nv_bfloat16* f, const __nv_bfloat16* da,
                           const __nv_bfloat16* e, const int* m, const int* r,
                           const float* scale, int J, int B, int S, int D, int g, float* dw,
                           float* ws, cudaStream_t stream) {
-  if (!(J > 0 && J <= MAXJ && B > 0 && B % TILE == 0 && D > 0 && D % TILE == 0 && g > 0 &&
+  if (!(J > 0 && J <= MAX_CUTS && B > 0 && B % TILE == 0 && D > 0 && D % TILE == 0 && g > 0 &&
         g % TILE == 0 && S % g == 0))
     return cudaErrorInvalidValue;
   const int n_groups = S / g;

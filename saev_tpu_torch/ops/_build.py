@@ -42,6 +42,9 @@ SIGNATURES = {
     "saev_topk_stats": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "saev_kth": [_P, _I, _I, _I, _P, _P, _P],
     "saev_kth_masked": [_P, _P, _I, _I, _I, _P, _P],
+    "saev_topk_stats_wide": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "saev_kth_wide": [_P, _I, _I, _I, _P, _P, _P],
+    "saev_kth_masked_wide": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -178,8 +181,8 @@ def stream_ptr(t) -> int:
 
 
 # A SASS instruction line: its address, an optional predicate, then the
-# opcode's base (the part before the first dot).
-SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)")
+# opcode's base (the part before the first dot) and its modifiers.
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Za-z0-9_]+)*)")
 
 
 def dump_sass() -> str:
@@ -190,9 +193,11 @@ def dump_sass() -> str:
     ).stdout
 
 
-def function_opcodes(sass: str, fragment: str) -> dict[str, collections.Counter]:
-    """Mangled name -> opcode counts (static, as written) of each function in
-    `cuobjdump --dump-sass` output whose name contains `fragment`."""
+def function_forms(sass: str, fragment: str) -> dict[str, collections.Counter]:
+    """Mangled name -> counts (static, as written) of each full instruction
+    form, the opcode with its modifiers (as `UTMALDG.2D.MULTICAST`), of each
+    function in `cuobjdump --dump-sass` output whose name contains
+    `fragment`."""
     funcs: dict[str, collections.Counter] = {}
     counts = None
     for line in sass.splitlines():
@@ -200,5 +205,16 @@ def function_opcodes(sass: str, fragment: str) -> dict[str, collections.Counter]
             name = line.split("Function :", 1)[1].strip()
             counts = funcs.setdefault(name, collections.Counter()) if fragment in name else None
         elif counts is not None and (m := SASS_OP.search(line)):
-            counts[m[2]] += 1
+            counts[m[2] + m[3]] += 1
+    return funcs
+
+
+def function_opcodes(sass: str, fragment: str) -> dict[str, collections.Counter]:
+    """`function_forms` with the forms cut at their first dot: the counts of
+    each opcode."""
+    funcs = {}
+    for name, forms in function_forms(sass, fragment).items():
+        funcs[name] = collections.Counter()
+        for form, n in forms.items():
+            funcs[name][form.split(".", 1)[0]] += n
     return funcs

@@ -1,6 +1,7 @@
 """Wrappers of kernels K6 and K5, the exact per-row k-th largest value, plain
 (csrc/kth.cu, on K1's select in csrc/topk_row.cuh) and with a column mask
-(csrc/kth_masked.cu).
+(csrc/kth_masked.cu); both take rows wider than NARROW_S through the
+two-level select of csrc/kth_wide.cu.
 
 Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
@@ -11,12 +12,8 @@ CPU tensor takes the plain version, `ops.topk._kth_plain` or
 import torch
 
 from . import _build
+from .cuda_topk import NARROW_S
 from .topk import _kth_masked_plain, _kth_plain
-
-# K6 stages a row in registers with K1's select: at most 64 keys a thread, 512
-# threads. K5 compacts the mask into uint16 column indices and takes the same
-# widths.
-MAX_S = 512 * 64
 
 
 def _check_h(h: torch.Tensor, k: int, what: str) -> int:
@@ -27,7 +24,7 @@ def _check_h(h: torch.Tensor, k: int, what: str) -> int:
         )
     b, s = h.shape
     k = min(k, s)
-    if not (1 <= k and 1 <= s <= MAX_S and b >= 1):
+    if not (1 <= k and 1 <= s and b >= 1):
         raise ValueError(f"{what}: unsupported shape {tuple(h.shape)} with k={k}")
     return k
 
@@ -46,7 +43,8 @@ def kth_value_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None
                                  or fallback.device != h.device):
         raise ValueError(f"kth_value wants a (1,) int32 fallback count on {h.device}")
     out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
-    code = _build.lib().saev_kth(
+    entry = _build.lib().saev_kth if h.shape[1] <= NARROW_S else _build.lib().saev_kth_wide
+    code = entry(
         h.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(),
         None if fallback is None else fallback.data_ptr(), _build.stream_ptr(h),
     )
@@ -68,11 +66,16 @@ def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.
             f"{tuple(mask.shape)} {mask.dtype} on {mask.device}"
         )
     mask = mask.contiguous()
-    out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
-    code = _build.lib().saev_kth_masked(
-        h.data_ptr(), mask.data_ptr(), h.shape[0], h.shape[1], k, out.data_ptr(),
-        _build.stream_ptr(h),
-    )
+    b, s = h.shape
+    out = torch.empty((b, 1), dtype=torch.float32, device=h.device)
+    if s <= NARROW_S:
+        code = _build.lib().saev_kth_masked(h.data_ptr(), mask.data_ptr(), b, s, k, out.data_ptr(),
+                                            _build.stream_ptr(h))
+    else:
+        # The wide route's list of unmasked columns (s ints) and its length.
+        cols = torch.empty((s + 1,), dtype=torch.int32, device=h.device)
+        code = _build.lib().saev_kth_masked_wide(h.data_ptr(), mask.data_ptr(), b, s, k, out.data_ptr(),
+                                                 cols.data_ptr(), cols[s:].data_ptr(), _build.stream_ptr(h))
     _build.check(code, "kth_value_masked")
     kth_value_masked_cuda.launches += 1
     return out

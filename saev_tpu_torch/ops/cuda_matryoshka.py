@@ -15,7 +15,9 @@ import torch
 
 from . import _build
 
-MAX_PREFIXES = 64
+# The kernels keep the sorted cuts in shared memory beside their ring, 8
+# bytes a cut (csrc/hopper.cuh MAX_CUTS).
+MAX_PREFIXES = 8192
 TILE = 128  # rows and columns of the kernels' output tiles
 
 _BF16 = torch.bfloat16

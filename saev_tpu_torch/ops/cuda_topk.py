@@ -1,5 +1,5 @@
 """Wrapper of kernel K1, the fused TopK statistics (csrc/topk_stats.cu,
-csrc/topk_row.cuh).
+csrc/topk_row.cuh; rows wider than NARROW_S csrc/kth_wide.cu).
 
 Counterpart of saev_tpu/ops/pallas_topk.py `topk_stats_pallas`. A CUDA tensor
 launches the kernel; a CPU tensor takes the plain version,
@@ -11,8 +11,9 @@ import torch
 from . import _build
 from .topk import TopKStats, _topk_stats_plain
 
-# The kernel stages a row in registers: at most 64 keys a thread, 512 threads.
-MAX_D_SAE = 512 * 64
+# The narrow kernels stage a row in registers: at most 64 keys a thread, 512
+# threads. A wider row takes the two-level select of csrc/kth_wide.cu.
+NARROW_S = 512 * 64
 
 
 def topk_stats_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None) -> TopKStats:
@@ -31,7 +32,7 @@ def topk_stats_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = Non
         )
     b, s = h.shape
     k = min(k, s)
-    if not (1 <= k and 1 <= s <= MAX_D_SAE and b >= 1):
+    if not (1 <= k and 1 <= s and b >= 1):
         raise ValueError(f"topk_stats: unsupported shape {tuple(h.shape)} with k={k}")
     if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1
                                  or fallback.device != h.device):
@@ -42,7 +43,8 @@ def topk_stats_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = Non
     live = torch.zeros((s,), dtype=torch.int32, device=dev)
     l0 = torch.empty((b, 1), dtype=torch.float32, device=dev)
     l1 = torch.empty((b, 1), dtype=torch.float32, device=dev)
-    code = _build.lib().saev_topk_stats(
+    entry = _build.lib().saev_topk_stats if s <= NARROW_S else _build.lib().saev_topk_stats_wide
+    code = entry(
         h.data_ptr(), b, s, k, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
         l0.data_ptr(), l1.data_ptr(), None if fallback is None else fallback.data_ptr(),
         _build.stream_ptr(h),

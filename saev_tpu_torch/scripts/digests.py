@@ -4,8 +4,9 @@ trees of this repository on one card.
     python saev_tpu_torch/scripts/digests.py [ROOT]
 
 Imports `saev_tpu_torch` from ROOT (default: the checkout that holds this
-file) and prints one line for each kernel: P2's E, err_full and loss on
-`proto_gouter.inputs()`, K3's df and dA and K4's dW on `kprof.inputs()`.
+file) and prints one line for each kernel: P2's E, err_full and loss and K2's E,
+xhat and loss on `proto_gouter.inputs()`, K7's f32 base and xhat, K3's df
+and dA and K4's dW on `kprof.inputs()`.
 Run it once with each tree's root in one call; equal lines mean equal bits.
 It uses only functions that the commits since P2's port all have.
 """
@@ -41,8 +42,10 @@ def main(argv: list[str]) -> None:
     g = proto_gouter.inputs()
     args = tuple(g[k] for k in ("f", "w", "x", "b_dec", "inv_upper", "m", "r"))
     print(f"P2 e, err_full, loss: {output_digest(*proto_gouter.grouped_prefix_err_gouter(*args))}")
+    print(f"K2 e, xhat, loss: {output_digest(*cm.grouped_prefix_err(*args))}")
     del g, args
     k = kprof.inputs()
+    print(f"K7 base, xhat: {output_digest(*cm.grouped_prefix_base(k['f'], k['w'], k['m'], k['r'], group_size=kprof.G))}")
     df, da = cm.grouped_matmul_dgrad(k["w"], k["e"], k["m"], k["r"], k["scale"], group_size=kprof.G,
                                      df_dtype=torch.bfloat16)
     print(f"K3 df, dA: {output_digest(df, da)}")

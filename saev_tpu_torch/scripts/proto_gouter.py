@@ -4,12 +4,14 @@ scripts/proto_gouter.py).
     python -m saev_tpu_torch.scripts.proto_gouter
 
 K2 (`grouped_prefix_err`) gives every 128-row tile the whole K = S walk, so
-each row tile streams all of W. P2 walks the groups outermost: one launch per
-group, each row tile adding f_G @ W_G to an f32 (B, D) accumulator kept in
-device memory, so W_G is read while it sits in L2 (csrc/matryoshka.cu,
-`gouter_kernel`). The accumulator starts at b_dec - x, so the second output is
-the full f32 error err_full = xhat + b_dec - x, not K2's xhat, and E matches
-K2 to f32 noise, not bitwise.
+each row tile streams all of W from L2. The TPU kernel walks the groups
+outermost so that W is fetched once for many row tiles. P2 asks the same on
+this card in its own terms (csrc/prefix_gouter.cu, `gouter_wgmma_kernel`):
+K2's walk in one launch, on clusters of two row tiles of one d tile, each
+loading half of every W stage and multicasting it to both, so W leaves L2
+once for two row tiles. The accumulator starts at b_dec - x and stays in
+registers, so the second output is the full f32 error err_full = xhat +
+b_dec - x, not K2's xhat, and E matches K2 to f32 noise, not bitwise.
 
 `main()` checks P2 against K2 with the JAX script's limits (E rel-norm
 < 2e-3, err_full against K2's xhat + b_dec - x rel-norm < 1e-5, loss rel
@@ -46,9 +48,9 @@ def grouped_prefix_err_gouter_plain(f, w, x, b_dec, inv_upper, m, r, *, group_si
 
 
 def grouped_prefix_err_gouter(f, w, x, b_dec, inv_upper, m, r, *, group_size=1024):
-    """Kernel P2; same outputs as `grouped_prefix_err_gouter_plain`. One loss
-    partial per CTA and group, reduced in a fixed order: the same bits every
-    run."""
+    """Kernel P2; same outputs as `grouped_prefix_err_gouter_plain`. One
+    cluster launch, then a fixed-order sum of one loss partial a CTA: the
+    same bits every run."""
     if f.device.type != "cuda":
         return grouped_prefix_err_gouter_plain(f, w, x, b_dec, inv_upper, m, r, group_size=group_size)
     dev = f.device
@@ -65,7 +67,7 @@ def grouped_prefix_err_gouter(f, w, x, b_dec, inv_upper, m, r, *, group_size=102
     iu = cm._scalar(inv_upper, dev)
     e = torch.empty((j, b, d), dtype=torch.bfloat16, device=dev)
     err = torch.empty((b, d), dtype=torch.float32, device=dev)
-    n_partials = (s // group_size) * (b // cm.TILE) * (d // cm.TILE)
+    n_partials = (b // cm.TILE) * (d // cm.TILE)
     partials = torch.empty((n_partials,), dtype=torch.float32, device=dev)
     loss_sum = torch.empty((1,), dtype=torch.float32, device=dev)
     code = _build.lib().saev_prefix_err_gouter(

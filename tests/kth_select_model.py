@@ -19,6 +19,17 @@ and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
   fewer than k columns are unmasked, G warps a row and the lane layout of
   the gathered keys (each unmasked column held once), the bisection from
   the common prefix of the row's least and largest unmasked key.
+- K1, K5 and K6 on rows wider than the narrow kernels hold (`wide_model`,
+  kth_wide.cu): K5's keys those of its unmasked columns alone, in column
+  order (`compact_mask_kernel`), the chunks of `wide_row_kernel` over a
+  row's keys, each chunk's k-th largest key (0 for a chunk of fewer than k),
+  the running lower bound L, the candidates of each chunk (its keys at or
+  above its own k-th key, L so far and 1) against the buffer's capacity,
+  then the k-th largest candidate, ranked up to the CTA's threads and
+  bisected from L past them, or the whole row bisected from L where the
+  buffer overflows. The chunk width, capacity and threads default to the
+  source's constants and are parameters, so a test can cut a small row
+  into several chunks.
 """
 
 import functools
@@ -213,3 +224,82 @@ def k5_model(h: torch.Tensor, mask: torch.Tensor, k: int) -> tuple[torch.Tensor,
     hi = key.amax(-1)
     cur = bisect(lo, hi, k, lambda t: (key >= t[:, None]).sum(-1))
     return key_float(cur)[:, None], n, g_warps
+
+
+# --- the wide route of K1, K5 and K6 (csrc/kth_wide.cu) ---
+
+
+def wide_consts() -> dict[str, int]:
+    """kth_wide.cu's keys a thread, threads a CTA and candidate capacity."""
+    src = _source("kth_wide.cu")
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])  # noqa: E731
+    return {"vpt": get("kWideVpt"), "threads": get("kWideThreads"), "cap": get("kWideCap")}
+
+
+def wide_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, width) of each chunk of a row of s keys (`wide_row_kernel`):
+    the fewest chunks of at most `chunk`, of one width rounded up to a
+    multiple of 4, the last one the rest; none for no keys."""
+    n = -(-s // chunk)
+    if n == 0:
+        return []
+    cs = (-(-s // n) + 3) // 4 * 4
+    return [(c * cs, min(cs, s - c * cs)) for c in range(n)]
+
+
+def wide_model(h: torch.Tensor, k: int, mask: torch.Tensor | None = None, *, chunk: int | None = None,
+               cap: int | None = None, threads: int | None = None) -> dict:
+    """The two-level select of kth_wide.cu on a (B, S) f32 batch (K6; K5
+    with a (S,) bool mask, over the keys of its unmasked columns): kth (B,
+    1), -inf where K5's row has fewer than k unmasked columns, and per row
+    the lower bound L (a key), the candidate count and which way the row
+    took: `ranked`, `bisected` (the buffer) or `fallback` (the whole row)."""
+    c = wide_consts()
+    chunk = chunk or c["vpt"] * c["threads"]
+    cap = cap or c["cap"]
+    threads = threads or c["threads"]
+    b, s = h.shape
+    k = min(k, s)
+    key = order_key(h)
+    if mask is not None:
+        key = key[:, mask]
+        s = key.shape[1]
+    lower = torch.zeros(b, dtype=torch.int64)
+    n_cand = torch.zeros(b, dtype=torch.int64)
+    cand = []
+    for c0, n in wide_chunks(s, chunk):
+        kc = key[:, c0 : c0 + n]
+        t = torch.sort(kc, dim=1, descending=True).values[:, k - 1] if n >= k else torch.zeros_like(lower)
+        theta = torch.maximum(torch.maximum(t, lower), torch.ones_like(t))
+        kept = kc >= theta[:, None]
+        n_cand += kept.sum(1)
+        cand.append(torch.where(kept, kc, 0))
+        lower = torch.maximum(lower, t)
+    # Fewer than k keys (K5): the k-th largest candidate is key 0.
+    cand = torch.cat(cand + [torch.zeros((b, max(0, k - s)), dtype=key.dtype)], 1)
+    hi = key.amax(1) if s else torch.zeros_like(lower)
+    # The k-th largest candidate (0 where there are fewer than k), a
+    # bisection over the candidates from L, and one over the whole row.
+    ranked = torch.sort(cand, dim=1, descending=True).values[:, k - 1]
+    by_cand = bisect(lower, hi, k, lambda t: (cand >= t[:, None]).sum(-1))
+    by_row = bisect(lower, hi, k, lambda t: (key >= t[:, None]).sum(-1))
+    fallback = n_cand > cap
+    rank = ~fallback & (n_cand <= threads)
+    kth = torch.where(fallback, by_row, torch.where(rank, ranked, by_cand))
+    assert bool((kth >= lower).all())
+    value = key_float(kth)
+    if mask is not None:
+        value = torch.where(kth == 0, float("-inf"), value)
+    return {"kth": value[:, None], "lower": lower, "n_cand": n_cand, "ranked": rank,
+            "bisected": ~fallback & ~rank, "fallback": fallback}
+
+
+def wide_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
+    """K1's wide route: `wide_model`'s kth, then f, live, L0 and L1 with
+    topk_row.cuh's per-element formulas (L1 summed in column order)."""
+    sel = wide_model(h, k, **kw)
+    kth = sel["kth"]
+    keep = h >= kth
+    f = torch.where(keep, h, 0.0).to(torch.bfloat16)
+    return sel | {"f": f, "live": (f != 0).any(0), "l0": (keep & (h != 0)).sum(1, keepdim=True).float(),
+                  "l1": torch.where(keep, h, 0.0).abs().sum(1, keepdim=True)}

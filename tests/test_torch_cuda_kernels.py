@@ -12,7 +12,7 @@ one. The file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
-from kth_select_model import cand_cap, k1_layout, k1_model, k5_model, k6_model
+from kth_select_model import cand_cap, k1_layout, k1_model, k5_model, k6_model, wide_model
 
 from saev_tpu_torch.framework import train
 from saev_tpu_torch.nn import modeling, objectives
@@ -124,6 +124,10 @@ CUTS = {
     # sampled cuts (five in the first 16-lane step).
     "k16-steps": ([1, 2, 15, 16, 17, 63, 64, 65, 2048], 1024),
     "sampled": ([2, 5, 7, 8, 14, 27, 77, 113, 487, 2048], 512),
+    # Past 64 cuts (fault ROADMAP §3.6): every lane of the first 16-lane
+    # steps cut, then cuts over every group.
+    "65-cuts": (list(range(1, 41)) + list(range(100, 2048, 80))[:24] + [2048], 512),
+    "128-cuts": (list(range(1, 33)) + list(range(33, 2048, 15))[:95] + [2048], 512),
 }
 
 
@@ -401,8 +405,7 @@ def test_wrappers_refuse_bad_shapes(dev):
         cuda_topk.topk_stats_cuda(torch.zeros((4, 8), dtype=torch.float64, device=dev), 2)
     for bad in (torch.zeros((4, 8), dtype=torch.float64, device=dev),
                 torch.zeros((2, 4, 8), device=dev),
-                torch.zeros((8, 4), device=dev).T,
-                torch.zeros((2, cuda_kth.MAX_S + 1), device=dev)):
+                torch.zeros((8, 4), device=dev).T):
         with pytest.raises(ValueError):
             topk.exact_kth_value(bad, 2)
         with pytest.raises(ValueError):
@@ -429,8 +432,8 @@ def _mr(cuts, g, dev):
     return m, (p - m * g).to(torch.int32)
 
 
-# K3's cut sets: CUTS, 64 cuts (MAX_PREFIXES), and cuts inside a 128-column
-# tile with two in one tile (r 130 and 190 of group 1).
+# K3's cut sets: CUTS, 64 cuts (about 16 in each group), and cuts inside
+# a 128-column tile with two in one tile (r 130 and 190 of group 1).
 K3_CUTS = CUTS | {
     "64-cuts": (sorted(np.random.default_rng(64).choice(np.arange(1, 2048), 63, replace=False).tolist())
                 + [2048], 512),
@@ -477,6 +480,8 @@ K4_CUTS = {
     "r-below-64": [37, 2048],
     "r-0-boundary": [1024, 2048],
     "full-only": [2048],
+    "65-cuts": CUTS["65-cuts"][0],
+    "128-cuts": CUTS["128-cuts"][0],
 }
 
 
@@ -588,6 +593,76 @@ def test_gouter_kernel_matches_plain_and_k2(dev, cuts, g):
                              group_size=g)
     assert proto_gouter.grouped_prefix_err_gouter.launches == before + 2
     assert res["repeatable"]
+
+
+@pytest.mark.parametrize("cuts,g", [CUTS["sampled"], CUTS["m0-r0-full"], CUTS["65-cuts"]],
+                         ids=["sampled", "m0-r0-full", "65-cuts"])
+def test_gouter_kernel_odd_row_tiles(dev, cuts, g):
+    """P2 at B 384: three row tiles, so the second cluster has an idle
+    partner that loads and releases W's halves and stores nothing; against
+    K2 and its plain version at the module's limits, bitwise repeatable,
+    one call one launch of its product."""
+    f, w, x, b_dec = _matryoshka_operands(dev, len(cuts) + g + 3, b=384)
+    m, r = _mr(cuts, g, dev)
+    before = proto_gouter.grouped_prefix_err_gouter.launches
+    res = proto_gouter.check(dict(f=f, w=w, x=x, b_dec=b_dec, inv_upper=1.0 / x.abs().max(), m=m, r=r),
+                             group_size=g)
+    assert proto_gouter.grouped_prefix_err_gouter.launches == before + 2
+    assert res["repeatable"]
+
+
+# Rows wider than the narrow kernels hold (kth_wide.cu): a width just past
+# them, one of 3 chunks with S % 4 == 0, and the 64x and 128x dictionaries.
+WIDE_S = [32769, 40000, 65536, 131072]
+
+
+@pytest.mark.parametrize("k", [1, 32, 512])
+@pytest.mark.parametrize("s", WIDE_S)
+def test_wide_route_matches_plain(dev, s, k):
+    """K1 (kth, f, live, L0 bitwise; L1 within 1e-6) and K6 (bitwise) on the
+    wide route, each one launch; the rows that bisect the whole row are
+    the model's (`kth_select_model.wide_model`)."""
+    h = _k1_select_rows(8, s, s + k)
+    model = wide_model(h, k)
+    h = h.to(dev)
+    before = cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches
+    fb1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    fb6 = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = cuda_topk.topk_stats_cuda(h, k, fb1)
+    kth = cuda_kth.kth_value_cuda(h, k, fb6)
+    want = topk._topk_stats_plain(h, k)
+    torch.cuda.synchronize()
+    assert (cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches) == (before[0] + 1, before[1] + 1)
+    for name in ("kth", "f", "live", "l0"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    torch.testing.assert_close(got.l1, want.l1, rtol=1e-6, atol=0)
+    assert _same_bits(kth, topk._kth_plain(h, k)) and torch.equal(kth, got.kth)
+    assert int(fb1) == int(fb6) == int(model["fallback"].sum())
+    assert torch.equal(kth.cpu(), model["kth"])
+
+
+@pytest.mark.parametrize("s", WIDE_S)
+def test_wide_route_masked_matches_plain(dev, s):
+    """K5 on the wide route at k 512 (and 1): masks with 5% and half of the
+    columns unmasked, prefix and scattered, fewer than k unmasked, one, all
+    and none; bitwise to the plain version, -inf where fewer than k."""
+    rng = np.random.default_rng(s)
+    h = _rows(8, s, s).to(dev)
+    h[:, : s // 20] = h[:, : s // 20] * 4.0 - 1e6  # pinned dead as bench.py pins them
+    cols = np.arange(s)
+    masks = {"prefix-5%": cols < s // 20, "scattered-5%": rng.random(s) < 0.05,
+             "scattered-half": rng.random(s) < 0.5, "k-1": cols < 511, "one": cols == s // 2,
+             "all-masked": np.zeros(s, bool), "none-masked": np.ones(s, bool)}
+    for name, mask in masks.items():
+        mt = torch.from_numpy(mask).to(dev)
+        for k in (1, 512):
+            before = cuda_kth.kth_value_masked_cuda.launches
+            got = cuda_kth.kth_value_masked_cuda(h, mt, k)
+            want = topk._kth_masked_plain(h, mt, k)
+            torch.cuda.synchronize()
+            assert cuda_kth.kth_value_masked_cuda.launches == before + 1
+            assert _same_bits(got, want), (name, k)
+            assert bool(torch.isneginf(got).all()) == (int(mask.sum()) < k), (name, k)
 
 
 @pytest.mark.parametrize("b,d,s,k", [(256, 128, 2048, 32), (128, 64, 1152, 7), (128, 96, 16384, 32),

@@ -147,6 +147,80 @@ def test_gouter_plain_matches_pallas(data, gouter_jax, cuts):
     assert abs(float(ploss) - jloss) <= 1e-4 * abs(jloss)
 
 
+def _gouter_by_k16(f, w, x, b_dec, inv_upper, m, r, g, tile=128, cluster=2, step=16):
+    """P2's walk (csrc/prefix_gouter.cu) written out in torch: the row tiles
+    in clusters of `cluster` (the last one with an idle partner where their
+    count is odd), each live tile's accumulator starting at b_dec - x and
+    walking K = d_sae in 16-lane steps in f32; each cut, met in ascending p
+    (stable in j) in the step that holds it, snapshots bf16(acc + the lanes
+    below it); err_full is the final acc. Returns E, err_full, the loss (one
+    partial a live tile, in tile order) and the clusters' tiles."""
+    b, d = f.shape[0], w.shape[1]
+    n_tiles = -(-b // tile)
+    clusters = [list(range(c, c + cluster)) for c in range(0, n_tiles, cluster)]
+    ff, wf = f.float(), w.float()
+    p = (m * g + r).tolist()
+    order = sorted(range(len(p)), key=lambda j: p[j])
+    e = torch.empty((len(p), b, d), dtype=torch.bfloat16)
+    err = torch.empty((b, d))
+    partials = []
+    for tiles in clusters:
+        for t in tiles:
+            if t * tile >= b:  # the idle partner: W loads and releases only
+                continue
+            rows = slice(t * tile, (t + 1) * tile)
+            acc = (b_dec - x[rows]).float()
+            snaps, ci = [None] * len(p), 0
+            for k0 in range(0, f.shape[1], step):
+                while ci < len(order) and p[order[ci]] < k0 + step:
+                    pj = p[order[ci]]
+                    snaps[order[ci]] = acc + ff[rows, k0:pj] @ wf[k0:pj] if pj > k0 else acc
+                    ci += 1
+                acc = acc + ff[rows, k0 : k0 + step] @ wf[k0 : k0 + step]
+            for j in order[ci:]:
+                snaps[j] = acc
+            e[:, rows] = torch.stack(snaps).to(torch.bfloat16)
+            err[rows] = acc
+            partials.append(((e[:, rows].float() * inv_upper) ** 2).sum())
+    return e, err, torch.stack(partials).sum(), clusters
+
+
+GOUTER_CUTS = CUTS | {"65-cuts": list(range(1, 21)) + list(range(60, S, 46))[:44] + [S]}
+
+
+@pytest.mark.parametrize("cuts", GOUTER_CUTS.values(), ids=GOUTER_CUTS.keys())
+def test_gouter_walk_matches_pallas_and_plain(gouter_jax, cuts):
+    """P2's schedule at B 384 (three row tiles: two clusters, the second
+    with an idle partner) against the Pallas kernel in interpret mode (the
+    JAX script's limits: E rel-norm 2e-3, err_full 1e-5, loss 1e-4) and the
+    plain version (1e-2, 1e-4, 1e-5)."""
+    rng = np.random.default_rng(len(cuts))
+    b = 384
+    f = (rng.normal(size=(b, S)) * (rng.random((b, S)) < 0.2)).astype(np.float32)
+    w = (rng.normal(size=(S, D)) / 32).astype(np.float32)
+    x = rng.normal(size=(b, D)).astype(np.float32)
+    b_dec = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    m, r = _cuts(cuts)
+    iu = 1.0 / max(float(np.abs(x).max()), 1e-12)
+    args = (_tb(f), _tb(w), _t(x), _t(b_dec), torch.tensor(iu), _t(m), _t(r))
+    e, err, loss, clusters = _gouter_by_k16(*args, G)
+    assert clusters == [[0, 1], [2, 3]]
+    je, jerr, jloss_p = gouter_jax(
+        jnp.asarray(f, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), jnp.asarray(x), jnp.asarray(b_dec),
+        jnp.asarray(iu, jnp.float32), jnp.asarray(m), jnp.asarray(r), group_size=G, block_rows=64,
+        interpret=True,
+    )
+    pe, perr, ploss = proto_gouter.grouped_prefix_err_gouter_plain(*args, group_size=G)
+    jloss = float(np.asarray(jloss_p)[::8, 0].sum())
+    for (want_e, want_err, want_loss), (e_tol, err_tol, loss_tol) in (
+        ((np.asarray(je, np.float32), np.asarray(jerr), jloss), (2e-3, 1e-5, 1e-4)),
+        ((pe.float().numpy(), perr.numpy(), float(ploss)), (1e-2, 1e-4, 1e-5)),
+    ):
+        assert rel_norm(e.float().numpy(), want_e) <= e_tol
+        assert rel_norm(err.numpy(), want_err) <= err_tol
+        assert abs(float(loss) - want_loss) <= loss_tol * abs(want_loss)
+
+
 def test_gouter_plain_is_k2_plain_with_full_error(data):
     """Folding b_dec - x in first changes no bit of the plain E or loss; the
     second output is K2's xhat + b_dec - x."""

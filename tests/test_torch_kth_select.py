@@ -12,6 +12,13 @@ positive, ties across the boundary and at the top, signed zeros, -inf; at k
 are reached.
 K5's masks: prefixes, scattered, n = k and k - 1, one column, all and none.
 Hypothesis draws random rows and masks.
+
+The wide route of K1, K5 and K6 (csrc/kth_wide.cu, rows over 32768
+columns) is modelled at a small chunk width (WIDE), so a row of a few
+hundred columns splits into three chunks or more with a ragged last one,
+and held to the same kernels and plain versions, bit for bit, on the same
+edge rows and masks; with a small capacity and few threads its rows reach
+the rank, the bisection over the candidates and the whole-row fallback.
 """
 
 import math
@@ -22,7 +29,8 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from kth_select_model import cand_cap, k1_dispatch, k1_layout, k1_model, k5_model, k6_dispatch, k6_model
+from kth_select_model import (cand_cap, k1_dispatch, k1_layout, k1_model, k5_model, k6_dispatch, k6_model,
+                              wide_chunks, wide_consts, wide_model, wide_stats_model)
 
 from saev_tpu.ops import pallas_topk
 from saev_tpu_torch.ops import topk
@@ -256,3 +264,109 @@ def test_select_probe_finds_its_markers():
     for min_blocks in (1, 2, 3):
         assert f"__launch_bounds__(kMaxWarps * 32, {min_blocks})\n" in select_probe.k5_capped_source(min_blocks)
         assert f"__launch_bounds__(MAXT, {min_blocks})\n    kth_stream_kernel(" in select_probe.k6_capped_source(min_blocks)
+
+
+# --- the wide route (kth_wide.cu) ---
+
+# A chunk width that cuts these rows into 3-5 chunks, a buffer the tied rows
+# overflow, and a CTA of 64 threads, so Gaussian rows rank at k 1 and
+# bisect their candidates at k 32.
+WIDE = {"chunk": 256, "cap": 200, "threads": 64}
+
+
+@pytest.mark.parametrize("s", [700, 1031])
+@pytest.mark.parametrize("k", [1, 32, "s"])
+def test_wide_model_matches_pallas_and_plain(s, k):
+    """K6's and K1's wide route against the TPU kernels (interpret mode) and
+    the plain versions: kth bit for bit, f, live and L0 equal, L1 within
+    1e-6."""
+    k = s if k == "s" else k
+    h = _rows(32, s, s + k + 2)
+    ht = torch.from_numpy(h)
+    assert len(wide_chunks(s, WIDE["chunk"])) >= 3
+    got = wide_stats_model(ht, k, **WIDE)
+    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
+    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+    kth, f, live_p, l0, l1 = pallas_topk.topk_stats_pallas(jnp.asarray(h), k, 32, True)
+    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(kth).view(np.int32))
+    np.testing.assert_array_equal(got["f"].float().numpy(), np.asarray(f, np.float32))
+    np.testing.assert_array_equal(got["live"].numpy(), np.asarray(live_p).sum(0) > 0)
+    np.testing.assert_array_equal(got["l0"].numpy(), np.asarray(l0))
+    np.testing.assert_allclose(got["l1"].numpy(), np.asarray(l1), rtol=1e-6)
+    plain = topk._topk_stats_plain(ht, k)
+    assert same_value_bits(got["kth"], plain.kth)
+    for name in ("f", "live", "l0"):
+        assert torch.equal(got[name], getattr(plain, name)), name
+    torch.testing.assert_close(got["l1"], plain.l1, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("s,k", [(700, 32), (1031, 64), (1031, 1), (900, 900)])
+def test_wide_masked_model_matches_pallas_and_plain(s, k):
+    """K5's wide route: masked columns as key 0, -inf where fewer than k
+    columns are unmasked, against the TPU kernel and the plain version."""
+    h = _masked_rows(32, s, s + k)
+    ht = torch.from_numpy(h)
+    for name, mask in _k5_masks(s, k, s).items():
+        got = wide_model(ht, k, torch.from_numpy(mask), **WIDE)
+        want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
+                                                         k, True)
+        np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32),
+                                      err_msg=name)
+        assert same_value_bits(got["kth"], topk._kth_masked_plain(ht, torch.from_numpy(mask), k)), name
+        assert bool(torch.isneginf(got["kth"]).all()) == (int(mask.sum()) < k), name
+
+
+def test_wide_model_reaches_every_branch():
+    """Gaussian rows rank their candidates at k 1 and bisect them at k 32;
+    the rows of zeros, of -0.0 beside a few positives, of -inf and tied at
+    the top overflow the buffer and bisect the whole row; a row tied across
+    the boundary keeps its ties at 7.0 (36 of them) in the buffer and
+    ranks them."""
+    h = torch.from_numpy(_rows(64, 1031, 7))
+    one = wide_model(h, 1, **WIDE)
+    assert bool(one["ranked"][8:].all())
+    got = wide_model(h, 32, **WIDE)
+    assert set(np.flatnonzero(got["fallback"].numpy()).tolist()) == {0, 4, 6, 7}
+    assert bool(got["bisected"][8:].all()) and bool(got["ranked"][3]) and int(got["n_cand"][3]) == 36
+    for g in (one, got):
+        assert same_value_bits(g["kth"], topk._kth_plain(h, int(g is got) * 31 + 1))
+
+
+@pytest.mark.parametrize("s", [32769, 40000, 65536, 131072])
+def test_wide_chunks_at_the_card_widths(s):
+    """The kernel's chunks of the widths the card now takes: at most
+    kWideVpt * kWideThreads columns each, one width (a multiple of 4, so a
+    row with S % 4 == 0 keeps its 16-byte loads) but the last, covering the
+    row once; the Gaussian rows of 16384 x 65536 at k 32 and 512 fit the
+    candidate buffer (8 chunks of at most k candidates each, and ties)."""
+    c = wide_consts()
+    chunks = wide_chunks(s, c["vpt"] * c["threads"])
+    assert chunks[0][0] == 0 and sum(n for _, n in chunks) == s
+    assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
+    assert all(n % 4 == 0 for _, n in chunks[:-1]) and 0 < chunks[-1][1] <= chunks[0][1] <= c["vpt"] * c["threads"]
+    assert len(chunks) * 512 <= c["cap"]
+    if s == 65536:
+        h = torch.from_numpy(np.random.default_rng(2).normal(size=(4, s)).astype(np.float32))
+        for k in (32, 512):
+            got = wide_model(h, k)
+            assert not bool(got["fallback"].any()) and same_value_bits(got["kth"], topk._kth_plain(h, k))
+
+
+@settings(max_examples=40, deadline=None)
+@given(s=st.integers(1, 1500), k_frac=st.floats(0.0, 1.0), p=st.floats(0.0, 1.0), seed=st.integers(0, 2**16),
+       levels=st.sampled_from([0, 3, 50]))
+def test_wide_model_matches_plain_on_random_rows(s, k_frac, p, seed, levels):
+    """Random rows (continuous or a few levels, so ties), k anywhere, with
+    and without a mask, at a chunk width of 128: the same bits as the
+    plain versions whichever branch a row takes."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(4, s)).astype(np.float32)
+    if levels:
+        h = np.round(h * levels / 3).astype(np.float32) * np.float32(0.25)
+    h[rng.random(h.shape) < 0.05] = -0.0
+    ht = torch.from_numpy(h)
+    k = max(1, min(s, round(k_frac * s)))
+    small = {"chunk": 128, "cap": 96, "threads": 32}
+    assert same_value_bits(wide_model(ht, k, **small)["kth"], topk._kth_plain(ht, k))
+    mask = torch.from_numpy(rng.random(s) < p)
+    assert same_value_bits(wide_model(ht, k, mask, **small)["kth"], topk._kth_masked_plain(ht, mask, k))

@@ -19,6 +19,7 @@ import torch
 from saev_tpu.ops import matryoshka as jmat
 from saev_tpu.ops import pallas_matryoshka as pk
 from saev_tpu.ops import shmap
+from saev_tpu_torch.ops import _build
 from saev_tpu_torch.ops import cuda_matryoshka as cm
 from saev_tpu_torch.ops import matryoshka as tmat
 
@@ -414,10 +415,14 @@ def _prefix_err_by_k16(f, w, x, b_dec, inv_upper, m, r, g, step=16):
 # Several cuts in one 16-lane step (a small copy of the seed-0 sampled cuts),
 # cuts on and beside 16- and 64-lane steps, cuts on group boundaries; each
 # ends at d_sae.
+# Past 64 cuts (the kernels' tables in dynamic shared memory): every lane of
+# the first 16-lane steps cut, and cuts spread over every group.
 K16_CUTS = {
     "sampled": [2, 5, 7, 8, 14, 27, 77, 113, 487, S],
     "k16-edges": [1, 15, 16, 17, 63, 64, 65, S],
     "group-boundaries": [G, 2 * G, 2 * G + 1, 3 * G, S],
+    "65-cuts": list(range(1, 41)) + list(range(100, S, 80))[:24] + [S],
+    "130-cuts": list(range(1, 33)) + list(range(33, S, 15))[:97] + [S],
 }
 
 
@@ -549,6 +554,19 @@ def test_function_opcodes_counts_one_kernels_sass():
     assert _build.function_opcodes(K3_SASS, "wgrad_kernel") == {}
 
 
+def test_function_forms_count_each_modifier_set():
+    """The SASS forms chip_smoke.py reads P2's multicast TMA load from: each
+    full opcode with its modifiers, predicates dropped."""
+    from saev_tpu_torch.ops import _build
+
+    sass = K3_SASS + "        /*0050*/                   UTMALDG.2D.MULTICAST [UR8], [UR4], UR5 ;\n"
+    found = _build.function_forms(sass, "dgrad_wgmma_kernel")
+    assert list(found.values()) == [{"LDC": 1, "UTMALDG.3D": 1, "UTMALDG.2D": 1, "HGMMA.64x128x16.F32.BF16": 2}]
+    found = _build.function_forms(sass, "kth_ops_kernel")
+    assert list(found.values()) == [{"HMMA.16816.F32.BF16": 1, "UTMALDG.2D.MULTICAST": 1}]
+    assert list(_build.function_forms(sass, "build_da_vec_kernel").values()) == [{"LDG.E.128": 1}]
+
+
 PTXAS_LOG = """
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119prefix_wgmma_kernelILNS_4ModeE0EEEv14CUtensorMap_st' for 'sm_90a'
@@ -573,3 +591,34 @@ def test_ptxas_resources_reads_registers_and_spills():
     found = _build.ptxas_resources(PTXAS_LOG, "dgrad_wgmma_kernel")
     assert list(found.values()) == [{"stack_frame": 8, "spill_stores": 4, "spill_loads": 12, "registers": 90}]
     assert _build.ptxas_resources(PTXAS_LOG, "wgrad_wgmma_kernel") == {}
+
+
+def _c_entry_points() -> dict[str, list[str]]:
+    """Name -> parameter declarations of each `extern "C"` function in csrc."""
+    import re
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" \w+ (saev_\w+)\(([^)]*)\)\s*\{', text):
+            found[m[1]] = [p.strip() for p in m[2].split(",") if p.strip()]
+    return found
+
+
+def test_every_c_entry_point_is_bound():
+    """Each `extern "C"` entry point of the sources has argument types in
+    `_build.SIGNATURES`, and each bound name exists in the sources."""
+    assert set(_c_entry_points()) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_point_matches_its_signature(name):
+    """The ctypes argument types of an entry point match its C parameters:
+    a pointer or the stream as void*, an int as int, one for one."""
+    import ctypes
+
+    params = _c_entry_points()[name]
+    kinds = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else ctypes.c_int for p in params]
+    assert all(p.startswith(("int ", "const ", "float*", "int*", "uint8_t*", "cudaStream_t", "__nv_bfloat16*",
+                             "void*")) for p in params), params
+    assert kinds == _build.SIGNATURES[name], params
