@@ -16,7 +16,9 @@ script exits non-zero:
                 K5's and K6's registers and spills (their wide route's too);
                 K1's streamed kernel at the production width may use at most
                 126 registers and P1 at most 146, neither spilling (K6 runs
-                K1's select); P2's product
+                K1's select); P3's and P4's kernels (csrc/kth_ops.cu,
+                streamed and one CTA a row) log their registers and may not
+                spill; P2's product
                 (`gouter_wgmma_kernel`) must hold HGMMA, no HMMA, no spills,
                 and the multicast form of the TMA load
                 (UTMALDG.2D.MULTICAST).
@@ -93,13 +95,16 @@ script exits non-zero:
                 both cut sets of the parity phase; P2 also to K2 with the JAX
                 script's limits; P1's statistics bit for bit to K1 on P1's
                 own h; P4's exact modes bit for bit to torch.topk and K6, on
-                the script's rows and on edge rows), and P4's tensor-core
-                count found in mxu's SASS alone; then the entry points' own
+                the script's rows and on edge rows), P4's tensor-core count
+                found in mxu's SASS alone, and the pass loops of P4's modes
+                and P3 read from the SASS (instructions and the longest
+                register chain a key); then the entry points' own
                 measured work, counted: kprof's profile of K6, K7, K3 and K4,
                 P2 against K2, P1's fused-against-two-pass A/B, P3 at 32, 16
                 and 8 passes against K6, P4's five modes against K6 and the
                 library's k-th value; then each new kernel timed against its
-                plain version. It logs the sha256 of P2's and K2's outputs
+                plain version, P4 also in each mode and P3 at 32, 16 and 8
+                passes. It logs the sha256 of P2's and K2's outputs
                 on the P2 script's operands and of K7's on kprof's, to hold
                 their bits across commits.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
@@ -151,6 +156,9 @@ SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats
 # where two 256-thread CTAs share an SM, and P1's: their counts before K6
 # took K1's select.
 SELECT_REGISTERS = {"topk_stats_stream_kernelILi64ELi256E": 126, "encode_stats_kernel": 146}
+# P4's and P3's kernels (csrc/kth_ops.cu), streamed and one CTA a row: no
+# instantiation may spill.
+PASS_KERNELS = ("kth_ops_stream_kernel", "kth_ops_kernel", "count_loop_stream_kernel", "count_loop_kernel")
 # The plain versions the kernel wrappers take on a CPU tensor: no card call
 # may reach one (`plain_spy`).
 PLAIN_VERSIONS = (
@@ -171,7 +179,7 @@ KERNELS = {
     "grouped_prefix_base": ("saev_tpu_torch/csrc/prefix_fwd.cu", "saev_tpu/ops/pallas_matryoshka.py:46"),
     "encode_stats": ("saev_tpu_torch/csrc/encode_stats.cu", "scripts/proto_encode_stats.py:31"),
     "grouped_prefix_err_gouter": ("saev_tpu_torch/csrc/prefix_gouter.cu", "scripts/proto_gouter.py:41"),
-    "count_loop": ("saev_tpu_torch/csrc/kth.cu", "scripts/microbench_kth.py:39"),
+    "count_loop": ("saev_tpu_torch/csrc/kth_ops.cu", "scripts/microbench_kth.py:39"),
     "kth_ops": ("saev_tpu_torch/csrc/kth_ops.cu", "scripts/proto_kth_ops.py:55"),
 }
 BENCH_KERNELS = ("grouped_prefix_base", "encode_stats", "grouped_prefix_err_gouter", "count_loop", "kth_ops")
@@ -301,6 +309,15 @@ def phase_build(verbose: bool = False) -> None:
         for name, r in res.items():
             log(f"build ptxas {name}: {r['registers']} registers, stack frame {r.get('stack_frame')}, "
                 f"spill stores {r.get('spill_stores')}, spill loads {r.get('spill_loads')}")
+    for fragment in PASS_KERNELS:
+        res = _build.ptxas_resources(ptxas, fragment)
+        require(len(res) == (30 if fragment.startswith("kth_ops") else 6),
+                f"build: {len(res)} instantiations of {fragment} in ptxas's report")
+        for name, r in res.items():
+            require(r.get("spill_stores") == 0 and r.get("spill_loads") == 0, f"build: {name} spills: {r}")
+        log(f"build ptxas {fragment}, no spills; registers: "
+            + ", ".join(f"{name[name.index(fragment) + len(fragment):].split('EE')[0]} {r['registers']}"
+                        for name, r in sorted(res.items())))
     for fragment, most in SELECT_REGISTERS.items():
         res = _build.ptxas_resources(ptxas, fragment)
         require(len(res) > 0, f"build: no {fragment} in ptxas's report")
@@ -1488,19 +1505,24 @@ def _k7_case(f, w, x, b_dec, iu, p: np.ndarray, what: str) -> float:
     return err
 
 
-def _p4_sass() -> None:
-    """The tensor-core count is in mxu's instantiations, every one of them,
-    and in no other mode's (cuobjdump --dump-sass of the built library)."""
+def _pass_sass() -> None:
+    """P4's tensor-core count is in mxu's instantiations, every one of them
+    (streamed and one CTA a row), and in no other mode's; the pass loops of
+    P4's modes and of P3 at the production width, with their instructions
+    and register chains a key (cuobjdump --dump-sass of the built
+    library)."""
     from saev_tpu_torch.scripts import proto_kth_ops
 
     found = proto_kth_ops.sass_opcodes()
     hmma = proto_kth_ops.hmma_by_mode(found)
-    require(all(len(v) == 6 for v in hmma.values()), f"P4 SASS: instantiations {hmma}")
+    require(all(len(v) == 12 for v in hmma.values()), f"P4 SASS: instantiations {hmma}")
     require(all(n > 0 for n in hmma["mxu"]), f"P4 SASS: an mxu instantiation has no HMMA: {hmma}")
     require(all(n == 0 for mode, v in hmma.items() if mode != "mxu" for n in v),
             f"P4 SASS: HMMA outside mxu: {hmma}")
+    for kernel in proto_kth_ops.MODES + ("count_loop",):
+        require(sum(found[(kernel, "stream", 64, 256)]["pass"].values()) > 0, f"SASS: no pass loop in {kernel}")
     for line in proto_kth_ops.sass_report(found):
-        log("P4 " + line)
+        log("P3, P4 " + line)
 
 
 def phase_benches() -> tuple[dict, dict, dict]:
@@ -1551,7 +1573,7 @@ def phase_benches() -> tuple[dict, dict, dict]:
     log(f"parity P4 {B}x{D_SAE}, k {TOP_K}, and edge rows with k 32, 1, {D_SAE} and ragged "
         f"{proto_kth_ops.RAGGED} ({n_rows} rows): every mode bitwise equal to its plain version; "
         f"{', '.join(proto_kth_ops.EXACT)} bitwise equal to torch.topk and K6")
-    _p4_sass()
+    _pass_sass()
     k_inp = kprof.inputs()
     k7_out = cm.grouped_prefix_base(k_inp["f"], k_inp["w"], k_inp["m"], k_inp["r"], group_size=GROUP)
     log(f"K7 sha256 of base, xhat on kprof's operands: {digests.output_digest(*k7_out)}")
@@ -1604,6 +1626,15 @@ def phase_benches() -> tuple[dict, dict, dict]:
                              _time(lambda: proto_kth_ops.kth_ops_plain(ph, TOP_K, "prod"), 3),
                              _selection_bound(ph, proto_kth_ops.kth_ops(ph, TOP_K, "prod")),
                              library_kth_ms(ph, TOP_K, "P4"))
+    # The pass form's work: a compare and an add a key a pass.
+    p4_ms = {mode: _time(lambda mode=mode: proto_kth_ops.kth_ops(ph, TOP_K, mode), 10)
+             for mode in proto_kth_ops.MODES}
+    log(f"timing kth_ops by mode {tuple(ph.shape)} k {TOP_K} (2 x 32 x B x S = {2 * 32 * ph.numel() / 1e9:.1f} G "
+        f"compares and adds; subsar 31 passes): " + ", ".join(f"{m} {ms:.3f} ms" for m, ms in p4_ms.items()))
+    p3_ms = {n: _time(lambda n=n: microbench_kth.count_loop(key, n), 10) for n in microbench_kth.PASSES}
+    log(f"timing count_loop by passes {tuple(key.shape)}: "
+        + ", ".join(f"{n} passes {ms:.3f} ms ({2 * n * key.numel() / 1e9:.1f} G compares and adds)"
+                    for n, ms in p3_ms.items()))
     for k, row in times.items():
         log_timing(k, row)
     del k_inp, g_inp, e_inp, m_inp, p_inp

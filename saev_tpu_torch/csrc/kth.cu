@@ -20,14 +20,8 @@
 // their rows (row_stream.cuh, as K1 does); other rows take one CTA a row and
 // scalar loads.
 //
-// P3 (`count_loop_kernel`) replaces scripts/microbench_kth.py `loop_kernel`
-// (via `count_loop`): one CTA a row holding the row in registers (thread t
-// holds t, t + T, ...), sum_{i < n} count(key >= i) over int32 keys, a block
-// reduction of integer counts a pass. It measures what n compare-and-count
-// passes cost on their own, the floor under K1's and K6's whole-row
-// fallback.
+// P3, the raw compare-and-count loop, lives beside P4 in kth_ops.cu.
 
-#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,60 +72,7 @@ int launch(const float* h, int B, int S, int k, float* out, int* fallback, cudaS
   return launch_stream(kth_stream_kernel<VPT, MAXT>, B, S, threads, stream, h, B, S, k, out, fallback);
 }
 
-// P3: out[row] = sum_{i < n_passes} count(key[row, :] >= i). The ragged end
-// of a row takes INT_MIN, which no pass counts.
-template <int VPT, int MAXT>
-__global__ void __launch_bounds__(MAXT)
-    count_loop_kernel(const int* __restrict__ key, int S, int n_passes, int* __restrict__ out) {
-  __shared__ int counts[2][32];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
-  const long row = blockIdx.x;
-  const int* kr = key + row * S;
-
-  int kv[VPT];
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int i = tid + j * nt;
-    kv[j] = i < S ? kr[i] : INT_MIN;
-  }
-  int acc = 0;
-#pragma unroll 1
-  for (int p = 0; p < n_passes; ++p) {
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) c += kv[j] >= p;
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (lane == 0) counts[p & 1][warp] = c;
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < n_warps; ++w) total += counts[p & 1][w];
-    acc += total;
-  }
-  if (tid == 0) out[row] = acc;
-}
-
-template <int VPT, int MAXT>
-void launch_count(const int* key, int B, int S, int n_passes, int* out, cudaStream_t stream) {
-  int threads = (S + VPT - 1) / VPT;
-  threads = (threads + 31) / 32 * 32;
-  count_loop_kernel<VPT, MAXT><<<B, threads, 0, stream>>>(key, S, n_passes, out);
-}
-
 }  // namespace
-
-extern "C" int saev_count_loop(const int* key, int B, int S, int n_passes, int* out,
-                               cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || n_passes < 0) return cudaErrorInvalidValue;
-  if (S <= 256 * 4) launch_count<4, 256>(key, B, S, n_passes, out, stream);
-  else if (S <= 256 * 8) launch_count<8, 256>(key, B, S, n_passes, out, stream);
-  else if (S <= 256 * 16) launch_count<16, 256>(key, B, S, n_passes, out, stream);
-  else if (S <= 256 * 32) launch_count<32, 256>(key, B, S, n_passes, out, stream);
-  else if (S <= 256 * 64) launch_count<64, 256>(key, B, S, n_passes, out, stream);
-  else if (S <= 512 * 64) launch_count<64, 512>(key, B, S, n_passes, out, stream);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
 
 // fallback, when not null, gains 1 for each row that took the whole-row
 // bisection.

@@ -1,5 +1,6 @@
 """Plain torch models of the selects of kernels K1 and K6 (csrc/topk_row.cuh)
-and K5 (csrc/kth_masked.cu), step by step as the kernels run them, for the
+and K5 (csrc/kth_masked.cu), and of P4's and P3's pass loops
+(csrc/kth_ops.cu), step by step as the kernels run them, for the
 CPU tests (test_torch_kth_select.py, against the JAX package) and the card
 tests (test_torch_cuda_kernels.py, against the kernels: which rows take K1's
 and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
@@ -30,6 +31,15 @@ and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
   buffer overflows. The chunk width, capacity and threads default to the
   source's constants and are parameters, so a test can cut a small row
   into several chunks.
+- P4 and P3 (`kth_ops_model`, `count_loop_model`, csrc/kth_ops.cu): the
+  dispatch (VPT keys a thread in runs of 4 columns, T threads; P4's and
+  P3's tables must agree), each mode's key domain and pad past the row's
+  end, a pass's count split over kAcc accumulators a thread and summed
+  pairwise (f32 in f32red; kMxuAcc D fragments in mxu, with the bf16 A
+  fragment's lane layout; both constants read from the source), the warp's
+  and the block's sums, P3's sweep over its passes before one block sum,
+  and the rows of each persistent CTA (`cta_rows`) over a grid smaller and
+  larger than B.
 """
 
 import functools
@@ -303,3 +313,175 @@ def wide_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
     f = torch.where(keep, h, 0.0).to(torch.bfloat16)
     return sel | {"f": f, "live": (f != 0).any(0), "l0": (keep & (h != 0)).sum(1, keepdim=True).float(),
                   "l1": torch.where(keep, h, 0.0).abs().sum(1, keepdim=True)}
+
+
+# --- P4 and P3, the pass loops (csrc/kth_ops.cu) ---
+
+PASS_MODES = ("prod", "i32key", "subsar", "f32red", "mxu")  # the kernel's MODE is the index
+
+
+def pass_consts() -> dict[str, int]:
+    """kth_ops.cu's accumulators of a thread's count in a pass (P4, kAcc)
+    and over its passes (P3, kLoopAcc), and mxu's D fragments (kMxuAcc)."""
+    src = _source("kth_ops.cu")
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])  # noqa: E731
+    return {"acc": get("kAcc"), "loop_acc": get("kLoopAcc"), "mxu_acc": get("kMxuAcc")}
+
+
+def pass_dispatch(s: int) -> tuple[int, int]:
+    """(VPT, MAXT) of kth_ops.cu's tables for a row of s: P4's (`dispatch`)
+    and P3's (`saev_count_loop`), which must agree."""
+    src = _source("kth_ops.cu")
+    p4 = re.findall(r"S <= (\d+) \* (\d+)\) return launch<MODE, (\d+), (\d+)>", src)
+    p3 = re.findall(r"S <= (\d+) \* (\d+)\) return launch_count<(\d+), (\d+)>", src)
+    assert p4 and p4 == p3
+    for n_t, vpt, vpt_t, maxt in p4:
+        if s <= int(n_t) * int(vpt):
+            return int(vpt_t), int(maxt)
+    raise ValueError(s)
+
+
+def streams(s: int, offset: int = 0) -> bool:
+    """kth_ops.cu `streams`: the persistent stream route where S % 4 == 0
+    and the batch is 16-byte aligned (its first element `offset` 4-byte
+    elements into an aligned allocation); else one CTA a row."""
+    return s % 4 == 0 and offset % 4 == 0
+
+
+def cta_rows(b: int, ctas: int) -> list[list[int]]:
+    """The rows each persistent CTA takes (row_stream.cuh `stream_rows`):
+    the grid is min(B, the CTAs the card holds at once), and CTA g takes
+    rows g, g + grid, ..."""
+    grid = min(b, ctas)
+    return [list(range(g, b, grid)) for g in range(grid)]
+
+
+def _thread_keys(key: torch.Tensor, pad: int) -> tuple[torch.Tensor, int, int]:
+    """(B, T, VPT) keys as the CTA's threads hold them (runs of 4 columns,
+    K1's layout: `k1_layout` under kth_ops.cu's table), `pad` past the row's
+    end; and T, VPT."""
+    s = key.shape[1]
+    cols, nt = k1_layout(s, pass_dispatch)
+    vpt = cols.shape[1]
+    held = torch.where(cols < s, key[:, cols.clamp(max=s - 1)], pad)
+    return held, nt, vpt
+
+
+def _tree(acc: torch.Tensor) -> torch.Tensor:
+    """`warp_count`'s sum of a thread's accumulators (last dim): halves
+    added pairwise, c[i] += c[i + s] for s = A/2, .., 1."""
+    a = acc.shape[-1]
+    s = a // 2
+    while s > 0:
+        acc = acc[..., :s] + acc[..., s : 2 * s]
+        s //= 2
+    return acc[..., 0]
+
+
+def _accumulate(hit: torch.Tensor, a: int) -> torch.Tensor:
+    """(.., T, VPT) values -> (.., T, A): accumulator j % A sums keys j, j +
+    A, .. of each thread (keys past VPT add to none)."""
+    vpt = hit.shape[-1]
+    acc = torch.zeros(hit.shape[:-1] + (a,), dtype=hit.dtype)
+    for j in range(vpt):
+        acc[..., j % a] += hit[..., j]
+    return acc
+
+
+def _mxu_lane_counts(mask: torch.Tensor, frags: int) -> torch.Tensor:
+    """mxu's count of one pass in each lane, from (B, T, VPT) 0/1 f32: each
+    thread's keys 8m..8m+7 are product m's bf16 A fragment (a[q] = keys
+    8m+2q, 8m+2q+1; a[0] and a[2] in row lane/4, a[1] and a[3] in row
+    lane/4 + 8), D fragment m % frags adds A times ones, so column 0 of row
+    r is the sum of row r of A over the four lanes that hold it; lanes with
+    lane % 4 == 0 take d[0] + d[2] of every fragment, the others 0."""
+    b, nt, vpt = mask.shape
+    mmas = -(-vpt // 8)
+    vals = torch.zeros((b, nt, mmas * 8), dtype=torch.float32)
+    vals[..., :vpt] = mask
+    vals = vals.view(b, nt // 32, 8, 4, mmas, 4, 2)  # (B, warp, g, t, m, q, lo/hi)
+    row_lo = vals[..., 0, :] + vals[..., 2, :]  # a[0], a[2]: row g
+    row_hi = vals[..., 1, :] + vals[..., 3, :]  # a[1], a[3]: row g + 8
+    # D[r][0] of product m: the row's values over its four lanes (t).
+    d_lo = row_lo.sum(-1).sum(3)  # (B, warp, g, m)
+    d_hi = row_hi.sum(-1).sum(3)
+    d = torch.zeros((b, nt // 32, 8, frags, 2), dtype=torch.float32)
+    for m in range(mmas):
+        d[..., m % frags, 0] += d_lo[..., m]
+        d[..., m % frags, 1] += d_hi[..., m]
+    c = torch.zeros((b, nt // 32, 8, 4), dtype=torch.float32)  # lane = 4 g + t
+    for i in range(frags):
+        c[..., 0] += d[..., i, 0] + d[..., i, 1]
+    return c.view(b, nt)
+
+
+def kth_ops_model(h: torch.Tensor, k: int, mode: str, ctas: int = 264) -> dict:
+    """P4 on a (B, S) f32 batch, as kth_ops.cu runs it: kth (B, 1) and the
+    rows each persistent CTA took. The keys in the mode's domain (int64:
+    u32, signed, 31-bit) with its pad past S, VPT a thread over T threads,
+    the count of each pass in A accumulators a thread (f32 in f32red; mxu's
+    D fragments), the warp's sum, the block's sum of the warps', and the
+    prefix step; also VPT, T, the pad and each pass's candidate (B,
+    passes)."""
+    b, s = h.shape
+    consts = pass_consts()
+    key = order_key(h)
+    passes, cur = 32, torch.zeros(b, dtype=torch.int64)
+    pad = 0
+    if mode == "i32key":
+        key, cur, pad = key - 2**31, cur - 2**31, -(2**31)  # key ^ sign read as int32
+    elif mode == "subsar":
+        key, passes, pad = key >> 1, 31, 2**31 - 1
+    held, nt, vpt = _thread_keys(key, pad)
+    rows = cta_rows(b, ctas)
+    assert sorted(r for rs in rows for r in rs) == list(range(b))
+    cands = []
+    for p in range(passes):
+        bit = 1 << (passes - 1 - p)
+        if mode == "i32key":  # int32 arithmetic: bit 31 is INT32_MIN, the first step wraps to 0
+            cand = cur + (bit - 2**32 if bit == 2**31 else bit)
+            cand = torch.remainder(cand + 2**31, 2**32) - 2**31
+        elif mode == "subsar":
+            cand = cur + bit
+        else:
+            cand = cur | bit
+        cands.append(cand)
+        c = cand[:, None, None]
+        if mode == "mxu":
+            lane = _mxu_lane_counts((held >= c).float(), consts["mxu_acc"])
+        elif mode == "f32red":
+            lane = _tree(_accumulate((held >= c).float(), consts["acc"]))
+        elif mode == "subsar":
+            lane = _tree(_accumulate(((held - c) < 0).long() * -1, consts["acc"]))
+        else:  # prod, i32key: compares in their own domain
+            lane = _tree(_accumulate((held >= c).long(), consts["acc"]))
+        warp = lane.view(b, nt // 32, 32).sum(-1)
+        total = warp.sum(-1)
+        if mode == "subsar":
+            total = total + s
+        cur = torch.where(total >= k, cand, cur)
+    if mode == "i32key":
+        cur = cur + 2**31
+    elif mode == "subsar":
+        cur = cur << 1
+    return {"kth": key_float(cur)[:, None], "rows": rows, "vpt": vpt, "threads": nt, "pad": pad,
+            "cands": torch.stack(cands, 1)}
+
+
+def count_loop_model(key: torch.Tensor, n_passes: int, ctas: int = 264) -> dict:
+    """P3 on a (B, S) int32 batch, as kth_ops.cu runs it: out (B, 1) int32
+    and the rows each persistent CTA took. The keys, VPT a thread over T
+    threads, INT_MIN past S; each thread sums compare results over the
+    passes and its keys into kLoopAcc accumulators in one sweep (u32
+    arithmetic),
+    adds them, then one warp sum and one block sum a row."""
+    b, s = key.shape
+    held, nt, vpt = _thread_keys(key.to(torch.int64), -(2**31))
+    rows = cta_rows(b, ctas)
+    assert sorted(r for rs in rows for r in rs) == list(range(b))
+    acc = torch.zeros((b, nt, pass_consts()["loop_acc"]), dtype=torch.int64)
+    for p in range(n_passes):
+        acc = (acc + _accumulate((held >= p).long(), acc.shape[-1])) % 2**32
+    total = _tree(acc).view(b, nt // 32, 32).sum(-1).sum(-1) % 2**32
+    out = torch.where(total >= 2**31, total - 2**32, total).to(torch.int32)
+    return {"out": out[:, None], "rows": rows, "vpt": vpt, "threads": nt}

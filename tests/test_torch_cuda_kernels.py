@@ -12,7 +12,8 @@ one. The file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
-from kth_select_model import cand_cap, k1_layout, k1_model, k5_model, k6_model, wide_model
+from kth_select_model import (cand_cap, count_loop_model, k1_layout, k1_model, k5_model, k6_model, kth_ops_model,
+                              wide_model)
 
 from saev_tpu_torch.framework import train
 from saev_tpu_torch.nn import modeling, objectives
@@ -680,18 +681,34 @@ def test_encode_stats_kernel_matches_plain_and_k1(dev, b, d, s, k):
     assert res["h_rel"] <= 1e-5 and res["n_live"] > 0
 
 
-@pytest.mark.parametrize("b,s", [(64, 2048), (33, 1000), (8, 16384), (4, 20000)])
+# (B, S) of the pass kernels' cases: B below the card's resident CTAs and
+# odd, and above them (301 > 2 x 132 at 16384 columns); S not a multiple of
+# 4 (one CTA a row); S 32768 (512 threads, 128 KB of shared memory a row).
+PASS_SHAPES = [(64, 2048), (33, 1000), (33, 1001), (8, 16384), (301, 16384), (4, 20000), (5, 32768)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("b,s", PASS_SHAPES)
 @pytest.mark.parametrize("n_passes", [0, 8, 16, 32])
-def test_count_loop_kernel_matches_plain(dev, b, s, n_passes):
+def test_count_loop_kernel_matches_plain(dev, b, s, n_passes, offset):
+    """P3 streamed (S % 4 == 0, keys 16-byte aligned) and one CTA a row
+    (otherwise): equal to its plain version and to the model of its
+    partition, the same in two launches, its launch counter up by 2."""
     rng = np.random.default_rng(b + s)
     key = rng.integers(-8, 40, size=(b, s), dtype=np.int32)
     key[0] = np.iinfo(np.int32).min
     key[1] = np.iinfo(np.int32).max
-    key = torch.from_numpy(key).to(dev)
+    buf = torch.empty(b * s + offset, dtype=torch.int32, device=dev)
+    kd = buf[offset:].view(b, s)
+    kd.copy_(torch.from_numpy(key))
     before = microbench_kth.count_loop.launches
-    got = microbench_kth.count_loop(key, n_passes)
-    assert microbench_kth.count_loop.launches == before + 1
-    assert torch.equal(got, microbench_kth.count_loop_plain(key, n_passes))
+    got = microbench_kth.count_loop(kd, n_passes)
+    again = microbench_kth.count_loop(kd, n_passes)
+    torch.cuda.synchronize()
+    assert microbench_kth.count_loop.launches == before + 2
+    assert torch.equal(got, microbench_kth.count_loop_plain(kd, n_passes))
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), count_loop_model(torch.from_numpy(key), n_passes)["out"])
 
 
 def test_bench_wrappers_refuse_bad_shapes(dev):
@@ -714,19 +731,30 @@ def test_bench_wrappers_refuse_bad_shapes(dev):
                                                torch.zeros(128, device=dev), torch.ones(1, device=dev), m, m)
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
 @pytest.mark.parametrize("b,s,k", [(256, 4096, 32), (64, 100, 100), (33, 16384, 32), (8, 20000, 7), (16, 1000, 512),
-                                   (8, 700, 1)])
+                                   (8, 700, 1), (33, 1001, 32), (301, 16384, 32), (5, 32768, 32), (5, 32768, 32768)])
 @pytest.mark.parametrize("mode", proto_kth_ops.MODES)
-def test_kth_ops_kernel_matches_plain_and_k6(dev, mode, b, s, k):
-    h = _rows(b, s, b + s + 3).to(dev)
+def test_kth_ops_kernel_matches_plain_and_k6(dev, mode, b, s, k, offset):
+    """P4 streamed (S % 4 == 0, h 16-byte aligned) and one CTA a row
+    (otherwise), B below the card's resident CTAs (odd, too) and above
+    them: bitwise equal to its plain version and to the model of its
+    partition, the exact modes also to K6 and to the k-th value (-0.0 and
+    +0.0 as one); the same bits in two launches, its launch counter up by
+    2."""
+    h = _rows(b, s, b + s + 3)
+    hd = _at_offset(h, dev, offset)
     before = proto_kth_ops.kth_ops.launches
-    got = proto_kth_ops.kth_ops(h, k, mode)
+    got = proto_kth_ops.kth_ops(hd, k, mode)
+    again = proto_kth_ops.kth_ops(hd, k, mode)
     torch.cuda.synchronize()
-    assert proto_kth_ops.kth_ops.launches == before + 1
-    assert torch.equal(got.view(torch.int32), proto_kth_ops.kth_ops_plain(h, k, mode).view(torch.int32))
+    assert proto_kth_ops.kth_ops.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), proto_kth_ops.kth_ops_plain(hd, k, mode).view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32), kth_ops_model(h, k, mode)["kth"].view(torch.int32))
     if mode in proto_kth_ops.EXACT:
-        assert torch.equal(got.view(torch.int32), cuda_kth.kth_value_cuda(h, k).view(torch.int32))
-        assert _same_bits(got, topk._kth_plain(h, k))
+        assert torch.equal(got.view(torch.int32), cuda_kth.kth_value_cuda(hd, k).view(torch.int32))
+        assert _same_bits(got, topk._kth_plain(hd, k))
 
 
 def test_kth_ops_refuses_bad_inputs(dev):

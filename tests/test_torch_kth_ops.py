@@ -132,34 +132,79 @@ def test_check_passes_on_cpu():
 
 SASS = """
 	code for sm_90a
-		Function : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f14kth_ops_kernelILi4ELi64ELi256EEEvPKfiiPf
+		Function : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f21kth_ops_stream_kernelILi4ELi4ELi256EEEvPKfiiiPf
 	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0000*/                   LDC R1, c[0x0][0x28] ;                           /* 0x00000a00ff017b82 */
                                                                                     /* 0x000e220000000800 */
-        /*0010*/                   HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
-        /*0020*/              @!P0 HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
-        /*0030*/               @P1 BRA 0x20 ;                                     /* 0x0000000000f01947 */
-        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                  /* 0x0000000000007b1d */
-        /*0050*/               @P1 ISETP.GE.U32.AND P0, PT, R4, R5, PT ;           /* 0x000000050400720c */
-        /*0060*/               @P2 BRA 0x10 ;                                     /* 0x0000000000f01947 */
-        /*0070*/                   EXIT ;                                         /* 0x000000000000794d */
-        /*0080*/                   BRA 0x80;                                      /* 0xfffffffc00fc7947 */
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;   /* 0x0000000000007b1d */
+        /*0020*/              @!P0 BRA 0x10 ;                                     /* 0x0000000000f01947 */
+        /*0030*/                   ISETP.GE.U32.AND P1, PT, R4, R5, PT ;           /* 0x000000050400720c */
+        /*0040*/                   HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
+        /*0050*/              @!P1 HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                  /* 0x0000000000007b1d */
+        /*0070*/               @P2 BRA 0x30 ;                                     /* 0x0000000000f01947 */
+        /*0080*/                   STG.E desc[UR6][R2.64], R8 ;                   /* 0x0000000802007986 */
+        /*0090*/               @P3 BRA 0x10 ;                                     /* 0x0000000000f01947 */
+        /*00a0*/                   EXIT ;                                         /* 0x000000000000794d */
+        /*00b0*/                   BRA 0xb0;                                      /* 0xfffffffc00fc7947 */
 		Function : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f14kth_ops_kernelILi0ELi4ELi256EEEvPKfiiPf
         /*0000*/                   ISETP.GE.U32.AND P0, PT, R4, R5, PT ;           /* 0x000000050400720c */
         /*0010*/                   REDUX.SUM UR4, R2 ;                              /* 0x00000000020473c4 */
+		Function : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f24count_loop_stream_kernelILi4ELi256EEEvPKiiiiPi
+        /*0000*/                   ISETP.GE.AND P0, PT, R4, R6, PT ;               /* 0x000000060400720c */
+        /*0010*/               @P0 IADD3 R7, R7, 0x1, RZ ;                        /* 0x0000000107070810 */
+        /*0020*/                   ISETP.GE.AND P1, PT, R5, R6, PT ;               /* 0x000000060500720c */
+        /*0030*/               @P1 IADD3 R7, R7, 0x1, RZ ;                        /* 0x0000000107071810 */
+        /*0040*/                   IADD3 R6, R6, 0x1, RZ ;                        /* 0x0000000106067810 */
+        /*0050*/               @P2 BRA 0x0 ;                                      /* 0x0000000000f01947 */
 		Function : _ZN43_GLOBAL__N__b24f0e1f_7_kth_cu_5a1b2c3d10kth_kernelILb0ELi4ELi256EEEvPKfPKhiiPf
         /*0000*/                   HMMA.16816.F32.BF16 R8, R12, R16, R8 ;          /* 0x000000100c08723c */
 """
 
 
 def test_parse_sass_counts_opcodes_per_instantiation():
-    """Opcodes of each kth_ops_kernel instantiation (predicates dropped,
-    other kernels ignored), and of its pass loop: the longest loop that
-    holds the barrier, not the inner loop without one."""
+    """Opcodes of each kth_ops_kernel and count_loop_kernel instantiation,
+    stream form or not (predicates dropped, other kernels ignored), and of
+    its pass loop: the shortest loop of at least VPT instructions without
+    an mbarrier wait, not the row loop around it nor the wait for a row's
+    copy; the pass loop's longest register chain (a guarded instruction
+    reads its guard and its old result)."""
     found = proto_kth_ops.parse_sass(SASS)
     assert found == {
-        ("mxu", 64, 256): {"all": {"LDC": 1, "HMMA": 2, "BRA": 3, "BAR": 1, "ISETP": 1, "EXIT": 1},
-                           "pass": {"HMMA": 2, "BRA": 2, "BAR": 1, "ISETP": 1}},
-        ("prod", 4, 256): {"all": {"ISETP": 1, "REDUX": 1}, "pass": {}},
+        ("mxu", "stream", 4, 256): {
+            "all": {"LDC": 1, "SYNCS": 1, "BRA": 4, "ISETP": 1, "HMMA": 2, "BAR": 1, "STG": 1, "EXIT": 1},
+            "pass": {"ISETP": 1, "HMMA": 2, "BAR": 1, "BRA": 1}, "chain": 2},
+        ("prod", "rows", 4, 256): {"all": {"ISETP": 1, "REDUX": 1}, "pass": {}, "chain": 0},
+        ("count_loop", "stream", 4, 256): {"all": {"ISETP": 2, "IADD3": 3, "BRA": 1},
+                                           "pass": {"ISETP": 2, "IADD3": 3, "BRA": 1}, "chain": 3},
     }
     assert proto_kth_ops.hmma_by_mode(found) == {"prod": [0], "i32key": [], "subsar": [], "f32red": [], "mxu": [2]}
+
+
+def _dump(kernels: dict[str, str]) -> str:
+    """A SASS dump of one-CTA-a-row kernels at VPT 64, 256 threads, each a
+    pass loop of a compare and a guarded add a key into one register."""
+    lines = ["\tcode for sm_90a"]
+    for name, mangled in kernels.items():
+        lines.append(f"\t\tFunction : _ZN43_GLOBAL__N__b24f0e1f_10_kth_ops_cu_07bce94f{mangled}EEEvPKfiiPf")
+        for j in range(64):
+            lines.append(f"        /*{32 * j:04x}*/                   ISETP.GE.U32.AND P0, PT, R{8 + j}, R5, PT ;")
+            lines.append(f"        /*{32 * j + 16:04x}*/               @P0 IADD3 R7, R7, 0x1, RZ ;")
+        lines.append("        /*0800*/               @P1 BRA 0x0 ;")
+        lines.append("        /*0810*/                   EXIT ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_sass_report_reads_a_saved_dump(tmp_path, capsys):
+    """`main(["--sass", file])` reports an older tree's kernels, one CTA a
+    row only: each pass loop's instructions and register chain, in all and
+    a key."""
+    kernels = {mode: f"14kth_ops_kernelILi{i}ELi64ELi256" for i, mode in enumerate(proto_kth_ops.MODES)}
+    kernels["count_loop"] = "17count_loop_kernelILi64ELi256"
+    path = tmp_path / "dump.sass"
+    path.write_text(_dump(kernels))
+    proto_kth_ops.main(["--sass", str(path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("SASS HMMA per instantiation: prod [0]")
+    assert out[1:] == [f"SASS {k} rows <64, 256> pass loop: 129 instructions (2.02 a key), chain 65 (1.02 a key): "
+                       "ISETP 64, IADD3 64, BRA 1" for k in kernels]
