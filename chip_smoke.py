@@ -9,13 +9,16 @@ script exits non-zero:
                 and the `nvidia-smi` name and power limit.
 2. build     -- compiles saev_tpu_torch/csrc/*.cu with nvcc (ops/_build.py),
                 one nvcc for each source, all started together; the wgmma
-                products (K2's and K7's `prefix_wgmma_kernel`, K3's and K4's)
-                must hold wgmma (HGMMA) and TMA loads (UTMALDG) in their
-                SASS, no mma.sync (HMMA), and no spills in ptxas's report;
+                products (K2's and K7's `prefix_wgmma_kernel`, K3's, K4's,
+                and P1's `encode_stats_wgmma_kernel`) must hold wgmma (HGMMA)
+                and TMA loads (UTMALDG) in their SASS, no mma.sync (HMMA),
+                and no spills in ptxas's report, and P1's no ptxas report of
+                serialized wgmma;
                 K2's and K7's resident CTAs an SM are logged, and K1's, P1's,
                 K5's and K6's registers and spills (their wide route's too);
                 K1's streamed kernel at the production width may use at most
-                126 registers and P1 at most 146, neither spilling (K6 runs
+                126 registers and P1's product at most P1_REGISTERS, neither
+                spilling (K6 runs
                 K1's select); P3's and P4's kernels (csrc/kth_ops.cu,
                 streamed and one CTA a row) log their registers and may not
                 spill; P2's product
@@ -94,17 +97,23 @@ script exits non-zero:
                 plain versions (K7 also bit for bit to K2's xhat and E, with
                 both cut sets of the parity phase; P2 also to K2 with the JAX
                 script's limits; P1's statistics bit for bit to K1 on P1's
-                own h; P4's exact modes bit for bit to torch.topk and K6, on
+                own h, with the rows that took its exact route; P4's exact
+                modes bit for bit to torch.topk and K6, on
                 the script's rows and on edge rows), P4's tensor-core count
                 found in mxu's SASS alone, and the pass loops of P4's modes
                 and P3 read from the SASS (instructions and the longest
                 register chain a key); then the entry points' own
                 measured work, counted: kprof's profile of K6, K7, K3 and K4,
-                P2 against K2, P1's fused-against-two-pass A/B, P3 at 32, 16
+                P2 against K2, P1's fused-against-two-pass A/B and its time
+                split (the profiler's two launches, and clock64 stamps in a
+                copy of its source: `select_probe.p1_phases`, also on rows
+                ascending in column order), P3 at 32, 16
                 and 8 passes against K6, P4's five modes against K6 and the
                 library's k-th value; then each new kernel timed against its
                 plain version, P4 also in each mode and P3 at 32, 16 and 8
-                passes. It logs the sha256 of P2's and K2's outputs
+                passes, and P1 beside its two-call yardstick (the bf16
+                encoder, `modeling._linear_bias(..., "default")`, then K1,
+                each timed). It logs the sha256 of P2's and K2's outputs
                 on the P2 script's operands and of K7's on kprof's, to hold
                 their bits across commits.
 10. profile  -- torch.profiler over the warm, tight-rung and dense steps at
@@ -122,14 +131,17 @@ computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
 larger of its bytes over the card's memory rate and its operations over the
 peak rate of their type; bound_by names which) and library_ms (one PyTorch
 call computing the same function, null where there is none; lib_ms repeats
-it). The last line is {"ok": true, "device": {...}}.
+it); P1's entry adds yardstick_ms, the two calls it fuses. The last line
+is {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -149,13 +161,20 @@ K3_NAMES = ("build_da_vec_kernel", "dgrad_wgmma_kernel")  # K3's two launches
 K4_NAMES = ("wgrad_wgmma_kernel", "wgrad_combine_kernel")  # K4's two launches
 WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel")
 P2_PRODUCT = "gouter_wgmma_kernel"
-# K1 (streamed rows, and one CTA a row), P1, K5, K6 (streamed rows, and one CTA a row)
-SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_stats_kernel", "kth_masked_kernel",
-                  "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel")
+P1_PRODUCT = "encode_stats_wgmma_kernel"
+# K1 (streamed rows, and one CTA a row), P1 (x rounded, the product), K5, K6
+# (streamed rows, and one CTA a row)
+SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_round_kernel", P1_PRODUCT,
+                  "kth_masked_kernel", "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel")
 # Registers K1's streamed kernel may not exceed at the production width,
-# where two 256-thread CTAs share an SM, and P1's: their counts before K6
-# took K1's select.
-SELECT_REGISTERS = {"topk_stats_stream_kernelILi64ELi256E": 126, "encode_stats_kernel": 146}
+# where two 256-thread CTAs share an SM (its count before K6 took K1's
+# select), and P1's product, two 128-thread CTAs an SM (its count when it
+# came to Hopper, the exact route holding 128 keys a thread).
+P1_REGISTERS = 252
+SELECT_REGISTERS = {"topk_stats_stream_kernelILi64ELi256E": 126, P1_PRODUCT: P1_REGISTERS}
+# ptxas's report that it serializes a kernel's wgmma (a branch it cannot
+# prove warp-uniform, among others).
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 # P4's and P3's kernels (csrc/kth_ops.cu), streamed and one CTA a row: no
 # instantiation may spill.
 PASS_KERNELS = ("kth_ops_stream_kernel", "kth_ops_kernel", "count_loop_stream_kernel", "count_loop_kernel")
@@ -297,7 +316,7 @@ def phase_build(verbose: bool = False) -> None:
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     sass = _build.dump_sass()
     ptxas = _build.ptxas_log().read_text()
-    for fragment in WGMMA_PRODUCTS + (P2_PRODUCT,):
+    for fragment in WGMMA_PRODUCTS + (P2_PRODUCT, P1_PRODUCT):
         res = _build.ptxas_resources(ptxas, fragment)
         require(len(res) > 0, f"build: no {fragment} in ptxas's report")
         for name, r in res.items():
@@ -324,14 +343,18 @@ def phase_build(verbose: bool = False) -> None:
         for name, r in res.items():
             require(r["registers"] <= most and r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
                     f"build: {name} {r}: more than {most} registers, or spills")
+    serialized = [line for line in ptxas.splitlines() if WGMMA_SERIALIZED in line]
+    for line in serialized:
+        log(f"build ptxas: {line.strip()}")
+    require(not any(P1_PRODUCT in line for line in serialized), f"build: ptxas serializes {P1_PRODUCT}'s wgmma")
     ctas = [_build.lib().saev_prefix_occupancy(mode) for mode in range(3)]
     require(all(n >= 1 for n in ctas), f"build: K2's and K7's resident CTAs an SM {ctas}")
     log(f"build: prefix_wgmma_kernel (K2, K7 f32, K7 bf16) resident CTAs an SM {ctas}")
-    for fragment in (K2_NAMES[0],) + K3_NAMES + K4_NAMES + (P2_PRODUCT,):
+    for fragment in (K2_NAMES[0],) + K3_NAMES + K4_NAMES + (P2_PRODUCT, P1_PRODUCT):
         found = _build.function_opcodes(sass, fragment)
         require(len(found) > 0, f"build: no {fragment} in the library's SASS")
         for name, ops in found.items():
-            if fragment in WGMMA_PRODUCTS + (P2_PRODUCT,):
+            if fragment in WGMMA_PRODUCTS + (P2_PRODUCT, P1_PRODUCT):
                 require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                         f"build: {name} has HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, "
                         f"HMMA {ops['HMMA']}: not a wgmma product on TMA loads")
@@ -1530,7 +1553,10 @@ def phase_benches() -> tuple[dict, dict, dict]:
     launch counts of their measured work, and each new kernel's max abs
     error and timing row (kernel ms, plain ms, bound, library ms)."""
     from saev_tpu_torch.ops import cuda_matryoshka as cm
-    from saev_tpu_torch.scripts import digests, kprof, microbench_kth, proto_encode_stats, proto_gouter, proto_kth_ops
+    from saev_tpu_torch.nn import modeling
+    from saev_tpu_torch.ops import _build, cuda_topk
+    from saev_tpu_torch.scripts import (digests, kprof, microbench_kth, proto_encode_stats, proto_gouter,
+                                        proto_kth_ops, select_probe)
 
     errs = {}
     f, w, x, b_dec, cut_sets = _matryoshka_inputs()
@@ -1562,7 +1588,7 @@ def phase_benches() -> tuple[dict, dict, dict]:
     errs["encode_stats"] = res["h_max_abs"]
     log(f"parity P1 {B}x{D_MODEL} -> {D_SAE}, k {TOP_K}: h rel-norm {res['h_rel']:.3g}, max abs "
         f"{res['h_max_abs']:.3g}; kth, f, live ({res['n_live']}), l0 bitwise equal to K1 and to its plain "
-        f"version on P1's own h, l1 within 1e-6")
+        f"version on P1's own h, l1 within 1e-6; {res['exact_rows']} of {B} rows took the exact route")
     m_inp = microbench_kth.inputs()
     microbench_kth.check(m_inp)
     errs["count_loop"] = 0.0  # the counts are equal, or check raised
@@ -1583,7 +1609,8 @@ def phase_benches() -> tuple[dict, dict, dict]:
     reset_counts()
     runs = {f"kprof {k}": rows for k, rows in kprof.profile_kernels(k_inp, n=5, warmup=1).items()}
     runs |= proto_gouter.timing(g_inp, n=5, warmup=1)
-    runs |= proto_encode_stats.ab(e_inp, n=5, warmup=1)
+    p1_runs = proto_encode_stats.ab(e_inp, n=5, warmup=1)
+    runs |= p1_runs
     runs |= microbench_kth.passes(m_inp, n=5, warmup=1)
     runs |= proto_kth_ops.timing(p_inp, n=5, warmup=1)
     torch.cuda.synchronize()
@@ -1594,6 +1621,14 @@ def phase_benches() -> tuple[dict, dict, dict]:
         require(len(rows) > 0, f"benches: the profiler reported no device time for {name}")
         log("bench " + kprof.report(name, rows))
     log(f"benches: launches {got}")
+    p1_rows = p1_runs["fused P1"]
+    p1_dev = kprof.total_device_ms(p1_rows)
+    log("bench P1 split by the profiler: " + ", ".join(f"{name} {ms:.4f} ms ({100 * ms / p1_dev:.1f}%)"
+                                                        for name, ms, _ in p1_rows))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for line in select_probe.p1_phases(pathlib.Path(tmp)):
+            log("bench " + line)
 
     times = {}
     kf, kw, km, kr = k_inp["f"], k_inp["w"], k_inp["m"], k_inp["r"]
@@ -1617,6 +1652,14 @@ def phase_benches() -> tuple[dict, dict, dict]:
         _time(lambda: proto_encode_stats.encode_stats_plain(ex, ewb, eb, TOP_K), 3),
         bound((ex, ewb, eb, e_h, *e_stats), 2 * B * D_MODEL * D_SAE, BF16_OPS_S))
     del e_h, e_stats
+    with torch.no_grad():  # the two calls P1 fuses, each on the same operands
+        enc_ms = _time(lambda: modeling._linear_bias(ex, ewb, eb, "default"), 10)
+        e_h = modeling._linear_bias(ex, ewb, eb, "default")
+        k1_ms = _time(lambda: cuda_topk.topk_stats_cuda(e_h, TOP_K), 10)
+    del e_h
+    times["encode_stats"]["yardstick_ms"] = enc_ms + k1_ms
+    log(f"timing P1 yardstick: bf16 encoder {enc_ms:.3f} ms + K1 on its h {k1_ms:.3f} ms = {enc_ms + k1_ms:.3f} ms; "
+        f"P1 {times['encode_stats']['ms']:.3f} ms")
     key = m_inp["key"]
     times["count_loop"] = timed(_time(lambda: microbench_kth.count_loop(key, 32), 10),
                                 _time(lambda: microbench_kth.count_loop_plain(key, 32), 3),

@@ -3,7 +3,8 @@
 // (P2's multicast across a cluster), wgmma shared-memory descriptors, the
 // m64n128k16 product, the sorted prefix cuts, and tensor maps encoded
 // without a link against libcuda; K1 (topk_stats.cu) streams its rows with
-// `bulk_load`.
+// `bulk_load`; P1 (encode_stats.cu) runs the mainloop with one warpgroup of
+// 64 rows a CTA.
 //
 // The kernels run one mainloop: a 128 x 128 f32 output tile a CTA, one TMA
 // producer warp filling a ring of STAGES stages of 32 KB (two 16 KB operand
@@ -194,6 +195,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait for every committed group but the latest (P1's walk keeps one in
+// flight).
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Pin the accumulators in place around the asynchronous product, so that

@@ -51,7 +51,7 @@ SIGNATURES = {
     "saev_prefix_base": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_prefix_occupancy": [_I],
     "saev_prefix_err_gouter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "saev_encode_stats": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "saev_encode_stats": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "saev_count_loop": [_P, _I, _I, _I, _P, _P],
     "saev_kth_ops": [_P, _I, _I, _I, _I, _P, _P],
 }

@@ -5,7 +5,10 @@
     python -m saev_tpu_torch.scripts.proto_encode_stats --check    # numerics
 
 P1 computes h = bf16(x) @ W_enc + b_enc with f32 accumulation and K1's
-statistics of that same h in one kernel (csrc/encode_stats.cu). `--check`
+statistics of that same h in one call of two launches (csrc/encode_stats.cu:
+x rounded to bf16, then a wgmma + TMA product whose epilogue selects each
+row's k-th value without reading h back; rows its candidate buffer cannot
+hold take K1's row routine on their h, the exact route). `--check`
 holds h to the plain version (rel-norm 1e-5) and the statistics, bitwise, to
 K1 and to K1's plain version applied to P1's own h. The A/B times the fused
 kernel against two two-pass forms under the device profiler: the port's
@@ -25,8 +28,8 @@ from . import kprof
 
 B, D, S, K = 16384, 1024, 16384, 32
 SEED = 0
-TILE = 128  # rows a CTA owns; columns of a product tile
-MAX_S = 256 * 64  # a row of h sits in the registers of one 256-thread CTA
+TILE = 128  # batch and d_sae come in multiples of the product's column tile
+MAX_S = 256 * 64  # the exact route holds a row of h in the registers of one 256-thread CTA
 H_REL = 1e-5
 L1_REL = 1e-6
 
@@ -54,9 +57,12 @@ def encode_stats_plain(x, w, b_enc, k):
     return h, topk._topk_stats_plain(h, k)
 
 
-def encode_stats(x, w, b_enc, k):
+def encode_stats(x, w, b_enc, k, fallback=None):
     """Kernel P1; same outputs as `encode_stats_plain`: x (B, D) f32, W
-    (D, S) bf16, b_enc (S,) f32."""
+    (D, S) bf16, b_enc (S,) f32.
+
+    `fallback`, a (1,) int32 tensor on x's device, gains the number of rows
+    that took the exact route (a measurement)."""
     if x.device.type != "cuda":
         return encode_stats_plain(x, w, b_enc, k)
     dev = x.device
@@ -71,6 +77,8 @@ def encode_stats(x, w, b_enc, k):
     if b % TILE or d % 32 or s % TILE or s > MAX_S or k < 1:
         raise ValueError(f"encode_stats: batch {b} and d_sae {s} must be multiples of {TILE}, d_model {d} "
                          f"of 32, d_sae at most {MAX_S}, k >= 1 (got k={k})")
+    if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1 or fallback.device != dev):
+        raise ValueError(f"encode_stats wants a (1,) int32 fallback count on {dev}")
     xb = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
     h = torch.empty((b, s), dtype=torch.float32, device=dev)
     kth = torch.empty((b, 1), dtype=torch.float32, device=dev)
@@ -81,7 +89,7 @@ def encode_stats(x, w, b_enc, k):
     code = _build.lib().saev_encode_stats(
         x.data_ptr(), w.data_ptr(), b_enc.data_ptr(), b, d, s, k, xb.data_ptr(), h.data_ptr(),
         kth.data_ptr(), f.data_ptr(), live.data_ptr(), l0.data_ptr(), l1.data_ptr(),
-        _build.stream_ptr(x),
+        None if fallback is None else fallback.data_ptr(), _build.stream_ptr(x),
     )
     _build.check(code, "encode_stats")
     encode_stats.launches += 1
@@ -113,9 +121,11 @@ def _same_stats(got: topk.TopKStats, want: topk.TopKStats) -> list[str]:
 def check(inp: dict, k: int = K) -> dict:
     """h against the plain version; kth, f, live and l0 bitwise equal, and l1
     within 1e-6, to K1 and to K1's plain version on P1's own h. Raises
-    AssertionError on a failure; returns h's errors."""
+    AssertionError on a failure; returns h's errors, the live count and the
+    rows that took the exact route."""
     x, wb, b_enc = inp["x"], inp["wb"], inp["b_enc"]
-    h, st = encode_stats(x, wb, b_enc, k)
+    fallback = torch.zeros(1, dtype=torch.int32, device=x.device)
+    h, st = encode_stats(x, wb, b_enc, k, fallback)
     ph = encode_plain(x, wb, b_enc)
     diff = (h - ph).double()
     rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ph.double()))
@@ -128,6 +138,7 @@ def check(inp: dict, k: int = K) -> dict:
         if bad:
             raise AssertionError(f"P1: statistics on its own h differ from {name}'s: {', '.join(bad)}")
     out["n_live"] = int(st.live.sum())
+    out["exact_rows"] = int(fallback)
     return out
 
 
@@ -156,7 +167,7 @@ def main(argv: list[str] | None = None) -> None:
         res = check(inp)
         print(f"numerics: h rel-norm {res['h_rel']:.3g} (max abs {res['h_max_abs']:.3g}) against the plain "
               f"version; kth, f, live ({res['n_live']} live), l0 bitwise equal to K1 and to its plain "
-              f"version on P1's own h, l1 within {L1_REL}")
+              f"version on P1's own h, l1 within {L1_REL}; {res['exact_rows']} rows took the exact route")
         return
     from ..nn import modeling
 

@@ -29,6 +29,19 @@ is untouched.
   columns, x 4096 with 3276, x 16384 with 819), each held bitwise to the
   plain version.
 
+- `p1_phases`: a copy of P1's product (csrc/encode_stats.cu) in which every
+  thread adds the clock64 cycles between its phase boundaries to its own
+  sums, and thread 0 stores its CTA's: the K walk (with f's zeros), the
+  epilogue's stores of h and keys, the scans and appends, the prunes, the
+  final select and scatter, the exact route; and its warp's prune events.
+  Prints the mean over CTAs of each, the CUDA-event times of the copy with
+  and without stamps, and, by the profiler, the device time of the
+  library's two launches (x rounded, the product), at the production shape
+  (16384 x 1024 -> 16384, k 32) on the bench's operands and on rows that
+  ascend in column order (b_enc a ramp from -100 to 100, rows 0-7 bias
+  only), with the rows that took the exact route. Its copy is held bit for
+  bit to the library's P1.
+
 Thread 0 stamps a CTA's slots (g_cta[blockIdx.x * 8 + i]) as its row goes
 through the phases, and copies them to the row's (g_stamps[row * 8 + i])
 when the row is done: the select's routine does not know the row.
@@ -257,6 +270,118 @@ def k6_phases(tmp: pathlib.Path) -> list[str]:
             + ", ".join(f"{name} {c:.0f}" for name, c in zip(K6_PHASES, cycles)) + f"; in all {total:.0f}"]
 
 
+# P1's phase boundaries in encode_stats.cu: (text, the phase it ends, before
+# or after); the sums are declared before the first and stored before the
+# last.
+_P1_STAMPS = (
+    ("    // The tile's K walk.\n", 2, "before"),
+    ("    // The tile's epilogue: h written, the keys formed.\n", 0, "before"),
+    ("    // Append the keys >= L to each row's buffer, pruning first where that\n", 1, "before"),
+    ("  // Each held row's kth: the k-th largest key of its buffer.\n", 2, "before"),
+    ("  // The rows that took the exact route: K1's row routine on their h, read\n", 3, "before"),
+    ("  if (threadIdx.x == 0 && exact != nullptr && n_exact > 0) atomicAdd(exact, n_exact);\n", 4, "before"),
+)
+_P1_START = "  // Each row's state, the same in the four lanes of its quad: the bound L,\n"
+_P1_PRUNE = "    if (__any_sync(FULL, over)) {\n"
+_P1_PRUNED = "        held[hh] = held[hh] && n_buf[hh] + total[hh] <= kCap;\n      }\n"
+P1_ROWS = 64  # rows a CTA of P1 owns (encode_stats.cu kRows)
+P1_PHASES = ("K walk and f's zeros", "epilogue: h stored, keys", "scans and appends", "final select and scatter",
+             "exact route", "prunes")
+
+
+def stamped_p1_source() -> str:
+    """encode_stats.cu with each thread's cycles between phase boundaries
+    summed (`P1_PHASES`, the prunes apart from the appends) and its warp's
+    prune events counted; thread 0 stores its CTA's into g_cta[blockIdx.x *
+    8 + i], the prune events at i = 6 (a device pointer, null for no
+    stamps)."""
+    src = (_build.CSRC / "encode_stats.cu").read_text()
+    for text in (_P1_START, _P1_PRUNE, _P1_PRUNED) + tuple(t for t, _, _ in _P1_STAMPS):
+        if src.count(text) != 1:
+            raise ValueError(f"encode_stats.cu: the probe's marker {text!r} is not there once")
+
+    def stamp(i: int) -> str:
+        return f"  {{ const long long now = clock64(); probe_sum[{i}] += now - probe_t; probe_t = now; }}\n"
+
+    src = src.replace(_P1_START, "  long long probe_t = clock64(), probe_sum[7] = {0, 0, 0, 0, 0, 0, 0};\n" + _P1_START)
+    src = src.replace(_P1_PRUNE, _P1_PRUNE + "      ++probe_sum[6];\n" + stamp(2))
+    src = src.replace(_P1_PRUNED, _P1_PRUNED + stamp(5))
+    for text, i, _ in _P1_STAMPS:
+        src = src.replace(text, stamp(i) + text)
+    last = _P1_STAMPS[-1][0]
+    return src.replace(last, "  if (threadIdx.x == 0 && g_cta)\n    for (int i = 0; i < 7; ++i) "
+                       "g_cta[blockIdx.x * 8 + i] = probe_sum[i];\n" + last).replace(
+        "namespace {\n", "__device__ long long* g_cta;\n\nnamespace {\n", 1)
+
+
+def _p1_case(lib: ctypes.CDLL, inp: dict, what: str) -> str:
+    from . import proto_encode_stats as pe
+
+    x, wb, b_enc = inp["x"], inp["wb"], inp["b_enc"]
+    b, d = x.shape
+    s = wb.shape[1]
+    xb = torch.empty((b, d), dtype=torch.bfloat16, device="cuda")
+    h = torch.empty((b, s), device="cuda")
+    kth, l0, l1 = (torch.empty((b, 1), device="cuda") for _ in range(3))
+    f = torch.empty((b, s), dtype=torch.bfloat16, device="cuda")
+    live = torch.zeros(s, dtype=torch.int32, device="cuda")
+    exact = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cta = torch.zeros((b // P1_ROWS, 8), dtype=torch.int64, device="cuda")
+
+    def call():
+        live.zero_()
+        code = lib.saev_encode_stats(x.data_ptr(), wb.data_ptr(), b_enc.data_ptr(), b, d, s, pe.K, xb.data_ptr(),
+                                     h.data_ptr(), kth.data_ptr(), f.data_ptr(), live.data_ptr(), l0.data_ptr(),
+                                     l1.data_ptr(), exact.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "select_probe P1")
+
+    lib.saev_probe_cta(None)
+    plain_ms = _events_ms(call)
+    lib.saev_probe_cta(ctypes.c_void_p(cta.data_ptr()))
+    exact.zero_()
+    stamped_ms = _events_ms(call)
+    n_exact = int(exact) // 11  # 1 + 10 launches
+    lib.saev_probe_cta(None)
+    fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
+    want_h, want = pe.encode_stats(x, wb, b_enc, pe.K, fallback)
+    if not (torch.equal(h, want_h) and torch.equal(kth, want.kth) and torch.equal(f, want.f)
+            and torch.equal(live != 0, want.live) and torch.equal(l1, want.l1)):
+        raise AssertionError(f"select_probe: the stamped P1 differs from the library's on {what}")
+    rows = kprof.device_profile(lambda: pe.encode_stats(x, wb, b_enc, pe.K), n=10, warmup=2,
+                                expect=("encode_round_kernel", "encode_stats_wgmma_kernel"))
+    dev = {name: sum(t for kname, t, _ in rows if name in kname) for name in ("encode_round_kernel",
+                                                                               "encode_stats_wgmma_kernel")}
+    c = cta.double().mean(0)
+    total = float(c[:6].sum())
+    return (f"P1 {b}x{d} -> {s} k {pe.K}, {what}: rows on the exact route {int(fallback)} (stamped run "
+            f"{n_exact}); the probe's copy {plain_ms:.4f} ms, with stamps {stamped_ms:.4f} ms; library by the "
+            f"profiler: " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in dev.items())
+            + "; mean cycles a CTA (thread 0): " + ", ".join(f"{name} {float(v):.0f} ({100 * float(v) / total:.1f}%)"
+                                                            for name, v in zip(P1_PHASES, c[:6]))
+            + f"; in all {total:.0f}; prune events of thread 0's warp {float(c[6]):.2f}")
+
+
+def p1_phases(tmp: pathlib.Path) -> list[str]:
+    from . import proto_encode_stats as pe
+
+    d = tmp / "p1"
+    d.mkdir()
+    for f in ("hopper.cuh", "order_key.cuh", "prefix_walk.cuh", "topk_row.cuh"):
+        shutil.copy(_build.CSRC / f, d / f)
+    (d / "encode_stats.cu").write_text(stamped_p1_source() + (
+        '\nextern "C" int saev_probe_cta(long long* cta) {\n'
+        "  return cudaMemcpyToSymbol(g_cta, &cta, sizeof(cta));\n}\n"))
+    lib, _ = _compile(d, d / "encode_stats.cu", "p1_probe")
+    lib.saev_encode_stats.argtypes = _build.SIGNATURES["saev_encode_stats"]
+    lib.saev_probe_cta.argtypes = [ctypes.c_void_p]
+    inp = pe.inputs()
+    lines = [_p1_case(lib, inp, "the bench's operands")]
+    inp["b_enc"] = torch.linspace(-100.0, 100.0, pe.S, device="cuda")
+    inp["x"][:8] = 0.0
+    lines.append(_p1_case(lib, inp, "rows ascending in column order"))
+    return lines
+
+
 def k6_caps(tmp: pathlib.Path) -> list[str]:
     h = torch.randn((B, S), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     want = topk._kth_plain(h, K)
@@ -371,7 +496,7 @@ def main() -> None:
     print(kprof.card())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps):
+        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps, p1_phases):
             for line in probe(pathlib.Path(tmp)):
                 print(line, flush=True)
 

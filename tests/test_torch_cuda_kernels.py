@@ -12,6 +12,7 @@ one. The file imports no JAX, so it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+from encode_stats_model import cap, p1_model
 from kth_select_model import (cand_cap, count_loop_model, k1_layout, k1_model, k5_model, k6_model, kth_ops_model,
                               wide_model)
 
@@ -666,19 +667,65 @@ def test_wide_route_masked_matches_plain(dev, s):
             assert bool(torch.isneginf(got).all()) == (int(mask.sum()) < k), (name, k)
 
 
-@pytest.mark.parametrize("b,d,s,k", [(256, 128, 2048, 32), (128, 64, 1152, 7), (128, 96, 16384, 32),
-                                     (128, 32, 128, 128)])
-def test_encode_stats_kernel_matches_plain_and_k1(dev, b, d, s, k):
+def _encode_operands(dev, b: int, d: int, s: int, case: str):
+    """x, W (bf16) and b_enc for P1's card cases: Gaussian with a bias-only
+    row whose top holds 50 ties; rows ascending or descending in column
+    order (the bias dominates; rows 0-7 are bias only, so exactly so); a
+    bias-only row tied at its top past the candidate buffer's cap."""
     gen = torch.Generator(device=dev).manual_seed(b + d + s)
     x = torch.randn((b, d), generator=gen, device=dev)
-    x[3] = 0.0  # a row of bias only
     w = (torch.randn((d, s), generator=gen, device=dev) / 32).to(torch.bfloat16)
     b_enc = torch.randn((s,), generator=gen, device=dev) * 0.01
-    b_enc[:50] = 0.25  # ties across the boundary in row 3
+    if case in ("gauss", "k-past-cap"):
+        x[3] = 0.0  # a row of bias only
+        b_enc[:50] = 0.25  # ties across the boundary in row 3
+    elif case in ("ascending", "descending"):
+        x[:8] = 0.0
+        b_enc = torch.linspace(-100.0, 100.0, s, device=dev) * (1 if case == "ascending" else -1)
+    elif case == "tied":
+        x[5] = 0.0
+        b_enc[s // 4:s // 4 + cap() + 40] = 0.5
+    return x, w, b_enc
+
+
+# (b, d, s, k, case): one CTA (B 128) and three (384); d_model 32 and 96,
+# which the product's last stage pads with TMA's zeros; k = S = 128, k
+# above the buffer's cap (every row on the exact route).
+P1_CASES = [(256, 128, 2048, 32, "gauss"), (128, 64, 1152, 7, "gauss"), (128, 96, 16384, 32, "gauss"),
+            (128, 32, 128, 128, "gauss"), (384, 96, 2048, 32, "ascending"), (128, 32, 2048, 32, "descending"),
+            (384, 32, 1024, 32, "tied"), (128, 96, 1024, 200, "k-past-cap"), (128, 1024, 16384, 32, "ascending")]
+
+
+@pytest.mark.parametrize("b,d,s,k,case", P1_CASES)
+def test_encode_stats_kernel_matches_plain_and_k1(dev, b, d, s, k, case):
+    """P1: h within 1e-5 of the plain version; kth, f, live and l0 bitwise
+    equal to K1's and to K1's plain version on P1's own h, l1 within 1e-6;
+    the rows that took the exact route and l1's bits on the others those of
+    the model (tests/encode_stats_model.py); the same bits in two launches,
+    and the launch counter up by one a call."""
+    x, w, b_enc = _encode_operands(dev, b, d, s, case)
     before = proto_encode_stats.encode_stats.launches
     res = proto_encode_stats.check(dict(x=x, wb=w, b_enc=b_enc), k=k)
     assert proto_encode_stats.encode_stats.launches == before + 1
     assert res["h_rel"] <= 1e-5 and res["n_live"] > 0
+    fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+    h, st = proto_encode_stats.encode_stats(x, w, b_enc, k, fallback)
+    h2, st2 = proto_encode_stats.encode_stats(x, w, b_enc, k)
+    torch.cuda.synchronize()
+    assert proto_encode_stats.encode_stats.launches == before + 3
+    assert torch.equal(h.view(torch.int32), h2.view(torch.int32))
+    for name in ("kth", "l0", "l1"):
+        assert torch.equal(getattr(st, name).view(torch.int32), getattr(st2, name).view(torch.int32)), name
+    assert torch.equal(st.f.view(torch.int16), st2.f.view(torch.int16)) and torch.equal(st.live, st2.live)
+    model = p1_model(h.cpu(), k)
+    assert int(fallback) == int(model["exact"].sum())
+    if case in ("tied", "k-past-cap"):
+        assert int(fallback) == (b if case == "k-past-cap" else 1)
+    assert _same_bits(st.kth.cpu(), model["kth"]) and torch.equal(st.f.cpu().view(torch.int16),
+                                                                   model["f"].view(torch.int16))
+    assert torch.equal(st.live.cpu(), model["live"]) and torch.equal(st.l0.cpu(), model["l0"])
+    held = ~model["exact"]
+    assert torch.equal(st.l1.cpu()[held].view(torch.int32), model["l1"][held].view(torch.int32))
 
 
 # (B, S) of the pass kernels' cases: B below the card's resident CTAs and
