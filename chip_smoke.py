@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's production SAE train step on one CUDA card.
+"""Drive the PyTorch port's production SAE train step, and one training job
+around it, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -122,8 +123,26 @@ script exits non-zero:
                 the most device time, K2's, K3's and K4's products among
                 them.
 
+11. job      -- one training job of the port (`framework.train.worker_fn`)
+                at the production width, n_sae 2 (lr 4e-4 and 1e-3): shards
+                written with the port's ShardWriter into a temporary root
+                (train 1024 x 256 tokens, val 128 x 256; each row Gaussian on
+                16 of 16384 random directions, plus noise), read through the
+                shuffled loader (its shard I/O route logged), datapoint
+                init, 12 steps (warm, then AuxK from step 2 as the router
+                picks), checkpoints every 4 steps, the local JSONL run
+                recorder, eval on 2 batches at "highest" and the SAE files.
+                Requires K1-K6 launched and no plain version, the log step's
+                normalized MSE (full reconstruction) down from the first log
+                to the last, eval L0 32 (ties at the 32nd value kept) and
+                normalized MSE below 1, the files bit for bit the trained
+                params, the step-12 checkpoint alone left. Logs the loop's
+                steady ms/step beside the step alone at n_sae 2, the
+                loader's rows/s, eval's s/batch and the job's peak memory;
+                then removes the root.
+
 Kernel launches are counted per driven path (slice, wide steps, steady,
-metrics, benches): every count is set to 0 just before the path and read
+metrics, benches, job): every count is set to 0 just before the path and read
 just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
@@ -1751,6 +1770,279 @@ def phase_profile() -> None:
         torch.cuda.empty_cache()
 
 
+# The job phase: one training job of the port at the production width, from
+# shards on disk: train 1024 x 256 content tokens (1 GiB of f32), val 128 x 256
+# (128 MiB). Each row is a Gaussian combination of `active` of `rank` random
+# directions (`signal`, its rms a coordinate) plus isotropic Gaussian noise
+# (`noise`): sparse structure an SAE can learn, on which the datapoint init of
+# this 16x-overcomplete TopK-32 dictionary starts below the mean baseline.
+# (Rows of one dense rank-64 component plus unit noise start there too but
+# leave the 12 steps nothing to learn; rank-64 rows with little noise start
+# near normalized MSE 21.)
+JOB = dict(batch=B, d_model=D_MODEL, d_sae=D_SAE, top_k=TOP_K, k_aux=K_AUX, n_prefixes=N_PREFIXES,
+           tokens=256, train_examples=1024, val_examples=128, steps=12, val_batches=2, lrs=(4e-4, 1e-3),
+           rank=16384, active=16, signal=1.0, noise=0.1)
+JOB_KERNELS = WARM_KERNELS + ("kth_value_masked", "kth_value")
+
+
+def _job_shards(root: pathlib.Path, n_examples: int, dims: dict, basis: torch.Tensor, seed: int) -> pathlib.Path:
+    """A shard directory written with the port's ShardWriter, 128 examples a
+    shard, its rows made on `basis`'s device from a seed."""
+    from saev_tpu_torch.data import shards
+
+    tokens, d_model = dims["tokens"], dims["d_model"]
+    md = shards.Metadata(
+        family="clip", ckpt="random", layers=(0,), content_tokens_per_example=tokens, cls_token=False,
+        d_model=d_model, n_examples=n_examples, max_tokens_per_shard=tokens * 128, data="e30=", dataset=root,
+    )
+    md.dump(root)
+    gen = torch.Generator(basis.device).manual_seed(seed)
+    with shards.ShardWriter(root, md) as writer:
+        for start in range(0, n_examples, 64):
+            n = min(64, n_examples - start) * tokens
+            codes = torch.randn((n, dims["active"]), generator=gen, device=basis.device)
+            if dims["active"] < basis.shape[0]:  # each row on `active` of the basis rows
+                idx = torch.randint(basis.shape[0], (n, dims["active"]), generator=gen, device=basis.device)
+                codes = torch.zeros((n, basis.shape[0]), device=basis.device).scatter_(1, idx, codes)
+            x = codes @ basis + dims["noise"] * torch.randn((n, d_model), generator=gen, device=basis.device)
+            writer.write_batch(x.reshape(-1, 1, tokens, d_model).cpu().numpy(), start)
+    return root / md.hash
+
+
+def run_job(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """`worker_fn` on two configs that differ in lr (one cohort, n_sae 2) over
+    shards written into `root`, with spies on the loop: the host time at
+    which each step's batch arrives, the step variant the router picks, and
+    eval's wall time. Then, in the same process, the loader alone over the
+    train shards and the steady step variant alone on the job's final state.
+    Returns what `phase_job` checks and reports. The CPU runs it too, at
+    small `dims`."""
+    import dataclasses
+    import os
+
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.data import ShuffledConfig, ShuffledDataLoader, _native
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives, serialize
+    from saev_tpu_torch.utils import wandb as tracking
+
+    shards_root, runs_root = root / "saev" / "shards", root / "saev" / "runs"
+    shards_root.mkdir(parents=True)
+    runs_root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    basis = torch.randn((dims["rank"], dims["d_model"]), generator=gen, device=device) * (
+        dims["signal"] / dims["active"] ** 0.5)
+    train_dir = _job_shards(shards_root, dims["train_examples"], dims, basis, SEED + 8)
+    val_dir = _job_shards(shards_root, dims["val_examples"], dims, basis, SEED + 9)
+    out = {"write_s": time.perf_counter() - t0, "route": _native.route()}
+
+    batch = dims["batch"]
+    data = dict(layer=0, batch_size=batch)
+    base = train.Config(
+        train_data=ShuffledConfig(shards=train_dir, **data), val_data=ShuffledConfig(shards=val_dir, **data),
+        n_train=dims["steps"] * batch, n_val=dims["val_batches"] * batch,
+        sae=modeling.SparseAutoencoderConfig(
+            d_model=dims["d_model"], d_sae=dims["d_sae"],
+            activation=modeling.TopK(top_k=dims["top_k"], aux=modeling.AuxK(k_aux=dims["k_aux"])),
+        ),
+        objective=objectives.Matryoshka(n_prefixes=dims["n_prefixes"], dead_threshold_tokens=3 * batch),
+        lr=dims["lrs"][0], n_lr_warmup=2, log_every=4, ckpt_every=4, track=True, runs_root=runs_root,
+        device=device, seed=SEED,
+    )
+    cfgs = [base, dataclasses.replace(base, lr=dims["lrs"][1])]
+
+    seen = {"stamps": [], "waits": [], "picks": []}
+    real = {"train": train.train, "evaluate": train.evaluate, "prefetch": parallel.prefetch_to_device,
+            "step_fn_at": train.StepRouter.step_fn_at, "wandb": tracking._WANDB}
+
+    def spy_prefetch(*args, **kwargs):
+        it = real["prefetch"](*args, **kwargs)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            seen["stamps"].append(time.perf_counter())
+            seen["waits"].append(seen["stamps"][-1] - t)
+            yield item
+
+    def spy_train(c):
+        seen["train"] = real["train"](c)
+        seen["train_stamps"], seen["train_waits"] = seen["stamps"], seen["waits"]
+        seen["stamps"], seen["waits"] = [], []
+        return seen["train"]
+
+    def spy_evaluate(c, r):
+        t = time.perf_counter()
+        seen["eval"] = real["evaluate"](c, r)
+        seen["eval_s"] = time.perf_counter() - t
+        return seen["eval"]
+
+    def spy_step_fn_at(self, global_step):
+        fn = real["step_fn_at"](self, global_step)
+        caps = {id(f): f"cap {c}" for c, f in self.step_fn_subs}
+        seen["picks"].append("warm" if fn is self.step_fn_warm else caps.get(id(fn), "dense"))
+        return fn
+
+    cwd = os.getcwd()
+    os.chdir(root)  # the local run recorder writes under ./.wandb
+    train.train, train.evaluate, parallel.prefetch_to_device = spy_train, spy_evaluate, spy_prefetch
+    train.StepRouter.step_fn_at = spy_step_fn_at
+    tracking._WANDB = False  # the local JSONL recorder, never a network run
+    try:
+        with plain_spy() as plain:
+            if device == "cuda":
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            ids = train.worker_fn(cfgs)
+            out["job_s"] = time.perf_counter() - t
+            if device == "cuda":
+                torch.cuda.synchronize()
+                out["launches"] = counts()
+                out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["plain"] = dict(plain)
+    finally:
+        os.chdir(cwd)
+        train.train, train.evaluate, parallel.prefetch_to_device = real["train"], real["evaluate"], real["prefetch"]
+        train.StepRouter.step_fn_at = real["step_fn_at"]
+        tracking._WANDB = real["wandb"]
+
+    (rt,), _, steps = seen["train"]
+    out |= {"ids": ids, "steps": steps, "picks": seen["picks"], "eval": seen["eval"],
+            "eval_s_per_batch": seen["eval_s"] / dims["val_batches"]}
+    # The loop's steady ms/step: the median time between two batches' arrival
+    # at the step (log steps and checkpoint saves are the outliers).
+    out["loop_ms"] = float(np.median(np.diff(seen["train_stamps"]))) * 1e3
+    # Of it, the time the loop waits for its next batch: the loader, the copy
+    # into pinned memory and the copy's launch (prefetch_to_device).
+    out["wait_ms"] = float(np.median(seen["train_waits"][1:])) * 1e3
+    out["mse_logs"], out["nmse_logs"] = {}, {}
+    for run_id in ids:
+        with open(root / ".wandb" / "saev" / run_id / "metrics.jsonl") as fd:
+            rows = [r for r in map(json.loads, fd) if "loss/mse" in r]
+        out["mse_logs"][run_id] = [r["loss/mse"] for r in rows]
+        out["nmse_logs"][run_id] = [r["metrics/normalized_mse"] for r in rows]
+    state_root = runs_root / ".train_state"
+    out["ckpts"] = sorted(str(p.relative_to(state_root)) for p in state_root.glob("*/step_*"))
+
+    # The loader alone: one epoch of the train shards.
+    loader = ShuffledDataLoader(base.train_data)
+    t, rows, first = time.perf_counter(), 0, None
+    try:
+        for b in loader:
+            rows += len(b["act"])
+            first = first or time.perf_counter()
+            last = b
+    finally:
+        loader.shutdown()
+    end = time.perf_counter()
+    out["loader_rows_s"] = rows / (end - t)
+    out["loader_rows_s_after_first"] = (rows - batch) / (end - first)
+    x = torch.from_numpy(last["act"]).to(device)
+
+    # Each SAE file against the in-memory params, and its forward.
+    out["files_bitwise"] = []
+    for si, run_id in enumerate(ids):
+        _, params, state = serialize.load(runs_root / run_id / "checkpoint" / "sae.pt", device=device)
+        mine = {k: v[si] for k, v in rt.ts.params.items()}
+        with torch.no_grad():
+            a, _ = modeling.forward(base.sae, params, state, x[:1024])
+            b, _ = modeling.forward(base.sae, mine, state, x[:1024])
+        out["files_bitwise"].append(
+            all(same_bits(params[k], mine[k]) for k in mine) and all(same_bits(u, v) for u, v in zip(a, b))
+        )
+
+    # The step alone at n_sae 2: the variant of the loop's last step, on its state.
+    variant = seen["picks"][-1]
+    subs = {f"cap {c}": f for c, f in rt.router.step_fn_subs}
+    fn = subs.get(variant) or (rt.router.step_fn_warm if variant == "warm" else rt.router.step_fn)
+    prefixes = torch.from_numpy(np.stack([
+        objectives.sample_prefixes(dims["d_sae"], dims["n_prefixes"], rng=np.random.default_rng(SEED + s))
+        for s in range(2)
+    ])).to(device)
+    state = [rt.ts]
+
+    def one():
+        state[0], _ = fn(state[0], x, prefixes, rt.hp)
+
+    out["step_variant"] = variant
+    if device == "cuda":
+        one()
+        out["step_ms"] = _time(one, 5)
+        # Eval's parts: one SAE's forward on the card (CUDA events), and the
+        # host's float64 sums of a batch.
+        c0 = rt.cohort.cfgs[0]
+        args = [{k: v[0] for k, v in tree.items()} for tree in (rt.ts.params, rt.ts.sae_state, rt.ts.obj_state)]
+        out["eval_forward_ms"] = _time(lambda: train._eval_one(c0, *args, x, prefixes[0]), 3)
+    t = time.perf_counter()
+    x64 = last["act"].astype(np.float64)
+    float(np.sum(x64 * x64)), x64.sum(axis=0)
+    out["eval_host_ms"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def phase_job() -> dict:
+    """One training job through `worker_fn` at the production width (batch
+    16384, d_model 1024, d_sae 16384, TopK 32, AuxK 512, Matryoshka 10, Adam
+    at "default"), n_sae 2 (lr 4e-4 and 1e-3), 12 steps with AuxK from step 2
+    on, eval on 2 validation batches, checkpoints every 4 steps, logs every
+    4. Requires K1-K6 launched and no plain version run, the log step's
+    normalized MSE (metrics/normalized_mse) down from the first log to the
+    last, eval L0 32 (a row with a tie at the 32nd value
+    keeps both: at most one row in a thousand) and normalized MSE finite and
+    below 1, the SAE files bit for bit the trained params (and their forwards), the
+    step 12 checkpoint alone left. Logs the loop's steady ms/step beside the
+    step alone, the loader's rows/s, eval's seconds a batch and the job's
+    peak memory. Returns the job's kernel launches."""
+    import shutil
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_job_"))
+    try:
+        out = run_job(JOB, "cuda", root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"job: shard I/O route {out['route']}; shards written in {out['write_s']:.2f} s; worker_fn "
+        f"{out['job_s']:.2f} s; {out['steps']} steps, variants {out['picks']}")
+    log(f"job: launches {out['launches']}")
+    require(not out["plain"], f"job: plain versions ran on the card: {out['plain']}")
+    for k in JOB_KERNELS:
+        require(out["launches"][k] > 0, f"job: kernel {k} was never launched")
+    require(out["steps"] == JOB["steps"], f"job: {out['steps']} steps")
+    for run_id, mses in out["mse_logs"].items():
+        nmses = out["nmse_logs"][run_id]
+        log(f"job: {run_id} at the logs: loss/mse {mses}, metrics/normalized_mse {nmses}")
+        # The learning check reads the log step's full reconstruction of its
+        # batch: loss/mse averages 10 sampled prefixes, mostly a few latents
+        # long, and moved 2-3% between logs with the draw, above what 8
+        # steps teach (PERF.md §6, PR 14).
+        require(len(nmses) == 3 and nmses[-1] < nmses[0], f"job: {run_id}'s normalized MSE did not fall: {nmses}")
+    n_rows = JOB["val_batches"] * JOB["batch"]
+    for m in out["eval"]:
+        # TopK keeps every value at or above the k-th largest, as the JAX
+        # package does: a row whose k-th value ties the next keeps both. On
+        # continuous f32 rows a tie is rare (about one row in 16k here).
+        ties = round((m.l0 - JOB["top_k"]) * n_rows)
+        log(f"job: eval l0 {m.l0} ({ties} of {n_rows} rows with a tie at the k-th value), "
+            f"l1 {m.l1:.4f}, mse {m.mse:.6f}, normalized_mse {m.normalized_mse:.6f}, "
+            f"n_dead {m.n_dead}, n_almost_dead {m.n_almost_dead}, n_dense {m.n_dense}")
+        require(JOB["top_k"] <= m.l0 <= JOB["top_k"] + 1e-3, f"job: eval L0 {m.l0}")
+        require(np.isfinite(m.normalized_mse) and m.normalized_mse < 1, f"job: normalized MSE {m.normalized_mse}")
+    require(all(out["files_bitwise"]), f"job: SAE files against the trained params {out['files_bitwise']}")
+    want = [f"{p.split('/')[0]}/step_{JOB['steps']:08d}" for p in out["ckpts"]]
+    require(len(out["ckpts"]) == 1 and out["ckpts"] == want, f"job: step checkpoints {out['ckpts']}")
+    log(f"job: loop {out['loop_ms']:.2f} ms/step steady (median; of it waiting for the batch {out['wait_ms']:.2f}) "
+        f"beside the step alone ({out['step_variant']}) {out['step_ms']:.2f} ms/step at n_sae 2; loader "
+        f"{out['loader_rows_s']:.0f} rows/s over an epoch ({out['loader_rows_s_after_first']:.0f} after its first "
+        f"batch); eval {out['eval_s_per_batch']:.3f} s/batch (2 SAEs; one SAE's forward on the card "
+        f"{out['eval_forward_ms']:.2f} ms, the host's f64 sums of a batch {out['eval_host_ms']:.2f} ms); "
+        f"peak memory {out['peak_gib']:.2f} GiB")
+    return out["launches"]
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1774,12 +2066,16 @@ def main() -> int:
     phase_profile()
     from saev_tpu_torch.scripts import kprof
     log(f"kprof.device_profile took {kprof.device_profile.retakes} profiles again")
-    launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] for k in KERNELS}
+    torch.cuda.empty_cache()
+    job_counts = phase_job()
+    launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
+                for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
                                ("wide steps", wide_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("steady", steady_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("metrics", metric_counts, ("kth_value",)),
+                               ("job", job_counts, JOB_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

@@ -3,7 +3,12 @@
 The JAX package `saev_tpu` stays the reference. This package holds the
 production SAE train step (TopK + Matryoshka + AuxK, in its warm-up, dense
 and dead-subspace forms), the router that picks one of them for each step of
-the loop, and the log-step metrics, on plain PyTorch tensors, with the six
-TPU Pallas kernels of that path written again as CUDA C++ for Hopper
-(`csrc/`, built by `ops/_build.py`). It imports `torch` and never `jax`.
+the loop, the log-step metrics, and the training job around them
+(`framework.train`: the shard protocol and shuffled loader of `data/`,
+datapoint init, step checkpoints, eval on the multi-prefix decode, SAE files),
+on plain PyTorch tensors, with the TPU's Pallas kernels written again as CUDA
+C++ for Hopper (`csrc/`, built by `ops/_build.py`). It imports `torch` and
+never `jax`.
 """
+
+__version__ = "0.1.0"

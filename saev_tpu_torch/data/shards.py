@@ -1,0 +1,454 @@
+"""Shard protocol: reading and writing sharded ViT activations on disk (a copy
+of saev_tpu/data/shards.py's protocol: `Metadata`, `Shard`, `ShardInfo`,
+`LabelsWriter`, `ShardWriter`).
+
+Pure numpy, byte-compatible with the JAX package's and the reference's protocol
+(reference `src/saev/data/shards.py`, docs/src/developers/protocol.md):
+
+- A shard directory `.../saev/shards/<hash>/` holds `metadata.json`, `shards.json`,
+  `acts{NNNNNN}.bin` float32 memmaps of shape
+  (examples_per_shard, n_layers, tokens_per_example, d_model), and optionally
+  `labels.bin` (uint8, (n_examples, content_tokens_per_example)).
+- `<hash>` is the first 8 hex chars of SHA-256 of the compact JSON of the
+  metadata (reference shards.py:127-135), the same bytes as the JAX package's.
+- Token axis order: special (CLS) token at index 0 when present, then content tokens.
+
+`Metadata.data` stays an opaque base64 string here: decoding it into a dataset
+config needs the image datasets (and Pillow), which the port does not carry.
+"""
+
+import dataclasses
+import enum
+import hashlib
+import json
+import logging
+import math
+import os
+import pathlib
+import stat
+
+import numpy as np
+
+from .. import disk, helpers
+
+logger = logging.getLogger(__name__)
+
+FAMILIES = (
+    "bird-mae",
+    "clip",
+    "dinov2",
+    "dinov3",
+    "fake-clip",
+    "pe-core",
+    "pe-spatial",
+    "siglip",
+)
+
+
+class PixelAgg(enum.Enum):
+    """How to aggregate pixel-level segmentation labels to token-level labels."""
+
+    MAJORITY = "majority"
+    PREFER_FG = "prefer-fg"
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class Metadata:
+    """Metadata for a sharded set of transformer activations.
+
+    Mirrors reference shards.py:44-186.
+
+    Args:
+        family: The transformer family.
+        ckpt: The transformer checkpoint.
+        layers: Which layers were saved.
+        content_tokens_per_example: The number of content tokens per example.
+        cls_token: Whether the transformer has a [CLS] token as well.
+        d_model: Model hidden dimension.
+        n_examples: Number of examples.
+        max_tokens_per_shard: The maximum number of tokens per shard.
+        data: base64-encoded string of pickle.dumps(dataset config).
+        dataset: Absolute path to the root directory of the original dataset.
+        pixel_agg: (seg datasets only) pixel→token label aggregation method.
+        dtype: How activations are stored.
+        protocol: Protocol version.
+    """
+
+    family: str
+    ckpt: str
+    layers: tuple[int, ...]
+    content_tokens_per_example: int
+    cls_token: bool
+    d_model: int
+    n_examples: int
+    max_tokens_per_shard: int
+    data: str
+    dataset: pathlib.Path
+    pixel_agg: PixelAgg = PixelAgg.MAJORITY
+    dtype: str = "float32"
+    protocol: str = "2.1"
+
+    def __post_init__(self):
+        assert self.family in FAMILIES, f"Unknown family '{self.family}'."
+        assert self.dtype == "float32", "Only float32 shards are supported."
+        msg = "At least one example per shard must fit; increase max_tokens_per_shard."
+        assert self.examples_per_shard >= 1, msg
+        try:
+            helpers.jdumps(self.data)
+        except TypeError as err:
+            raise TypeError("self.data has an unhashable object") from err
+
+    @classmethod
+    def load(cls, shards_dir: pathlib.Path) -> "Metadata":
+        """Load a Metadata object from metadata.json in shards_dir."""
+        shards_dir = pathlib.Path(shards_dir)
+        assert disk.is_shards_dir(shards_dir), (
+            f"Invalid shards dir '{shards_dir}'. Expected .../saev/shards/<hash>."
+        )
+        with open(shards_dir / "metadata.json") as fd:
+            dct = json.load(fd)
+        dct["layers"] = tuple(dct.pop("layers"))
+        dct["dataset"] = pathlib.Path(dct["dataset"])
+        dct["pixel_agg"] = PixelAgg(dct["pixel_agg"])
+        return cls(**dct)
+
+    def dump(self, shards_root: pathlib.Path):
+        """Dump this Metadata to metadata.json under shards_root / hash."""
+        shards_root = pathlib.Path(shards_root)
+        assert disk.is_shards_root(shards_root), (
+            f"Invalid shards root '{shards_root}'. Expected .../saev/shards."
+        )
+        (shards_root / self.hash).mkdir(exist_ok=True)
+        with open(shards_root / self.hash / "metadata.json", "wb") as fd:
+            helpers.jdump(self, fd, indent=2)
+
+    @property
+    def hash(self) -> str:
+        """First 8 hex chars of SHA-256 of the compact JSON of this config.
+
+        The reference hashes orjson's dataclass serialization
+        (shards.py:127-135, option=OPT_SORT_KEYS). orjson serializes dataclass
+        instances in FIELD-DEFINITION order — OPT_SORT_KEYS only affects dicts —
+        with compact separators and repr-shortest floats, which the stdlib-json
+        rendering below reproduces, keeping shard directory names compatible
+        across implementations.
+        """
+        dct = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        cfg_bytes = helpers.jdumps(dct, sort_keys=False)
+        return hashlib.sha256(cfg_bytes).hexdigest()[:8]
+
+    @property
+    def tokens_per_example(self) -> int:
+        """Total tokens per example including the [CLS] token if present."""
+        return self.content_tokens_per_example + int(self.cls_token)
+
+    @property
+    def n_shards(self) -> int:
+        """Total number of shards needed to store all examples."""
+        return math.ceil(self.n_examples / self.examples_per_shard)
+
+    @property
+    def examples_per_shard(self) -> int:
+        """Number of examples per shard (protocol sizing math, protocol.md:85)."""
+        return self.max_tokens_per_shard // (
+            self.tokens_per_example * len(self.layers)
+        )
+
+    @property
+    def shard_shape(self) -> tuple[int, int, int, int]:
+        """(examples_per_shard, n_layers, tokens_per_example, d_model)."""
+        return (
+            self.examples_per_shard,
+            len(self.layers),
+            self.tokens_per_example,
+            self.d_model,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A single shard entry in shards.json: filename and number of examples."""
+
+    name: str
+    n_examples: int
+
+
+def get_missing_shards_json_msg(
+    shards_dir_dpath: pathlib.Path, shards_json_fpath: pathlib.Path
+) -> str:
+    """Operator-grade diagnostics for a missing shards.json (reference shards.py:546-590)."""
+    abs_shards_dir = shards_dir_dpath.resolve(strict=False)
+    abs_shards_json = shards_json_fpath.resolve(strict=False)
+
+    lines = [f"Could not load shard metadata at '{abs_shards_json}'."]
+
+    if not shards_dir_dpath.exists():
+        lines.append(f"Shard directory is missing: '{abs_shards_dir}'.")
+        lines.append(
+            "Scratch shards may have been cleaned. Re-run extraction to regenerate shards."
+        )
+        return "\n".join(lines)
+
+    if not shards_dir_dpath.is_dir():
+        lines.append(
+            f"Expected shard directory at '{abs_shards_dir}', but it is not a directory."
+        )
+        return "\n".join(lines)
+
+    metadata_fpath = shards_dir_dpath / "metadata.json"
+    labels_fpath = shards_dir_dpath / "labels.bin"
+    acts_fpaths = sorted(shards_dir_dpath.glob("acts*.bin"))
+    n_acts = len(acts_fpaths)
+
+    lines.append(f"Shard directory exists: '{abs_shards_dir}'.")
+    lines.append(f"metadata.json exists: {metadata_fpath.exists()}.")
+    lines.append(f"labels.bin exists: {labels_fpath.exists()}.")
+    lines.append(f"acts*.bin files found: {n_acts}.")
+
+    if n_acts:
+        acts_preview = ", ".join(fpath.name for fpath in acts_fpaths[:5])
+        suffix = "" if n_acts <= 5 else ", ..."
+        lines.append(f"Example shard files: {acts_preview}{suffix}")
+        lines.append(
+            "This looks like an incomplete or older shard layout without shards.json. "
+            "Re-run extraction to regenerate shards."
+        )
+        return "\n".join(lines)
+
+    lines.append(
+        "No shard binaries were found. This shard directory may be partially deleted "
+        "or never fully written."
+    )
+    lines.append("Re-run extraction to regenerate shards.")
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardInfo:
+    """Container for shard manifest entries as recorded in shards.json."""
+
+    shards: list[Shard] = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def load(cls, shards_dir: pathlib.Path) -> "ShardInfo":
+        shards_dir = pathlib.Path(shards_dir)
+        msg = f"Invalid shards path '{shards_dir}'. Expected .../saev/shards/<hash>."
+        assert len(shards_dir.parts) >= 3, msg
+        assert shards_dir.parts[-3:-1] == ("saev", "shards"), msg
+
+        shards_json_fpath = shards_dir / "shards.json"
+        try:
+            with open(shards_json_fpath) as fd:
+                data = json.load(fd)
+        except FileNotFoundError as err:
+            msg = get_missing_shards_json_msg(shards_dir, shards_json_fpath)
+            raise FileNotFoundError(msg) from err
+
+        return cls([Shard(**entry) for entry in data])
+
+    def dump(self, shards_dir: pathlib.Path) -> None:
+        assert disk.is_shards_dir(pathlib.Path(shards_dir))
+        with open(pathlib.Path(shards_dir) / "shards.json", "wb") as fd:
+            helpers.jdump(self.shards, fd, indent=2)
+
+    def append(self, shard: Shard):
+        self.shards.append(shard)
+
+    def __len__(self) -> int:
+        return len(self.shards)
+
+    def __getitem__(self, i):
+        return self.shards[i]
+
+    def __iter__(self):
+        yield from self.shards
+
+    def validate(self, shards_dir: pathlib.Path | str) -> None:
+        """Check that every shard file exists, is non-empty, and is a regular file.
+
+        Mirrors reference shards.py:638-694.
+        """
+        shards_dir = pathlib.Path(shards_dir)
+        assert disk.is_shards_dir(shards_dir)
+
+        missing: list[str] = []
+        empty: list[str] = []
+        unreadable: list[str] = []
+        not_file: list[str] = []
+
+        for shard in self.shards:
+            shard_fpath = shards_dir / shard.name
+            abs_fpath = str(shard_fpath.resolve())
+            try:
+                st = shard_fpath.stat()
+            except FileNotFoundError:
+                missing.append(abs_fpath)
+                continue
+            except (PermissionError, OSError):
+                unreadable.append(abs_fpath)
+                continue
+
+            if not stat.S_ISREG(st.st_mode):
+                not_file.append(abs_fpath)
+                continue
+            if st.st_size == 0:
+                empty.append(abs_fpath)
+
+        if not (missing or empty or unreadable or not_file):
+            return
+
+        lines = [f"Shard validation failed in '{shards_dir.resolve()}':", ""]
+        for label, fpaths in (
+            ("Missing files", missing),
+            ("Empty files", empty),
+            ("Unreadable files", unreadable),
+            ("Not regular files", not_file),
+        ):
+            if fpaths:
+                lines.append(f"{label} ({len(fpaths)}):")
+                lines.extend(f"  - {fpath}" for fpath in fpaths)
+                lines.append("")
+        if lines[-1] == "":
+            lines.pop()
+        raise FileNotFoundError("\n".join(lines))
+
+
+class LabelsWriter:
+    """Writes per-patch uint8 segmentation labels to a single labels.bin memmap.
+
+    Mirrors reference shards.py:306-368.
+    """
+
+    def __init__(self, shards_dir: pathlib.Path, md: Metadata):
+        assert disk.is_shards_dir(pathlib.Path(shards_dir))
+        self.logger = logging.getLogger("labels-writer")
+        self.md = md
+        self.has_written = False
+
+        # Always create the memmap; deleted in ShardWriter.__exit__ if never written.
+        self.labels_path = pathlib.Path(shards_dir) / "labels.bin"
+        self.labels = np.memmap(
+            self.labels_path,
+            mode="w+",
+            dtype=np.uint8,
+            shape=(self.md.n_examples, self.md.content_tokens_per_example),
+        )
+        self.logger.info("Opened labels file '%s'.", self.labels_path)
+
+    def write_batch(self, batch_labels: np.ndarray, start_idx: int):
+        """Write a batch of labels at a global example offset."""
+        batch_labels = np.asarray(batch_labels, dtype=np.uint8)
+        batch_size = len(batch_labels)
+        assert start_idx + batch_size <= self.md.n_examples
+        assert batch_labels.shape == (batch_size, self.md.content_tokens_per_example)
+        self.labels[start_idx : start_idx + batch_size] = batch_labels
+        self.has_written = True
+
+    def flush(self) -> None:
+        if self.has_written:
+            self.labels.flush()
+            self.logger.info("Flushed labels to '%s'.", self.labels_path)
+
+
+class ShardWriter:
+    """Stateful sharded activation writer backed by float32 memmaps.
+
+    Opens `acts{NNNNNN}.bin` files of `md.shard_shape`, fills batches with
+    shard-boundary splitting, and records each flushed shard in shards.json.
+    Mirrors reference shards.py:372-527.
+    """
+
+    def __init__(self, shards_root: pathlib.Path, md: Metadata):
+        shards_root = pathlib.Path(shards_root)
+        assert disk.is_shards_root(shards_root)
+        self.md = md
+        self.logger = logging.getLogger("shard-writer")
+
+        self.shards_dir = shards_root / md.hash
+        self.shards_dir.mkdir(exist_ok=True)
+
+        self._shards = ShardInfo()
+        self.labels_writer = LabelsWriter(self.shards_dir, md)
+
+        self.shard = -1
+        self.acts: np.memmap | None = None
+        self.filled = 0
+        self.next_shard()
+
+    def write_batch(
+        self,
+        activations: np.ndarray,
+        start_idx: int,
+        patch_labels: np.ndarray | None = None,
+    ) -> None:
+        """Write a batch of activations (and optional patch labels), splitting across
+        shard boundaries recursively.
+        """
+        activations = np.asarray(activations, dtype=np.float32)
+        batch_size = len(activations)
+        end_idx = start_idx + batch_size
+        offset = self.md.examples_per_shard * self.shard
+
+        if end_idx > offset + self.md.examples_per_shard:
+            # Shard is about to fill: write what fits, roll to the next shard.
+            n_fit = offset + self.md.examples_per_shard - start_idx
+            self.acts[start_idx - offset : start_idx - offset + n_fit] = activations[
+                :n_fit
+            ]
+            self.filled = start_idx - offset + n_fit
+
+            if patch_labels is not None:
+                self.labels_writer.write_batch(
+                    np.asarray(patch_labels[:n_fit], dtype=np.uint8), start_idx
+                )
+
+            self.next_shard()
+
+            if n_fit < batch_size:
+                self.write_batch(
+                    activations[n_fit:],
+                    start_idx + n_fit,
+                    patch_labels[n_fit:] if patch_labels is not None else None,
+                )
+        else:
+            assert 0 <= start_idx - offset <= self.md.examples_per_shard
+            assert 0 <= end_idx - offset <= self.md.examples_per_shard
+            self.acts[start_idx - offset : end_idx - offset] = activations
+            self.filled = end_idx - offset
+
+            if patch_labels is not None:
+                self.labels_writer.write_batch(
+                    np.asarray(patch_labels, dtype=np.uint8), start_idx
+                )
+
+    def flush(self) -> None:
+        if self.acts is not None:
+            self.acts.flush()
+            self._shards.append(
+                Shard(name=os.path.basename(self.acts_path), n_examples=self.filled)
+            )
+            self._shards.dump(self.shards_dir)
+        self.acts = None
+        self.labels_writer.flush()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.flush()
+        if not self.labels_writer.has_written:
+            if os.path.exists(self.labels_writer.labels_path):
+                os.remove(self.labels_writer.labels_path)
+                self.logger.info(
+                    "Removed empty labels file '%s'.", self.labels_writer.labels_path
+                )
+
+    def next_shard(self) -> None:
+        self.flush()
+        self.shard += 1
+        self.acts_path = self.shards_dir / f"acts{self.shard:06}.bin"
+        self.acts = np.memmap(
+            self.acts_path, mode="w+", dtype=np.float32, shape=self.md.shard_shape
+        )
+        self.filled = 0
+        self.logger.info("Opened shard '%s'.", self.acts_path)

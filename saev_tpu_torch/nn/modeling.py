@@ -10,17 +10,19 @@ a plain dict with the JAX package's keys and layouts:
 
 Matmul precision, as the JAX package names it (saev_tpu/nn/modeling.py:38-50):
 the products here take a `precision`, "highest" or "default" (`matmul`).
-"highest", the default of `encode`, `decode` and the log-step metrics, is a
-full float32 product (torch's float32 matmul precision "highest", its default,
-TF32 off). "default", the train step's, means bf16 operands with float32
+"highest", the default of `encode`, `decode`, `forward`, eval and the log-step
+metrics, is a full float32 product: TF32 is off inside the call, whatever
+the caller's torch.set_float32_matmul_precision says, and the caller's
+setting is restored after (`_f32_products`); the backward's products too.
+"default", the train step's, means bf16 operands with float32
 accumulation and result on the card, as on the TPU: each operand rounded to
 bf16 to nearest even, `torch.mm(..., out_dtype=torch.float32)`, the bias
 added in float32 after the product; the backward's products take bf16
 operands too. On a CPU tensor "default" is a float32 product, as JAX-CPU's
-DEFAULT is. "high" (bf16x3 in the JAX package) belongs to the decode path,
-which is not ported yet, and raises.
+DEFAULT is. "high" (bf16x3 in the JAX package) is not ported and raises.
 """
 
+import contextlib
 import dataclasses
 import typing as tp
 
@@ -148,6 +150,15 @@ class EncodeOut(tp.NamedTuple):
     f_x: torch.Tensor  # (batch, d_sae) activated latents
 
 
+class Output(tp.NamedTuple):
+    """Full SAE forward outputs for objectives and metrics
+    (saev_tpu/nn/modeling.py:179)."""
+
+    h_x: torch.Tensor  # (batch, d_sae)
+    f_x: torch.Tensor  # (batch, d_sae)
+    x_hats: torch.Tensor  # (batch, n_prefixes, d_model)
+
+
 def init(
     cfg: SparseAutoencoderConfig,
     generator: torch.Generator | None = None,
@@ -206,9 +217,10 @@ def _bf16_operands(t: torch.Tensor) -> bool:
 
 
 def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16(a) @ bf16(b) with f32 accumulation and result (2-D operands,
-    either may be a transposed view). On a CUDA tensor one cuBLAS product;
-    on a CPU tensor its plain version, an f32 product of the rounded
+    """bf16(a) @ bf16(b) with f32 accumulation and result (2-D operands, or
+    3-D ones batched over their leading axis; either may be a transposed
+    view). On a CUDA tensor one cuBLAS
+    product; on a CPU tensor its plain version, an f32 product of the rounded
     operands (the products of two bf16 values are exact in f32)."""
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     if not a.is_cuda:
@@ -218,42 +230,70 @@ def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f'matmul_precision "default" takes bf16 operands with an f32 result, and torch '
             f"{torch.__version__} has no torch.mm(..., out_dtype=torch.float32)"
         )
-    return torch.mm(a16, b16, out_dtype=torch.float32)
+    if a16.ndim == 2:
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return torch.bmm(a16, b16, out_dtype=torch.float32)
 
 
-class _MatmulBF16(torch.autograd.Function):
-    """a @ b at "default": bf16 operands, f32 result; the backward's two
-    products take bf16 operands too, as the transpose of the JAX package's
-    dot at DEFAULT does. Saves the bf16 operands, not the f32 ones."""
+@contextlib.contextmanager
+def _f32_products():
+    """TF32 off for the products inside: "highest" is a float32 product
+    whatever the caller's torch.set_float32_matmul_precision says. The
+    caller's setting is restored after."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    if bf16:
+        return _mm_bf16(a, b)
+    with _f32_products():
+        return a @ b
+
+
+class _Matmul(torch.autograd.Function):
+    """a @ b at a precision: "default" with bf16 operands (`bf16`) takes them
+    with an f32 result, and so do the backward's two products, as the
+    transpose of the JAX package's dot at DEFAULT does (the bf16 operands are
+    saved, not the f32 ones); otherwise an f32 product with TF32 off, forward
+    and backward. 2-D operands, or 3-D ones batched over the leading axis."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        ctx.save_for_backward(a16, b16)
-        return _mm_bf16(a16, b16)
+    def forward(ctx, a, b, bf16):
+        if bf16:
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.bf16 = bf16
+        ctx.save_for_backward(a, b)
+        return _mm(a, b, bf16)
 
     @staticmethod
     def backward(ctx, g):
-        a16, b16 = ctx.saved_tensors
-        da = _mm_bf16(g, b16.T) if ctx.needs_input_grad[0] else None
-        db = _mm_bf16(a16.T, g) if ctx.needs_input_grad[1] else None
-        return da, db
+        a, b = ctx.saved_tensors
+        da = _mm(g, b.mT, ctx.bf16) if ctx.needs_input_grad[0] else None
+        db = _mm(a.mT, g, ctx.bf16) if ctx.needs_input_grad[1] else None
+        return da, db, None
 
 
 def _check_precision(precision: str) -> None:
     if precision == "high":
-        raise NotImplementedError('matmul_precision "high" (bf16x3) takes the decode path, not ported yet')
+        raise NotImplementedError('matmul_precision "high" (bf16x3) is not ported yet')
     if precision not in PRECISIONS:
         raise ValueError(f"Unknown matmul precision: {precision!r}; expected one of {PRECISIONS}")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
-    """a @ b for 2-D f32 operands at `precision` ("highest" or "default", as
-    the module docstring defines them)."""
+    """a @ b for f32 operands at `precision` ("highest" or "default", as
+    the module docstring defines them): 2-D, or 3-D batched over the leading
+    axis."""
     _check_precision(precision)
-    if precision == "default" and _bf16_operands(a):
-        return _MatmulBF16.apply(a, b)
-    return a @ b
+    return _Matmul.apply(a, b, precision == "default" and _bf16_operands(a))
 
 
 class _LinearBias(torch.autograd.Function):
@@ -272,12 +312,15 @@ class _LinearBias(torch.autograd.Function):
             ctx.save_for_backward(x, w if ctx.needs_input_grad[0] else None)
             return _mm_bf16(x, w) + b
         ctx.save_for_backward(x, w)
-        return x @ w + b
+        with _f32_products():
+            return x @ w + b
 
     @staticmethod
     def backward(ctx, dh):
         x, w = ctx.saved_tensors
-        mm = _mm_bf16 if ctx.bf16 else torch.mm
+
+        def mm(a, b):
+            return _mm(a, b, ctx.bf16)
         dx = dw = db = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             # [x; 1], padded with zero columns to a multiple of 8 so that a
@@ -330,24 +373,78 @@ def encode(
 
 def decode(
     cfg: SparseAutoencoderConfig, params: Params, f_x: torch.Tensor,
-    prefixes: torch.Tensor | None = None, *, precision: str | None = None,
+    prefixes: torch.Tensor | None = None, *, group_size: int = 1024,
+    precision: str | None = None,
 ) -> torch.Tensor:
     """Decode latents to per-prefix reconstructions (batch, n_prefixes,
-    d_model). Ported for prefixes=None and a single prefix (which must be
-    d_sae): one product at `precision` (None: MATMUL_PRECISION) plus b_dec,
-    returned as (batch, 1, d_model).
+    d_model) (saev_tpu/nn/modeling.py:373-467): x_hats[:, j] = f_x[:, :p_j]
+    @ W_dec[:p_j] + b_dec for ascending prefixes p_1 < ... < p_P = d_sae;
+    with prefixes=None or one prefix (which must be d_sae), the full
+    reconstruction as (batch, 1, d_model).
 
-    The multi-prefix decode (saev_tpu/nn/modeling.py:413-467), which eval and
-    high-precision training take, raises NotImplementedError.
+    As in the JAX package, the latent axis is split into groups of
+    `group_size` (zero-padded at the end): one batched product gives each
+    group's partial sum (batch, G, d_model), one (J, G) prefix-mask product
+    contracts them to the J cut points, and each prefix adds the masked
+    product of the group its cut falls in. Every product is at `precision`
+    (None: MATMUL_PRECISION), the mask contraction's too: at bf16 it would
+    round the partial sums, the dominant term of every reconstruction
+    (saev_tpu/nn/modeling.py:436-450). The cuts are read on the host.
     """
     if f_x.ndim != 2 or f_x.shape[1] != params["W_dec"].shape[0]:
         raise ValueError(
             f"f_x has shape {tuple(f_x.shape)}; expected (batch, {cfg.d_sae}) "
             f"latents for this {cfg.d_sae}-latent SAE"
         )
-    if prefixes is not None and prefixes.shape[0] > 1:
-        raise NotImplementedError("the multi-prefix decode is not ported yet")
-    return (matmul(f_x, params["W_dec"], precision or MATMUL_PRECISION) + params["b_dec"])[:, None, :]
+    precision = precision or MATMUL_PRECISION
+    w_dec, b_dec = params["W_dec"], params["b_dec"]
+    if prefixes is None or prefixes.shape[0] == 1:
+        return (matmul(f_x, w_dec, precision) + b_dec)[:, None, :]
+
+    b, d_sae = f_x.shape
+    d_model = w_dec.shape[1]
+    g = min(group_size, d_sae)
+    n_groups = -(-d_sae // g)
+    pad = n_groups * g - d_sae
+    f_pad = torch.nn.functional.pad(f_x, (0, pad)) if pad else f_x
+    w_pad = torch.nn.functional.pad(w_dec, (0, 0, 0, pad)) if pad else w_dec
+
+    # One batched product over all groups: (G, b, g) x (G, g, d) -> (G, b, d).
+    partial = matmul(
+        f_pad.reshape(b, n_groups, g).transpose(0, 1), w_pad.reshape(n_groups, g, d_model), precision
+    )
+    cuts = [int(p) for p in prefixes.tolist()]
+    m = [p // g for p in cuts]  # group holding each cut
+    r = [p - mj * g for p, mj in zip(cuts, m)]  # lanes of that group below the cut
+    group_mask = (
+        torch.arange(n_groups, device=f_x.device)[None, :] < torch.tensor(m, device=f_x.device)[:, None]
+    ).to(partial.dtype)  # (J, G)
+    # base[:, j] = the sum of the groups wholly below cut j: (J, G) x (G, b*d).
+    base = matmul(group_mask, partial.reshape(n_groups, b * d_model), precision).reshape(-1, b, d_model)
+
+    lane = torch.arange(g, device=f_x.device)
+    x_hats = []
+    for j in range(len(cuts)):
+        # The remainder group; its start clamped into range as
+        # lax.dynamic_slice clamps it (r == 0 masks it out then).
+        start = min(m[j] * g, n_groups * g - g)
+        f_m = f_pad[:, start : start + g]
+        rem = matmul(
+            torch.where(lane < r[j], f_m, torch.zeros((), dtype=f_m.dtype, device=f_m.device)),
+            w_pad[start : start + g], precision,
+        )
+        x_hats.append(base[j] + rem + b_dec)
+    return torch.stack(x_hats, dim=1)
+
+
+def forward(
+    cfg: SparseAutoencoderConfig, params: Params, state: State, x: torch.Tensor, *,
+    training: bool = False, prefixes: torch.Tensor | None = None,
+) -> tuple[Output, State]:
+    """Full SAE forward (saev_tpu/nn/modeling.py:470-487), at "highest"."""
+    enc, new_state = encode(cfg, params, state, x, training=training)
+    x_hats = decode(cfg, params, enc.f_x, prefixes)
+    return Output(h_x=enc.h_x, f_x=enc.f_x, x_hats=x_hats), new_state
 
 
 # ---------------------------------------------------------------------------

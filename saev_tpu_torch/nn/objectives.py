@@ -10,9 +10,9 @@ on CUDA (`use_stats`), and AuxK in its dense and dead-subspace forms, whose
 dead-latent threshold is kernel K5 on CUDA. Their products take the JAX
 package's `precision` (modeling.matmul: "default" is bf16 operands with f32
 results on the card, f32 on the CPU; None is modeling.MATMUL_PRECISION,
-"highest"). Not ported yet: the autodiff-through-decode path that eval and
-high-precision training take; it raises NotImplementedError rather than
-being skipped.
+"highest"). The autodiff-through-decode path, which eval, one prefix, a
+d_sae that is not a multiple of 1024 and "highest" training take, runs the
+multi-prefix `modeling.decode` with `scale_stabilized_mse`.
 """
 
 import dataclasses
@@ -219,9 +219,11 @@ def matryoshka_loss(
     precision: str | None = None,
     any_dead: bool | None = None,
     aux_subspace_cap: int | None = None,
-) -> tuple[MatryoshkaLoss, modeling.State, ObjectiveState]:
-    """One objective forward. Returns the loss terms, the SAE state and the
-    updated objective state (dead-latent counters).
+) -> tuple[MatryoshkaLoss, modeling.Output, modeling.State, ObjectiveState]:
+    """One objective forward (saev_tpu/nn/objectives.py:253-441). Returns
+    the loss terms, the SAE forward's outputs, the SAE state and the
+    objective state, whose dead-latent counters only a training forward
+    updates.
 
     `hp` optionally overrides "sparsity_coeff" and "aux_alpha" with per-SAE
     scalars. `any_dead` gates AuxK statically: None or True computes it,
@@ -232,10 +234,19 @@ def matryoshka_loss(
     `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
     n_dead <= cap: the caller's contract (the step router keeps it).
 
-    `precision` is the products' (the encoder and AuxK's): None or "default"
-    takes the fused path, whose encoder is at `precision or
-    modeling.MATMUL_PRECISION`, as in the JAX package; "high" and "highest"
-    take the decode path, which raises.
+    Two paths, picked as the JAX package picks them:
+    - fused: training at `precision` None or "default" with more than one
+      prefix and a d_sae that is a multiple of min(1024, d_sae). The
+      prefix MSE (`ops.matryoshka.prefix_mse`) never builds the per-prefix
+      reconstructions; `Output.x_hats` holds only the full one, detached.
+      On the kernel path its TopK comes from one statistics pass (kernel
+      K1), and `Output.f_x` is that pass's bf16 latents: the f32 ones are
+      not built (XLA drops them in the JAX package, which the train step
+      never reads either).
+    - decode: everything else (eval, one prefix, any other d_sae, "highest"):
+      `encode`, the multi-prefix `decode` and `scale_stabilized_mse` over
+      every prefix, autodiff through all of it, every product at
+      `precision` (None: modeling.MATMUL_PRECISION, "highest").
     """
     if any_dead is not None and not isinstance(any_dead, bool):
         raise TypeError(f"any_dead must be None or a bool, got {type(any_dead).__name__}")
@@ -247,57 +258,63 @@ def matryoshka_loss(
         and sae_cfg.d_sae % min(1024, sae_cfg.d_sae) == 0
         and precision in (None, "default")
     )
-    if not use_fused:
-        raise NotImplementedError(
-            "the autodiff-through-decode path (eval, single prefix) is not ported yet"
-        )
-    # The TopK statistics pass (kernel K1) runs on the kernel path only.
-    use_stats = isinstance(sae_cfg.activation, modeling.TopK) and _fused._use_kernels(x)
+    # The TopK statistics pass (kernel K1) runs on the fused kernel path only.
+    use_stats = use_fused and isinstance(sae_cfg.activation, modeling.TopK) and _fused._use_kernels(x)
     if use_stats:
         h_x = modeling._linear_bias(x, params["W_enc"], params["b_enc"], precision or modeling.MATMUL_PRECISION)
         st = ops.topk_stats(h_x, sae_cfg.activation.top_k)
-        f_x = st.f
+        enc = modeling.EncodeOut(h_x=h_x, f_x=st.f)
     else:
         st = None
-        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=training, precision=precision)
-        f_x = enc.f_x
+        enc, sae_state = modeling.encode(sae_cfg, params, sae_state, x, training=training, precision=precision)
     bsz = x.shape[0]
 
-    toks = obj_state["toks_since_active"]
-    # Liveness at bf16 resolution, as in the JAX package.
-    active = st.live if st is not None else torch.any(f_x.to(torch.bfloat16) != 0, dim=0)
-    toks = torch.clamp(toks + bsz, max=_TOKS_CAP)
-    toks = torch.where(active, torch.zeros((), dtype=toks.dtype, device=toks.device), toks)
-    dead_mask = toks >= obj_cfg.dead_threshold_tokens
-    new_obj_state = {**obj_state, "toks_since_active": toks}
+    new_obj_state, dead_mask = obj_state, None
+    if training:
+        toks = obj_state["toks_since_active"]
+        # Liveness at bf16 resolution, as in the JAX package.
+        active = st.live if st is not None else torch.any(enc.f_x.to(torch.bfloat16) != 0, dim=0)
+        toks = torch.clamp(toks + bsz, max=_TOKS_CAP)
+        toks = torch.where(active, torch.zeros((), dtype=toks.dtype, device=toks.device), toks)
+        dead_mask = toks >= obj_cfg.dead_threshold_tokens
+        new_obj_state = {**obj_state, "toks_since_active": toks}
 
-    mse, xhat_full = _fused.prefix_mse(
-        params["W_dec"], params["b_dec"], f_x, x, prefixes, min(1024, sae_cfg.d_sae)
-    )
-    xhat_full = xhat_full.detach()
+    if use_fused:
+        mse, xhat_full = _fused.prefix_mse(
+            params["W_dec"], params["b_dec"], enc.f_x, x, prefixes, min(1024, sae_cfg.d_sae)
+        )
+        xhat_full = xhat_full.detach()
+        x_hats = xhat_full[:, None, :]
+    else:
+        x_hats = modeling.decode(sae_cfg, params, enc.f_x, prefixes, precision=precision)
+        mse = scale_stabilized_mse(x_hats, x[:, None, :].expand_as(x_hats)).mean()
+        xhat_full = x_hats[:, -1, :]
+    out = modeling.Output(h_x=enc.h_x, f_x=enc.f_x, x_hats=x_hats)
 
     aux_cfg = sae_cfg.activation.aux
-    if isinstance(aux_cfg, modeling.AuxK) and any_dead is not False:
+    if training and isinstance(aux_cfg, modeling.AuxK) and any_dead is not False:
         alpha = hp.get("aux_alpha")
         if aux_subspace_cap is not None and aux_subspace_cap < sae_cfg.d_sae:
             aux = _aux_loss_subspace(
-                aux_cfg, sae_cfg, params, x, xhat_full, toks,
+                aux_cfg, sae_cfg, params, x, xhat_full, new_obj_state["toks_since_active"],
                 obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha, precision=precision,
             )
         else:
-            h_aux = h_x if st is not None else enc.h_x
-            aux = _aux_loss(aux_cfg, sae_cfg, params, x, h_aux, xhat_full, dead_mask, alpha=alpha,
+            aux = _aux_loss(aux_cfg, sae_cfg, params, x, enc.h_x, xhat_full, dead_mask, alpha=alpha,
                             precision=precision)
     else:
         aux = torch.zeros((), dtype=x.dtype, device=x.device)
-    n_dead = dead_mask.sum().to(torch.int32)
+    n_dead = (
+        dead_mask.sum().to(torch.int32) if dead_mask is not None
+        else torch.zeros((), dtype=torch.int32, device=x.device)
+    )
 
     if st is not None:
         l1_full = st.l1[:, 0].mean(dim=0)
         l0_full = st.l0[:, 0].to(x.dtype).mean(dim=0)
     else:
-        l1_full = f_x.abs().sum(dim=1).mean(dim=0)
-        l0_full = (f_x != 0).to(x.dtype).sum(dim=1).mean(dim=0)
+        l1_full = enc.f_x.abs().sum(dim=1).mean(dim=0)
+        l0_full = (enc.f_x != 0).to(x.dtype).sum(dim=1).mean(dim=0)
     sparsity_cfg = sae_cfg.activation.sparsity
     if hp.get("sparsity_coeff") is not None and isinstance(sparsity_cfg, modeling.L1Sparsity):
         sparsity = l1_full * hp["sparsity_coeff"]
@@ -307,10 +324,10 @@ def matryoshka_loss(
         sparsity = torch.zeros((), dtype=x.dtype, device=x.device)
     else:
         # The f32 latents, as the JAX package's Output.f_x on either path.
-        f_api = f_x if st is None else torch.where(h_x >= st.kth, h_x, 0.0)
+        f_api = enc.f_x if st is None else torch.where(h_x >= st.kth, h_x, 0.0)
         sparsity = sparsity_cfg.loss(f_api)
 
     loss = MatryoshkaLoss(
         mse=mse, sparsity=sparsity, l0=l0_full, l1=l1_full, aux=aux, n_dead=n_dead
     )
-    return loss, sae_state, new_obj_state
+    return loss, out, sae_state, new_obj_state

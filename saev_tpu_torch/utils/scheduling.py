@@ -1,7 +1,10 @@
-"""Learning-rate schedule of the train step (counterpart of
-saev_tpu/utils/scheduling.py `warmup_cosine`)."""
+"""Learning-rate schedule of the train step and the loader's step budget
+(counterparts of saev_tpu/utils/scheduling.py `warmup_cosine` and
+`BatchLimiter`)."""
 
+import collections.abc
 import math
+import typing as tp
 
 import torch
 
@@ -27,3 +30,63 @@ def warmup_cosine(step, init, n_warmup, peak, n_steps, final) -> torch.Tensor:
     progress = (step - n_warmup) / torch.clamp(n_steps - n_warmup, min=1.0)
     cosine = final + (peak - final) * (1 + torch.cos(math.pi * progress)) / 2
     return torch.where(step < n_warmup, warm, torch.where(step < n_steps, cosine, final))
+
+
+@tp.runtime_checkable
+class DataLoaderLike(tp.Protocol):
+    drop_last: bool
+    batch_size: int
+
+    def __iter__(self) -> tp.Iterator[tp.Any]: ...
+
+
+class BatchLimiter:
+    """Infinite-epoch wrapper stopping after `n_samples` total samples
+    (reference scheduling.py:83-122), with attribute passthrough."""
+
+    def __init__(self, dataloader: DataLoaderLike, n_samples: int):
+        self.dataloader = dataloader
+        self.n_samples = n_samples
+        self.batch_size = dataloader.batch_size
+        self.drop_last = dataloader.drop_last
+
+    def __len__(self) -> int:
+        return math.ceil(self.n_samples / self.batch_size)
+
+    def __getattr__(self, name: str) -> tp.Any:
+        try:
+            return getattr(self.dataloader, name)
+        except AttributeError:
+            raise AttributeError(
+                f"'{self.__class__.__name__}' object and its wrapped dataloader "
+                f"have no attribute '{name}'"
+            )
+
+    def __iter__(self):
+        self.n_seen = 0
+        while True:
+            for batch in self.dataloader:
+                yield batch
+                self.n_seen += _infer_batch_size(batch, fallback=self.batch_size)
+                if self.n_seen >= self.n_samples:
+                    return
+            # Mitigate partial-final-batch drift when the loader keeps the last
+            # short batch (reference scheduling.py:120-122).
+            if not self.dataloader.drop_last:
+                self.n_seen -= self.batch_size
+
+
+def _infer_batch_size(batch: tp.Any, fallback: int) -> int:
+    """Best-effort batch-size extraction (reference scheduling.py:125-152):
+    the leading length of a mapping's first value, or of the batch itself."""
+    probe = batch
+    if isinstance(batch, collections.abc.Mapping):
+        values = iter(batch.values())
+        probe = next(values, None)
+        if probe is None:
+            return fallback
+    try:
+        n = len(probe)
+    except Exception:
+        return fallback
+    return n if isinstance(n, int) and n > 0 else fallback

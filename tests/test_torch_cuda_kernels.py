@@ -867,6 +867,60 @@ def test_matmul_default_is_bf16_algebra(dev):
     assert rel_norm(modeling.matmul(a.to(dev), b.to(dev), "highest").cpu(), a @ b) <= 1e-6
 
 
+def test_highest_is_f32_under_global_tf32(dev):
+    """With the process's TF32 switch on, "highest" products (modeling.matmul
+    forward and backward, _linear_bias, the multi-prefix decode's batched
+    and mask products) stay f32: within 1e-6 rel-norm of the f64 product,
+    where TF32's rounding puts a plain product near 1e-4. The switch is on
+    again after each call."""
+    gen = torch.Generator().manual_seed(7)
+    a, b, g = (torch.randn(s, generator=gen) for s in ((512, 1024), (1024, 256), (512, 256)))
+    bias = torch.randn(256, generator=gen)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert rel_norm((a.to(dev) @ b.to(dev)).cpu(), a.double() @ b.double()) > 1e-5  # TF32 is on
+        leaves = [t.to(dev).requires_grad_(True) for t in (a, b)]
+        out = modeling.matmul(*leaves, "highest")
+        out.backward(g.to(dev))
+        lin = modeling._linear_bias(a.to(dev), b.to(dev), bias.to(dev), "highest")
+        cfg = modeling.SparseAutoencoderConfig(d_model=256, d_sae=1024)
+        params = {"W_dec": b.to(dev), "b_dec": bias.to(dev)}
+        cuts = torch.tensor([100, 512, 1024], device=dev)
+        dec = modeling.decode(cfg, params, a.to(dev), cuts, group_size=256, precision="highest")
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    for what, got, want in (("out", out, a64 @ b64), ("da", leaves[0].grad, g64 @ b64.T),
+                            ("db", leaves[1].grad, a64.T @ g64), ("linear", lin, a64 @ b64 + bias.double())):
+        assert rel_norm(got.detach().cpu(), want) <= 1e-6, what
+    for j, p in enumerate(cuts.tolist()):
+        want = a64[:, :p] @ b64[:p] + bias.double()
+        assert rel_norm(dec[:, j].cpu(), want) <= 1e-6, p
+
+
+def test_decode_default_is_bf16_algebra(dev, monkeypatch):
+    """The multi-prefix decode at "default" on the card: its batched group
+    product, mask contraction and remainder products take bf16 operands with
+    f32 results (torch.bmm and torch.mm with out_dtype), against the same
+    decode's bf16 algebra on the CPU (the card's route forced there, each
+    product's plain version), within rel-norm 1e-3: the mask contraction
+    rounds the partial sums to bf16, where one ulp is 4e-3 of a value."""
+    gen = torch.Generator().manual_seed(8)
+    f, w = torch.randn((256, 1024), generator=gen), torch.randn((1024, 128), generator=gen)
+    cfg = modeling.SparseAutoencoderConfig(d_model=128, d_sae=1024)
+    cuts = torch.tensor([7, 256, 700, 1024])
+    b_dec = torch.zeros(128)
+    got = modeling.decode(cfg, {"W_dec": w.to(dev), "b_dec": b_dec.to(dev)}, f.to(dev), cuts.to(dev),
+                          group_size=256, precision="default")
+    monkeypatch.setattr(modeling, "_bf16_operands", lambda t: True)
+    want = modeling.decode(cfg, {"W_dec": w, "b_dec": b_dec}, f, cuts, group_size=256, precision="default")
+    for j, p in enumerate(cuts.tolist()):
+        err = rel_norm(got[:, j].cpu(), want[:, j])
+        assert got.dtype == torch.float32 and err <= 1e-3, (p, err)
+        assert rel_norm(got[:, j].cpu(), f[:, :p] @ w[:p]) > 1e-4  # not the f32 product
+
+
 def test_bf16_route_refuses_without_the_product(dev, monkeypatch):
     """A torch with no bf16 product of f32 result raises; it does not fall
     back to f32 unsaid."""

@@ -27,8 +27,19 @@ import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+# The training job's modules, each imported with the blocked packages above.
+JOB_MODULES = {
+    "saev_tpu_torch.helpers", "saev_tpu_torch.guards", "saev_tpu_torch.disk", "saev_tpu_torch.configs",
+    "saev_tpu_torch.parallel", "saev_tpu_torch.data", "saev_tpu_torch.data.shards",
+    "saev_tpu_torch.data.buffers", "saev_tpu_torch.data._native", "saev_tpu_torch.data.shuffled",
+    "saev_tpu_torch.utils.scheduling", "saev_tpu_torch.utils.monitoring", "saev_tpu_torch.utils.statistics",
+    "saev_tpu_torch.utils.wandb", "saev_tpu_torch.utils.cli", "saev_tpu_torch.nn.serialize",
+    "saev_tpu_torch.framework.checkpoints", "saev_tpu_torch.framework.train",
+}
 
 
 def test_port_imports_without_jax():
@@ -36,5 +47,6 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    # The four subpackages and their ten modules at least.
-    assert int(proc.stdout.split()[-1]) >= 14
+    # The five subpackages and their modules: 41 since the training job.
+    assert int(proc.stdout.split()[-1]) >= 41
+    assert JOB_MODULES <= set(proc.stdout.split()[:-1])

@@ -163,8 +163,8 @@ def test_steady_state_kernel_path_matches_jax_interpret(monkeypatch, variant):
 
 
 def test_unported_variants_raise():
-    """What still raises: Muon, the multi-prefix decode and a traced-style
-    (tensor) AuxK gate. The AuxK step itself now runs."""
+    """What still raises: Muon, "high" (bf16x3) and a traced-style (tensor)
+    AuxK gate. The AuxK step and the multi-prefix decode now run."""
     cfg = modeling.SparseAutoencoderConfig(d_model=8, d_sae=64)
     obj = objectives.Matryoshka(n_prefixes=2)
     with pytest.raises(NotImplementedError, match="Muon"):
@@ -175,8 +175,9 @@ def test_unported_variants_raise():
           "sparsity_coeff": torch.zeros(1)}
     x = torch.zeros((8, 8))
     params0 = {k: v[0] for k, v in ts.params.items()}
-    with pytest.raises(NotImplementedError, match="multi-prefix"):
-        modeling.decode(cfg, params0, torch.zeros((8, 64)), torch.tensor([3, 64]))
+    with pytest.raises(NotImplementedError, match="bf16x3"):
+        train.make_train_step(cfg, obj, 10, matmul_precision="high")
+    assert modeling.decode(cfg, params0, torch.zeros((8, 64)), torch.tensor([3, 64])).shape == (8, 2, 8)
     with pytest.raises(TypeError, match="any_dead"):
         objectives.matryoshka_loss(
             obj, cfg, params0, {}, {"toks_since_active": ts.obj_state["toks_since_active"][0]},
