@@ -9,7 +9,8 @@ on its own and only its gradients are kept, then the decoder-norm constraints,
 the per-SAE gradient clip, the warmup-cosine learning rate and Adam are
 applied to the stacked state.
 
-The step, with Adam at `matmul_precision="default"` (bf16 operands with f32
+The step, for Relu, TopK and BatchTopK SAEs (whose moved EMA threshold it
+returns in the new state), with Adam at `matmul_precision="default"` (bf16 operands with f32
 accumulation on the card, f32 on the CPU: nn/modeling.py) or "highest" (f32,
 through the decode path), in its three forms (warm-up without AuxK, AuxK
 dense, AuxK in a dead subspace); the router that picks one for each step of
@@ -166,7 +167,8 @@ def make_train_step(
       prefixes: (n_sae, n_prefixes) int32, sampled host-side per step
       hp:       per-SAE (n_sae,) f32 tensors "lr", "n_lr_warmup",
                 "grad_clip", "sparsity_coeff" and, optionally, "aux_alpha"
-                (AuxK.alpha when absent); others are ignored
+                (AuxK.alpha when absent) and "momentum" (BatchTopK's
+                momentum when absent); others are ignored
       stats:    per-SAE loss terms, grad_norm, lr and aux_risk, (n_sae,)
 
     `aux_enabled=False` is the warm-up step: AuxK is left out, which is exact
@@ -186,31 +188,33 @@ def make_train_step(
     # Static gate: None computes AuxK, False leaves it out (warm-up).
     any_dead = None if aux_enabled else False
 
-    def grad_one(params_i, sae_state_i, obj_state_i, x, prefixes_i, coeff, alpha):
+    def grad_one(params_i, sae_state_i, obj_state_i, x, prefixes_i, coeff, alpha, momentum):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params_i.items()}
-        loss, _, _, obj_state_i = objectives.matryoshka_loss(
+        loss, _, sae_state_i, obj_state_i = objectives.matryoshka_loss(
             obj_cfg, sae_cfg, leaves, sae_state_i, obj_state_i, x, prefixes_i,
-            training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha},
+            training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha, "momentum": momentum},
             precision=matmul_precision, any_dead=any_dead, aux_subspace_cap=aux_subspace_cap,
         )
         keys = sorted(leaves)
         grads = torch.autograd.grad(loss.loss, [leaves[k] for k in keys])
         detached = objectives.MatryoshkaLoss(*(t.detach() for t in loss))
-        return detached, dict(zip(keys, grads)), obj_state_i
+        return detached, dict(zip(keys, grads)), sae_state_i, obj_state_i
 
     def step(ts: SweepState, x: torch.Tensor, prefixes: torch.Tensor, hp: dict):
         # Normalize W_dec rows before the forward.
         params = modeling.normalize_w_dec(sae_cfg, ts.params)
         n_sae = params["W_dec"].shape[0]
-        alphas = hp.get("aux_alpha")
-        losses, grads, obj_states = [], [], []
+        alphas, momenta = hp.get("aux_alpha"), hp.get("momentum")
+        losses, grads, sae_states, obj_states = [], [], [], []
         for i in range(n_sae):
-            loss_i, grads_i, obj_i = grad_one(
+            loss_i, grads_i, sae_i, obj_i = grad_one(
                 _index(params, i), _index(ts.sae_state, i), _index(ts.obj_state, i), x,
                 prefixes[i], hp["sparsity_coeff"][i], None if alphas is None else alphas[i],
+                None if momenta is None else momenta[i],
             )
             losses.append(loss_i)
             grads.append(grads_i)
+            sae_states.append(sae_i)
             obj_states.append(obj_i)
         grads = modeling.remove_parallel_grads(sae_cfg, params, _stack(grads))
 
@@ -250,7 +254,8 @@ def make_train_step(
         }
         new_ts = SweepState(
             params=new_params,
-            sae_state=ts.sae_state,
+            # The loss's state: BatchTopK's threshold moved by this step.
+            sae_state=_stack(sae_states),
             obj_state=obj_state,
             opt_state=opt_state,
             step=ts.step + 1,
@@ -285,8 +290,10 @@ def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
     """The heavy per-SAE metrics the loop computes every log_every steps:
     explained variance, dead %, coherence, SSE terms, from a fresh forward on
     the current params, at "highest" (as the JAX package's, whose `encode`
-    and `decode` take no precision there). Its TopK threshold is kernel K6 on
-    the card.
+    and `decode` take no precision there). Its forward is in training mode,
+    as the JAX package's: a TopK threshold is kernel K6 on the card, a
+    BatchTopK SAE's the batch-global k-th value (its moved threshold is
+    not kept).
 
     Signature: metrics(sweep_state, x, prefixes) -> {name: (n_sae,) tensor}
     (`prefixes` is accepted for the JAX package's signature and not read).

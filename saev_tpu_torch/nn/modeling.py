@@ -347,23 +347,69 @@ def topk_activation(h: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(h >= kth, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
+def batch_topk_train(
+    h: torch.Tensor, k: int, momentum: torch.Tensor | float, threshold: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BatchTopK in training mode (saev_tpu/nn/modeling.py:249-273): keeps
+    every entry >= the batch's k * B-th largest (`ops.batch_global_kth_value`,
+    ties kept), then moves the EMA of the least positive kept value, the
+    eval-time threshold: (1 - momentum) * threshold + momentum * that value,
+    or the threshold unchanged where no kept value is positive. Returns (f,
+    new threshold)."""
+    bsz, d_sae = h.shape
+    kth = ops.batch_global_kth_value(h, min(k * bsz, d_sae * bsz))
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    f = torch.where(h >= kth, h, zero)
+    with torch.no_grad():
+        pos_min = torch.where(f > 0, f, torch.full((), float("inf"), dtype=h.dtype, device=h.device)).min()
+        new_threshold = torch.where(
+            torch.isfinite(pos_min), (1.0 - momentum) * threshold + momentum * pos_min, threshold
+        )
+    return f, new_threshold
+
+
+def batch_topk_eval(h: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """BatchTopK in eval mode: JumpReLU at the learned threshold, plain ReLU
+    where it is <= 0 (saev_tpu/nn/modeling.py:276-283)."""
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    return torch.where(h > torch.maximum(threshold, zero), h, zero)
+
+
 def encode(
     cfg: SparseAutoencoderConfig, params: Params, state: State, x: torch.Tensor, *,
-    training: bool, precision: str | None = None,
+    training: bool, momentum: torch.Tensor | float | None = None, precision: str | None = None,
 ) -> tuple[EncodeOut, State]:
     """x @ W_enc + b_enc at `precision` (None: MATMUL_PRECISION), then the
-    activation. Ported for TopK (the threshold mask is the same in train
-    and eval mode)."""
+    activation (saev_tpu/nn/modeling.py:325-370): Relu, TopK (the threshold
+    mask, the same in train and eval mode) or BatchTopK.
+
+    Returns (EncodeOut, new_state): a BatchTopK forward in training mode
+    carries the moved EMA threshold, every other returns `state`.
+    `momentum` overrides BatchTopK's configured momentum with a per-SAE
+    value (the sweep's hp["momentum"])."""
     if x.ndim != 2 or x.shape[1] != params["W_enc"].shape[0]:
         raise ValueError(
             f"x has shape {tuple(x.shape)}; expected (batch, {cfg.d_model}) "
             f"activations for this {cfg.d_model}-d SAE"
         )
-    act = cfg.activation
-    if not isinstance(act, TopK):
-        raise NotImplementedError(f"encode for {type(act).__name__} is not ported yet")
     h_x = _linear_bias(x, params["W_enc"], params["b_enc"], precision or MATMUL_PRECISION)
-    return EncodeOut(h_x=h_x, f_x=topk_activation(h_x, act.top_k)), state
+    act = cfg.activation
+    new_state = state
+    if isinstance(act, Relu):
+        f_x = torch.relu(h_x)
+    elif isinstance(act, TopK):
+        f_x = topk_activation(h_x, act.top_k)
+    elif isinstance(act, BatchTopK):
+        if training:
+            f_x, threshold = batch_topk_train(
+                h_x, act.top_k, act.momentum if momentum is None else momentum, state["threshold"]
+            )
+            new_state = {**state, "threshold": threshold}
+        else:
+            f_x = batch_topk_eval(h_x, state["threshold"])
+    else:
+        tp.assert_never(act)
+    return EncodeOut(h_x=h_x, f_x=f_x), new_state
 
 
 # ---------------------------------------------------------------------------

@@ -221,12 +221,12 @@ def matryoshka_loss(
     aux_subspace_cap: int | None = None,
 ) -> tuple[MatryoshkaLoss, modeling.Output, modeling.State, ObjectiveState]:
     """One objective forward (saev_tpu/nn/objectives.py:253-441). Returns
-    the loss terms, the SAE forward's outputs, the SAE state and the
-    objective state, whose dead-latent counters only a training forward
-    updates.
+    the loss terms, the SAE forward's outputs, the SAE state (BatchTopK's
+    threshold, moved by a training forward) and the objective state, whose
+    dead-latent counters only a training forward updates.
 
-    `hp` optionally overrides "sparsity_coeff" and "aux_alpha" with per-SAE
-    scalars. `any_dead` gates AuxK statically: None or True computes it,
+    `hp` optionally overrides "sparsity_coeff", "aux_alpha" and "momentum"
+    (BatchTopK's) with per-SAE scalars. `any_dead` gates AuxK statically: None or True computes it,
     False leaves it out, as the train loop does during warm-up, where no
     latent can be dead yet. (The JAX package's traced `lax.cond` gate is
     TPU-only; a tensor here raises TypeError.)
@@ -266,7 +266,9 @@ def matryoshka_loss(
         enc = modeling.EncodeOut(h_x=h_x, f_x=st.f)
     else:
         st = None
-        enc, sae_state = modeling.encode(sae_cfg, params, sae_state, x, training=training, precision=precision)
+        enc, sae_state = modeling.encode(
+            sae_cfg, params, sae_state, x, training=training, momentum=hp.get("momentum"), precision=precision
+        )
     bsz = x.shape[0]
 
     new_obj_state, dead_mask = obj_state, None

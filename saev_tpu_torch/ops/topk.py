@@ -5,6 +5,9 @@ TopK in this package is a threshold mask, `h >= kth`, with kth the exact k-th
 largest value of the row: ties at the boundary are all kept, as in the JAX
 package (torch.topk's mask keeps exactly k and is not used for selection).
 
+`batch_global_kth_value` is BatchTopK's threshold over a whole batch, in
+plain torch on both devices.
+
 `topk_stats` is the train step's one pass over the pre-activations. On a CUDA
 tensor it launches kernel K1 (ops/cuda_topk.py, csrc/topk_stats.cu); on a CPU
 tensor it runs `_topk_stats_plain`, the same outputs composed from plain
@@ -16,6 +19,10 @@ the AuxK threshold among dead latents) dispatch the same way
 import typing
 
 import torch
+
+# Candidates a row per row's share of the batch-global top-k in
+# `batch_global_kth_value`: the JAX package's default `row_oversample`.
+_ROW_OVERSAMPLE = 4
 
 
 class TopKStats(typing.NamedTuple):
@@ -66,6 +73,30 @@ def exact_kth_value_masked(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch
     from . import cuda_kth
 
     return cuda_kth.kth_value_masked_cuda(h.detach(), mask, k)
+
+
+def batch_global_kth_value(h: torch.Tensor, k_total: int, *, exact: bool = False) -> torch.Tensor:
+    """The k_total-th largest value over the whole (B, S) batch, a 0-d
+    tensor: BatchTopK's flattened global top-k (counterpart of
+    saev_tpu/ops/topk.py `batch_global_kth_value`).
+
+    The exact route takes the k_total largest of the flat batch. The default
+    gathers each row's m_row = _ROW_OVERSAMPLE * ceil(k_total / B) largest
+    values first, then the k_total-th largest of those candidates: exact
+    unless a row holds more than m_row of the global winners, and then the
+    threshold is lower (more entries kept). The JAX package takes the
+    candidates with `lax.approx_max_k`, which is exact on JAX-CPU; here they
+    are exact everywhere (torch.topk). Plain torch on either device: the JAX
+    package reaches no Pallas kernel here. Carries no gradient.
+    """
+    h = h.detach()
+    b, s = h.shape
+    k_total = min(k_total, b * s)
+    m_row = min(max(-(-k_total // b) * _ROW_OVERSAMPLE, 1), s)
+    if exact or m_row >= s:
+        return torch.topk(h.reshape(-1), k_total, sorted=True).values[-1]
+    cand = torch.topk(h, m_row, dim=1, sorted=False).values.reshape(-1)
+    return torch.topk(cand, min(k_total, cand.shape[0]), sorted=True).values[-1]
 
 
 def _topk_stats_plain(h: torch.Tensor, k: int) -> TopKStats:

@@ -975,3 +975,37 @@ def test_train_step_default_precision_on_the_card(dev, monkeypatch, variant):
     for key in ("loss", "grad_norm"):
         rel = float(((got[key].cpu() - want[key]).abs() / want[key].abs()).max())
         assert rel <= 1e-2, (key, rel)
+
+
+COMPACT_SHAPES = [(6, 10), (256, 16384), (1000, 4096), (0, 64)]
+
+
+@pytest.mark.parametrize("b,s", COMPACT_SHAPES)
+def test_inference_compaction_on_the_card_matches_scipy(dev, b, s):
+    """Inference's CSR compaction (framework/inference.py `compact_rows`) on
+    the card, assembled on the host (`csr_block`), equals
+    `scipy.sparse.csr_array` of the dense batch copied whole: indptr and
+    indices with their dtypes, and the values bit for bit; with negative
+    kept values, exact zeros (-0.0 too), empty rows and a masked row."""
+    import scipy.sparse
+
+    from saev_tpu_torch.framework import inference
+
+    rng = np.random.default_rng(b + s)
+    f = np.where(rng.random((b, s)) < 0.01 + 32 / s, rng.normal(size=(b, s)), 0.0).astype(np.float32)
+    if b > 4:
+        f[1] = 0.0
+        f[2, ::3] = -0.0
+        f[3] = -np.abs(f[3])
+    ft = torch.from_numpy(f).to(dev)
+    if b > 4:
+        ft[4] = torch.where(torch.zeros((), dtype=torch.bool, device=dev), ft[4], 0.0)  # a masked row
+    counts, cols, vals = inference.compact_rows(ft)
+    assert counts.is_cuda and cols.is_cuda and vals.is_cuda and cols.dtype == torch.int32
+    got = inference.csr_block(counts.cpu().numpy(), cols.cpu().numpy(), vals.cpu().numpy(), s)
+    want = scipy.sparse.csr_array(ft.cpu().numpy())
+    for name in ("indptr", "indices"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.dtype == w.dtype, name
+        np.testing.assert_array_equal(a, w, err_msg=name)
+    np.testing.assert_array_equal(got.data.view(np.int32), want.data.view(np.int32))

@@ -31,7 +31,8 @@ print(" ".join(names))
 print(len(names))
 """
 
-# The training job's modules, each imported with the blocked packages above.
+# The training job's and inference's modules, each imported with the blocked
+# packages above.
 JOB_MODULES = {
     "saev_tpu_torch.helpers", "saev_tpu_torch.guards", "saev_tpu_torch.disk", "saev_tpu_torch.configs",
     "saev_tpu_torch.parallel", "saev_tpu_torch.data", "saev_tpu_torch.data.shards",
@@ -39,6 +40,7 @@ JOB_MODULES = {
     "saev_tpu_torch.utils.scheduling", "saev_tpu_torch.utils.monitoring", "saev_tpu_torch.utils.statistics",
     "saev_tpu_torch.utils.wandb", "saev_tpu_torch.utils.cli", "saev_tpu_torch.nn.serialize",
     "saev_tpu_torch.framework.checkpoints", "saev_tpu_torch.framework.train",
+    "saev_tpu_torch.metrics", "saev_tpu_torch.data.ordered", "saev_tpu_torch.framework.inference",
 }
 
 
@@ -47,6 +49,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    # The five subpackages and their modules: 41 since the training job.
-    assert int(proc.stdout.split()[-1]) >= 41
+    # The five subpackages and their modules: 41 since the training job, 44
+    # since inference.
+    assert int(proc.stdout.split()[-1]) >= 44
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])

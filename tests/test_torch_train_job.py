@@ -6,10 +6,11 @@ runs) against the JAX package's, on the CPU:
 - `worker_fn` (train, evaluate, the SAE files) in both packages, each one's
   `ShuffledDataLoader` replaced by the same fixed batches (loader order is
   not deterministic across threads, so the loops are compared on one list of
-  batches): two SAEs that differ in lr, AuxK from step 2 of 8. Final params
-  to rel-norm 1e-5; every EvalMetrics float to rel 1e-4 (freqs and
-  mean_values to rel-norm 1e-4); n_dead and the other counts equal; every
-  SAE file reads bit for bit in both packages' `serialize.load`;
+  batches): two SAEs that differ in lr, AuxK from step 2 of 8, TopK and
+  BatchTopK. Final params to rel-norm 1e-5 and BatchTopK's thresholds to rel
+  1e-5; every EvalMetrics float to rel 1e-4 (freqs and mean_values to
+  rel-norm 1e-4); n_dead and the other counts equal; every SAE file reads
+  bit for bit in both packages' `serialize.load`, its threshold too;
 - `split_cfgs`, `make_cohorts` and `configs.load_cfgs` on a sweep file give
   the same groups; `Config`'s fields and defaults are JAX's but for `device`;
 - `worker_fn` on tiny real shards (the port's `ShardWriter`) trains, keeps
@@ -67,7 +68,7 @@ def _md(pkg, n_examples):
     )
 
 
-def _cfgs(pkg, train_dir, val_dir, runs_root, *, n_train=8 * BATCH, **kw):
+def _cfgs(pkg, train_dir, val_dir, runs_root, *, n_train=8 * BATCH, activation="TopK", **kw):
     p = PKGS[pkg]
     data = dict(layer=0, batch_size=BATCH, n_threads=2, batch_timeout_s=5.0)
     fields = dict(
@@ -76,7 +77,7 @@ def _cfgs(pkg, train_dir, val_dir, runs_root, *, n_train=8 * BATCH, **kw):
         n_train=n_train, n_val=2 * BATCH,
         sae=p["mod"].SparseAutoencoderConfig(
             d_model=D_MODEL, d_sae=D_SAE,
-            activation=p["mod"].TopK(top_k=4, aux=p["mod"].AuxK(k_aux=16)),
+            activation=getattr(p["mod"], activation)(top_k=4, aux=p["mod"].AuxK(k_aux=16)),
         ),
         objective=p["obj"].Matryoshka(n_prefixes=3, dead_threshold_tokens=3 * BATCH),
         n_lr_warmup=2, log_every=4, track=False, runs_root=runs_root, device="cpu", seed=5,
@@ -157,13 +158,13 @@ def _spied_worker(pkg, monkeypatch, cfgs, loaders):
     return ids, seen["train"][0], seen["eval"]
 
 
-def test_worker_fn_matches_jax_on_fixed_batches(tmp_path, monkeypatch):
+def _worker_fn_matches_jax(tmp_path, monkeypatch, activation, b_enc_atol=None):
     monkeypatch.chdir(tmp_path)  # the local run recorder writes under ./.wandb
     train_b, val_b = _batches(10, seed=7), _batches(2, seed=8)
     out = {}
     for pkg in PKGS:
         _, runs_root = _roots(tmp_path / pkg)
-        cfgs = _cfgs(pkg, tmp_path / "train", tmp_path / "val", runs_root)
+        cfgs = _cfgs(pkg, tmp_path / "train", tmp_path / "val", runs_root, activation=activation)
         loaders = {
             str(tmp_path / "train"): FixedLoader(cfgs[0].train_data, _md(pkg, 40), train_b),
             str(tmp_path / "val"): FixedLoader(cfgs[0].val_data, _md(pkg, 8), val_b),
@@ -172,15 +173,19 @@ def test_worker_fn_matches_jax_on_fixed_batches(tmp_path, monkeypatch):
         (rt,) = runtimes
         params = {k: np.asarray(v) for k, v in rt.ts.params.items()}
         files = [runs_root / i / "checkpoint" / "sae.pt" for i in ids]
-        out[pkg] = (params, metrics, files, int(rt.ts.step))
+        out[pkg] = (params, metrics, files, int(rt.ts.step), np.asarray(rt.ts.sae_state["threshold"]))
         monkeypatch.undo()
         monkeypatch.chdir(tmp_path)
 
-    (tp_, tm, tfiles, tstep), (jp, jm, jfiles, jstep) = out["torch"], out["jax"]
+    (tp_, tm, tfiles, tstep, tthr), (jp, jm, jfiles, jstep, jthr) = out["torch"], out["jax"]
     assert tstep == jstep == 8
     for k in jp:
         for i in range(2):
+            if k == "b_enc" and b_enc_atol is not None:
+                np.testing.assert_allclose(tp_[k][i], jp[k][i], rtol=0, atol=b_enc_atol, err_msg=k)
+                continue
             assert rel_norm(tp_[k][i], jp[k][i]) <= 1e-5, (k, i, rel_norm(tp_[k][i], jp[k][i]))
+    np.testing.assert_allclose(tthr, jthr, rtol=1e-5, atol=0)
     for t_m, j_m in zip(tm, jm):
         for f in dataclasses.fields(j_m):
             a, b = getattr(t_m, f.name), getattr(j_m, f.name)
@@ -192,16 +197,37 @@ def test_worker_fn_matches_jax_on_fixed_batches(tmp_path, monkeypatch):
                 assert rel_norm(a[fin], b[fin]) <= 1e-4, f.name
             else:
                 assert abs(a - b) <= 1e-4 * abs(b), (f.name, a, b)
-    assert tm[0].n_dead == jm[0].n_dead and 0 < tm[0].l0 <= 4 + 1e-6
     # Every SAE file reads bit for bit in both packages.
-    for fpath, params_i in [(f, {k: v[i] for k, v in tp_.items()}) for i, f in enumerate(tfiles)] + \
-                           [(f, {k: v[i] for k, v in jp.items()}) for i, f in enumerate(jfiles)]:
-        jcfg, jparams, _ = jser.load(fpath)
-        cfg, params, _ = serialize.load(fpath, device="cpu")
+    for fpath, params_i, thr in [(f, {k: v[i] for k, v in tp_.items()}, tthr[i]) for i, f in enumerate(tfiles)] + \
+                                [(f, {k: v[i] for k, v in jp.items()}, jthr[i]) for i, f in enumerate(jfiles)]:
+        jcfg, jparams, jstate = jser.load(fpath)
+        cfg, params, state = serialize.load(fpath, device="cpu")
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         for k in params:
             np.testing.assert_array_equal(params[k].numpy().view(np.int32), np.asarray(jparams[k]).view(np.int32))
             np.testing.assert_array_equal(params[k].numpy().view(np.int32), params_i[k].view(np.int32))
+        assert float(state["threshold"]) == float(np.asarray(jstate["threshold"])) == float(thr)
+    return tm, jm, tthr
+
+
+def test_worker_fn_matches_jax_on_fixed_batches(tmp_path, monkeypatch):
+    tm, jm, _ = _worker_fn_matches_jax(tmp_path, monkeypatch, "TopK")
+    assert tm[0].n_dead == jm[0].n_dead and 0 < tm[0].l0 <= 4 + 1e-6
+
+
+def test_worker_fn_matches_jax_on_fixed_batches_batch_topk(tmp_path, monkeypatch):
+    """A BatchTopK sweep: the thresholds its 8 steps moved reach the SAE
+    files, and eval runs its JumpReLU at them.
+
+    b_enc is held elementwise, to atol 1e-5 as tests/test_torch_train_step.py
+    holds every parameter, not to rel-norm 1e-5: a few latents' encoder-bias
+    gradients are f32 roundoff (near 1e-12 in both packages, not the same
+    values), below Adam's eps 1e-8, so Adam moves each by about
+    lr * g / eps, and the packages' entries end about 1e-6 apart after 8
+    steps: a few 1e-5 of b_enc's norm, which 8 small steps leave small.
+    Every other parameter stays at rel-norm 1e-5."""
+    tm, jm, thr = _worker_fn_matches_jax(tmp_path, monkeypatch, "BatchTopK", b_enc_atol=1e-5)
+    assert (thr > 0).all() and all(0 < m.l0 < D_SAE for m in tm)
 
 
 SWEEP = """
