@@ -168,6 +168,27 @@ script exits non-zero:
                 in [32, 32 + 4/B] and its new threshold (1 - m) * old + m *
                 (least positive kept value, read from the step's f). Logs
                 ms/step, peak memory and the batch-global k-th value's time.
+14. extract  -- activation extraction at full width, in a temporary root
+                that it removes: 272 synthetic 5 s clips (int16 .wav, 32
+                kHz) in BirdCLEF 2025's layout, 16 of them under a non-Aves
+                label, and a random timm-layout Bird-MAE-Large checkpoint
+                (d_model 1024, 24 layers, 16 heads; `torch.save`), through
+                `framework.shards.cli` on "cuda" (batch 64, taps at layers
+                11 and 23 on norm2, 3 acts files). Requires ShardInfo to
+                validate, the 16 clips filtered out, the first batch's shard
+                rows bit for bit a second card forward and within BF16_REL
+                rel-norm of the CPU's float32 forward (2 clips), and the
+                shuffled loader's batch of layer 23 equal to the shard rows.
+                Logs clips/s, tokens/s, a batch split into loader wait (wav
+                read and filterbank), forward, the copy to the host and the
+                write, and peak memory. Then CLIP ViT-L/14 (a random
+                OpenCLIP checkpoint through `convert.from_openclip`) and
+                DINOv3 ViT-L/16 (random params; one batch also on two
+                grids) through `Recorder` on Gaussian patch tokens at batch
+                128, each within BF16_REL of its float32 forward on the
+                card: images/s and peak memory. Launches no saev kernel;
+                logs whether Pillow and pandas are importable (it needs
+                neither).
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, activations): every count is set to 0 just
@@ -2374,6 +2395,322 @@ def phase_activations(errs: dict) -> dict:
     return launches
 
 
+EXTRACT_CLIPS, EXTRACT_OTHER = 256, 16  # Aves clips kept, non-Aves clips filtered out
+EXTRACT_BATCH = 64  # clips a Bird-MAE forward
+EXTRACT_PER_SHARD = 100  # examples an acts*.bin holds: 3 files for 256 clips
+EXTRACT_LAYERS = (11, 23)
+IMAGE_BATCH = 128
+# The card's bf16 route against the float32 forward: relative norm of the
+# difference over a layer's taps (tests/test_torch_vit.py's BF16_REL, from
+# the route's CPU model, `python -m saev_tpu_torch.scripts.vit_route`).
+BF16_REL = 2e-2
+# BirdCLEF 2025's label forms: eBird codes and iNaturalist ids; one
+# non-Aves label for the filter to drop.
+BIRDCLEF_TAXONOMY = {"1139490": "Aves", "abethr1": "Aves", "amekes": "Aves", "barswa": "Aves", "22333": "Aves",
+                     "compau": "Aves", "grekis": "Aves", "yeofly1": "Aves", "41663": "Insecta"}
+
+
+def _write_birdclef(root: pathlib.Path, rng) -> None:
+    """A BirdCLEF-2025-layout root: taxonomy.csv, train.csv and
+    train_audio/<label>/XC<n>.wav (5 s, 32 kHz, int16, `vit_route.synth_clip`)."""
+    import scipy.io.wavfile
+
+    from saev_tpu_torch.scripts import vit_route
+
+    aves = [k for k, v in BIRDCLEF_TAXONOMY.items() if v == "Aves"]
+    other = [k for k, v in BIRDCLEF_TAXONOMY.items() if v != "Aves"]
+    rows = [aves[i % len(aves)] for i in range(EXTRACT_CLIPS)] + [other[i % len(other)] for i in range(EXTRACT_OTHER)]
+    rows = [rows[i] for i in rng.permutation(len(rows))]
+    root.mkdir(parents=True)
+    with open(root / "taxonomy.csv", "w") as fd:
+        fd.write("primary_label,inat_taxon_id,scientific_name,common_name,class_name\n")
+        for i, (label, cls) in enumerate(BIRDCLEF_TAXONOMY.items()):
+            fd.write(f"{label},{100 + i},Genus species{i},Name {i},{cls}\n")
+    with open(root / "train.csv", "w") as fd:
+        fd.write("primary_label,secondary_labels,type,filename,collection,rating\n")
+        for n, label in enumerate(rows):
+            (root / "train_audio" / label).mkdir(parents=True, exist_ok=True)
+            scipy.io.wavfile.write(root / "train_audio" / label / f"XC{n}.wav", 32_000, vit_route.synth_clip(rng))
+            fd.write(f"{label},[],['call'],{label}/XC{n}.wav,XC,4.0\n")
+
+
+@contextlib.contextmanager
+def _extract_spies(seen: dict):
+    """Times, while inside, each batch's wait on the extraction loader, the
+    ViT forward (synchronized), the Recorder call around it (the tokens'
+    upload, the forward, the taps' copy to the host, the token select) and
+    ShardWriter's write; keeps the first Recorder and its first batch."""
+    from saev_tpu_torch.data import extract, models, shards
+    from saev_tpu_torch.models import vit
+
+    real_iter, real_call = extract.ThreadedDataLoader.__iter__, models.Recorder.__call__
+    real_fwd, real_write = vit.forward, shards.ShardWriter.write_batch
+
+    def it(self):
+        seen["start"] = time.perf_counter()
+        gen = real_iter(self)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(gen)
+            except StopIteration:
+                return
+            seen["wait"].append(time.perf_counter() - t)
+            yield batch
+
+    def call(self, batch, **kw):
+        if "recorder" not in seen:
+            seen["recorder"], seen["first"] = self, np.array(batch)
+        t = time.perf_counter()
+        out = real_call(self, batch, **kw)
+        seen["record"].append(time.perf_counter() - t)
+        return out
+
+    def fwd(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_fwd(*a, **kw)
+        torch.cuda.synchronize()
+        seen["forward"].append(time.perf_counter() - t)
+        return out
+
+    depth = []
+
+    def write(self, *a, **kw):
+        # A batch that crosses a shard's end writes its tail by a call of its own.
+        depth.append(None)
+        t = time.perf_counter()
+        try:
+            out = real_write(self, *a, **kw)
+        finally:
+            depth.pop()
+        if not depth:
+            seen["end"] = time.perf_counter()
+            seen["write"].append(seen["end"] - t)
+        return out
+
+    extract.ThreadedDataLoader.__iter__, models.Recorder.__call__ = it, call
+    vit.forward, shards.ShardWriter.write_batch = fwd, write
+    try:
+        yield seen
+    finally:
+        extract.ThreadedDataLoader.__iter__, models.Recorder.__call__ = real_iter, real_call
+        vit.forward, shards.ShardWriter.write_batch = real_fwd, real_write
+
+
+def _layer_errs(got: torch.Tensor, want: torch.Tensor) -> list[float]:
+    """rel_norm of each layer's taps, (B, L, T, D) tensors."""
+    return [rel_norm(got[:, i], want[:, i]) for i in range(got.shape[1])]
+
+
+def _bird_mae_extract(root: pathlib.Path) -> dict:
+    """Bird-MAE-Large through `framework.shards.cli` at full width (module
+    doc, phase 14). Returns what it logs."""
+    from saev_tpu_torch.data import ShuffledConfig, ShuffledDataLoader, datasets, shards
+    from saev_tpu_torch.framework import shards as fshards
+    from saev_tpu_torch.models import bird_mae, vit
+    from saev_tpu_torch.scripts import vit_route
+
+    rng = np.random.default_rng(SEED + 16)
+    t0 = time.perf_counter()
+    _write_birdclef(root / "birdclef", rng)
+    spec = bird_mae.PRETRAINED_SPECS["Bird-MAE-Large"]
+    require((spec.d_model, spec.n_layers, spec.n_heads) == (1024, 24, 16), f"extract: Bird-MAE-Large is {spec}")
+    ckpt = root / "Bird-MAE-Large.pt"
+    torch.save(vit_route.bird_mae_state_dict(spec, torch.Generator().manual_seed(SEED + 17)), ckpt)
+    t_files = time.perf_counter() - t0
+    shards_root = root / "saev" / "shards"
+    shards_root.mkdir(parents=True)
+    tokens = bird_mae.N_PATCHES + 1
+    cfg = fshards.Config(
+        data=datasets.BirdClef2025(root=root / "birdclef"), family="bird-mae", ckpt=f"Bird-MAE-Large={ckpt}",
+        layers=EXTRACT_LAYERS, d_model=spec.d_model, content_tokens_per_example=bird_mae.N_PATCHES,
+        cls_token=True, shards_root=shards_root, max_tokens_per_shard=EXTRACT_PER_SHARD * tokens * len(EXTRACT_LAYERS),
+        batch_size=EXTRACT_BATCH, n_workers=8,
+    )
+    require(cfg.device == "cuda", f"extract: the entry point's device is {cfg.device}")
+    seen = {"wait": [], "record": [], "forward": [], "write": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _extract_spies(seen):
+        fshards.cli(cfg)
+    t_cli = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (shards_dir,) = [p for p in shards_root.iterdir() if p.is_dir()]
+    md, info = shards.Metadata.load(shards_dir), shards.ShardInfo.load(shards_dir)
+    info.validate(shards_dir)
+    n_files = len(list(shards_dir.glob("acts*.bin")))
+    require(md.n_examples == EXTRACT_CLIPS and sum(s.n_examples for s in info) == EXTRACT_CLIPS,
+            f"extract: {md.n_examples} examples in the shards, {EXTRACT_CLIPS} Aves clips written")
+    require(n_files >= 2 and len(info) == n_files, f"extract: {n_files} acts files, shards.json lists {len(info)}")
+    data_cfg = md.make_data_cfg()
+    require(data_cfg == cfg.data, f"extract: metadata decodes to {data_cfg}")
+    kept = {label for _, _, label in datasets.get_dataset(data_cfg).samples}
+    require("41663" not in kept and len(kept) == 8, f"extract: labels kept {sorted(kept)}")
+    require(len(seen["forward"]) == len(seen["write"]) == -(-EXTRACT_CLIPS // EXTRACT_BATCH),
+            f"extract: {len(seen['forward'])} forwards, {len(seen['write'])} writes")
+
+    def rows(e0: int, e1: int) -> np.ndarray:
+        return np.array(np.memmap(shards_dir / info[0].name, mode="r", dtype=np.float32, shape=md.shard_shape)[e0:e1])
+
+    # The shard rows of the first batch: bit for bit a second card forward of
+    # the same spectrograms, and within BF16_REL of the float32 forward on the
+    # CPU for the first clips.
+    recorder, first = seen["recorder"], seen["first"]
+    require(first.shape == (EXTRACT_BATCH, bird_mae.TARGET_T, bird_mae.N_MELS), f"extract: batch {first.shape}")
+    stored = rows(0, EXTRACT_BATCH)
+    _, again = recorder(first)
+    require(np.array_equal(again.view(np.int32), stored.view(np.int32)),
+            "extract: a second card forward of the first batch differs from its shard rows")
+    cpu_params = vit.to_device(recorder.model.params, "cpu")
+    toks = torch.from_numpy(np.stack([bird_mae.spectrogram_to_tokens(fb) for fb in first[:2]]))
+    t0 = time.perf_counter()
+    _, f32 = vit.forward(spec, cpu_params, toks, EXTRACT_LAYERS, grid=(bird_mae.N_TIME_PATCHES, bird_mae.N_MEL_PATCHES),
+                         precision="highest")
+    t_cpu = time.perf_counter() - t0
+    del cpu_params
+    errs = _layer_errs(torch.from_numpy(stored[:2]), f32)
+    require(max(errs) <= BF16_REL and bool(np.isfinite(stored).all()),
+            f"extract: shard rows against the CPU's float32 forward, rel-norm by layer {errs}")
+
+    # The port's shuffled loader reads a batch of layer 23 from the new directory.
+    loader = ShuffledDataLoader(ShuffledConfig(shards=shards_dir, layer=EXTRACT_LAYERS[1], batch_size=4096,
+                                               n_threads=2, buffer_size=4, batch_timeout_s=60.0, seed=SEED))
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.shutdown()
+    act, ex, tok = batch["act"], batch["example_idx"], batch["token_idx"]
+    eps = md.examples_per_shard
+    want = np.stack([np.memmap(shards_dir / info[e // eps].name, mode="r", dtype=np.float32,
+                               shape=md.shard_shape)[e % eps, 1, t + 1] for e, t in zip(ex[:256], tok[:256])])
+    require(act.shape == (4096, spec.d_model) and np.array_equal(act[:256].view(np.int32), want.view(np.int32)),
+            f"extract: the shuffled loader's batch {act.shape} is not the shards' rows")
+
+    loop = seen["end"] - seen["start"]
+    n = len(seen["forward"])
+    out = {
+        "clips_s": EXTRACT_CLIPS / loop, "tokens_s": EXTRACT_CLIPS * tokens / loop, "loop_s": loop,
+        "entry_point_s": t_cli, "files_s": t_files, "peak_gib": peak, "acts_files": n_files,
+        "shard_gb": sum((shards_dir / s.name).stat().st_size for s in info) / 1e9,
+        "wait_ms": [round(1e3 * v, 2) for v in seen["wait"]],
+        "forward_ms": [round(1e3 * v, 2) for v in seen["forward"]],
+        "copy_ms": [round(1e3 * (r - f), 2) for r, f in zip(seen["record"], seen["forward"])],
+        "write_ms": [round(1e3 * v, 2) for v in seen["write"]],
+        "cpu_f32_s": t_cpu, "errs": errs,
+    }
+    fwd_ms = statistics.median(out["forward_ms"][1:]) if n > 1 else out["forward_ms"][0]
+    flops = 2 * EXTRACT_BATCH * tokens * 12 * spec.d_model**2 * spec.n_layers
+    log(f"extract Bird-MAE-Large (d_model 1024, 24 layers, 16 heads, taps {EXTRACT_LAYERS} at norm2) through "
+        f"framework.shards.cli: {EXTRACT_CLIPS} of {EXTRACT_CLIPS + EXTRACT_OTHER} clips kept (Aves), "
+        f"{out['clips_s']:.1f} clips/s ({out['tokens_s']:.0f} tokens/s) over the {loop:.2f} s loop, "
+        f"{t_cli:.2f} s for the entry point (model build included), {t_files:.2f} s writing the clips and "
+        f"checkpoint; batch of {EXTRACT_BATCH}: loader wait ms {out['wait_ms']}, forward ms {out['forward_ms']} "
+        f"(median after the first {fwd_ms:.2f} ms, {flops / fwd_ms / 1e9:.0f} TFLOP/s on the block products), "
+        f"upload+copy to host+select ms {out['copy_ms']}, write ms {out['write_ms']}; {n_files} acts files, "
+        f"{out['shard_gb']:.3f} GB; peak {peak:.2f} GiB; second forward bit for bit; against the CPU's float32 "
+        f"forward of 2 clips ({t_cpu:.2f} s) rel-norm by layer {[f'{e:.3g}' for e in errs]}; shuffled loader "
+        f"batch of layer {EXTRACT_LAYERS[1]} {act.shape} equal to the shard rows")
+    return out
+
+
+def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) -> dict:
+    """One image family through `Recorder` at batch IMAGE_BATCH on Gaussian
+    pre-patchified tokens, against the same family at "highest" (float32
+    products, TF32 off) on the card, for each grid set; time and peak memory
+    on the first. Returns what it logs."""
+    from saev_tpu_torch.data import models
+    from saev_tpu_torch.models import vit
+
+    rec = models.Recorder(model, tokens.shape[1], True, EXTRACT_LAYERS)
+    rec32 = models.Recorder(model_f32, tokens.shape[1], True, EXTRACT_LAYERS)
+    out = {"errs": []}
+    for gi, grid in enumerate(grids):
+        kw = {} if grid is None else {"grid": grid}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, acts = rec(tokens, **kw)
+        _, acts2 = rec(tokens, **kw)
+        _, acts32 = rec32(tokens, **kw)
+        require(acts.shape == (IMAGE_BATCH, len(EXTRACT_LAYERS), tokens.shape[1] + 1, model.d_model)
+                and bool(np.isfinite(acts).all()), f"extract {what}: taps {acts.shape}")
+        require(np.array_equal(acts.view(np.int32), acts2.view(np.int32)), f"extract {what}: two forwards differ")
+        errs = _layer_errs(torch.from_numpy(acts), torch.from_numpy(acts32))
+        require(max(errs) <= BF16_REL, f"extract {what} grids {gi}: rel-norm by layer {errs} against float32")
+        out["errs"].append(errs)
+        if gi:
+            continue
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rec(tokens, **kw)
+        out["recorder_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        x = torch.from_numpy(tokens).to(vit.params_device(model.params))
+        rope = None
+        if grid is not None:
+            (gh, gw), = {tuple(g) for g in grid}
+            rope = tuple(torch.from_numpy(t).to(x.device) for t in vit.rope_sincos_from_periods(
+                model.periods, gh, gw, model.spec.rope_normalize_coords))
+        grid_arg = (1, tokens.shape[1]) if grid is not None else model.preset.grid
+        out["forward_ms"] = _time(lambda: vit.forward(model.spec, model.params, x, EXTRACT_LAYERS, grid=grid_arg,
+                                                      rope_sincos=rope), 3)
+        del x
+    log(f"extract {what} through Recorder, batch {IMAGE_BATCH} x {tokens.shape[1]} patches: "
+        f"{IMAGE_BATCH / out['recorder_ms'] * 1e3:.1f} images/s with the taps' copy to the host "
+        f"({out['recorder_ms']:.2f} ms a batch), forward alone {out['forward_ms']:.2f} ms "
+        f"({IMAGE_BATCH / out['forward_ms'] * 1e3:.1f} images/s), peak {out['peak_gib']:.2f} GiB; against "
+        f"float32 rel-norm by layer {[[f'{e:.3g}' for e in es] for es in out['errs']]}; two forwards bit for bit")
+    return out
+
+
+def phase_extract() -> dict:
+    """Extraction at full width (module doc, phase 14): launches no saev
+    kernel. Returns what it logs."""
+    import importlib.util
+
+    from saev_tpu_torch.models import dinov3, families, vit
+    from saev_tpu_torch.scripts import vit_route
+
+    reset_counts()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_extract_"))
+    try:
+        out = {"bird_mae": _bird_mae_extract(root)}
+        torch.cuda.empty_cache()
+        # CLIP ViT-L/14 from a random OpenCLIP checkpoint: its 257-entry
+        # position table fits the 16 x 16 grid, so no interpolation.
+        preset = families.CLIP_PRESETS["ViT-L-14"]
+        ckpt = root / "ViT-L-14.pt"
+        torch.save(vit_route.openclip_state_dict(preset.spec, torch.Generator().manual_seed(SEED + 18), 257), ckpt)
+        clip = families.Clip(f"ViT-L-14={ckpt}")
+        clip32 = families.Clip(f"ViT-L-14={ckpt}", params=clip.params, precision="highest")
+        rng = np.random.default_rng(SEED + 19)
+        toks = rng.normal(size=(IMAGE_BATCH, 256, 3 * 14 * 14)).astype(np.float32)
+        out["clip"] = _image_family("CLIP ViT-L-14", clip, clip32, toks, [None])
+        del clip, clip32
+        torch.cuda.empty_cache()
+        # DINOv3 ViT-L/16 with random params: RoPE, 4 storage tokens,
+        # LayerScale, the masked K bias; one batch on two grids.
+        spec = dinov3.PRETRAINED_SPECS["dinov3_vitl16"]
+        params = vit_route.random_params(spec, torch.Generator(device="cuda").manual_seed(SEED + 20))
+        dv3 = dinov3.Vit("dinov3_vitl16", params=params)
+        dv332 = dinov3.Vit("dinov3_vitl16", params=params, precision="highest")
+        toks = rng.normal(size=(IMAGE_BATCH, 256, 3 * 16 * 16)).astype(np.float32)
+        uniform = np.tile(np.array([[16, 16]]), (IMAGE_BATCH, 1))
+        mixed = np.array([[16, 16], [8, 32]] * (IMAGE_BATCH // 2))
+        out["dinov3"] = _image_family("DINOv3 ViT-L/16", dv3, dv332, toks, [uniform, mixed])
+        del dv3, dv332, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    got = counts()
+    require(not any(got.values()), f"extract: saev kernels launched {got}")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "pandas")}
+    log(f"extract environment: Pillow importable {have['PIL']}, pandas importable {have['pandas']}; the phase "
+        f"needs neither")
+    return out
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2408,6 +2745,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     act_counts = phase_activations(errs)
+    torch.cuda.empty_cache()
+    phase_extract()
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + act_counts[k] for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}

@@ -1,13 +1,14 @@
-"""Activation shards on disk, the shuffled loader that feeds the train loop
-and the ordered loader that feeds inference (counterparts of saev_tpu/data's
-`shards`, `buffers`, `shuffled`, `ordered` and `_native`, without its image
-datasets and model families)."""
+"""Activation shards on disk, the shuffled loader that feeds the train loop,
+the ordered loader that feeds inference, and extraction's datasets, model
+family registry and worker (counterparts of saev_tpu/data's `shards`,
+`buffers`, `shuffled`, `ordered`, `_native`, `datasets`, `transforms`,
+`models`, `fake_vit` and `extract`)."""
 
 import dataclasses
 
 from .ordered import Config as OrderedConfig
 from .ordered import DataLoader as OrderedDataLoader
-from .shards import Metadata
+from .shards import Metadata, PixelAgg
 from .shuffled import Config as ShuffledConfig
 from .shuffled import DataLoader as ShuffledDataLoader
 
@@ -15,10 +16,23 @@ __all__ = [
     "Metadata",
     "OrderedConfig",
     "OrderedDataLoader",
+    "PixelAgg",
     "ShuffledConfig",
     "ShuffledDataLoader",
     "make_ordered_config",
 ]
+
+
+def _register_families():
+    """Register every transformer family at import (saev_tpu/data/__init__.py:26-46,
+    reference data/__init__.py:26-33): fake-clip, then clip, siglip, dinov2,
+    pe-core and pe-spatial (`models.families`), dinov3 and bird-mae. None of
+    them needs Pillow or pandas to import."""
+    from ..models import bird_mae, dinov3, families  # noqa: F401
+    from . import fake_vit  # noqa: F401
+
+
+_register_families()
 
 
 def make_ordered_config(shuffled_cfg: ShuffledConfig, **overrides: object) -> OrderedConfig:

@@ -1,6 +1,7 @@
 """Shard protocol: reading and writing sharded ViT activations on disk (a copy
 of saev_tpu/data/shards.py's protocol: `Metadata`, `Shard`, `ShardInfo`,
-`LabelsWriter`, `ShardWriter`).
+`LabelsWriter`, `ShardWriter`, `pixel_to_patch_labels`, and the dataset
+config's encoding in `Metadata.data`).
 
 Pure numpy, byte-compatible with the JAX package's and the reference's protocol
 (reference `src/saev/data/shards.py`, docs/src/developers/protocol.md):
@@ -12,20 +13,26 @@ Pure numpy, byte-compatible with the JAX package's and the reference's protocol
 - `<hash>` is the first 8 hex chars of SHA-256 of the compact JSON of the
   metadata (reference shards.py:127-135), the same bytes as the JAX package's.
 - Token axis order: special (CLS) token at index 0 when present, then content tokens.
-
-`Metadata.data` stays an opaque base64 string here: decoding it into a dataset
-config needs the image datasets (and Pillow), which the port does not carry.
+- `Metadata.data` is the base64 pickle of the dataset config. The port writes
+  the JAX package's bytes: its configs pickle under the module name
+  `saev_tpu.data.datasets` (`encode_dataset_cfg`), so one extraction gets one
+  directory name from either package and either package's restricted
+  unpickler reads the other's metadata.
 """
 
+import base64
 import dataclasses
 import enum
 import hashlib
+import io
 import json
 import logging
 import math
 import os
 import pathlib
+import pickle
 import stat
+import typing as tp
 
 import numpy as np
 
@@ -163,6 +170,14 @@ class Metadata:
             self.tokens_per_example,
             self.d_model,
         )
+
+    def make_data_cfg(self):
+        """The dataset config that `data` encodes (a `datasets.DatasetConfig`)."""
+        from . import datasets
+
+        cfg = decode_dataset_cfg(self.data)
+        assert isinstance(cfg, datasets.DatasetConfig)
+        return cfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,3 +467,146 @@ class ShardWriter:
         )
         self.filled = 0
         self.logger.info("Opened shard '%s'.", self.acts_path)
+
+
+def pixel_to_patch_labels(
+    seg: np.ndarray,
+    n_patches: int,
+    patch_size: int,
+    pixel_agg: PixelAgg = PixelAgg.MAJORITY,
+    bg_label: int = 0,
+    max_classes: int = 256,
+) -> np.ndarray:
+    """Convert a pixel-level segmentation mask to patch-level labels (vectorized numpy).
+
+    Mirrors reference shards.py:894-961 (torch bincount approach), as
+    saev_tpu/data/shards.py:462 does.
+
+    Args:
+        seg: (H, W) uint8 segmentation mask (numpy array or PIL Image convertible).
+        n_patches: Total number of patches expected.
+        patch_size: Patch side length in pixels.
+        pixel_agg: MAJORITY (most common label) or PREFER_FG (most common non-bg label).
+        bg_label: Background label index.
+        max_classes: Maximum number of classes (bincount width).
+
+    Returns:
+        (n_patches,) uint8 patch labels.
+    """
+    seg = np.asarray(seg, dtype=np.uint8)
+    assert seg.ndim == 2
+
+    h, w = seg.shape
+    patch_grid_h = h // patch_size
+    patch_grid_w = w // patch_size
+    assert patch_grid_w * patch_grid_h == n_patches, (
+        f"Image size {w}x{h} with patch_size {patch_size} gives "
+        f"{patch_grid_w}x{patch_grid_h} = {patch_grid_w * patch_grid_h} patches, "
+        f"expected {n_patches}"
+    )
+
+    # (h p1) (w p2) -> (h w) (p1 p2)
+    patches = (
+        seg.reshape(patch_grid_h, patch_size, patch_grid_w, patch_size)
+        .transpose(0, 2, 1, 3)
+        .reshape(n_patches, patch_size * patch_size)
+    )
+
+    offsets = np.arange(n_patches, dtype=np.int64)[:, None] * max_classes
+    flat = (patches.astype(np.int64) + offsets).reshape(-1)
+    counts = np.bincount(flat, minlength=n_patches * max_classes).reshape(
+        n_patches, max_classes
+    )
+
+    if pixel_agg is PixelAgg.MAJORITY:
+        patch_labels = counts.argmax(axis=1)
+    elif pixel_agg is PixelAgg.PREFER_FG:
+        nonbg = counts.copy()
+        nonbg[:, bg_label] = 0
+        has_nonbg = nonbg.sum(axis=1) > 0
+        patch_labels = np.where(has_nonbg, nonbg.argmax(axis=1), bg_label)
+    else:
+        tp.assert_never(pixel_agg)
+
+    return patch_labels.astype(np.uint8)
+
+
+# The module name the dataset configs pickle under: the JAX package's, so the
+# bytes (and so the shard directory's hash) do not depend on which package
+# wrote them.
+CONFIG_MODULE = "saev_tpu.data.datasets"
+
+
+class _ConfigPickler(pickle._Pickler):
+    """pickle's own Python pickler, except that the port's dataset-config
+    classes are written as `CONFIG_MODULE.<name>`. pickle names a class by
+    importing its module to check the name, and importing
+    `saev_tpu.data.datasets` would load the JAX package, so those globals are
+    written here instead. Everything else (the dataclass's state, its pathlib
+    fields, framing and memo) takes pickle's path, with the C pickler's bytes."""
+
+    def save_global(self, obj, name=None):
+        from . import datasets
+
+        if isinstance(obj, type) and obj.__module__ == datasets.__name__:
+            assert self.proto >= 4, self.proto
+            self.save(CONFIG_MODULE)
+            self.save(obj.__qualname__)
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def encode_dataset_cfg(data) -> str:
+    """Base64-pickle a dataset config for storage in Metadata.data
+    (saev_tpu/data/shards.py:659), byte for byte the JAX package's."""
+    buf = io.BytesIO()
+    _ConfigPickler(buf, pickle.DEFAULT_PROTOCOL).dump(data)
+    return base64.b64encode(buf.getvalue()).decode("utf8")
+
+
+class _SafeConfigUnpickler(pickle.Unpickler):
+    """Restricted unpickler for the protocol's base64-pickled dataset configs
+    (saev_tpu/data/shards.py:664-698).
+
+    A plain pickle.loads on a shard dir from an untrusted source is arbitrary
+    code execution. This unpickler only resolves dataset-config dataclasses,
+    the PixelAgg enum, and pathlib path types; everything else raises. Configs
+    written by the JAX package (`saev_tpu.data.datasets`), by this package
+    (`saev_tpu_torch.data.datasets`) and by the reference
+    (`saev.data.datasets`) map onto this package's dataclasses of the same
+    name.
+    """
+
+    _PATH_NAMES = frozenset(
+        {"Path", "PosixPath", "PurePosixPath", "WindowsPath", "PureWindowsPath"}
+    )
+    _CONFIG_MODULES = frozenset(
+        {CONFIG_MODULE, "saev_tpu_torch.data.datasets", "saev.data.datasets", "saev.config"}
+    )
+    _ENUM_MODULES = frozenset(
+        {"saev_tpu.data.shards", "saev_tpu_torch.data.shards", "saev.data.shards"}
+    )
+
+    def find_class(self, module, name):
+        if module in self._CONFIG_MODULES:
+            from . import datasets
+
+            obj = getattr(datasets, name, None)
+            if obj is not None and isinstance(obj, type) and dataclasses.is_dataclass(obj):
+                return obj
+        if module in self._ENUM_MODULES and name == "PixelAgg":
+            return PixelAgg
+        if module == "pathlib" and name in self._PATH_NAMES:
+            return getattr(pathlib, name)
+        raise pickle.UnpicklingError(
+            f"Blocked unpickling of {module}.{name}: dataset-config metadata "
+            "may only contain dataset dataclasses, PixelAgg, and paths."
+        )
+
+
+def decode_dataset_cfg(b64: str):
+    """Decode a base64-pickled dataset config with the restricted unpickler
+    (saev_tpu/data/shards.py:701)."""
+    return _SafeConfigUnpickler(io.BytesIO(base64.b64decode(b64.encode("utf8")))).load()

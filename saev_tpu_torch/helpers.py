@@ -1,6 +1,7 @@
-"""Shared utilities: progress logging, JSON dumps, dotted-dict access, batching
-math and hashing (the part of saev_tpu/helpers.py that the
-train job uses, copied so the port imports nothing of the JAX package).
+"""Shared utilities: the cache directory, filesystem-safe names, progress
+logging, JSON dumps, dotted-dict access, batching math and hashing (the part
+of saev_tpu/helpers.py that the train job and extraction use, copied so the
+port imports nothing of the JAX package).
 
 Functional parity with the reference's `src/saev/helpers.py` (see file:line citations on
 each function), implemented without orjson/beartype dependencies.
@@ -11,6 +12,7 @@ import enum
 import json
 import logging
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -21,6 +23,8 @@ from collections.abc import Hashable, Iterable
 import numpy as np
 
 __all__ = [
+    "get_cache_dir",
+    "fssafe",
     "progress",
     "get",
     "batched_idx",
@@ -29,6 +33,28 @@ __all__ = [
     "jdump",
     "jdumps",
 ]
+
+
+def get_cache_dir() -> str:
+    """Get cache directory from env vars, defaulting to the current working directory.
+
+    Mirrors reference helpers.py:27-37 ($SAEV_CACHE / $HF_HOME / $HF_HUB_CACHE), as
+    saev_tpu/helpers.py:44 does, so both packages look for weights in one place.
+    """
+    cache_dir = ""
+    for var in ("SAEV_CACHE", "HF_HOME", "HF_HUB_CACHE"):
+        cache_dir = cache_dir or os.environ.get(var, "")
+    return cache_dir or "."
+
+
+def fssafe(s: str) -> str:
+    """Convert a string to be filesystem-safe by replacing special characters.
+
+    Mirrors reference helpers.py:41-71 (saev_tpu/helpers.py:55).
+    """
+    for old in '/\\:*?"<>| ':
+        s = s.replace(old, "_")
+    return "".join(c if c.isalnum() or c in "-_." else "_" for c in s)
 
 
 class progress:

@@ -1,5 +1,6 @@
-"""saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax and PIL
-blocked: the machine with the card has no JAX (and maybe no Pillow)."""
+"""saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL and
+pandas blocked: the machine with the card has no JAX (and maybe no Pillow or
+pandas)."""
 
 import pathlib
 import subprocess
@@ -10,7 +11,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "orbax", "PIL")
+BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -43,13 +44,23 @@ JOB_MODULES = {
     "saev_tpu_torch.metrics", "saev_tpu_torch.data.ordered", "saev_tpu_torch.framework.inference",
 }
 
+# Extraction's modules, each imported with the blocked packages above.
+EXTRACT_MODULES = {
+    "saev_tpu_torch.models", "saev_tpu_torch.models.vit", "saev_tpu_torch.models.convert",
+    "saev_tpu_torch.models.families", "saev_tpu_torch.models.dinov3", "saev_tpu_torch.models.bird_mae",
+    "saev_tpu_torch.data.models", "saev_tpu_torch.data.transforms", "saev_tpu_torch.data.fake_vit",
+    "saev_tpu_torch.data.datasets", "saev_tpu_torch.data.extract", "saev_tpu_torch.utils.vorbis",
+    "saev_tpu_torch.framework.shards",
+}
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    # The five subpackages and their modules: 41 since the training job, 44
-    # since inference.
-    assert int(proc.stdout.split()[-1]) >= 44
+    # The subpackages and their modules: 41 since the training job, 44 since
+    # inference, 57 since extraction.
+    assert int(proc.stdout.split()[-1]) >= 57
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
+    assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
