@@ -168,7 +168,27 @@ script exits non-zero:
                 in [32, 32 + 4/B] and its new threshold (1 - m) * old + m *
                 (least positive kept value, read from the step's f). Logs
                 ms/step, peak memory and the batch-global k-th value's time.
-14. extract  -- activation extraction at full width, in a temporary root
+14. muon     -- Muon (`optim="muon"`) at the steady phase's shape, n_sae 2,
+                "default", the tight rung with 5% of the latents pinned dead:
+                first 3 steps of a small 2-SAE sweep (d_model 128, d_sae
+                2048; warm-up and AuxK subspace with 1/16 dead) against the
+                CPU's f32 step within 1e-2, l0 and n_dead equal, K1-K4 (and
+                K5 with AuxK) once a step and SAE; then 1 + 5 steps at full
+                width (K1-K5 once a step and SAE; CUDA events): ms/step,
+                Newton-Schulz ms a call and peak memory; then the first
+                step's Newton-Schulz inputs (both leaves of both SAEs)
+                iterated in f32 on the card against f64 on the card
+                (NS_REL), the CPU's f32 iteration beside it.
+15. high     -- matmul_precision "high" (bf16x3 on the card), Adam, the
+                muon phase's shapes: the small sweep against the CPU's f32
+                step within HIGH_STEP_REL (mse, loss, grad_norm), l0 and
+                n_dead equal, K6 (and K5 with AuxK) once a step and SAE and
+                K1-K4 never; the encoder's product at full width within
+                HIGH_REL of f64 and HIGH_GAIN times closer than "default",
+                timed beside the bf16 and f32 products; then 1 + 5 steps at
+                full width (K6 and K5 once a step and SAE, K1-K4 never):
+                ms/step and peak memory.
+16. extract  -- activation extraction at full width, in a temporary root
                 that it removes: 272 synthetic 5 s clips (int16 .wav, 32
                 kHz) in BirdCLEF 2025's layout, 16 of them under a non-Aves
                 label, and a random timm-layout Bird-MAE-Large checkpoint
@@ -191,8 +211,8 @@ script exits non-zero:
                 neither).
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
-metrics, benches, job, inference, activations): every count is set to 0 just
-before the path and read just after.
+metrics, benches, job, inference, activations, muon, high): every count is
+set to 0 just before the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -2396,6 +2416,234 @@ def phase_activations(errs: dict) -> dict:
 
 
 EXTRACT_CLIPS, EXTRACT_OTHER = 256, 16  # Aves clips kept, non-Aves clips filtered out
+# Muon and "high" at full width (module doc, phases 14 and 15): the steady
+# phase's shape, n_sae 2, the tight rung with 5% of the latents pinned dead.
+N_SAE_FULL = 2
+HIGH_REL = 3e-5  # bf16x3 against the f64 product: about 2^-16 of each operand
+HIGH_GAIN = 50  # bf16x3 at least this much closer to f64 than "default"
+HIGH_STEP_REL = 1e-4  # the card's "high" step against the CPU's f32 step
+NS_REL = 1e-4  # f32 Newton-Schulz against f64 on the card
+
+
+def rel_norm64(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def _small_reference(what: str, optim: str, precision: str, tol: float, keys: tuple, kernels: dict) -> None:
+    """3 steps of a 2-SAE sweep at the reference phase's small shape
+    (d_model 128, d_sae 2048, batch 256, TopK 8, Matryoshka 4) on the card
+    against the CPU's plain f32 step from one state, `optim` at `precision`:
+    the warm-up step, and the AuxK step in its subspace form (cap 128, k_aux
+    64) with 1/16 of the latents pinned dead. `keys` within rel `tol`, l0
+    and n_dead equal, no plain version run on the card, and the kernels of
+    `kernels[variant]` launched once a step and SAE, the others never."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    rng = np.random.default_rng(SEED + 31)
+    x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
+    pf = torch.from_numpy(np.stack([objectives.sample_prefixes(2048, 4, rng=rng) for _ in range(2)]))
+    obj = objectives.Matryoshka(n_prefixes=4)
+    cfg = modeling.SparseAutoencoderConfig(
+        d_model=128, d_sae=2048, activation=modeling.TopK(top_k=8, aux=modeling.AuxK(k_aux=64)))
+    for variant, dead, kw in (("warm-up", 0, dict(aux_enabled=False)),
+                              ("AuxK subspace cap 128", 2048 // 16, dict(aux_subspace_cap=128))):
+        ts_cpu = train.init_sweep_state(cfg, 2, torch.Generator().manual_seed(SEED), device="cpu", optim=optim)
+        _pin_dead(ts_cpu, dead)
+        ts_gpu = _to(ts_cpu, "cuda")
+        step = train.make_train_step(cfg, obj, n_steps=100, optim=optim, matmul_precision=precision, **kw)
+        before = counts()
+        worst = dict.fromkeys(keys, 0.0)
+        for i in range(3):
+            ts_cpu, s_cpu = step(ts_cpu, x, pf, _hp(2, "cpu"))
+            with plain_spy() as plain:
+                ts_gpu, s_gpu = step(ts_gpu, x.cuda(), pf.cuda(), _hp(2, "cuda"))
+                torch.cuda.synchronize()
+            require(not plain, f"{what} reference {variant} step {i}: the card's step ran plain versions {plain}")
+            for key in keys:
+                a, b = s_gpu[key].cpu(), s_cpu[key]
+                rel = float(((a - b).abs() / b.abs()).max())
+                require(rel <= tol, f"{what} reference {variant} step {i}: {key} rel err {rel:.3g} > {tol}")
+                worst[key] = max(worst[key], rel)
+            for key in ("l0", "n_dead"):
+                require(torch.equal(s_gpu[key].cpu(), s_cpu[key]), f"{what} reference {variant} step {i}: {key} "
+                        f"{s_gpu[key].tolist()}, CPU {s_cpu[key].tolist()}")
+            require(s_cpu["n_dead"].tolist() == [dead] * 2, f"{what} reference {variant}: n_dead {s_cpu['n_dead']}")
+        rose = {k: counts()[k] - before[k] for k in KERNELS}
+        want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(kernels[variant], 6)
+        require(rose == want, f"{what} reference {variant}: launches {rose}, expected {want}")
+        for key, v in ts_gpu.params.items():
+            require(bool(torch.isfinite(v).all()), f"{what} reference {variant}: param {key} not finite")
+        log(f"{what} reference {variant}: 3 steps of a 2-SAE sweep (d_model 128, d_sae 2048, batch 256, {dead} "
+            f"dead) agree with the CPU's f32 step within {tol}; worst rel errs "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f"; last mse {s_gpu['mse'].tolist()}")
+
+
+def _full_width_steps(what: str, step, ts, want: dict, n: int = 5) -> dict:
+    """One step, then `n` timed ones of the full-width sweep at 5% dead,
+    each launching `want` and keeping L0 and n_dead: the median ms/step
+    (CUDA events) and the peak memory of the timed steps; then two more
+    steps under the profiler (`kprof.device_profile`): device ms a step and
+    the kernels that take the most of it."""
+    from saev_tpu_torch.nn import objectives
+    from saev_tpu_torch.scripts import kprof
+
+    rng = np.random.default_rng(SEED + 32)
+    x = torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda")
+    prefixes = torch.from_numpy(np.stack([objectives.sample_prefixes(D_SAE, N_PREFIXES, rng=rng)
+                                          for _ in range(N_SAE_FULL)])).to("cuda")
+    hp = _steady_hp(N_SAE_FULL)
+    times = []
+    for i in range(n + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ts, stats = step(ts, x, prefixes, hp)
+        t1.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(t0.elapsed_time(t1))
+        rose = {k: v - before[k] for k, v in counts().items()}
+        require(rose == want, f"{what} step {i}: launches {rose}, expected {want}")
+        for key, v in stats.items():
+            require(bool(torch.isfinite(v.float()).all()), f"{what} step {i}: stat {key} not finite: {v}")
+        require(stats["n_dead"].tolist() == [N_DEAD_5] * N_SAE_FULL, f"{what} step {i}: n_dead {stats['n_dead']}")
+        require(all(TOP_K <= v <= TOP_K + 4 / B for v in stats["l0"].tolist()), f"{what}: L0 {stats['l0'].tolist()}")
+        require(bool((stats["aux"] > 0).all()), f"{what} step {i}: aux {stats['aux'].tolist()}")
+    for key, v in ts.params.items():
+        require(bool(torch.isfinite(v).all()), f"{what}: param {key} not finite")
+    out = {"ms": statistics.median(times), "step_ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "ts": ts, "mse": stats["mse"].tolist()}
+    rows = kprof.device_profile(step, (ts, x, prefixes, hp), n=2, warmup=0)
+    require(bool(rows), f"{what}: the profiler recorded no device time")
+    out["device_ms"] = kprof.total_device_ms(rows)
+    log(f"{what} profile: {out['device_ms']:.2f} device ms/step, {len(rows)} kernel names; longest: "
+        + "; ".join(f"{name[:70]} {ms:.2f} ms x{calls}" for name, ms, calls in rows[:12]))
+    return out
+
+
+def phase_muon() -> tuple[dict, dict]:
+    """Muon at full width (module doc, phase 14). Returns the launch counts
+    of its timed path and what it logs."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    warm = WARM_KERNELS
+    _small_reference("muon", "muon", "default", 1e-2, ("mse", "l1", "loss", "grad_norm"),
+                     {"warm-up": warm, "AuxK subspace cap 128": warm + ("kth_value_masked",)})
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+    obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
+    step = train.make_train_step(cfg, obj, n_steps=6000, optim="muon", aux_subspace_cap=TIGHT)
+    ts = train.init_sweep_state(cfg, N_SAE_FULL, _gen(), "cuda", optim="muon")
+    _pin_dead(ts, N_DEAD_5)
+    real_ns, inputs, calls = train._newton_schulz, [], []
+
+    def spy(g, *args, **kwargs):
+        if len(inputs) < 2:
+            inputs.append(g.detach().clone())
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real_ns(g, *args, **kwargs)
+        t1.record()
+        calls.append((t0, t1))
+        return out
+
+    want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS + ("kth_value_masked",), N_SAE_FULL)
+    train._newton_schulz = spy
+    reset_counts()
+    try:
+        out = _full_width_steps("muon", step, ts, want)
+    finally:
+        train._newton_schulz = real_ns
+    launches = counts()
+    # Two calls a step: 6 steps, then at least 2 under the profiler.
+    require(len(calls) >= 16 and len(calls) % 2 == 0, f"muon: {len(calls)} Newton-Schulz calls, expected 16 or more")
+    ns_ms = [t0.elapsed_time(t1) for t0, t1 in calls[2:12]]
+    require(int(out["ts"].opt_state["count"]) == 6 and float(out["ts"].opt_state["mu"]["W_enc"].abs().max()) > 0,
+            "muon: the optimizer state did not advance")
+    del out["ts"]
+    torch.cuda.empty_cache()
+
+    # The first step's Newton-Schulz inputs (the Nesterov blends of W_enc's
+    # and W_dec's clipped gradients, both SAEs): f32 on the card against f64
+    # on the card, and the CPU's f32 iteration of the same inputs beside it.
+    errs = []
+    for g in inputs:
+        f32, f64 = real_ns(g), real_ns(g.double())
+        cpu = real_ns(g.cpu())
+        errs.append({"shape": list(g.shape), "card_f32": rel_norm64(f32, f64), "cpu_f32": rel_norm64(cpu, f64.cpu()),
+                     "card_vs_cpu": rel_norm64(f32.cpu(), cpu)})
+        del f32, f64, cpu
+    torch.cuda.empty_cache()
+    for e in errs:
+        require(e["card_f32"] <= NS_REL, f"muon: f32 Newton-Schulz {e['shape']} rel-norm {e['card_f32']:.3g} from "
+                f"f64 > {NS_REL} (the CPU's f32 iteration: {e['cpu_f32']:.3g})")
+    out |= {"ns_ms": statistics.median(ns_ms), "ns_all_ms": ns_ms, "ns_errs": errs}
+    log(f"muon n_sae={N_SAE_FULL} (batch {B}, d_model {D_MODEL}, d_sae {D_SAE}, TopK {TOP_K}, AuxK {K_AUX} tight "
+        f"rung, Matryoshka {N_PREFIXES}, {N_DEAD_5} dead, \"default\"): median {out['ms']:.2f} ms/step "
+        f"({B / (out['ms'] / 1e3):.1f} patches/s) over 5 steps {[round(t, 2) for t in out['step_ms']]}; "
+        f"Newton-Schulz median {out['ns_ms']:.2f} ms a call (one leaf of both SAEs, "
+        f"{[round(t, 2) for t in ns_ms]}); peak {out['peak_gib']:.2f} GiB; last mse {out['mse']}; f32 Newton-Schulz "
+        f"against f64 on the card: " + "; ".join(
+            f"{e['shape']} card {e['card_f32']:.3g}, CPU f32 {e['cpu_f32']:.3g}, card vs CPU {e['card_vs_cpu']:.3g}"
+            for e in errs))
+    return launches, out
+
+
+def phase_high() -> tuple[dict, dict]:
+    """matmul_precision "high" at full width (module doc, phase 15). Returns
+    the launch counts of its timed path and what it logs."""
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    _small_reference("high", "adam", "high", HIGH_STEP_REL, ("mse", "loss", "grad_norm"),
+                     {"warm-up": ("kth_value",), "AuxK subspace cap 128": ("kth_value", "kth_value_masked")})
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
+
+    # The encoder's operands at full width: bf16x3 and "default" against the
+    # f64 product on the card.
+    rng = np.random.default_rng(SEED + 33)
+    x = torch.from_numpy(rng.normal(size=(B, D_MODEL)).astype(np.float32)).to("cuda")
+    w = modeling.init(cfg, _gen(), "cuda")[0]["W_enc"]
+    require(modeling._mode("high", x) == modeling.BF16X3, f"high: {modeling._mode('high', x)} on the card")
+    h3 = modeling.matmul(x, w, "high")
+    require(torch.equal(h3, modeling._mm_bf16x3(x, w)), "high: matmul is not the bf16x3 product")
+    exact = x.double() @ w.double()
+    r3, r1 = rel_norm64(h3, exact), rel_norm64(modeling.matmul(x, w, "default"), exact)
+    del exact, h3
+    torch.cuda.empty_cache()
+    require(r3 <= HIGH_REL, f"high: bf16x3 encoder product rel-norm {r3:.3g} from f64 > {HIGH_REL}")
+    require(r1 >= HIGH_GAIN * r3, f"high: \"default\" {r1:.3g} is not {HIGH_GAIN}x further from f64 than bf16x3 {r3:.3g}")
+    with modeling._f32_products():
+        f32_ms = _time(lambda: x @ w, 3)
+    prod_ms = {"bf16x3": _time(lambda: modeling._mm_bf16x3(x, w), 3), "bf16": _time(lambda: modeling._mm_bf16(x, w), 3),
+               "f32": f32_ms}
+    del x, w
+    torch.cuda.empty_cache()
+
+    obj = objectives.Matryoshka(n_prefixes=N_PREFIXES)
+    step = train.make_train_step(cfg, obj, n_steps=6000, matmul_precision="high", aux_subspace_cap=TIGHT)
+    ts = train.init_sweep_state(cfg, N_SAE_FULL, _gen(), "cuda")
+    _pin_dead(ts, N_DEAD_5)
+    want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(("kth_value", "kth_value_masked"), N_SAE_FULL)
+    reset_counts()
+    out = _full_width_steps("high", step, ts, want)
+    launches = counts()
+    del out["ts"]
+    torch.cuda.empty_cache()
+    out |= {"product_rel": r3, "default_rel": r1, "product_ms": prod_ms}
+    log(f"high n_sae={N_SAE_FULL} (the muon phase's shape, Adam): median {out['ms']:.2f} ms/step "
+        f"({B / (out['ms'] / 1e3):.1f} patches/s) over 5 steps {[round(t, 2) for t in out['step_ms']]}; peak "
+        f"{out['peak_gib']:.2f} GiB; last mse {out['mse']}; the encoder product ({B} x {D_MODEL} x {D_SAE}) "
+        f"against f64: bf16x3 {r3:.3g}, \"default\" {r1:.3g} ({r1 / r3:.0f}x); ms bf16x3 {prod_ms['bf16x3']:.3f}, "
+        f"bf16 {prod_ms['bf16']:.3f}, f32 (TF32 off) {prod_ms['f32']:.3f}")
+    return launches, out
+
+
 EXTRACT_BATCH = 64  # clips a Bird-MAE forward
 EXTRACT_PER_SHARD = 100  # examples an acts*.bin holds: 3 files for 256 clips
 EXTRACT_LAYERS = (11, 23)
@@ -2505,7 +2753,7 @@ def _layer_errs(got: torch.Tensor, want: torch.Tensor) -> list[float]:
 
 def _bird_mae_extract(root: pathlib.Path) -> dict:
     """Bird-MAE-Large through `framework.shards.cli` at full width (module
-    doc, phase 14). Returns what it logs."""
+    doc, phase 16). Returns what it logs."""
     from saev_tpu_torch.data import ShuffledConfig, ShuffledDataLoader, datasets, shards
     from saev_tpu_torch.framework import shards as fshards
     from saev_tpu_torch.models import bird_mae, vit
@@ -2665,7 +2913,7 @@ def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) 
 
 
 def phase_extract() -> dict:
-    """Extraction at full width (module doc, phase 14): launches no saev
+    """Extraction at full width (module doc, phase 16): launches no saev
     kernel. Returns what it logs."""
     import importlib.util
 
@@ -2746,9 +2994,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     act_counts = phase_activations(errs)
     torch.cuda.empty_cache()
+    muon_counts, _ = phase_muon()
+    torch.cuda.empty_cache()
+    high_counts, _ = phase_high()
+    torch.cuda.empty_cache()
     phase_extract()
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
-                + infer_counts[k] + act_counts[k] for k in KERNELS}
+                + infer_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k] for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
                                ("wide steps", wide_counts, WARM_KERNELS + ("kth_value_masked",)),
@@ -2757,9 +3009,12 @@ def main() -> int:
                                ("job", job_counts, JOB_KERNELS),
                                ("inference", infer_counts, INFER_KERNELS),
                                ("activations", act_counts, WARM_KERNELS[1:] + ("kth_value_masked",)),
+                               ("muon", muon_counts, WARM_KERNELS + ("kth_value_masked",)),
+                               ("high", high_counts, ("kth_value", "kth_value_masked")),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")
+    require(not any(high_counts[k] for k in WARM_KERNELS), f"high: K1-K4 launched {high_counts}")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k], **times[k], "lib_ms": times[k]["library_ms"]}

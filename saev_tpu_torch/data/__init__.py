@@ -1,11 +1,13 @@
 """Activation shards on disk, the shuffled loader that feeds the train loop,
-the ordered loader that feeds inference, and extraction's datasets, model
-family registry and worker (counterparts of saev_tpu/data's `shards`,
-`buffers`, `shuffled`, `ordered`, `_native`, `datasets`, `transforms`,
-`models`, `fake_vit` and `extract`)."""
+the ordered loader that feeds inference, random access to shard rows, and
+extraction's datasets, model family registry and worker (counterparts of
+saev_tpu/data's `shards`, `buffers`, `shuffled`, `ordered`, `indexed`,
+`_native`, `datasets`, `transforms`, `models`, `fake_vit` and `extract`)."""
 
 import dataclasses
 
+from .indexed import Config as IndexedConfig
+from .indexed import Dataset as IndexedDataset
 from .ordered import Config as OrderedConfig
 from .ordered import DataLoader as OrderedDataLoader
 from .shards import Metadata, PixelAgg
@@ -13,6 +15,8 @@ from .shuffled import Config as ShuffledConfig
 from .shuffled import DataLoader as ShuffledDataLoader
 
 __all__ = [
+    "IndexedConfig",
+    "IndexedDataset",
     "Metadata",
     "OrderedConfig",
     "OrderedDataLoader",

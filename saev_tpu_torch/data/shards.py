@@ -1,7 +1,7 @@
 """Shard protocol: reading and writing sharded ViT activations on disk (a copy
 of saev_tpu/data/shards.py's protocol: `Metadata`, `Shard`, `ShardInfo`,
-`LabelsWriter`, `ShardWriter`, `pixel_to_patch_labels`, and the dataset
-config's encoding in `Metadata.data`).
+`LabelsWriter`, `ShardWriter`, `pixel_to_patch_labels`, the global index map
+`Index`/`IndexMap`, and the dataset config's encoding in `Metadata.data`).
 
 Pure numpy, byte-compatible with the JAX package's and the reference's protocol
 (reference `src/saev/data/shards.py`, docs/src/developers/protocol.md):
@@ -535,6 +535,142 @@ def pixel_to_patch_labels(
 # bytes (and so the shard directory's hash) do not depend on which package
 # wrote them.
 CONFIG_MODULE = "saev_tpu.data.datasets"
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class Index:
+    """Coordinates of one activation vector inside the shard layout.
+
+    Attributes:
+        idx: The global index of the activation.
+        example_idx: The index of the original example.
+        content_token_idx: The token's index within the example's content; -1 for
+            special tokens.
+        shard_idx: The shard index.
+        example_idx_in_shard: Example index along the examples axis of the shard.
+        layer_idx_in_shard: Layer index along the layers axis of the shard.
+        token_idx_in_shard: Token index along the tokens axis of the shard.
+    """
+
+    idx: int
+    example_idx: int
+    content_token_idx: int
+    shard_idx: int
+    example_idx_in_shard: int
+    layer_idx_in_shard: int
+    token_idx_in_shard: int
+
+
+class IndexMap:
+    """Global-index → shard-coordinate math for a (tokens, layer) view of a shard set.
+
+    Mirrors reference shards.py:987-1104 (saev_tpu/data/shards.py `IndexMap`).
+
+    Attributes:
+        md: Metadata.
+        tokens: Which subset of tokens ('special', 'content', 'all').
+        layer: Which layer (int or 'all').
+        layer_idx_lookup: transformer layer → layer idx in the shard.
+    """
+
+    def __init__(
+        self,
+        md: Metadata,
+        tokens: str,
+        layer: int | str,
+    ):
+        assert tokens in ("special", "content", "all")
+        if tokens == "special":
+            assert md.cls_token
+
+        self.md = md
+        self.tokens = tokens
+        self.layer = layer
+
+        if isinstance(layer, int):
+            err_msg = f"No match for layer; {layer} not in {md.layers}."
+            assert layer in md.layers, err_msg
+
+        self.layer_idx_lookup = {layer: i for i, layer in enumerate(md.layers)}
+
+    def from_global(self, idx: int | np.integer) -> Index:
+        idx = int(idx)
+        if idx < 0 or idx >= len(self):
+            raise IndexError(
+                f"Index {idx} out of range for dataset of length {len(self)}"
+            )
+
+        match (self.tokens, self.layer):
+            case ("special", int()):
+                return Index(
+                    idx=idx,
+                    example_idx=idx,
+                    content_token_idx=-1,
+                    shard_idx=idx // self.md.examples_per_shard,
+                    example_idx_in_shard=idx % self.md.examples_per_shard,
+                    layer_idx_in_shard=self.layer_idx_lookup[self.layer],
+                    token_idx_in_shard=0,
+                )
+            case ("content", int()):
+                ctpe = self.md.content_tokens_per_example
+                per_shard = self.md.examples_per_shard * ctpe
+                return Index(
+                    idx=idx,
+                    example_idx=idx // ctpe,
+                    content_token_idx=idx % ctpe,
+                    shard_idx=idx // per_shard,
+                    example_idx_in_shard=idx % per_shard // ctpe,
+                    layer_idx_in_shard=self.layer_idx_lookup[self.layer],
+                    token_idx_in_shard=idx % per_shard % ctpe + self.md.cls_token,
+                )
+            case ("all", int()):
+                tpe = self.md.tokens_per_example
+                per_shard = self.md.examples_per_shard * tpe
+                token_idx_in_shard = idx % per_shard % tpe
+                content_token_idx = (
+                    token_idx_in_shard - 1 if self.md.cls_token else token_idx_in_shard
+                )
+                if self.md.cls_token and token_idx_in_shard == 0:
+                    content_token_idx = -1
+                return Index(
+                    idx=idx,
+                    example_idx=idx // tpe,
+                    content_token_idx=content_token_idx,
+                    shard_idx=idx // per_shard,
+                    example_idx_in_shard=idx % per_shard // tpe,
+                    layer_idx_in_shard=self.layer_idx_lookup[self.layer],
+                    token_idx_in_shard=token_idx_in_shard,
+                )
+            case _:
+                raise NotImplementedError(
+                    f"from_global not supported for tokens={self.tokens!r}, "
+                    f"layer={self.layer!r}."
+                )
+
+    def __len__(self) -> int:
+        match (self.tokens, self.layer):
+            case ("special", "all"):
+                return self.md.n_examples * len(self.md.layers)
+            case ("special", int()):
+                return self.md.n_examples
+            case ("content", int()):
+                return self.md.n_examples * self.md.content_tokens_per_example
+            case ("content", "all"):
+                return (
+                    self.md.n_examples
+                    * len(self.md.layers)
+                    * self.md.content_tokens_per_example
+                )
+            case ("all", int()):
+                return self.md.n_examples * self.md.tokens_per_example
+            case ("all", "all"):
+                return (
+                    self.md.n_examples
+                    * len(self.md.layers)
+                    * self.md.tokens_per_example
+                )
+            case _:
+                raise ValueError(f"Invalid (tokens, layer): {self.tokens}, {self.layer}")
 
 
 class _ConfigPickler(pickle._Pickler):

@@ -1,8 +1,10 @@
 """Mid-training checkpoint/resume for the SAE train loop (counterpart of
 saev_tpu/framework/checkpoints.py).
 
-Each save writes the whole `SweepState` of one cohort (params, Adam moments,
-BatchTopK thresholds, dead-latent counters, step) with `torch.save`, where the
+Each save writes the whole `SweepState` of one cohort (params, the
+optimizer's nested state: Adam's moments, or Muon's momentum with the Adam
+state of its 1-D leaves; BatchTopK thresholds, dead-latent counters, step)
+with `torch.save`, where the
 JAX package uses orbax, keyed by a stable hash of the training group's
 config so that a re-submitted job resumes where it stopped. The directory
 layout and the pruning rules are the JAX package's:

@@ -6,16 +6,18 @@ leading n_sae axis, with the JAX package's layout and key names (`SweepState`),
 so a JAX sweep state carries over with `sweep_state_from_numpy`. The step
 loops over the sweep's SAEs in Python: each SAE's forward and backward runs
 on its own and only its gradients are kept, then the decoder-norm constraints,
-the per-SAE gradient clip, the warmup-cosine learning rate and Adam are
-applied to the stacked state.
+the per-SAE gradient clip, the warmup-cosine learning rate and the optimizer
+are applied to the stacked state.
 
 The step, for Relu, TopK and BatchTopK SAEs (whose moved EMA threshold it
-returns in the new state), with Adam at `matmul_precision="default"` (bf16 operands with f32
-accumulation on the card, f32 on the CPU: nn/modeling.py) or "highest" (f32,
-through the decode path), in its three forms (warm-up without AuxK, AuxK
-dense, AuxK in a dead subspace); the router that picks one for each step of
-the loop (`StepRouter`, `make_step_router`); the log-step metrics
-(`make_metrics_fn`). Muon and "high" raise NotImplementedError.
+returns in the new state), with Adam or Muon (`_muon_update`: Newton-Schulz
+on the stacked 2-D leaves in f32 with TF32 off, Adam on the 1-D ones) at
+`matmul_precision="default"` (bf16 operands with f32 accumulation on the
+card, f32 on the CPU: nn/modeling.py), "high" (bf16x3 on the card, f32 on
+the CPU) or "highest" (f32), the last two through the decode path, in its
+three forms (warm-up without AuxK, AuxK dense, AuxK in a dead subspace);
+the router that picks one for each step of the loop (`StepRouter`,
+`make_step_router`); the log-step metrics (`make_metrics_fn`).
 
 The job (`main` -> `worker_fn` -> `train`, `evaluate`): the shuffled loader
 reads content-addressed shards from disk, `make_saes` datapoint-initializes
@@ -92,17 +94,17 @@ def sweep_state_from_numpy(ts, device) -> SweepState:
 
 def init_sweep_state(
     sae_cfg: modeling.SparseAutoencoderConfig, n_sae: int,
-    generator: torch.Generator | None = None, device="cuda",
+    generator: torch.Generator | None = None, device="cuda", optim: str = "adam",
 ) -> SweepState:
     """A fresh stacked sweep: `modeling.init` for each SAE, zero counters,
-    zero Adam moments, step 0."""
+    the zero state of `optim` ("adam" or "muon"), step 0."""
     inits = [modeling.init(sae_cfg, generator, device) for _ in range(n_sae)]
     params = _stack([p for p, _ in inits])
     return SweepState(
         params=params,
         sae_state=_stack([s for _, s in inits]),
         obj_state=_stack([objectives.init_state(sae_cfg, device) for _ in range(n_sae)]),
-        opt_state=_adam_init(params),
+        opt_state=_opt_init(optim, params),
         step=torch.zeros((), dtype=torch.int32, device=device),
     )
 
@@ -137,6 +139,63 @@ def _adam_update(grads, opt_state, lr_per_sae, *, b1=0.9, b2=0.999, eps=1e-8):
 
     updates = {k: upd(m[k], v[k]) for k in grads}
     return updates, {"m": m, "v": v, "count": count}
+
+
+def _newton_schulz(g: torch.Tensor, steps: int = 5, eps: float = 1e-7) -> torch.Tensor:
+    """Orthogonalize the last two axes by the quintic Newton-Schulz
+    iteration (saev_tpu/framework/train.py:358-370; torch.optim.Muon's
+    _zeropower_via_newtonschulz), on stacked (n_sae, a, b) tensors, each
+    SAE's matrix scaled by its own Frobenius norm. The iteration runs in
+    float32 with TF32 off, as the JAX package keeps it (torch.optim.Muon
+    runs it in bf16): batched products, one per term and iteration."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    transpose = g.shape[-2] > g.shape[-1]
+    x = g.mT if transpose else g
+    x = x / torch.clamp(torch.linalg.norm(x, dim=(-2, -1), keepdim=True), min=eps)
+    with modeling._f32_products():
+        for _ in range(steps):
+            gram = x @ x.mT
+            x = a * x + (b * gram + c * gram @ gram) @ x
+    return x.mT if transpose else x
+
+
+def _muon_init(params) -> dict[str, tp.Any]:
+    device = next(iter(params.values())).device
+    return {
+        "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+        "adam": _adam_init(params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _opt_init(optim: str, params) -> dict[str, tp.Any]:
+    if optim == "adam":
+        return _adam_init(params)
+    if optim == "muon":
+        return _muon_init(params)
+    raise ValueError(f"Unknown optimizer: {optim}")
+
+
+def _muon_update(params, grads, opt_state, lr_per_sae, *, beta=0.95, weight_decay=0.1):
+    """torch.optim.Muon's update on the stacked 2-D leaves (3-D here), Adam
+    on the rest (saev_tpu/framework/train.py:380-409): EMA momentum (mu =
+    beta mu + (1 - beta) g), the Nesterov blend (1 - beta) g + beta mu,
+    Newton-Schulz, lr scaled by sqrt(max(1, rows / cols)), and decoupled
+    weight decay on `params` at the unscaled lr. The Adam state advances for
+    every leaf, as the JAX package's does."""
+    mu = {k: beta * opt_state["mu"][k] + (1.0 - beta) * g for k, g in grads.items()}
+    adam_updates, adam_state = _adam_update(grads, opt_state["adam"], lr_per_sae)
+    updates = {}
+    for k, g in grads.items():
+        if mu[k].ndim < 3:
+            updates[k] = adam_updates[k]
+            continue
+        ortho = _newton_schulz((1.0 - beta) * g + beta * mu[k])
+        # An f32 square root, as jnp.sqrt takes the ratio.
+        scale = float(np.sqrt(np.float32(max(1.0, mu[k].shape[-2] / mu[k].shape[-1]))))
+        lr = lr_per_sae.reshape((-1,) + (1,) * (mu[k].ndim - 1))
+        updates[k] = -lr * weight_decay * params[k] - lr * scale * ortho
+    return updates, {"mu": mu, "adam": adam_state, "count": opt_state["count"] + 1}
 
 
 def _per_sae_global_norm(grads) -> torch.Tensor:
@@ -176,13 +235,9 @@ def make_train_step(
     `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
     n_dead <= cap at the step; `StepRouter` picks the variant that is.
     """
-    if optim == "muon":
-        raise NotImplementedError("Muon not ported yet")
-    if optim != "adam":
+    if optim not in ("adam", "muon"):
         raise ValueError(f"Unknown optimizer: {optim}")
-    if matmul_precision == "high":
-        raise NotImplementedError('matmul_precision "high" (bf16x3) is not ported yet')
-    if matmul_precision not in ("default", "highest"):
+    if matmul_precision not in modeling.PRECISIONS:
         raise ValueError(f"Unknown matmul precision: {matmul_precision}")
 
     # Static gate: None computes AuxK, False leaves it out (warm-up).
@@ -229,7 +284,10 @@ def make_train_step(
         lr = scheduling.warmup_cosine(
             ts.step, 0.0, hp["n_lr_warmup"], hp["lr"], float(n_steps), 0.0
         )
-        updates, opt_state = _adam_update(grads, ts.opt_state, lr)
+        if optim == "adam":
+            updates, opt_state = _adam_update(grads, ts.opt_state, lr)
+        else:
+            updates, opt_state = _muon_update(params, grads, ts.opt_state, lr)
         new_params = {k: params[k] + updates[k] for k in params}
         obj_state = _stack(obj_states)
 
@@ -447,7 +505,7 @@ class Config:
     n_sparsity_warmup: int = 0
     """Number of sparsity coefficient warmup steps."""
     optim: tp.Literal["adam", "muon"] = "adam"
-    """Optimizer for training (Muon is not ported yet and raises)."""
+    """Optimizer for training."""
     lr: float = 0.0004
     """Learning rate."""
     n_lr_warmup: int = 500
@@ -464,7 +522,7 @@ class Config:
     matmul_precision: tp.Literal["highest", "high", "default"] = "default"
     """Train-step matmul precision: default = bf16 operands with f32
     accumulation on the card (f32 on the CPU), highest = f32 with TF32 off,
-    high = bf16x3 (not ported yet: raises). Eval always runs at highest."""
+    high = bf16x3 on the card (f32 on the CPU). Eval always runs at highest."""
     ckpt_every: int = 0
     """Save the full train state (params + optimizer + counters) every N steps
     under runs_root/.train_state (0 disables)."""
@@ -756,7 +814,7 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             params=params,
             sae_state=sae_state,
             obj_state=obj_state,
-            opt_state=_adam_init(params),
+            opt_state=_opt_init(c0.optim, params),
             step=torch.zeros((), dtype=torch.int32, device=device),
         )
         runtimes.append(

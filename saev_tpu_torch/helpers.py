@@ -1,7 +1,8 @@
 """Shared utilities: the cache directory, filesystem-safe names, progress
-logging, JSON dumps, dotted-dict access, batching math and hashing (the part
-of saev_tpu/helpers.py that the train job and extraction use, copied so the
-port imports nothing of the JAX package).
+logging, JSON dumps, dotted-dict access and flattening, batching math,
+hashing, and top-k over numpy arrays and scipy sparse matrices (saev_tpu/
+helpers.py but its Slurm helpers, copied so the port imports nothing of the
+JAX package).
 
 Functional parity with the reference's `src/saev/helpers.py` (see file:line citations on
 each function), implemented without orjson/beartype dependencies.
@@ -26,13 +27,21 @@ __all__ = [
     "get_cache_dir",
     "fssafe",
     "progress",
+    "flattened",
     "get",
     "batched_idx",
     "current_git_commit",
     "make_hashable",
     "jdump",
     "jdumps",
+    "np_topk",
+    "csr_topk",
+    "NumpyTopK",
 ]
+
+
+class RemovedFeatureError(RuntimeError):
+    """Feature existed before but is no longer supported."""
 
 
 def get_cache_dir() -> str:
@@ -106,6 +115,21 @@ class progress:
                     )
                 else:
                     self.logger.info("%d/? | %.1f it/m", i + 1, per_min)
+
+
+def flattened(dct: dict[str, object], *, sep: str = ".") -> dict[str, object]:
+    """Flatten a nested dict into a single-level dict with dotted keys.
+
+    Mirrors reference helpers.py:137-153.
+    """
+    new = {}
+    for key, value in dct.items():
+        if isinstance(value, dict):
+            for nested_key, nested_value in flattened(value, sep=sep).items():
+                new[f"{key}{sep}{nested_key}"] = nested_value
+        else:
+            new[key] = value
+    return new
 
 
 def get(dct: dict[str, object], key: str, *, sep: str = ".") -> object:
@@ -250,3 +274,97 @@ def jdump(
     fd.write(jdumps(obj, indent=indent, sort_keys=sort_keys))
     if append_newline:
         fd.write(b"\n")
+
+
+class NumpyTopK(tp.NamedTuple):
+    values: np.ndarray
+    indices: np.ndarray
+
+
+def np_topk(arr: np.ndarray, k: int, axis: int | None = None) -> NumpyTopK:
+    """Numpy top-k along an axis (flattened if axis is None), descending, stable.
+
+    Mirrors reference helpers.py:502-534.
+    """
+    if axis is None:
+        arr = arr.flatten()
+        axis = 0
+    if axis < 0:
+        axis = arr.ndim + axis
+
+    sort_indices = np.argsort(-arr, axis=axis, kind="stable")
+    topk_indices = np.take(sort_indices, np.arange(k), axis=axis)
+    topk_values = np.take_along_axis(arr, topk_indices, axis=axis)
+    return NumpyTopK(values=topk_values, indices=topk_indices)
+
+
+def _csr_topk_axis0(arr, k: int, batch_size: int) -> NumpyTopK:
+    """Axis=0 top-k over a CSR matrix: top-k values across rows for each column.
+
+    Streaming min-tracking over row batches so the dense intermediate stays
+    (batch_size, n_cols). Mirrors reference helpers.py:537-...
+    """
+    n_rows, n_cols = arr.shape
+
+    topk_values = np.full((k, n_cols), -np.inf, dtype=np.float64)
+    topk_indices = np.zeros((k, n_cols), dtype=np.int64)
+
+    for start, end in batched_idx(n_rows, batch_size):
+        block = np.asarray(arr[start:end].todense())
+        block_rows = np.arange(start, end)
+
+        # Merge current top-k with this block, then re-select top-k per column.
+        cand_values = np.concatenate([topk_values, block], axis=0)
+        cand_indices = np.concatenate(
+            [topk_indices, np.broadcast_to(block_rows[:, None], block.shape)], axis=0
+        )
+        order = np.argsort(-cand_values, axis=0, kind="stable")[:k]
+        topk_values = np.take_along_axis(cand_values, order, axis=0)
+        topk_indices = np.take_along_axis(cand_indices, order, axis=0)
+
+    # Columns with fewer than k finite entries keep -inf values; callers may mask.
+    return NumpyTopK(values=topk_values.astype(arr.dtype), indices=topk_indices)
+
+
+def _csr_topk_axis1(arr, k: int, batch_size: int) -> NumpyTopK:
+    """Axis=1 top-k over a CSR matrix: top-k values within each row."""
+    n_rows, n_cols = arr.shape
+    out_values = np.zeros((n_rows, k), dtype=arr.dtype)
+    out_indices = np.zeros((n_rows, k), dtype=np.int64)
+
+    for start, end in batched_idx(n_rows, batch_size):
+        block = np.asarray(arr[start:end].todense())
+        res = np_topk(block, k, axis=1)
+        out_values[start:end] = res.values
+        out_indices[start:end] = res.indices
+
+    return NumpyTopK(values=out_values, indices=out_indices)
+
+
+def csr_topk(arr, k: int, axis: int, batch_size: int = 4096) -> NumpyTopK:
+    """Streaming top-k over a scipy CSR sparse matrix along either axis.
+
+    Used for top-activating-example retrieval over `token_acts.npz` artifacts.
+    Mirrors reference helpers.py:537-710 (axis-0 vectorized min-tracking).
+
+    Args:
+        arr: scipy.sparse csr_array/csr_matrix of shape (n_rows, n_cols).
+        k: Number of top elements.
+        axis: 0 (top rows per column) or 1 (top columns per row).
+        batch_size: Rows per processing batch.
+
+    Returns:
+        NumpyTopK(values, indices): shape (k, n_cols) for axis=0, (n_rows, k) for axis=1.
+    """
+    import scipy.sparse
+
+    assert scipy.sparse.issparse(arr), "csr_topk requires a scipy sparse matrix"
+    arr = arr.tocsr()
+    if axis == 0:
+        assert k <= arr.shape[0], f"k={k} > n_rows={arr.shape[0]}"
+        return _csr_topk_axis0(arr, k, batch_size)
+    elif axis == 1:
+        assert k <= arr.shape[1], f"k={k} > n_cols={arr.shape[1]}"
+        return _csr_topk_axis1(arr, k, batch_size)
+    else:
+        raise ValueError(f"axis must be 0 or 1, got {axis}")

@@ -9,17 +9,22 @@ a plain dict with the JAX package's keys and layouts:
 "b_dec": (d_model,)}`.
 
 Matmul precision, as the JAX package names it (saev_tpu/nn/modeling.py:38-50):
-the products here take a `precision`, "highest" or "default" (`matmul`).
-"highest", the default of `encode`, `decode`, `forward`, eval and the log-step
-metrics, is a full float32 product: TF32 is off inside the call, whatever
-the caller's torch.set_float32_matmul_precision says, and the caller's
-setting is restored after (`_f32_products`); the backward's products too.
-"default", the train step's, means bf16 operands with float32
+the products here take a `precision`, "highest", "high" or "default"
+(`matmul`). "highest", the default of `encode`, `decode`, `forward`, eval
+and the log-step metrics, is a full float32 product: TF32 is off inside the
+call, whatever the caller's torch.set_float32_matmul_precision says, and the
+caller's setting is restored after (`_f32_products`); the backward's
+products too. "default", the train step's, means bf16 operands with float32
 accumulation and result on the card, as on the TPU: each operand rounded to
 bf16 to nearest even, `torch.mm(..., out_dtype=torch.float32)`, the bias
 added in float32 after the product; the backward's products take bf16
-operands too. On a CPU tensor "default" is a float32 product, as JAX-CPU's
-DEFAULT is. "high" (bf16x3 in the JAX package) is not ported and raises.
+operands too. "high" is the TPU's bf16x3 on the card: each operand split
+into hi = bf16(a) and lo = bf16(a - hi), and hi_a @ lo_b + lo_a @ hi_b +
+hi_a @ hi_b summed in float32, the two small terms first, each a bf16
+product with an f32 result (`_mm_bf16x3`), for about 16 bits of each
+operand; the backward's products too. It is not TF32, whose operands keep
+10 bits. On a CPU tensor "default" and "high" are float32 products, as
+JAX-CPU's DEFAULT and HIGH are.
 """
 
 import contextlib
@@ -209,11 +214,25 @@ def has_bf16_mm_f32() -> bool:
 
 
 def _bf16_operands(t: torch.Tensor) -> bool:
-    """Whether "default" takes bf16 operands for a product on t's device: on
-    the card, as on the TPU; JAX-CPU's DEFAULT is f32, and so is this
-    package's on the CPU. Tests monkeypatch this to run the card's algebra on
-    the CPU, where `_mm_bf16` then takes its plain version."""
+    """Whether "default" and "high" take bf16 operands for a product on t's
+    device: on the card, as on the TPU; JAX-CPU's DEFAULT and HIGH are f32,
+    and so are this package's on the CPU. Tests monkeypatch this to run the
+    card's algebra on the CPU, where `_mm_bf16` and `_mm_bf16x3` then take
+    their plain versions."""
     return t.is_cuda
+
+
+# A product's form: an f32 product with TF32 off, bf16 operands ("default"
+# on the card), or bf16x3 ("high" on the card).
+F32, BF16, BF16X3 = "f32", "bf16", "bf16x3"
+
+
+def _mode(precision: str, t: torch.Tensor) -> str:
+    """The form of a product at `precision` on t's device."""
+    _check_precision(precision)
+    if precision == "highest" or not _bf16_operands(t):
+        return F32
+    return BF16 if precision == "default" else BF16X3
 
 
 def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -227,12 +246,33 @@ def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a16.float() @ b16.float()
     if not has_bf16_mm_f32():
         raise RuntimeError(
-            f'matmul_precision "default" takes bf16 operands with an f32 result, and torch '
+            f'matmul_precision "default" and "high" take bf16 operands with an f32 result, and torch '
             f"{torch.__version__} has no torch.mm(..., out_dtype=torch.float32)"
         )
     if a16.ndim == 2:
         return torch.mm(a16, b16, out_dtype=torch.float32)
     return torch.bmm(a16, b16, out_dtype=torch.float32)
+
+
+def _split_bf16(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a = hi + lo + r: hi = bf16(a), lo = bf16(a - hi), both to nearest
+    even; a - hi is exact in f32, so |r| <= 2^-8 |a - hi| <= 2^-16 |a|."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.float()).to(torch.bfloat16)
+
+
+def _mm_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """"high" on the card, the TPU's bf16x3: (hi_a @ lo_b + lo_a @ hi_b) +
+    hi_a @ hi_b, each term a bf16 product with f32 accumulation and result
+    (`_mm_bf16`: one cuBLAS product on a CUDA tensor, its plain version on a
+    CPU tensor), the two small terms summed first. lo_a @ lo_b is left out,
+    as bf16x3 leaves it out: about 2^-16 of the product."""
+    a_hi, a_lo = _split_bf16(a)
+    b_hi, b_lo = _split_bf16(b)
+    out = _mm_bf16(a_hi, b_lo)
+    out += _mm_bf16(a_lo, b_hi)
+    out += _mm_bf16(a_hi, b_hi)
+    return out
 
 
 @contextlib.contextmanager
@@ -251,76 +291,73 @@ def _f32_products():
         torch.set_float32_matmul_precision(prev)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
-    if bf16:
+def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == BF16:
         return _mm_bf16(a, b)
+    if mode == BF16X3:
+        return _mm_bf16x3(a, b)
     with _f32_products():
         return a @ b
 
 
 class _Matmul(torch.autograd.Function):
-    """a @ b at a precision: "default" with bf16 operands (`bf16`) takes them
-    with an f32 result, and so do the backward's two products, as the
-    transpose of the JAX package's dot at DEFAULT does (the bf16 operands are
-    saved, not the f32 ones); otherwise an f32 product with TF32 off, forward
-    and backward. 2-D operands, or 3-D ones batched over the leading axis."""
+    """a @ b in a product's form (`_mode`): with bf16 operands the operands
+    are rounded once and the rounded ones saved, so the backward's two
+    products take them, as the transpose of the JAX package's dot at
+    DEFAULT does; at bf16x3 the f32 operands are saved and the backward's
+    products are bf16x3 too, as HIGH's transpose is; an f32 product runs
+    with TF32 off, forward and backward. 2-D operands, or 3-D ones batched
+    over the leading axis."""
 
     @staticmethod
-    def forward(ctx, a, b, bf16):
-        if bf16:
+    def forward(ctx, a, b, mode):
+        if mode == BF16:
             a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        ctx.bf16 = bf16
+        ctx.mode = mode
         ctx.save_for_backward(a, b)
-        return _mm(a, b, bf16)
+        return _mm(a, b, mode)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        da = _mm(g, b.mT, ctx.bf16) if ctx.needs_input_grad[0] else None
-        db = _mm(a.mT, g, ctx.bf16) if ctx.needs_input_grad[1] else None
+        da = _mm(g, b.mT, ctx.mode) if ctx.needs_input_grad[0] else None
+        db = _mm(a.mT, g, ctx.mode) if ctx.needs_input_grad[1] else None
         return da, db, None
 
 
 def _check_precision(precision: str) -> None:
-    if precision == "high":
-        raise NotImplementedError('matmul_precision "high" (bf16x3) is not ported yet')
     if precision not in PRECISIONS:
         raise ValueError(f"Unknown matmul precision: {precision!r}; expected one of {PRECISIONS}")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
-    """a @ b for f32 operands at `precision` ("highest" or "default", as
-    the module docstring defines them): 2-D, or 3-D batched over the leading
-    axis."""
-    _check_precision(precision)
-    return _Matmul.apply(a, b, precision == "default" and _bf16_operands(a))
+    """a @ b for f32 operands at `precision` ("highest", "high" or
+    "default", as the module docstring defines them): 2-D, or 3-D batched
+    over the leading axis."""
+    return _Matmul.apply(a, b, _mode(precision, a))
 
 
 class _LinearBias(torch.autograd.Function):
     """x @ w + b whose backward computes dW and db in one product:
-    d[W; b] = [x; 1]^T @ dh (saev_tpu/nn/modeling.py:288-318), at the
-    forward's precision, so db takes the same rounding as dW; dx only when it
+    d[W; b] = [x; 1]^T @ dh (saev_tpu/nn/modeling.py:288-318), in the
+    forward's form, so db takes the same rounding as dW; dx only when it
     is asked for."""
 
     @staticmethod
     def forward(ctx, x, w, b, precision):
-        _check_precision(precision)
-        ctx.bf16 = precision == "default" and _bf16_operands(x)
-        if ctx.bf16:
+        ctx.mode = _mode(precision, x)
+        if ctx.mode == BF16:
             # The rounded operands are what the backward reads: save them.
             x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
-            ctx.save_for_backward(x, w if ctx.needs_input_grad[0] else None)
-            return _mm_bf16(x, w) + b
-        ctx.save_for_backward(x, w)
-        with _f32_products():
-            return x @ w + b
+        ctx.save_for_backward(x, w if ctx.needs_input_grad[0] else None)
+        return _mm(x, w, ctx.mode) + b
 
     @staticmethod
     def backward(ctx, dh):
         x, w = ctx.saved_tensors
 
         def mm(a, b):
-            return _mm(a, b, ctx.bf16)
+            return _mm(a, b, ctx.mode)
         dx = dw = db = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             # [x; 1], padded with zero columns to a multiple of 8 so that a

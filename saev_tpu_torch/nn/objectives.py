@@ -9,9 +9,10 @@ Ported: the fused training path (`use_fused`), with the TopK statistics pass
 on CUDA (`use_stats`), and AuxK in its dense and dead-subspace forms, whose
 dead-latent threshold is kernel K5 on CUDA. Their products take the JAX
 package's `precision` (modeling.matmul: "default" is bf16 operands with f32
-results on the card, f32 on the CPU; None is modeling.MATMUL_PRECISION,
-"highest"). The autodiff-through-decode path, which eval, one prefix, a
-d_sae that is not a multiple of 1024 and "highest" training take, runs the
+results on the card, f32 on the CPU; "high" is bf16x3 on the card, f32 on
+the CPU; None is modeling.MATMUL_PRECISION, "highest"). The
+autodiff-through-decode path, which eval, one prefix, a d_sae that is not a
+multiple of 1024 and "high" and "highest" training take, runs the
 multi-prefix `modeling.decode` with `scale_stabilized_mse`.
 """
 
@@ -37,6 +38,9 @@ class Matryoshka:
     """Number of random length prefixes to use for loss calculation."""
     dead_threshold_tokens: int = 10_000_000
     """Tokens without activation before a latent is considered dead."""
+
+
+ObjectiveConfig = Matryoshka
 
 
 class MatryoshkaLoss(tp.NamedTuple):
@@ -243,7 +247,8 @@ def matryoshka_loss(
       K1), and `Output.f_x` is that pass's bf16 latents: the f32 ones are
       not built (XLA drops them in the JAX package, which the train step
       never reads either).
-    - decode: everything else (eval, one prefix, any other d_sae, "highest"):
+    - decode: everything else (eval, one prefix, any other d_sae, "high",
+      "highest"):
       `encode`, the multi-prefix `decode` and `scale_stabilized_mse` over
       every prefix, autodiff through all of it, every product at
       `precision` (None: modeling.MATMUL_PRECISION, "highest").

@@ -1,15 +1,16 @@
 """Random checkpoints and inputs for the extraction engine, and the error of
 the card's bf16 route against the float32 forward.
 
-    python -m saev_tpu_torch.scripts.vit_route [--d-model 128] [--n-layers 24] [--clips 2]
+    python -m saev_tpu_torch.scripts.vit_route [--d-model 128] [--n-layers 24] [--clips 2] [--device cuda]
 
-With no card it runs the route's CPU model (`modeling._bf16_operands`
+On the card (`--device cuda`, the default; without a card it raises) it
+runs the card's bf16 route on Bird-MAE's spec at the given width and depth,
+from the random timm-layout checkpoint and the synthetic clips that
+chip_smoke.py writes at full width, and prints, for each tapped layer, the
+relative norm of the difference from the float32 forward (one JSON line).
+`--device cpu` runs the route's CPU model instead (`modeling._bf16_operands`
 patched to True: bf16-rounded operands with float32 products, attention's
-plain version on bf16 q, k, v and probabilities) on Bird-MAE's spec at the
-given width and depth, from the random timm-layout checkpoint and the
-synthetic clips that chip_smoke.py writes at full width, and prints, for each
-tapped layer, the relative norm of the difference from the float32 forward
-(one JSON line). On a card it runs the card's own route instead.
+plain version on bf16 q, k, v and probabilities), and its line says so.
 
 chip_smoke.py builds its extraction phase from the same functions:
 `synth_clip`, `bird_mae_state_dict`, `openclip_state_dict` and
@@ -152,8 +153,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--n-heads", type=int, default=None, help="default: d_model / 64")
     ap.add_argument("--clips", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda: the card's route; cpu: its CPU model")
     args = ap.parse_args(argv)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = args.device
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("vit_route: no CUDA card; pass --device cpu for the route's CPU model")
     spec = dataclasses.replace(
         bird_mae.PRETRAINED_SPECS["Bird-MAE-Large"], d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads or max(1, args.d_model // 64),

@@ -1,12 +1,75 @@
-"""Learning-rate schedule of the train step and the loader's step budget
-(counterparts of saev_tpu/utils/scheduling.py `warmup_cosine` and
-`BatchLimiter`)."""
+"""Learning-rate schedules and the loader's step budget (counterpart of
+saev_tpu/utils/scheduling.py): `_ramp` and `_cosine_decay` hold the math
+once, the host-side `Scheduler` classes (`Warmup`, `WarmupCosine`) count
+steps over them, `warmup_cosine` is the same schedule as a tensor function
+of the train step's counter, and `BatchLimiter` stops a loader after a
+number of samples."""
 
 import collections.abc
 import math
 import typing as tp
 
 import torch
+
+
+def _ramp(t: float, lo: float, hi: float, n: int) -> float:
+    """Linear interpolation lo -> hi over n steps, clamped at hi."""
+    if t < n:
+        return lo + (hi - lo) * (t / n)
+    return hi
+
+
+def _cosine_decay(t: float, n_warmup: int, peak: float, n_steps: int, final: float) -> float:
+    """Half-cosine from peak at t=n_warmup down to final at t=n_steps."""
+    if t >= n_steps:
+        return final
+    progress = (t - n_warmup) / (n_steps - n_warmup)
+    return final + (peak - final) * (1 + math.cos(math.pi * progress)) / 2
+
+
+class Scheduler:
+    def step(self) -> float:
+        raise NotImplementedError(f"{self.__class__.__name__} must implement step().")
+
+    def __repr__(self) -> str:
+        raise NotImplementedError(f"{self.__class__.__name__} must implement __repr__().")
+
+
+class Warmup(Scheduler):
+    """Linearly increases from `init` to `final` over `n_steps` steps."""
+
+    def __init__(self, init: float, final: float, n_steps: int):
+        self.init, self.final, self.n_steps = init, final, n_steps
+        self._t = 0
+
+    def step(self) -> float:
+        self._t += 1
+        return _ramp(self._t, self.init, self.final, self.n_steps)
+
+    def __repr__(self) -> str:
+        return f"Warmup(init={self.init}, final={self.final}, n_steps={self.n_steps})"
+
+
+class WarmupCosine(Scheduler):
+    """Linear warmup from `init` to `peak` over `n_warmup` steps, then cosine
+    decay to `final` over the remaining `n_steps - n_warmup` steps."""
+
+    def __init__(self, init: float, n_warmup: int, peak: float, n_steps: int, final: float):
+        self.init, self.peak, self.final = init, peak, final
+        self.n_warmup, self.n_steps = n_warmup, n_steps
+        self._t = 0
+
+    def step(self) -> float:
+        self._t += 1
+        if self._t < self.n_warmup:
+            return _ramp(self._t, self.init, self.peak, self.n_warmup)
+        return _cosine_decay(self._t, self.n_warmup, self.peak, self.n_steps, self.final)
+
+    def __repr__(self) -> str:
+        return (
+            f"WarmupCosine(init={self.init}, peak={self.peak}, final={self.final}, "
+            f"n_warmup={self.n_warmup}, n_steps={self.n_steps})"
+        )
 
 
 def warmup_cosine(step, init, n_warmup, peak, n_steps, final) -> torch.Tensor:

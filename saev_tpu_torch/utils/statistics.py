@@ -1,6 +1,6 @@
-"""Batch statistics for training-time observability: `calc_batch_entropy`, a
-copy of saev_tpu/utils/statistics.py's (reference statistics.py:57-91),
-numpy on host-side index arrays.
+"""Streaming statistics for training-time observability: `PercentileEstimator`
+and `calc_batch_entropy`, copies of saev_tpu/utils/statistics.py's
+(reference statistics.py:12-91), numpy on the host.
 """
 
 import math
@@ -9,6 +9,35 @@ from collections.abc import Sequence
 import numpy as np
 
 IndexLike = np.ndarray | Sequence[int]
+
+
+class PercentileEstimator:
+    """SGD-style streaming percentile estimator (reference statistics.py:12-50)."""
+
+    def __init__(
+        self,
+        percentile: float | int,
+        total: int,
+        lr: float = 1e-3,
+        shape: tuple[int, ...] = (),
+    ):
+        self.percentile = percentile
+        self.total = total
+        self.lr = lr
+        self._estimate = np.zeros(shape, dtype=np.float64)
+        self._step = 0
+
+    def update(self, x: float | np.ndarray):
+        """Nudge the estimate toward the target percentile with a decaying step."""
+        self._step += 1
+        step_size = self.lr * (self.total - self._step) / self.total
+        self._estimate = self._estimate + step_size * (
+            np.sign(x - self._estimate) + 2 * self.percentile / 100 - 1.0
+        )
+
+    @property
+    def estimate(self):
+        return self._estimate
 
 
 def calc_batch_entropy(

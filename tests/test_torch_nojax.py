@@ -1,6 +1,8 @@
-"""saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL and
-pandas blocked: the machine with the card has no JAX (and maybe no Pillow or
-pandas)."""
+"""saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL,
+pandas and the JAX package (saev_tpu) blocked: the machine with the card has
+no JAX (and maybe no Pillow or pandas). The library surface that reads a run
+(the `nn` names, `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the
+schedulers) and Muon's and "high"'s code run there too."""
 
 import pathlib
 import subprocess
@@ -11,7 +13,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas")
+BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "saev_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -26,6 +28,20 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert callable(chip_smoke.main)
+
+import numpy as np, scipy.sparse, torch
+from saev_tpu_torch import helpers
+from saev_tpu_torch.data import IndexedConfig, IndexedDataset
+from saev_tpu_torch.framework import train
+from saev_tpu_torch.nn import load, modeling
+from saev_tpu_torch.utils import scheduling, statistics
+assert callable(load) and IndexedDataset and IndexedConfig().tokens == "content"
+assert helpers.csr_topk(scipy.sparse.csr_array(np.eye(4, dtype=np.float32)), 1, 0).indices.tolist() == [[0, 1, 2, 3]]
+est = statistics.PercentileEstimator(50, 10)
+est.update(1.0)
+assert scheduling.WarmupCosine(0.0, 2, 1.0, 10, 0.0).step() == 0.5
+assert train._newton_schulz(torch.eye(4)[None]).shape == (1, 4, 4)
+assert torch.equal(modeling.matmul(torch.eye(3), torch.eye(3), "high"), torch.eye(3))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -44,6 +60,10 @@ JOB_MODULES = {
     "saev_tpu_torch.metrics", "saev_tpu_torch.data.ordered", "saev_tpu_torch.framework.inference",
 }
 
+# The library surface that reads a run, imported with the blocked packages above.
+LIBRARY_MODULES = {"saev_tpu_torch.data.indexed", "saev_tpu_torch.nn", "saev_tpu_torch.helpers",
+                   "saev_tpu_torch.utils.statistics", "saev_tpu_torch.utils.scheduling"}
+
 # Extraction's modules, each imported with the blocked packages above.
 EXTRACT_MODULES = {
     "saev_tpu_torch.models", "saev_tpu_torch.models.vit", "saev_tpu_torch.models.convert",
@@ -60,7 +80,8 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # The subpackages and their modules: 41 since the training job, 44 since
-    # inference, 57 since extraction.
-    assert int(proc.stdout.split()[-1]) >= 57
+    # inference, 57 since extraction, 58 since indexed.
+    assert int(proc.stdout.split()[-1]) >= 58
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
+    assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])

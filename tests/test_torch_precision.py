@@ -114,10 +114,14 @@ def test_matmul_card_route_matches_tpu_default_algebra(card_route):
 
 
 def test_precision_names_match_jax():
+    """Every precision the JAX package names runs ("high" too, which raised
+    before it was ported); an unknown name raises."""
     assert set(modeling.PRECISIONS) == set(jmod.PRECISIONS)
     assert jmod.PRECISIONS[modeling.MATMUL_PRECISION] == jmod.MATMUL_PRECISION
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        modeling.matmul(torch.zeros((2, 2)), torch.zeros((2, 2)), "high")
+    a, b = torch.randn((4, 8), generator=torch.Generator().manual_seed(0)), torch.eye(8)
+    for precision in modeling.PRECISIONS:
+        assert torch.equal(modeling.matmul(a, b, precision), a), precision
+        assert torch.equal(modeling._linear_bias(a, b, torch.zeros(8), precision), a), precision
     with pytest.raises(ValueError, match="Unknown matmul precision"):
         modeling.matmul(torch.zeros((2, 2)), torch.zeros((2, 2)), "bf16")
 

@@ -163,28 +163,36 @@ def test_steady_state_kernel_path_matches_jax_interpret(monkeypatch, variant):
 
 
 def test_unported_variants_raise():
-    """What still raises: Muon, "high" (bf16x3) and a traced-style (tensor)
-    AuxK gate. The AuxK step and the multi-prefix decode now run."""
+    """What still raises: a traced-style (tensor) AuxK gate, an unknown
+    optimizer and an unknown precision. Muon and "high" (bf16x3), which
+    raised before they were ported, run a finite step, and so do the AuxK
+    step and the multi-prefix decode."""
     cfg = modeling.SparseAutoencoderConfig(d_model=8, d_sae=64)
     obj = objectives.Matryoshka(n_prefixes=2)
-    with pytest.raises(NotImplementedError, match="Muon"):
-        train.make_train_step(cfg, obj, 10, optim="muon")
-    step = train.make_train_step(cfg, obj, 10, aux_enabled=True)
-    ts = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        train.make_train_step(cfg, obj, 10, optim="sgd")
+    with pytest.raises(ValueError, match="Unknown matmul precision"):
+        train.make_train_step(cfg, obj, 10, matmul_precision="bf16")
     hp = {"lr": torch.ones(1), "n_lr_warmup": torch.ones(1), "grad_clip": torch.ones(1),
           "sparsity_coeff": torch.zeros(1)}
     x = torch.zeros((8, 8))
+    ts = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(0), device="cpu")
     params0 = {k: v[0] for k, v in ts.params.items()}
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        train.make_train_step(cfg, obj, 10, matmul_precision="high")
     assert modeling.decode(cfg, params0, torch.zeros((8, 64)), torch.tensor([3, 64])).shape == (8, 2, 8)
     with pytest.raises(TypeError, match="any_dead"):
         objectives.matryoshka_loss(
             obj, cfg, params0, {}, {"toks_since_active": ts.obj_state["toks_since_active"][0]},
             x, torch.tensor([3, 64]), training=True, any_dead=torch.tensor(True),
         )
-    ts, stats = step(ts, x + 1.0, torch.tensor([[3, 64]], dtype=torch.int32), hp)
-    assert bool(torch.isfinite(stats["loss"]).all())
+    for optim, precision in (("adam", "default"), ("muon", "default"), ("adam", "high"), ("muon", "high")):
+        step = train.make_train_step(cfg, obj, 10, optim=optim, matmul_precision=precision, aux_enabled=True)
+        ts = train.init_sweep_state(cfg, 1, torch.Generator().manual_seed(0), device="cpu", optim=optim)
+        assert ("mu" in ts.opt_state) == (optim == "muon")
+        ts, stats = step(ts, x + 1.0, torch.tensor([[3, 64]], dtype=torch.int32), hp)
+        ts, stats = step(ts, x + 1.0, torch.tensor([[3, 64]], dtype=torch.int32), hp)
+        assert bool(torch.isfinite(stats["loss"]).all()), (optim, precision)
+        assert all(bool(torch.isfinite(v).all()) for v in ts.params.values()), (optim, precision)
+        assert int(ts.opt_state["count"]) == 2
 
 
 def test_init_sweep_state_defaults_to_the_card(monkeypatch):

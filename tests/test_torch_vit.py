@@ -669,3 +669,31 @@ def test_image_transforms_match_jax():
     assert ttransforms.resample_filter(Image.LANCZOS) == Image.LANCZOS
     with pytest.raises(TypeError):
         ttransforms.FlexResize(4, 16)(np.zeros((3, 8, 8)))
+
+
+# ---------------------------------------------------------------------------
+# The route's script: the card unless the CPU is asked for
+# ---------------------------------------------------------------------------
+
+
+def test_vit_route_needs_the_card_unless_asked(monkeypatch):
+    """`python -m saev_tpu_torch.scripts.vit_route` runs on the card by
+    default and raises where torch sees none; it never falls back to the
+    CPU on its own."""
+    from saev_tpu_torch.scripts import vit_route
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        vit_route.main(["--d-model", "64", "--n-layers", "2", "--clips", "1"])
+
+
+def test_vit_route_cpu_model_when_asked(capsys):
+    """`--device cpu` runs the route's CPU model and says so in its line."""
+    import json
+
+    from saev_tpu_torch.scripts import vit_route
+
+    vit_route.main(["--d-model", "64", "--n-layers", "2", "--clips", "1", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu (CPU model of the route)"
+    assert len(out["rel_norm_by_layer"]) == 2 and 0 < out["max"] <= BF16_REL
