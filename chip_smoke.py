@@ -1,5 +1,5 @@
 """Drive the PyTorch port's production SAE train step, and one training job
-around it, on one CUDA card.
+around it, on one CUDA card (and its multi-process training on two ranks).
 
     python3 chip_smoke.py
 
@@ -209,10 +209,38 @@ script exits non-zero:
                 card: images/s and peak memory. Launches no saev kernel;
                 logs whether Pillow and pandas are importable (it needs
                 neither).
+17. multi    -- training over torch.distributed (`multi_layout`): one
+                rank (process) a card over NCCL where there are 2 cards or
+                more, up to 4, else 2 ranks on cuda:0 over gloo (logged),
+                spawned after the kernels are built, with a limit
+                (MULTI_LIMIT) past which they count as stalled and are
+                killed. At the steady phase's shape (n_sae 2, or one a rank,
+                the tight AuxK rung, 5% pinned dead), from one seeded
+                state and 3 seeded global batches of which each rank takes
+                its share: (a) the data-parallel step (n_data = ranks) held to the
+                one-rank step in this process (stats within
+                MULTI_DATA_STAT_REL, params within MULTI_DATA_PARAM_REL
+                rel-norm, n_dead equal); (b) the sweep-parallel step
+                (sweep_parallel = ranks, one SAE a rank, the rows gathered) bit
+                for bit the one-rank sweep; (c) BatchTopK (k 32, momenta 0.1
+                and 0.3, ...) at n_data = ranks, its moved threshold within
+                MULTI_THRESHOLD_REL of the one-rank step's; (d) `worker_fn`
+                over the ranks on shards written here (a train and a val shard
+                a rank), checkpoints every 2 steps, stopped on every rank
+                once step 2's is written, resumed to step 4, eval, the SAE
+                files: rank 0 writes every checkpoint and each file once and
+                the others none, the files load with `nn.load` bit for bit
+                the trained params, eval L0 32. Each rank's cohort is the
+                same bits as the others', K1-K5 launch on every rank in
+                (a) and (b), K2-K5 in (c), K1-K6 in (d), no plain version
+                runs. Logs each case's ms/step on every rank beside the
+                one-rank step's, and the ms of the data step's gradient
+                all-reduce and of the sweep group's row gather.
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
-metrics, benches, job, inference, activations, muon, high): every count is
-set to 0 just before the path and read just after.
+metrics, benches, job, inference, activations, muon, high, multi: each rank's
+counts, summed): every count is set to 0 just before the path and read just
+after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -224,6 +252,8 @@ is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import datetime
+import hashlib
 import json
 import pathlib
 import shutil
@@ -2341,8 +2371,8 @@ def phase_activations(errs: dict) -> dict:
         # value, and the first SAE's pre-activations for timing.
         seen, seen_h, real = [], [], modeling.batch_topk_train
 
-        def spy(h, k, momentum, threshold, real=real, seen=seen, seen_h=seen_h):
-            f, new = real(h, k, momentum, threshold)
+        def spy(h, k, momentum, threshold, group=None, real=real, seen=seen, seen_h=seen_h):
+            f, new = real(h, k, momentum, threshold, group)
             fd = f.detach()
             seen.append((fd[fd > 0].min(), threshold, momentum, new))
             if not seen_h:
@@ -2959,6 +2989,445 @@ def phase_extract() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multi: training over torch.distributed, one process a rank
+# ---------------------------------------------------------------------------
+
+# The steady phase's shape (batch 16384, d_model 1024, d_sae 16384, TopK 32,
+# AuxK 512 in the tight subspace with 5% of the latents pinned dead,
+# Matryoshka 10, n_sae 2, "default"), 3 steps a case; the job: 4 steps of
+# 16384 rows (a train epoch), checkpoints every 2, stopped on every rank once
+# step 2's is written, then resumed; 2 eval batches.
+MULTI = dict(batch=B, d_model=D_MODEL, d_sae=D_SAE, top_k=TOP_K, k_aux=K_AUX, n_prefixes=N_PREFIXES, cap=TIGHT,
+             dead=N_DEAD_5, n_sae=2, steps=3,
+             job=dict(JOB, train_examples=256, val_examples=256, steps=4, ckpt_every=2, stop_at=2))
+MULTI_MAX_WORLD = 4  # ranks over NCCL, one card each, on a host with that many cards or more
+
+
+def multi_layout() -> tuple[int, str]:
+    """(ranks, backend) of the multi phase: one card a rank over NCCL, up to
+    MULTI_MAX_WORLD of them, where there are 2 cards or more; else 2 ranks
+    on cuda:0 over gloo (NCCL takes one card a rank)."""
+    n_cards = torch.cuda.device_count()
+    return (min(n_cards, MULTI_MAX_WORLD), "nccl") if n_cards >= 2 else (2, "gloo")
+
+
+def multi_dims(world: int, dims: dict = MULTI) -> dict:
+    """`dims` for `world` ranks: one SAE a rank (at least 2) and a train and
+    val shard (128 examples) a rank."""
+    n = max(2, world)
+    return dict(dims, n_sae=n, job=dict(dims["job"], train_examples=128 * n, val_examples=128 * n))
+
+
+MULTI_LIMIT = 600  # seconds the ranks may take, together, before they count as stalled
+MULTI_TIMEOUT_S = 300  # seconds a collective waits for the other ranks
+# The data-parallel step against the one-rank step on the same global
+# batches from the same state: two halves of each product summed in another
+# order (and the gradients' sum over the ranks), so the loss terms and the
+# gradient's norm differ in rounding, and Adam's first steps, about lr *
+# sign(g), move the entries whose gradient is near 0 apart. An H100 gave
+# 2.15e-5 and 1.71e-5 (2 ranks over gloo): each bound is about 5x that.
+MULTI_DATA_STAT_REL = 1e-4
+MULTI_DATA_PARAM_REL = 1e-4
+MULTI_THRESHOLD_REL = 1e-5  # BatchTopK's moved threshold, after each step (an H100 gave 0)
+MULTI_STEP_KERNELS = WARM_KERNELS + ("kth_value_masked",)  # K1-K5
+
+
+def _multi_steps(dims: dict, device, mesh, case: str) -> dict:
+    """`case`'s steps ("data": TopK at n_data = world; "sweep": TopK with
+    the sweep split over the mesh; "batch_topk": BatchTopK, momenta 0.1,
+    0.3, ..., at n_data = world) from one seeded state with dims["dead"] latents
+    pinned, on seeded batches of which this rank takes its rows. The whole
+    cohort's params and stats come back on every rank (`parallel.to_host`)
+    with each step's ms and the launches; at world 1 it is the one-rank
+    reference (mesh of one process)."""
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+
+    act = modeling.BatchTopK if case == "batch_topk" else modeling.TopK
+    cfg = modeling.SparseAutoencoderConfig(
+        d_model=dims["d_model"], d_sae=dims["d_sae"],
+        activation=act(top_k=dims["top_k"], aux=modeling.AuxK(k_aux=dims["k_aux"])),
+    )
+    obj = objectives.Matryoshka(n_prefixes=dims["n_prefixes"])
+    n_sae, world, rank = dims["n_sae"], parallel.process_count(), parallel.process_index()
+    gen = torch.Generator(device).manual_seed(SEED + 11)
+    ts = train.init_sweep_state(cfg, n_sae, gen, device)
+    _pin_dead(ts, dims["dead"])
+    xs = [torch.randn((dims["batch"], dims["d_model"]), generator=gen, device=device) for _ in range(dims["steps"])]
+    rng = np.random.default_rng(SEED + 12)
+    prefixes = torch.from_numpy(np.stack([
+        objectives.sample_prefixes(dims["d_sae"], dims["n_prefixes"], rng=rng) for _ in range(n_sae)
+    ])).to(device)
+    hp = {
+        "lr": torch.full((n_sae,), 4e-4, device=device) * (1 + torch.arange(n_sae, device=device)),
+        "n_lr_warmup": torch.full((n_sae,), 2.0, device=device),
+        "grad_clip": torch.ones((n_sae,), device=device),
+        "sparsity_coeff": torch.zeros((n_sae,), device=device),
+        "aux_alpha": torch.full((n_sae,), 1 / 32, device=device),
+        "momentum": 0.1 + 0.2 * torch.arange(n_sae, device=device),
+    }
+    ts, hp, prefixes = (parallel.shard_sweep(mesh, t) for t in (ts, hp, prefixes))
+    step = train.make_train_step(cfg, obj, n_steps=6000, aux_subspace_cap=dims["cap"], mesh=mesh)
+    rows = dims["batch"] // world
+    out = {"stats": [], "ms": [], "threshold": []}
+    reset_counts()
+    for x in xs:
+        x = x[rank * rows : (rank + 1) * rows].contiguous()
+        _sync(device)
+        t = time.perf_counter()
+        ts, stats = step(ts, parallel.shard_batch(mesh, x), prefixes, hp)
+        _sync(device)
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["stats"].append(parallel.to_host(mesh, stats))
+        if case == "batch_topk":
+            out["threshold"].append(parallel.to_host(mesh, ts.sae_state["threshold"]))
+    out["launches"] = counts()
+    out["params"] = parallel.to_host(mesh, ts.params)
+    return out
+
+
+def _sync(device) -> None:
+    torch.cuda.synchronize(device)
+
+
+def _multi_collectives(dims: dict, device) -> dict:
+    """ms of the two large collectives of the multi phase's steps over every
+    rank, 3 each after one warm-up, each behind a barrier and timed to the
+    card's end: the data-parallel step's bucket (the whole cohort's
+    gradients, f32) through `parallel.all_reduce_mean`, and this rank's rows
+    through `parallel.gather_rows` (the sweep group's gather)."""
+    from saev_tpu_torch import parallel
+
+    group = parallel.world_group()
+    bucket = torch.ones(dims["n_sae"] * (2 * dims["d_model"] * dims["d_sae"] + dims["d_sae"] + dims["d_model"]),
+                        device=device)
+    rows = torch.ones((dims["batch"] // group.size, dims["d_model"]), device=device)
+    out = {"bucket_mib": bucket.numel() * 4 / 2**20, "rows_mib": rows.numel() * 4 / 2**20}
+    for name, fn in (("all_reduce_mean", lambda: parallel.all_reduce_mean([bucket], group)),
+                     ("gather_rows", lambda: parallel.gather_rows(rows, group))):
+        fn()
+        out[name] = []
+        for _ in range(3):
+            parallel.sync()
+            _sync(device)
+            t = time.perf_counter()
+            fn()
+            _sync(device)
+            out[name].append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _multi_job(dims: dict, device, root: pathlib.Path, train_dir, val_dir) -> dict:
+    """`worker_fn` at world = the job's processes (data-parallel), n_sae 2,
+    on the shards in `root`: stopped on every rank once step
+    dims["stop_at"]'s checkpoint is written, then resumed to the end, eval
+    and the SAE files. Counts each rank's checkpoint and SAE file writes;
+    rank 0 loads each file with `nn.load` against the trained params."""
+    import dataclasses
+    import os
+
+    from saev_tpu_torch import nn, parallel
+    from saev_tpu_torch.data import ShuffledConfig
+    from saev_tpu_torch.framework import checkpoints, train
+    from saev_tpu_torch.nn import modeling, objectives
+    from saev_tpu_torch.utils import wandb as tracking
+
+    batch = dims["batch"]
+    data = dict(layer=0, batch_size=batch)
+    base = train.Config(
+        train_data=ShuffledConfig(shards=train_dir, **data), val_data=ShuffledConfig(shards=val_dir, **data),
+        n_train=dims["steps"] * batch, n_val=dims["val_batches"] * batch,
+        sae=modeling.SparseAutoencoderConfig(
+            d_model=dims["d_model"], d_sae=dims["d_sae"],
+            activation=modeling.TopK(top_k=dims["top_k"], aux=modeling.AuxK(k_aux=dims["k_aux"])),
+        ),
+        objective=objectives.Matryoshka(n_prefixes=dims["n_prefixes"], dead_threshold_tokens=batch),
+        lr=dims["lrs"][0], n_lr_warmup=2, log_every=2, ckpt_every=dims["ckpt_every"], track=True,
+        runs_root=root / "saev" / "runs", device=device.type, seed=SEED,
+    )
+    cfgs = [base, dataclasses.replace(base, lr=dims["lrs"][1])]
+
+    class Stop(Exception):
+        pass
+
+    writes = {"state": 0, "sae": 0}
+    real = {"save": checkpoints.save, "to_cpu": checkpoints._to_cpu, "dump": train.serialize.dump,
+            "train": train.train, "evaluate": train.evaluate, "wandb": tracking._WANDB}
+    seen = {}
+
+    def save(runs_root, key, step, state, **kwargs):
+        path = real["save"](runs_root, key, step, state, **kwargs)
+        if step == dims["stop_at"] and "stopped" not in seen:
+            seen["stopped"] = step
+            raise Stop
+        return path
+
+    depth = [0]
+
+    def to_cpu(state):  # called (and calls itself) where a checkpoint is written, and only there
+        writes["state"] += depth[0] == 0
+        depth[0] += 1
+        try:
+            return real["to_cpu"](state)
+        finally:
+            depth[0] -= 1
+
+    def dump(*args, **kwargs):
+        writes["sae"] += 1
+        return real["dump"](*args, **kwargs)
+
+    def spy_train(c):
+        seen["train"] = real["train"](c)
+        return seen["train"]
+
+    def spy_evaluate(c, r):
+        seen["eval"] = real["evaluate"](c, r)
+        return seen["eval"]
+
+    cwd = os.getcwd()
+    os.chdir(root)  # the local run recorder writes under ./.wandb
+    checkpoints.save, checkpoints._to_cpu, train.serialize.dump = save, to_cpu, dump
+    train.train, train.evaluate, tracking._WANDB = spy_train, spy_evaluate, False
+    out = {}
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        try:
+            train.worker_fn(cfgs)
+        except Stop:
+            pass
+        out["stopped_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ids = train.worker_fn([dataclasses.replace(c, resume=True) for c in cfgs])
+        out["resumed_s"] = time.perf_counter() - t
+        out["launches"] = counts()
+    finally:
+        os.chdir(cwd)
+        checkpoints.save, checkpoints._to_cpu, train.serialize.dump = real["save"], real["to_cpu"], real["dump"]
+        train.train, train.evaluate, tracking._WANDB = real["train"], real["evaluate"], real["wandb"]
+    (rt,), _, steps = seen["train"]
+    params = parallel.to_host(rt.mesh, rt.ts.params)
+    out |= {"ids": ids, "steps": steps, "writes": writes, "stopped": seen.get("stopped"),
+            "eval": [(m.l0, m.normalized_mse, m.n_dead) for m in seen["eval"]], "files_bitwise": [],
+            "ckpts": sorted(str(p.relative_to(base.runs_root / ".train_state"))
+                            for p in (base.runs_root / ".train_state").glob("*/step_*"))}
+    for si, run_id in enumerate(ids):
+        _, got, _ = nn.load(base.runs_root / run_id / "checkpoint" / "sae.pt", device=device)
+        out["files_bitwise"].append(all(np.array_equal(got[k].cpu().numpy(), params[k][si]) for k in got))
+    return out
+
+
+def _multi_rank(rank: int, world: int, port: int, backend: str, root: str, dims: dict, shard_dirs: tuple) -> None:
+    """One rank of the multi phase, on card `rank` over NCCL, else on cuda:0:
+    joins the process group, runs every case, times the collectives, runs
+    the job, and saves what it measured to root/multi_rank<rank>.pt (params,
+    rank 0's only); a failure is saved there too."""
+    import traceback
+
+    from saev_tpu_torch import parallel
+
+    root = pathlib.Path(root)
+    out = {}
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"multi rank {rank}: no CUDA device")
+        device = parallel.init_distributed(
+            torch.device("cuda", rank if backend == "nccl" else 0),
+            backend=backend, rank=rank, world_size=world, init_method=f"tcp://localhost:{port}",
+            timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S),
+        )
+        out["device"] = str(device)
+        with plain_spy() as plain:
+            out["data"] = _multi_steps(dims, device, parallel.make_mesh(), "data")
+            out["sweep"] = _multi_steps(dims, device, parallel.make_mesh(sweep=world), "sweep")
+            out["batch_topk"] = _multi_steps(dims, device, parallel.make_mesh(), "batch_topk")
+            out["collectives"] = _multi_collectives(dims, device)
+            out["job"] = _multi_job(dims["job"], device, root, *shard_dirs)
+        out["plain"] = dict(plain)
+        for case in ("data", "sweep", "batch_topk"):
+            params = out[case].pop("params")
+            out[case]["digest"] = hashlib.sha256(b"".join(params[k].tobytes() for k in sorted(params))).hexdigest()
+            if rank == 0:
+                out[case]["params"] = params
+    except BaseException:  # noqa: BLE001 - saved for the parent, then the rank exits non-zero
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, root / f"multi_rank{rank}.pt")
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def run_multi(root: pathlib.Path) -> dict:
+    """The multi phase's work on the card: the one-rank reference of each
+    case in this process, then the ranks of `multi_layout` (`_multi_rank`)
+    spawned together on the job's shards, written here first. Raises if a
+    rank fails, or any is still running after MULTI_LIMIT seconds (then
+    every rank is killed). Returns the layout, the dims, the reference and
+    each rank's results."""
+    import multiprocessing
+    import socket
+
+    from saev_tpu_torch import parallel
+
+    world, backend = multi_layout()
+    dims = multi_dims(world)
+    dev = torch.device("cuda")
+    ref = {case: _multi_steps(dims, dev, parallel.make_mesh(), case) for case in ("data", "sweep", "batch_topk")}
+    _sync(dev)
+    torch.cuda.empty_cache()
+    job = dims["job"]
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    basis = torch.randn((job["rank"], job["d_model"]), generator=gen, device=dev) * (
+        job["signal"] / job["active"] ** 0.5)
+    shards_root = root / "saev" / "shards"
+    shards_root.mkdir(parents=True)
+    shard_dirs = (_job_shards(shards_root, job["train_examples"], job, basis, SEED + 8),
+                  _job_shards(shards_root, job["val_examples"], job, basis, SEED + 9))
+    del basis
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_multi_rank, args=(r, world, port, backend, str(root), dims, shard_dirs))
+             for r in range(world)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MULTI_LIMIT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    stalled = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    spawn_s = time.perf_counter() - t
+    ranks = [torch.load(root / f"multi_rank{r}.pt", weights_only=False) if (root / f"multi_rank{r}.pt").exists()
+             else {"error": "no result"} for r in range(world)]
+    errors = {r: res["error"] for r, res in enumerate(ranks) if "error" in res}
+    require(not stalled and not errors and all(p.exitcode == 0 for p in procs),
+            f"multi: ranks stalled past {MULTI_LIMIT} s: {stalled}; exit codes {[p.exitcode for p in procs]}; "
+            + "".join(f"\n--- rank {r}\n{e}" for r, e in errors.items()))
+    return {"world": world, "backend": backend, "dims": dims, "ref": ref, "ranks": ranks, "spawn_s": spawn_s}
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def check_multi(out: dict) -> list[str]:
+    """Holds the ranks to the one-rank reference; returns the log lines.
+    Every check runs before it raises, with all that failed."""
+    ref, ranks, dims, world = out["ref"], out["ranks"], out["dims"], out["world"]
+    lines, failed = [], []
+
+    def require(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+    for case in ("data", "sweep", "batch_topk"):
+        digests = {r["device"]: r[case]["digest"] for r in ranks}
+        require(len(set(digests.values())) == 1, f"multi {case}: the ranks' cohorts differ: {digests}")
+    # (a) data-parallel: within rounding of the one-rank step.
+    got, want = ranks[0]["data"], ref["data"]
+    stat_err = max(_rel(g[k], w[k]) for g, w in zip(got["stats"], want["stats"])
+                   for k in ("loss", "mse", "aux", "l0", "grad_norm"))
+    param_err = max(rel_norm(torch.from_numpy(got["params"][k]), torch.from_numpy(want["params"][k]))
+                    for k in want["params"])
+    require(all(np.array_equal(g["n_dead"], w["n_dead"]) for g, w in zip(got["stats"], want["stats"])),
+            "multi data: n_dead differs from the one-rank step")
+    require(stat_err <= MULTI_DATA_STAT_REL and param_err <= MULTI_DATA_PARAM_REL,
+            f"multi data: stats rel err {stat_err:.3g} (<= {MULTI_DATA_STAT_REL}), params rel-norm {param_err:.3g} "
+            f"(<= {MULTI_DATA_PARAM_REL})")
+    lines.append(f"multi data (n_data {world}): {dims['steps']} steps against the one-rank step: stats (loss, mse, "
+                 f"aux, l0, grad_norm) max rel err {stat_err:.3g}, params max rel-norm {param_err:.3g}, n_dead equal")
+    # (b) sweep-parallel: each SAE's bits, as in the one-rank sweep.
+    got, want = ranks[0]["sweep"], ref["sweep"]
+    same = {k: np.array_equal(got["params"][k].view(np.int32), want["params"][k].view(np.int32))
+            for k in want["params"]}
+    same_stats = all(np.array_equal(g[k], w[k]) for g, w in zip(got["stats"], want["stats"]) for k in w)
+    require(all(same.values()) and same_stats, f"multi sweep: params bit for bit {same}, stats {same_stats}")
+    lines.append(f"multi sweep (sweep_parallel {world}, one SAE a rank): params and stats of {dims['steps']} steps "
+                 "bit for bit the one-rank sweep's")
+    # (c) BatchTopK at n_data = world: the batch-global threshold.
+    got, want = ranks[0]["batch_topk"], ref["batch_topk"]
+    thr_err = max(_rel(g, w) for g, w in zip(got["threshold"], want["threshold"]))
+    first_same = np.array_equal(got["threshold"][0], want["threshold"][0])
+    require(thr_err <= MULTI_THRESHOLD_REL, f"multi batch_topk: threshold rel err {thr_err:.3g}")
+    lines.append(f"multi batch_topk (n_data {world}): thresholds {[t.tolist() for t in got['threshold']]} against "
+                 f"the one-rank step's, max rel err {thr_err:.3g} (first step bit for bit: {first_same})")
+    # Every rank launched K1-K5 on the TopK steps, K2-K5 on BatchTopK's, and
+    # no plain version.
+    for r, res in enumerate(ranks):
+        require(res["device"].startswith("cuda"), f"multi rank {r}: ran on {res['device']}")
+        require(not res["plain"], f"multi rank {r}: plain versions ran on the card: {res['plain']}")
+        for case, kernels in (("data", MULTI_STEP_KERNELS), ("sweep", MULTI_STEP_KERNELS),
+                              ("batch_topk", MULTI_STEP_KERNELS[1:]), ("job", JOB_KERNELS)):
+            for k in kernels:
+                require(res[case]["launches"][k] > 0, f"multi rank {r} {case}: kernel {k} was never launched")
+    # (d) the job: rank 0 writes, the resume, the files.
+    job = dims["job"]
+    for r, res in enumerate(ranks):
+        j = res["job"]
+        want_writes = {"state": job["steps"] // job["ckpt_every"], "sae": 2} if r == 0 else {"state": 0, "sae": 0}
+        require(j["writes"] == want_writes and j["stopped"] == job["stop_at"] and j["steps"] == job["steps"],
+                f"multi job rank {r}: writes {j['writes']} (want {want_writes}), stopped at {j['stopped']}, "
+                f"{j['steps']} steps")
+        require(len(j["ids"]) == (2 if r == 0 else 0), f"multi job rank {r}: ids {j['ids']}")
+        for l0, nmse, _ in j["eval"]:
+            require(job["top_k"] <= l0 <= job["top_k"] + 1e-3 and np.isfinite(nmse), f"multi job: eval {j['eval']}")
+    j0 = ranks[0]["job"]
+    require(all(j0["files_bitwise"]) and len(j0["files_bitwise"]) == 2, f"multi job: files {j0['files_bitwise']}")
+    require(len(j0["ckpts"]) == 1 and j0["ckpts"][0].endswith(f"step_{job['steps']:08d}"),
+            f"multi job: checkpoints left {j0['ckpts']}")
+    lines.append(f"multi job (world {world}, data-parallel): stopped at step {j0['stopped']} in {j0['stopped_s']:.1f} s, "
+                 f"resumed to step {j0['steps']} with eval and files in {j0['resumed_s']:.1f} s; rank 0 wrote "
+                 f"{j0['writes']['state']} checkpoints and {j0['writes']['sae']} SAE files, the others none; eval "
+                 f"(l0, normalized_mse, n_dead) {j0['eval']}; files load with nn.load bit for bit")
+    for line in lines:
+        log(line)
+    globals()["require"](not failed, "multi: " + "; ".join(failed))
+    return lines
+
+
+def phase_multi(root: pathlib.Path) -> dict:
+    """Training over torch.distributed at the steady phase's shape
+    (`multi_dims`), on the ranks of `multi_layout`: the data-parallel,
+    sweep-parallel and BatchTopK steps held to the one-rank step, a
+    checkpointed, stopped and resumed worker_fn job; K1-K5 launched on every
+    rank. Logs ms/step of each case beside the one-rank step, and the
+    collectives' ms. Returns the launches, summed over the ranks."""
+    from saev_tpu_torch.ops import _build
+
+    _build.lib()  # built here, before the ranks start: each would build it otherwise
+    world, backend = multi_layout()
+    if backend == "gloo":
+        log(f"multi: {torch.cuda.device_count()} card(s): {world} ranks on cuda:0 over gloo (NCCL takes one card "
+            "a rank); their times share the card")
+    else:
+        log(f"multi: {world} ranks over NCCL, one card each")
+    out = run_multi(root)
+    for case in ("data", "sweep", "batch_topk"):
+        ref_ms = out["ref"][case]["ms"]
+        log(f"multi {case}: ms/step " + "; ".join(
+            f"rank {r} {[round(t, 2) for t in res[case]['ms']]}" for r, res in enumerate(out["ranks"]))
+            + f"; one rank {[round(t, 2) for t in ref_ms]} ({backend}, {world} ranks)")
+    for r, res in enumerate(out["ranks"]):
+        c = res["collectives"]
+        log(f"multi rank {r} collectives ({backend}, {world} ranks): all_reduce_mean of {c['bucket_mib']:.1f} MiB "
+            f"{[round(t, 2) for t in c['all_reduce_mean']]} ms, gather_rows of {c['rows_mib']:.1f} MiB a rank "
+            f"{[round(t, 2) for t in c['gather_rows']]} ms")
+    check_multi(out)
+    log(f"multi: ranks ran {out['spawn_s']:.1f} s in all, start-up included")
+    return {k: sum(res[case]["launches"][k] for res in out["ranks"] for case in ("data", "sweep", "batch_topk", "job"))
+            for k in KERNELS}
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2999,8 +3468,15 @@ def main() -> int:
     high_counts, _ = phase_high()
     torch.cuda.empty_cache()
     phase_extract()
+    torch.cuda.empty_cache()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_multi_"))
+    try:
+        multi_counts = phase_multi(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
-                + infer_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k] for k in KERNELS}
+                + infer_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k] + multi_counts[k]
+                for k in KERNELS}
     launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
                                ("wide steps", wide_counts, WARM_KERNELS + ("kth_value_masked",)),
@@ -3011,6 +3487,7 @@ def main() -> int:
                                ("activations", act_counts, WARM_KERNELS[1:] + ("kth_value_masked",)),
                                ("muon", muon_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("high", high_counts, ("kth_value", "kth_value_masked")),
+                               ("multi", multi_counts, JOB_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

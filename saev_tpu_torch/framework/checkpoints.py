@@ -14,6 +14,11 @@ the newer one.
 
 The data stream is not checkpointed: on resume the shuffled loader restarts
 with its seeded RNG and reads the data in a new random order.
+
+In a job of several processes every process calls `save`, rank 0 with the
+whole cohort (`parallel.to_host`); rank 0 writes and prunes, and a barrier
+ends each call, so another rank reads only what is written. Every process
+restores the whole cohort and keeps its own SAEs (`restore(mesh=...)`).
 """
 
 import logging
@@ -23,6 +28,8 @@ import shutil
 import typing as tp
 
 import torch
+
+from .. import parallel
 
 logger = logging.getLogger("checkpoints")
 
@@ -55,32 +62,37 @@ def save(
     `prune_below` only after every group's save at `step` succeeded:
     pruning inside each save would leave no common restorable step if a
     crash landed between them. The step's directory appears whole or not at
-    all (written under another name, then renamed)."""
+    all (written under another name, then renamed). Every process of a job
+    calls it; rank 0 writes its `state` (the others' is not read, and may be
+    None), and all return once it has."""
     root = state_dir(runs_root, group_key)
-    root.mkdir(parents=True, exist_ok=True)
     path = root / f"step_{step:08d}"
-    tmp = root / f".tmp_step_{step:08d}_{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir()
-    torch.save(_to_cpu(state), tmp / _FILE)
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
-    if prune:
-        for old in sorted(root.glob("step_*"))[:-1]:
-            shutil.rmtree(old, ignore_errors=True)
-    logger.info("Saved train state at step %d to '%s'.", step, path)
+    if parallel.is_primary():
+        root.mkdir(parents=True, exist_ok=True)
+        tmp = root / f".tmp_step_{step:08d}_{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(_to_cpu(state), tmp / _FILE)
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        if prune:
+            for old in sorted(root.glob("step_*"))[:-1]:
+                shutil.rmtree(old, ignore_errors=True)
+        logger.info("Saved train state at step %d to '%s'.", step, path)
+    parallel.sync()
     return path
 
 
 def prune_below(runs_root: pathlib.Path, group_key: str, step: int) -> None:
-    """Delete checkpoints older than `step`. Call after all cooperating
-    groups saved at `step` (see `save(prune=False)`)."""
+    """Delete checkpoints older than `step` (rank 0; a barrier ends the
+    call). Call after all cooperating groups saved at `step` (see
+    `save(prune=False)`)."""
     root = state_dir(runs_root, group_key)
-    if not root.exists():
-        return
-    for p in root.glob("step_*"):
-        if int(p.name.split("_")[1]) < step:
-            shutil.rmtree(p, ignore_errors=True)
+    if parallel.is_primary() and root.exists():
+        for p in root.glob("step_*"):
+            if int(p.name.split("_")[1]) < step:
+                shutil.rmtree(p, ignore_errors=True)
+    parallel.sync()
 
 
 def available_steps(runs_root: pathlib.Path, group_key: str) -> list[int]:
@@ -110,12 +122,17 @@ def _like(template: tp.Any, saved: tp.Any) -> tp.Any:
 
 
 def restore(
-    runs_root: pathlib.Path, group_key: str, step: int, template: tp.Any
+    runs_root: pathlib.Path, group_key: str, step: int, template: tp.Any,
+    mesh: parallel.Mesh | None = None,
 ) -> tp.Any:
     """Restore the sweep state saved at `step`, shaped and placed like
-    `template` (only its structure, shapes, dtypes and devices are read)."""
+    `template` (only its structure, shapes, dtypes and devices are read).
+    Under a `mesh`, `template` holds this rank's SAEs and the saved cohort's
+    slice of them is taken (`parallel.shard_sweep`)."""
     path = state_dir(runs_root, group_key) / f"step_{step:08d}"
     saved = torch.load(path / _FILE, weights_only=True, map_location="cpu")
+    if mesh is not None:
+        saved = parallel.shard_sweep(mesh, saved)
     restored = _like(template, saved)
     logger.info("Restored train state from '%s'.", path)
     return restored

@@ -27,8 +27,17 @@ one stream, copies each batch to the device ahead of its step
 checkpoints (`framework/checkpoints.py`) it can resume from; `evaluate` runs
 `matryoshka_loss(training=False)` on the validation shards at "highest", and
 `worker_fn` writes one schema-5 SAE file per config (`nn/serialize.py`).
-The sweep is looped in Python. `sweep_parallel`, `feature_parallel` and more
-than one process raise NotImplementedError: multi-GPU is not ported yet.
+The sweep is looped in Python.
+
+Multi-GPU (`torchrun --nproc-per-node N -m saev_tpu_torch.framework.train
+...`): one process a card on a (data, sweep) grid of ranks (`parallel.Mesh`,
+`sweep_parallel` ranks a sweep group). Each rank loads global_batch / world
+rows from its own shard partition (`_partitioned_data_cfg`); a sweep group
+gathers its members' rows and each of its ranks trains n_sae /
+sweep_parallel whole SAEs on them, with every kernel of the step; the ranks
+of a data group hold the same SAEs and average their gradients in one
+collective a step, before the clip. Rank 0 writes the run, the checkpoints
+and the SAE files. `feature_parallel` above 1 raises NotImplementedError.
 """
 
 import collections
@@ -49,7 +58,7 @@ from ..data import ShuffledConfig, ShuffledDataLoader
 from ..nn import modeling, objectives, serialize
 from ..utils import scheduling, statistics
 from ..utils.monitoring import DataloaderMonitor
-from ..utils.wandb import ParallelWandbRun
+from ..utils.wandb import NullParallelRun, ParallelWandbRun
 from . import checkpoints
 
 logger = logging.getLogger("train")
@@ -200,9 +209,14 @@ def _muon_update(params, grads, opt_state, lr_per_sae, *, beta=0.95, weight_deca
 
 def _per_sae_global_norm(grads) -> torch.Tensor:
     """L2 norm over all of each SAE's params: (n_sae,). Leaves in sorted key
-    order, as jax.tree.leaves walks a dict."""
-    sq = [torch.sum(grads[k].reshape(grads[k].shape[0], -1) ** 2, dim=1) for k in sorted(grads)]
-    return torch.sqrt(sum(sq))
+    order, as jax.tree.leaves walks a dict. Each SAE's sums are reductions
+    of their own, whose order does not depend on the sweep's size: an SAE
+    gets the same bits in a sweep split over processes (sweep_parallel) as
+    in the whole sweep."""
+    n_sae = grads[next(iter(grads))].shape[0]
+    return torch.stack([
+        torch.sqrt(sum(torch.sum(grads[k][i] ** 2) for k in sorted(grads))) for i in range(n_sae)
+    ])
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +232,7 @@ def make_train_step(
     matmul_precision: str = "default",
     aux_enabled: bool = True,
     aux_subspace_cap: int | None = None,
+    mesh: parallel.Mesh | None = None,
 ):
     """Build the train step for one cohort.
 
@@ -234,6 +249,13 @@ def make_train_step(
     while no latent can be dead yet (the first dead_threshold_tokens).
     `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
     n_dead <= cap at the step; `StepRouter` picks the variant that is.
+
+    Under a `mesh` with a data group, `x` is this rank's share of the batch
+    and the state holds this rank's SAEs: the loss takes the whole batch's
+    statistics (`objectives.matryoshka_loss(group=...)`), the gradients and
+    the loss terms are averaged over the data group (one flat buffer, one
+    collective) before the parallel-gradient removal and the clip, and the
+    counters count the whole batch.
     """
     if optim not in ("adam", "muon"):
         raise ValueError(f"Unknown optimizer: {optim}")
@@ -242,13 +264,16 @@ def make_train_step(
 
     # Static gate: None computes AuxK, False leaves it out (warm-up).
     any_dead = None if aux_enabled else False
+    group = None if mesh is None else mesh.data
+    n_data = 1 if group is None else group.size
 
-    def grad_one(params_i, sae_state_i, obj_state_i, x, prefixes_i, coeff, alpha, momentum):
+    def grad_one(params_i, sae_state_i, obj_state_i, x, x_abs_max, prefixes_i, coeff, alpha, momentum):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params_i.items()}
         loss, _, sae_state_i, obj_state_i = objectives.matryoshka_loss(
             obj_cfg, sae_cfg, leaves, sae_state_i, obj_state_i, x, prefixes_i,
             training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha, "momentum": momentum},
-            precision=matmul_precision, any_dead=any_dead, aux_subspace_cap=aux_subspace_cap,
+            precision=matmul_precision, any_dead=any_dead, aux_subspace_cap=aux_subspace_cap, group=group,
+            x_abs_max=x_abs_max,
         )
         keys = sorted(leaves)
         grads = torch.autograd.grad(loss.loss, [leaves[k] for k in keys])
@@ -260,10 +285,12 @@ def make_train_step(
         params = modeling.normalize_w_dec(sae_cfg, ts.params)
         n_sae = params["W_dec"].shape[0]
         alphas, momenta = hp.get("aux_alpha"), hp.get("momentum")
+        # The whole batch's max|x|, once for the sweep (None single-process).
+        x_abs_max = None if group is None else parallel.all_reduce(x.abs().max(), "max", group)
         losses, grads, sae_states, obj_states = [], [], [], []
         for i in range(n_sae):
             loss_i, grads_i, sae_i, obj_i = grad_one(
-                _index(params, i), _index(ts.sae_state, i), _index(ts.obj_state, i), x,
+                _index(params, i), _index(ts.sae_state, i), _index(ts.obj_state, i), x, x_abs_max,
                 prefixes[i], hp["sparsity_coeff"][i], None if alphas is None else alphas[i],
                 None if momenta is None else momenta[i],
             )
@@ -271,7 +298,16 @@ def make_train_step(
             grads.append(grads_i)
             sae_states.append(sae_i)
             obj_states.append(obj_i)
-        grads = modeling.remove_parallel_grads(sae_cfg, params, _stack(grads))
+        grads = _stack(grads)
+        keys = sorted(grads)
+        terms = objectives.MatryoshkaLoss(*(torch.stack(t) for t in zip(*losses)))
+        # The gradients and this rank's loss means -> the batch's, in one
+        # collective (n_dead is the batch's already).
+        means = ("mse", "sparsity", "l0", "l1", "aux")
+        reduced = parallel.all_reduce_mean([grads[k] for k in keys] + [getattr(terms, m) for m in means], group)
+        grads = dict(zip(keys, reduced))
+        terms = terms._replace(**dict(zip(means, reduced[len(keys):])))
+        grads = modeling.remove_parallel_grads(sae_cfg, params, grads)
 
         # Per-SAE global-norm clip (torch.nn.utils.clip_grad_norm_ semantics).
         grad_norm = _per_sae_global_norm(grads)
@@ -292,12 +328,11 @@ def make_train_step(
         obj_state = _stack(obj_states)
 
         # Upper bound on n_dead over the next AUX_RISK_HORIZON steps.
-        risk_floor = obj_cfg.dead_threshold_tokens - AUX_RISK_HORIZON * x.shape[0]
+        risk_floor = obj_cfg.dead_threshold_tokens - AUX_RISK_HORIZON * x.shape[0] * n_data
         aux_risk = torch.sum(
             obj_state["toks_since_active"] >= risk_floor, dim=-1
         ).to(torch.int32)
 
-        terms = objectives.MatryoshkaLoss(*(torch.stack(t) for t in zip(*losses)))
         stats = {
             "mse": terms.mse,
             "sparsity": terms.sparsity,
@@ -344,7 +379,7 @@ def dictionary_coherence(w: torch.Tensor, block: int = 1024) -> torch.Tensor:
     return coh
 
 
-def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
+def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig, mesh: parallel.Mesh | None = None):
     """The heavy per-SAE metrics the loop computes every log_every steps:
     explained variance, dead %, coherence, SSE terms, from a fresh forward on
     the current params, at "highest" (as the JAX package's, whose `encode`
@@ -353,18 +388,36 @@ def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
     BatchTopK SAE's the batch-global k-th value (its moved threshold is
     not kept).
 
+    Under a `mesh` with a data group, `x` is this rank's share of the batch
+    and the metrics are the whole batch's: sums (in f64 where they make a
+    variance) and fired counts are summed over the group, and BatchTopK
+    takes the whole batch's threshold.
+
     Signature: metrics(sweep_state, x, prefixes) -> {name: (n_sae,) tensor}
     (`prefixes` is accepted for the JAX package's signature and not read).
     """
+    group = None if mesh is None else mesh.data
 
     def one(params, sae_state, x):
-        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=True)
+        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=True, group=group)
         x_hat = modeling.decode(sae_cfg, params, enc.f_x)[:, -1, :]
         residual = x - x_hat
+        fired = (torch.abs(enc.f_x) > 1e-12).sum(dim=0)
+        if group is None:
+            sse = torch.sum(residual**2)
+            explained = 1.0 - torch.var(residual, correction=0) / torch.var(x, correction=0)
+        else:
+            parallel.all_reduce(fired, "sum", group)
+            r64, x64 = residual.double(), x.double()
+            sums = torch.stack([r64.sum(), (r64**2).sum(), x64.sum(), (x64**2).sum()])
+            parallel.all_reduce(sums, "sum", group)
+            n = x.numel() * group.size
+            sse = sums[1].float()
+            explained = (1.0 - (sums[1] - sums[0] ** 2 / n) / (sums[3] - sums[2] ** 2 / n)).float()
         return {
-            "sse_sae": torch.sum(residual**2),
-            "explained_variance": 1.0 - torch.var(residual, correction=0) / torch.var(x, correction=0),
-            "dead_unit_pct": ((torch.abs(enc.f_x) > 1e-12).sum(dim=0) == 0).to(torch.float32).mean(),
+            "sse_sae": sse,
+            "explained_variance": explained,
+            "dead_unit_pct": (fired == 0).to(torch.float32).mean(),
             "dictionary_coherence": dictionary_coherence(params["W_dec"]),
             "avg_decoder_row_norm": torch.linalg.norm(params["W_dec"], dim=1).mean(),
         }
@@ -372,7 +425,12 @@ def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig):
     @torch.no_grad()
     def metrics(ts: SweepState, x: torch.Tensor, prefixes: torch.Tensor):
         sum_vec = torch.sum(x, dim=0)
-        sse_baseline = torch.sum(x * x) - torch.dot(sum_vec, sum_vec) / x.shape[0]
+        sum_sq = torch.sum(x * x)
+        n_rows = x.shape[0]
+        if group is not None:
+            sums = parallel.all_reduce(torch.cat([sum_vec, sum_sq[None]]), "sum", group)
+            sum_vec, sum_sq, n_rows = sums[:-1], sums[-1], n_rows * group.size
+        sse_baseline = sum_sq - torch.dot(sum_vec, sum_vec) / n_rows
         n_sae = ts.params["W_dec"].shape[0]
         per = [one(_index(ts.params, i), _index(ts.sae_state, i), x) for i in range(n_sae)]
         out = {k: torch.stack([p[k] for p in per]) for k in per[0]}
@@ -398,10 +456,17 @@ class StepRouter:
     cap the lagged stats["aux_risk"] proves wide enough runs; the dense step
     is the fallback while no readout exists or no rung is wide enough.
     `step_fn_subs` is [(cap, step_fn), ...] ascending by cap.
+
+    With a `group` (every process of a multi-GPU job), a step's bound is the
+    max over the group, so that every rank takes the variant that one
+    process holding the whole cohort would, and all ranks enter the same
+    kernels and collectives.
     """
 
-    def __init__(self, step_fn, *, step_fn_warm=None, aux_from_step: int = 0, step_fn_subs=()):
+    def __init__(self, step_fn, *, step_fn_warm=None, aux_from_step: int = 0, step_fn_subs=(),
+                 group: parallel.Group | None = None):
         self.step_fn = step_fn
+        self.group = group
         self.step_fn_warm = step_fn_warm
         self.aux_from_step = aux_from_step
         self.step_fn_subs = list(step_fn_subs)
@@ -433,7 +498,7 @@ class StepRouter:
         # Stats before (aux_from_step - horizon) would never be read.
         if not self.step_fn_subs or global_step < self.aux_from_step - AUX_RISK_HORIZON:
             return
-        risk, done = stats["aux_risk"].max(), None
+        risk, done = parallel.all_reduce(stats["aux_risk"].max(), "max", self.group), None
         if risk.is_cuda:
             # Copy to pinned host memory behind this step's kernels; reading
             # it later waits on this event, not on the steps queued since.
@@ -452,9 +517,12 @@ def make_step_router(
     batch_size: int,
     optim: str = "adam",
     matmul_precision: str = "default",
+    mesh: parallel.Mesh | None = None,
 ) -> StepRouter:
     """The step variants of one cohort and their router, as the JAX train
-    loop builds them (saev_tpu/framework/train.py:1057-1103).
+    loop builds them (saev_tpu/framework/train.py:1057-1103); `batch_size`
+    is the global batch. Under a `mesh` the steps are its (`make_train_step`)
+    and the router reads the bound of the whole job's cohort.
 
     Steps [0, aux_from_step) cannot produce a dead latent: within 0-based
     step i the counters reach at most (i + 1) * batch_size, and dead needs
@@ -468,13 +536,14 @@ def make_step_router(
     caps = objectives.subspace_cap_ladder(sae_cfg.d_sae, sae_cfg.activation.aux.k_aux) if has_aux else []
 
     def make(**kwargs):
-        return make_train_step(sae_cfg, obj_cfg, n_steps, optim, matmul_precision, **kwargs)
+        return make_train_step(sae_cfg, obj_cfg, n_steps, optim, matmul_precision, mesh=mesh, **kwargs)
 
     return StepRouter(
         make(),
         step_fn_warm=make(aux_enabled=False) if has_aux and aux_from_step > 0 else None,
         aux_from_step=aux_from_step,
         step_fn_subs=[(cap, make(aux_subspace_cap=cap)) for cap in caps],
+        group=None if mesh is None else parallel.world_group(),
     )
 
 
@@ -513,12 +582,15 @@ class Config:
     grad_clip: float = 1.0
     """Maximum gradient norm across all SAE parameters."""
     sweep_parallel: int = 1
-    """Shard the sweep over this many devices. Not ported yet: above 1 raises."""
+    """Split the sweep over this many processes (one card each): each trains
+    n_sae / sweep_parallel whole SAEs. It must divide the job's processes,
+    and the cohort."""
     sweep_vmap_width: int = 1
     """SAEs per vmap chunk in the JAX package's step; here the sweep is looped
     in Python one SAE at a time, and the field only splits cohorts as there."""
     feature_parallel: int = 1
-    """Shard d_sae over this many devices. Not ported yet: above 1 raises."""
+    """Shard d_sae over this many devices. Not ported yet: above 1 raises
+    (ROADMAP §1 item 9)."""
     matmul_precision: tp.Literal["highest", "high", "default"] = "default"
     """Train-step matmul precision: default = bf16 operands with f32
     accumulation on the card (f32 on the CPU), highest = f32 with TF32 off,
@@ -649,6 +721,10 @@ def make_saes(
     `reinit_enc_dec_tranpose`) W_enc and W_dec are bit for bit the JAX
     package's on the same batches. An SAE at blend 0 keeps `modeling.init`'s
     Kaiming weights, whose random stream is torch's, not JAX's.
+
+    In a job of several processes each reads max(d_sae, 65536 // world) rows
+    of its own partition, and every process takes rank 0's weights
+    (`parallel.broadcast_from_primary`), as the JAX package does.
     """
     assert cfgs, "Need at least one SAE to initialize."
     sae_cfg0 = cfgs[0].sae
@@ -664,6 +740,8 @@ def make_saes(
 
     if any(c.sae.reinit_blend > 0 for c in cfgs):
         n_samples = max(d_sae, 65_536)
+        if parallel.process_count() > 1:
+            n_samples = max(d_sae, n_samples // parallel.process_count())
         if hasattr(dl, "n_samples"):
             assert dl.n_samples >= d_sae, (
                 f"Need {d_sae} samples for datapoint init; dataloader has {dl.n_samples}."
@@ -707,6 +785,7 @@ def make_saes(
 
         mean_p = sum(c.sae.reinit_blend for c in cfgs) / len(cfgs)
         logger.info("Initialized %d SAEs with avg(p)=%.2f", len(cfgs), mean_p)
+        params_list = parallel.broadcast_from_primary(params_list)
 
     params = {k: torch.from_numpy(np.stack([p[k] for p in params_list])).to(device) for k in params_list[0]}
     sae_state = _stack([modeling.init_state(c.sae, device) for c in cfgs])
@@ -721,40 +800,93 @@ def make_saes(
 
 class _CohortRuntime(tp.NamedTuple):
     cohort: Cohort
-    ts: SweepState
+    ts: SweepState  # this rank's SAEs of the cohort
     # The cohort's step variants (warm, dense, subspace rungs) and the
     # routing state that picks one a step.
     router: StepRouter
     metrics_fn: tp.Any
     hp: dict[str, torch.Tensor]
     prefix_rng: np.random.Generator
+    mesh: parallel.Mesh
 
 
-def _check_single_process(cfg: Config) -> None:
-    """Multi-GPU training (ROADMAP item 9) is not ported yet."""
-    for name in ("sweep_parallel", "feature_parallel"):
-        if getattr(cfg, name) != 1:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)}: multi-GPU training is not ported yet (ROADMAP §1 item 9)"
-            )
-    for name in ("train_data", "val_data"):
-        if getattr(cfg, name).world != 1:
-            raise NotImplementedError(
-                f"{name}.world={getattr(cfg, name).world}: training over more than one process is not "
-                "ported yet (ROADMAP §1 item 9)"
-            )
+def _device_mesh(batch_size: int, sweep: int = 1, feature: int = 1) -> parallel.Mesh:
+    """The (data, sweep) grid over every process of the job (counterpart of
+    the JAX package's `_device_mesh`, which shrinks its data axis until it
+    divides the batch; here a process cannot be left out, so
+    `_check_full_mesh` raises instead)."""
+    mesh = parallel.make_mesh(sweep=sweep, feature=feature)
+    _check_full_mesh(mesh, batch_size)
+    return mesh
+
+
+def _partitioned_data_cfg(data_cfg: ShuffledConfig, what: str) -> ShuffledConfig:
+    """This process's loader: 1/world of the global batch rows off its
+    disjoint shard partition (identity single-process). drop_last, because a
+    short local batch at one rank's epoch boundary would leave the ranks
+    with unequal rows to gather and reduce; BatchLimiter cycles epochs, so
+    no data is lost. The trainer sets rank and world: a config that sets
+    them itself raises."""
+    world = parallel.process_count()
+    if (data_cfg.rank, data_cfg.world) != (0, 1):
+        raise ValueError(
+            f"{what}_data has rank={data_cfg.rank}, world={data_cfg.world}: the trainer partitions the loader "
+            f"over the job's {world} process(es) itself; leave them at 0 and 1"
+        )
+    if world == 1:
+        return data_cfg
+    if data_cfg.batch_size % world:
+        raise ValueError(
+            f"Global {what} batch_size={data_cfg.batch_size} does not divide over the job's {world} processes."
+        )
+    return dataclasses.replace(
+        data_cfg, batch_size=data_cfg.batch_size // world, rank=parallel.process_index(), world=world,
+        drop_last=True,
+    )
+
+
+def _check_full_mesh(mesh: parallel.Mesh, batch_size: int) -> None:
+    """The global batch must split evenly over the data axis: every process
+    takes part, and a rank with fewer rows would stall the gathers and
+    reductions."""
+    if batch_size % mesh.n_data:
+        raise ValueError(
+            f"Global batch_size={batch_size} must be a multiple of the data-axis extent {mesh.n_data}; "
+            "multi-process batch assembly needs every process in the mesh."
+        )
 
 
 def _group_key(cfg: Config) -> str:
-    """A stable key of the training group (sha256; Python's hash() is
-    randomized per process)."""
-    return hashlib.sha256(repr(_parallel_key(cfg)).encode()).hexdigest()[:16]
+    """A key of the training group that every process computes alike
+    (sha256 of a repr whose frozensets are sorted: Python's hash(), and so
+    a frozenset's order, is randomized per process)."""
+    def canonical(x):
+        if isinstance(x, frozenset):
+            return ("frozenset", sorted((canonical(v) for v in x), key=repr))
+        if isinstance(x, tuple):
+            return tuple(canonical(v) for v in x)
+        return x
+
+    return hashlib.sha256(repr(canonical(_parallel_key(cfg))).encode()).hexdigest()[:16]
 
 
-def _to_host(tree) -> tp.Any:
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+def _cohort_for_primary(mesh: parallel.Mesh, tree):
+    """The whole cohort as numpy on rank 0, for its writes; None elsewhere.
+    `parallel.to_host` is a collective over a sweep group, so the ranks of
+    rank 0's (d = 0) take part; the others copy nothing."""
+    return parallel.to_host(mesh, tree) if mesh.d == 0 else None
+
+
+def _sample_prefixes(rt: _CohortRuntime, device) -> torch.Tensor:
+    """This step's prefix cuts for this rank's SAEs: every rank draws the
+    whole cohort's from the same seeded generator, as one process would,
+    and keeps its slice."""
+    c0 = rt.cohort.cfgs[0]
+    cuts = np.stack([
+        objectives.sample_prefixes(c0.sae.d_sae, c0.objective.n_prefixes, rng=rt.prefix_rng)
+        for _ in rt.cohort.cfgs
+    ])
+    return torch.from_numpy(parallel.shard_sweep(rt.mesh, cuts)).to(device)
 
 
 class _Profile:
@@ -790,10 +922,14 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
 
     logger.info("Parallelizing %d runs.", len(cfgs))
     cfg = cfgs[0]
-    _check_single_process(cfg)
     device = torch.device(cfg.device)
 
-    dataloader = ShuffledDataLoader(cfg.train_data)
+    # Multi-process: this process loads 1/world of each global batch from its
+    # disjoint shard partition; its sweep group gathers the rows it trains on
+    # (parallel.shard_batch). Host-side writes happen on rank 0.
+    mesh = _device_mesh(cfg.train_data.batch_size, cfg.sweep_parallel, cfg.feature_parallel)
+    world = parallel.process_count()
+    dataloader = ShuffledDataLoader(_partitioned_data_cfg(cfg.train_data, "train"))
     metadata = dataloader.metadata
     if metadata.d_model != cfg.sae.d_model:
         raise guards.GuardError(
@@ -802,13 +938,21 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             "must be configured for the model family the shards were "
             "extracted from."
         )
-    limited = scheduling.BatchLimiter(dataloader, cfg.n_train)
-    n_steps = len(limited)
+    limited = scheduling.BatchLimiter(dataloader, cfg.n_train // world)
+    # Every process runs the same number of collective-bearing steps.
+    n_steps = int(parallel.global_min(len(limited)))
     bsz = cfg.train_data.batch_size
+    logger.info("Mesh: %d process(es), data %d x sweep %d.", world, mesh.n_data, mesh.n_sweep)
 
     runtimes: list[_CohortRuntime] = []
     for ci, cohort in enumerate(make_cohorts(cfgs)):
-        params, sae_state, obj_state = make_saes(cohort.cfgs, limited, seed=cfg.seed + ci, device=device)
+        if len(cohort.cfgs) % mesh.n_sweep:
+            raise ValueError(
+                f"Cohort of {len(cohort.cfgs)} SAEs is not divisible by sweep_parallel={mesh.n_sweep}."
+            )
+        params, sae_state, obj_state = parallel.shard_sweep(
+            mesh, make_saes(cohort.cfgs, limited, seed=cfg.seed + ci, device=device)
+        )
         c0 = cohort.cfgs[0]
         ts = SweepState(
             params=params,
@@ -822,11 +966,13 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
                 cohort=cohort,
                 ts=ts,
                 router=make_step_router(
-                    c0.sae, c0.objective, n_steps, bsz, c0.optim, c0.matmul_precision
+                    c0.sae, c0.objective, n_steps, bsz, c0.optim, c0.matmul_precision, mesh=mesh
                 ),
-                metrics_fn=make_metrics_fn(c0.sae),
-                hp={k: torch.from_numpy(v).to(device) for k, v in _hp_arrays(cohort.cfgs).items()},
+                metrics_fn=make_metrics_fn(c0.sae, mesh),
+                hp={k: torch.from_numpy(v).to(device)
+                    for k, v in parallel.shard_sweep(mesh, _hp_arrays(cohort.cfgs)).items()},
                 prefix_rng=np.random.default_rng(cfg.seed + 1000 + ci),
+                mesh=mesh,
             )
         )
 
@@ -840,10 +986,11 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             for ci in range(len(runtimes))
         ]
         common = set.intersection(*step_sets) if step_sets else set()
-        latest = max(common) if common else None
-        if latest is not None:
+        # Every process resumes from rank 0's choice.
+        latest = int(parallel.broadcast_from_primary(np.asarray(max(common) if common else -1)))
+        if latest >= 0:
             for ci, rt in enumerate(runtimes):
-                restored = checkpoints.restore(cfg.runs_root, f"{group_key}_c{ci}", latest, rt.ts)
+                restored = checkpoints.restore(cfg.runs_root, f"{group_key}_c{ci}", latest, rt.ts, mesh=mesh)
                 runtimes[ci] = rt._replace(ts=restored)
             start_step = latest
             logger.info("Resuming training from step %d.", start_step)
@@ -857,7 +1004,11 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
         cfg_dict = dataclasses.asdict(c)
         cfg_dict["train_data"]["metadata"] = metadata_dict
         wandb_configs.append(cfg_dict)
-    run = ParallelWandbRun(cfg.wandb_project, wandb_configs, mode, list(cfg.tags))
+    run = (
+        ParallelWandbRun(cfg.wandb_project, wandb_configs, mode, list(cfg.tags))
+        if parallel.is_primary()
+        else NullParallelRun()
+    )
     slurm_job_id = os.environ.get("SLURM_JOB_ID")
     if slurm_job_id:
         run.set_summary("slurm_job_id", slurm_job_id)
@@ -874,25 +1025,20 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
 
     # Batches i+1 and i+2 are fetched by a thread, and copied to the device, while step i runs.
     for x, batch in parallel.prefetch_to_device(batches, device, depth=2):
-        n_patches_seen += x.shape[0]
+        x = parallel.shard_batch(mesh, x)
+        n_patches_seen += x.shape[0] * mesh.n_data
         log_now = (global_step + 1) % cfg.log_every == 0
         all_metrics: list[dict[str, object]] = [None] * len(cfgs)
 
         for ri, rt in enumerate(runtimes):
-            n_sae = len(rt.cohort.cfgs)
-            n_prefixes = rt.cohort.cfgs[0].objective.n_prefixes
-            d_sae = rt.cohort.cfgs[0].sae.d_sae
-            prefixes = torch.from_numpy(np.stack([
-                objectives.sample_prefixes(d_sae, n_prefixes, rng=rt.prefix_rng)
-                for _ in range(n_sae)
-            ])).to(device)
+            prefixes = _sample_prefixes(rt, device)
             new_ts, stats = rt.router.step_fn_at(global_step)(rt.ts, x, prefixes, rt.hp)
             rt.router.record_stats(global_step, stats)
 
             if log_now:
                 heavy = rt.metrics_fn(new_ts, x, prefixes)
-                stats_np = _to_host(stats)
-                heavy_np = _to_host(heavy)
+                stats_np = parallel.to_host(mesh, stats)
+                heavy_np = parallel.to_host(mesh, heavy)
                 dl_metrics = dl_monitor.compute()
                 dl_metrics.update(
                     statistics.calc_batch_entropy(
@@ -939,7 +1085,9 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             # the sequential saves must leave a previous step restorable for
             # all cohorts.
             for ci, rt in enumerate(runtimes):
-                checkpoints.save(cfg.runs_root, f"{group_key}_c{ci}", global_step, rt.ts, prune=False)
+                checkpoints.save(
+                    cfg.runs_root, f"{group_key}_c{ci}", global_step, _cohort_for_primary(mesh, rt.ts), prune=False
+                )
             for ci in range(len(runtimes)):
                 checkpoints.prune_below(cfg.runs_root, f"{group_key}_c{ci}", global_step)
 
@@ -996,17 +1144,26 @@ def _eval_one(c0: Config, params, sae_state, obj_state, x, prefixes) -> dict[str
 def evaluate(cfgs: list[Config], runtimes: list[_CohortRuntime]) -> list[EvalMetrics]:
     """Eval pass over the val loader: L0/L1/MSE, normalized MSE vs mean baseline,
     per-feature firing stats, dead/almost-dead/dense counts. Host sums in
-    float64, as in the JAX package."""
+    float64, as in the JAX package.
+
+    Multi-process: each process reads its partition of the val shards, as in
+    training; each rank sums its own SAEs' outputs on its sweep group's rows
+    and the x statistics of its own rows, and the sums cross processes once
+    at the end (`parallel.global_sum`)."""
     if len(split_cfgs(cfgs)) != 1:
         raise ValueError(f"Configs are not parallelizeable: {cfgs}.")
 
     cfg = cfgs[0]
-    _check_single_process(cfg)
     device = torch.device(cfg.device)
     almost_dead_lim, dense_lim = 1e-7, 1e-2
+    mesh = runtimes[0].mesh
+    _check_full_mesh(mesh, cfg.val_data.batch_size)
+    world = parallel.process_count()
 
-    dataloader = ShuffledDataLoader(cfg.val_data)
-    n_val = min(dataloader.n_samples, cfg.n_val)
+    dataloader = ShuffledDataLoader(_partitioned_data_cfg(cfg.val_data, "val"))
+    # Shard partitions can be uneven; every process runs the same number of
+    # (collective-bearing) eval batches.
+    n_val = int(parallel.global_min(min(dataloader.n_samples, cfg.n_val // world)))
     limited = scheduling.BatchLimiter(dataloader, n_val)
 
     n_cfgs = len(cfgs)
@@ -1023,24 +1180,24 @@ def evaluate(cfgs: list[Config], runtimes: list[_CohortRuntime]) -> list[EvalMet
     batches = helpers.progress(limited, desc="eval", every=cfg.log_every)
     for x, batch in parallel.prefetch_to_device(batches, device, depth=2):
         x64 = np.asarray(batch["act"]).astype(np.float64)
-        bsz = x.shape[0]
         sum_sq += float(np.sum(x64 * x64))
         sum_vec += x64.sum(axis=0)
-        n_tokens += bsz
+        n_tokens += x64.shape[0]
+        x = parallel.shard_batch(mesh, x)
+        bsz = x.shape[0]
 
         for rt in runtimes:
             c0 = rt.cohort.cfgs[0]
-            n_sae = len(rt.cohort.cfgs)
-            prefixes = torch.from_numpy(np.stack([
-                objectives.sample_prefixes(d_sae, c0.objective.n_prefixes, rng=rt.prefix_rng)
-                for _ in range(n_sae)
-            ])).to(device)
+            prefixes = _sample_prefixes(rt, device)
+            n_local = prefixes.shape[0]
             # The sweep is looped: one SAE's forward at a time.
-            for si, gi in enumerate(rt.cohort.indices):
-                out = _to_host(_eval_one(
+            for si in range(n_local):
+                gi = rt.cohort.indices[mesh.s * n_local + si]
+                out = _eval_one(
                     c0, _index(rt.ts.params, si), _index(rt.ts.sae_state, si),
                     _index(rt.ts.obj_state, si), x, prefixes[si],
-                ))
+                )
+                out = {k: v.cpu().numpy() for k, v in out.items()}
                 total_l0[gi] += float(out["l0"]) * bsz
                 total_l1[gi] += float(out["l1"]) * bsz
                 total_mse[gi] += float(out["mse"]) * bsz
@@ -1048,6 +1205,13 @@ def evaluate(cfgs: list[Config], runtimes: list[_CohortRuntime]) -> list[EvalMet
                 n_fired[gi] += out["n_fired"]
                 values[gi] += out["values"]
 
+    if world > 1:
+        n_tokens = int(parallel.global_sum(np.asarray(n_tokens, np.int64)))
+        sum_sq = float(parallel.global_sum(np.asarray(sum_sq)))
+        sum_vec, n_fired, values = (parallel.global_sum(a) for a in (sum_vec, n_fired, values))
+        total_l0, total_l1, total_mse, total_sse = (
+            parallel.global_sum(a) for a in (total_l0, total_l1, total_mse, total_sse)
+        )
     assert n_tokens > 0, "Validation dataloader yielded zero tokens."
     sse_baseline = sum_sq - float(sum_vec @ sum_vec) / n_tokens
     assert sse_baseline > 0, (
@@ -1093,11 +1257,16 @@ def worker_fn(cfgs: list[Config]) -> list[str]:
     run.log([m.for_wandb() for m in eval_metrics], step=steps)
     ids = run.finish()
 
-    # Unstack the trained sweep back into per-config checkpoints.
+    # Unstack the trained sweep back into per-config checkpoints, written on
+    # rank 0 only (run.finish gives no ids elsewhere).
     flat: dict[int, tuple[Config, modeling.Params, modeling.State]] = {}
     for rt in runtimes:
+        params_np = _cohort_for_primary(rt.mesh, rt.ts.params)
+        state_np = _cohort_for_primary(rt.mesh, rt.ts.sae_state)
+        if params_np is None:
+            continue
         for si, gi in enumerate(rt.cohort.indices):
-            flat[gi] = (rt.cohort.cfgs[si], _index(rt.ts.params, si), _index(rt.ts.sae_state, si))
+            flat[gi] = (rt.cohort.cfgs[si], _index(params_np, si), _index(state_np, si))
 
     for gi, id in enumerate(ids):
         cfg, params, state = flat[gi]
@@ -1117,6 +1286,7 @@ def worker_fn(cfgs: list[Config]) -> list[str]:
         with open(run_dir.run_dir / "checkpoint" / "config.json", "wb") as fd:
             helpers.jdump(cfg, fd, indent=2)
 
+    parallel.sync()
     return ids
 
 
@@ -1190,12 +1360,16 @@ def main(
     """Train SAEs, optionally as a parallel grid search (reference train.py:706-797).
 
     Jobs run inline by default; with slurm_acct set and submitit available, they
-    are submitted as Slurm batch jobs.
+    are submitted as Slurm batch jobs. Under torchrun (WORLD_SIZE above 1)
+    every process joins the job's process group first (NCCL on "cuda", gloo
+    on "cpu"; one card a process) and runs the same jobs.
     """
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s] [%(levelname)s] [%(name)s] %(message)s",
     )
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not torch.distributed.is_initialized():
+        parallel.init_distributed(cfg.device)
 
     if sweep is not None:
         sweep_dcts = configs.load_sweep(sweep)

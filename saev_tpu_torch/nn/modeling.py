@@ -34,7 +34,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from .. import ops
+from .. import ops, parallel
 
 Params = dict[str, torch.Tensor]
 State = dict[str, torch.Tensor]
@@ -385,20 +385,27 @@ def topk_activation(h: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def batch_topk_train(
-    h: torch.Tensor, k: int, momentum: torch.Tensor | float, threshold: torch.Tensor
+    h: torch.Tensor, k: int, momentum: torch.Tensor | float, threshold: torch.Tensor,
+    group: parallel.Group | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """BatchTopK in training mode (saev_tpu/nn/modeling.py:249-273): keeps
     every entry >= the batch's k * B-th largest (`ops.batch_global_kth_value`,
     ties kept), then moves the EMA of the least positive kept value, the
     eval-time threshold: (1 - momentum) * threshold + momentum * that value,
     or the threshold unchanged where no kept value is positive. Returns (f,
-    new threshold)."""
+    new threshold).
+
+    With a data `group` (saev_tpu_torch.parallel), `h` is this rank's rows
+    of the batch: B, the k * B-th value and the least positive kept value
+    are the whole batch's, the same on every rank of the group."""
     bsz, d_sae = h.shape
-    kth = ops.batch_global_kth_value(h, min(k * bsz, d_sae * bsz))
+    bsz *= 1 if group is None else group.size
+    kth = ops.batch_global_kth_value(h, min(k * bsz, d_sae * bsz), group=group)
     zero = torch.zeros((), dtype=h.dtype, device=h.device)
     f = torch.where(h >= kth, h, zero)
     with torch.no_grad():
         pos_min = torch.where(f > 0, f, torch.full((), float("inf"), dtype=h.dtype, device=h.device)).min()
+        parallel.all_reduce(pos_min, "min", group)
         new_threshold = torch.where(
             torch.isfinite(pos_min), (1.0 - momentum) * threshold + momentum * pos_min, threshold
         )
@@ -415,6 +422,7 @@ def batch_topk_eval(h: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
 def encode(
     cfg: SparseAutoencoderConfig, params: Params, state: State, x: torch.Tensor, *,
     training: bool, momentum: torch.Tensor | float | None = None, precision: str | None = None,
+    group: parallel.Group | None = None,
 ) -> tuple[EncodeOut, State]:
     """x @ W_enc + b_enc at `precision` (None: MATMUL_PRECISION), then the
     activation (saev_tpu/nn/modeling.py:325-370): Relu, TopK (the threshold
@@ -423,7 +431,8 @@ def encode(
     Returns (EncodeOut, new_state): a BatchTopK forward in training mode
     carries the moved EMA threshold, every other returns `state`.
     `momentum` overrides BatchTopK's configured momentum with a per-SAE
-    value (the sweep's hp["momentum"])."""
+    value (the sweep's hp["momentum"]). A data `group` makes BatchTopK's
+    training forward take the whole batch's threshold (`batch_topk_train`)."""
     if x.ndim != 2 or x.shape[1] != params["W_enc"].shape[0]:
         raise ValueError(
             f"x has shape {tuple(x.shape)}; expected (batch, {cfg.d_model}) "
@@ -439,7 +448,7 @@ def encode(
     elif isinstance(act, BatchTopK):
         if training:
             f_x, threshold = batch_topk_train(
-                h_x, act.top_k, act.momentum if momentum is None else momentum, state["threshold"]
+                h_x, act.top_k, act.momentum if momentum is None else momentum, state["threshold"], group
             )
             new_state = {**state, "threshold": threshold}
         else:

@@ -22,7 +22,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from .. import ops
+from .. import ops, parallel
 from ..ops import matryoshka as _fused
 from . import modeling
 
@@ -98,9 +98,13 @@ def sample_prefixes(
     return prefixes.astype(np.int32)
 
 
-def scale_stabilized_mse(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Elementwise MSE normalized by max|x| before squaring."""
-    upper = torch.clamp(x.abs().max(), min=1e-12)
+def scale_stabilized_mse(
+    x_hat: torch.Tensor, x: torch.Tensor, x_abs_max: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Elementwise MSE normalized by max|x| before squaring; `x_abs_max`
+    replaces max|x| (a data-parallel step passes the whole batch's: it
+    cancels, but not in rounding)."""
+    upper = torch.clamp(x.abs().max() if x_abs_max is None else x_abs_max, min=1e-12)
     return ((x_hat / upper - x / upper) ** 2) * upper * upper
 
 
@@ -223,6 +227,8 @@ def matryoshka_loss(
     precision: str | None = None,
     any_dead: bool | None = None,
     aux_subspace_cap: int | None = None,
+    group: parallel.Group | None = None,
+    x_abs_max: torch.Tensor | None = None,
 ) -> tuple[MatryoshkaLoss, modeling.Output, modeling.State, ObjectiveState]:
     """One objective forward (saev_tpu/nn/objectives.py:253-441). Returns
     the loss terms, the SAE forward's outputs, the SAE state (BatchTopK's
@@ -237,6 +243,15 @@ def matryoshka_loss(
 
     `aux_subspace_cap` computes AuxK in the dead-subspace form, exact iff
     n_dead <= cap: the caller's contract (the step router keeps it).
+
+    A data `group` (saev_tpu_torch.parallel) makes `x` this rank's rows of
+    a batch split evenly over the group: the statistics that span the batch
+    are the whole batch's on every rank of the group (BatchTopK's threshold,
+    the dead-latent counters' fired mask and token count, max|x| of the
+    scale-stabilized MSE); the loss terms stay this rank's means, which the
+    train step averages with the gradients. `x_abs_max`, the whole batch's
+    max|x|, spares the loss its own reduction over the group (the train step
+    takes it once for the sweep).
 
     Two paths, picked as the JAX package picks them:
     - fused: training at `precision` None or "default" with more than one
@@ -265,6 +280,8 @@ def matryoshka_loss(
     )
     # The TopK statistics pass (kernel K1) runs on the fused kernel path only.
     use_stats = use_fused and isinstance(sae_cfg.activation, modeling.TopK) and _fused._use_kernels(x)
+    if group is not None and x_abs_max is None:
+        x_abs_max = parallel.all_reduce(x.detach().abs().max(), "max", group)
     if use_stats:
         h_x = modeling._linear_bias(x, params["W_enc"], params["b_enc"], precision or modeling.MATMUL_PRECISION)
         st = ops.topk_stats(h_x, sae_cfg.activation.top_k)
@@ -272,15 +289,18 @@ def matryoshka_loss(
     else:
         st = None
         enc, sae_state = modeling.encode(
-            sae_cfg, params, sae_state, x, training=training, momentum=hp.get("momentum"), precision=precision
+            sae_cfg, params, sae_state, x, training=training, momentum=hp.get("momentum"), precision=precision,
+            group=group,
         )
-    bsz = x.shape[0]
+    bsz = x.shape[0] * (1 if group is None else group.size)
 
     new_obj_state, dead_mask = obj_state, None
     if training:
         toks = obj_state["toks_since_active"]
         # Liveness at bf16 resolution, as in the JAX package.
         active = st.live if st is not None else torch.any(enc.f_x.to(torch.bfloat16) != 0, dim=0)
+        if group is not None:
+            active = parallel.all_reduce(active.to(torch.int32), "max", group).bool()
         toks = torch.clamp(toks + bsz, max=_TOKS_CAP)
         toks = torch.where(active, torch.zeros((), dtype=toks.dtype, device=toks.device), toks)
         dead_mask = toks >= obj_cfg.dead_threshold_tokens
@@ -288,13 +308,13 @@ def matryoshka_loss(
 
     if use_fused:
         mse, xhat_full = _fused.prefix_mse(
-            params["W_dec"], params["b_dec"], enc.f_x, x, prefixes, min(1024, sae_cfg.d_sae)
+            params["W_dec"], params["b_dec"], enc.f_x, x, prefixes, min(1024, sae_cfg.d_sae), x_abs_max
         )
         xhat_full = xhat_full.detach()
         x_hats = xhat_full[:, None, :]
     else:
         x_hats = modeling.decode(sae_cfg, params, enc.f_x, prefixes, precision=precision)
-        mse = scale_stabilized_mse(x_hats, x[:, None, :].expand_as(x_hats)).mean()
+        mse = scale_stabilized_mse(x_hats, x[:, None, :].expand_as(x_hats), x_abs_max).mean()
         xhat_full = x_hats[:, -1, :]
     out = modeling.Output(h_x=enc.h_x, f_x=enc.f_x, x_hats=x_hats)
 

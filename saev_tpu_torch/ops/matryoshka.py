@@ -40,13 +40,17 @@ def _use_kernels(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _loss_from_e(e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _upper(x: torch.Tensor, x_abs_max: torch.Tensor | None) -> torch.Tensor:
+    """The scale of the stabilized reduction: max|x|, or the given one."""
+    return torch.clamp(x.abs().max() if x_abs_max is None else x_abs_max, min=1e-12)
+
+
+def _loss_from_e(e: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
     """Scale-stabilized reduction (saev_tpu/ops/matryoshka.py:119-122)."""
-    upper = torch.clamp(x.abs().max(), min=1e-12)
     return torch.mean((e.float() / upper) ** 2) * upper * upper
 
 
-def _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g):
+def _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, upper):
     n_groups = f_x.shape[1] // g
     a = torch.stack(
         [f_x[:, i * g : (i + 1) * g] @ w_dec[i * g : (i + 1) * g] for i in range(n_groups)]
@@ -64,7 +68,7 @@ def _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g):
         f_m = torch.where(lane < rj, f_x[:, mc * g : (mc + 1) * g], 0.0)
         rems.append(f_m @ w_dec[mc * g : (mc + 1) * g])
     e = base + torch.stack(rems) + (b_dec - x)[None]
-    return _loss_from_e(e, x), xhat_full, e
+    return _loss_from_e(e, upper), xhat_full, e
 
 
 def _bwd_plain(f, w, e, ms, rs, g, scale):
@@ -96,7 +100,7 @@ def _bwd_plain(f, w, e, ms, rs, g, scale):
 
 class _PrefixMSE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_dec, b_dec, f_x, x, prefixes, group_size):
+    def forward(ctx, w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max):
         b, d_sae = f_x.shape
         g = min(group_size, d_sae)
         if d_sae % g:
@@ -135,7 +139,7 @@ class _PrefixMSE(torch.autograd.Function):
             if pad:
                 fb = torch.cat([fb, fb.new_zeros((pad, fb.shape[1]))])
                 xp = torch.cat([xp, bp.expand(pad, -1)])
-            upper = torch.clamp(x.abs().max(), min=1e-12)
+            upper = _upper(x, x_abs_max)
             e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
                 fb, wb, xp.contiguous(), bp.contiguous(), 1.0 / upper,
                 m.contiguous(), r.contiguous(), group_size=gp,
@@ -146,7 +150,7 @@ class _PrefixMSE(torch.autograd.Function):
             ctx.save_for_backward(fb, wb, e, m, r)
         else:
             ms, rs = m.tolist(), r.tolist()
-            loss, xhat, e = _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g)
+            loss, xhat, e = _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, _upper(x, x_abs_max))
             ctx.cuts = (ms, rs)
             ctx.save_for_backward(f_x, w_dec, e)
         ctx.mark_non_differentiable(xhat)
@@ -176,14 +180,16 @@ class _PrefixMSE(torch.autograd.Function):
             scale = t_loss * 2.0 / (b * j_n * d_model)
             db_dec = e.sum(dim=(0, 1)) * scale
             df, dw = _bwd_plain(f, w, e, *ctx.cuts, g, scale)
-        return dw, db_dec, df.to(ctx.f_dtype), None, None, None
+        return dw, db_dec, df.to(ctx.f_dtype), None, None, None, None
 
 
-def prefix_mse(w_dec, b_dec, f_x, x, prefixes, group_size: int = 1024):
+def prefix_mse(w_dec, b_dec, f_x, x, prefixes, group_size: int = 1024, x_abs_max=None):
     """(scale-stabilized mean prefix MSE, full reconstruction).
 
     w_dec (d_sae, d_model), b_dec (d_model,), f_x (batch, d_sae) latents,
     x (batch, d_model) targets (no gradient), prefixes (J,) ascending int cut
     points with the last equal to d_sae. d_sae must divide by group_size.
+    `x_abs_max` replaces max|x| as the reduction's scale (a data-parallel
+    step passes the whole batch's); it moves only the loss's rounding.
     """
-    return _PrefixMSE.apply(w_dec, b_dec, f_x, x, prefixes, group_size)
+    return _PrefixMSE.apply(w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max)

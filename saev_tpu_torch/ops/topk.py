@@ -20,6 +20,8 @@ import typing
 
 import torch
 
+from .. import parallel
+
 # Candidates a row per row's share of the batch-global top-k in
 # `batch_global_kth_value`: the JAX package's default `row_oversample`.
 _ROW_OVERSAMPLE = 4
@@ -75,7 +77,9 @@ def exact_kth_value_masked(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch
     return cuda_kth.kth_value_masked_cuda(h.detach(), mask, k)
 
 
-def batch_global_kth_value(h: torch.Tensor, k_total: int, *, exact: bool = False) -> torch.Tensor:
+def batch_global_kth_value(
+    h: torch.Tensor, k_total: int, *, exact: bool = False, group: parallel.Group | None = None
+) -> torch.Tensor:
     """The k_total-th largest value over the whole (B, S) batch, a 0-d
     tensor: BatchTopK's flattened global top-k (counterpart of
     saev_tpu/ops/topk.py `batch_global_kth_value`).
@@ -88,14 +92,23 @@ def batch_global_kth_value(h: torch.Tensor, k_total: int, *, exact: bool = False
     candidates with `lax.approx_max_k`, which is exact on JAX-CPU; here they
     are exact everywhere (torch.topk). Plain torch on either device: the JAX
     package reaches no Pallas kernel here. Carries no gradient.
+
+    With a data `group` (saev_tpu_torch.parallel), `h` is this rank's rows
+    of a batch split evenly over the group and k_total counts the whole
+    batch: B and m_row are the whole batch's, the candidates of every rank
+    are gathered, and every rank returns the same value, the one the JAX
+    package's global view gives.
     """
     h = h.detach()
     b, s = h.shape
-    k_total = min(k_total, b * s)
-    m_row = min(max(-(-k_total // b) * _ROW_OVERSAMPLE, 1), s)
+    b_all = b * (1 if group is None else group.size)
+    k_total = min(k_total, b_all * s)
+    m_row = min(max(-(-k_total // b_all) * _ROW_OVERSAMPLE, 1), s)
     if exact or m_row >= s:
-        return torch.topk(h.reshape(-1), k_total, sorted=True).values[-1]
-    cand = torch.topk(h, m_row, dim=1, sorted=False).values.reshape(-1)
+        cand = h.reshape(-1)
+    else:
+        cand = torch.topk(h, m_row, dim=1, sorted=False).values.reshape(-1)
+    cand = parallel.gather_rows(cand, group)
     return torch.topk(cand, min(k_total, cand.shape[0]), sorted=True).values[-1]
 
 

@@ -1,15 +1,316 @@
-"""Host-to-device transfer for the train loop (the counterpart of
-saev_tpu/parallel `prefetch_to_device`; multi-GPU is not ported yet).
+"""Multi-GPU training over torch.distributed, one process a card, and the
+host-to-device transfer of the train loop (counterpart of
+saev_tpu/parallel/__init__.py).
+
+The processes form a 2-D grid: rank = d * n_sweep + s, with d the data index
+and s the sweep index (`make_mesh`). Every process loads global_batch / world
+rows from its own shard partition; the global batch of a step is those slices
+in rank order.
+
+- `sweep`: the ranks with the same d form a sweep group. Each owns
+  n_sae / n_sweep whole SAEs (`shard_sweep`), and the group all-gathers its
+  members' rows (`shard_batch`), so that every rank of data index d computes
+  on the same global_batch / n_data rows.
+- `data`: the ranks with the same s form a data group. They own the same
+  SAEs, and all-reduce their gradients and the statistics that span the
+  batch (BatchTopK's threshold, the dead-latent counters, max|x|).
+
+The JAX package keeps its sweep axis inside one process (its `make_mesh`
+refuses one that crosses processes); here it crosses processes by design,
+and the sweep group's gather keeps the same semantics. The `feature` axis is
+not ported: anything but 1 raises.
+
+Host-side effects (run dirs, the run recorder, checkpoint and SAE files)
+happen on rank 0 (`is_primary`), and host-accumulated statistics cross
+processes by `global_sum` / `global_min`. At world 1 every helper is the
+identity and needs no process group.
+
+Backends are explicit: "nccl" for CUDA, "gloo" for the CPU; gloo over CUDA
+tensors (two ranks on one card, which NCCL refuses) only where the caller
+passes backend="gloo". Both backends take the collectives used here
+(all_reduce, broadcast, all_gather_into_tensor) on CPU and CUDA tensors.
 """
 
+import dataclasses
+import datetime
+import logging
+import os
 import queue
 import threading
 import typing as tp
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+logger = logging.getLogger("parallel")
+
+DATA_AXIS = "data"
+SWEEP_AXIS = "sweep"
+FEATURE_AXIS = "feature"
+
+# How long a collective may wait for the other ranks before it fails.
+DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 _DONE = object()
+
+
+def init_distributed(
+    device: torch.device | str = "cuda",
+    *,
+    backend: str | None = None,
+    rank: int | None = None,
+    world_size: int | None = None,
+    local_rank: int | None = None,
+    init_method: str = "env://",
+    timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+) -> torch.device:
+    """Join the job's process group (counterpart of the JAX package's
+    `init_distributed`) and return the device this process computes on.
+
+    rank, world_size and local_rank default to torchrun's RANK, WORLD_SIZE
+    and LOCAL_RANK (0, 1 and rank without them); init_method to torchrun's
+    env:// rendezvous. On "cuda" without an index the process takes card
+    `local_rank`, and sets it as the current device. The backend is "nccl"
+    on CUDA and "gloo" on the CPU unless given. At world 1 no group is made.
+    """
+    rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+    world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
+    local_rank = int(os.environ.get("LOCAL_RANK", rank)) if local_rank is None else local_rank
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    if world_size > 1:
+        backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world_size, timeout=timeout
+        )
+        logger.info("torch.distributed initialized: rank %d/%d (%s) on %s.", rank, world_size, backend, device)
+    return device
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_primary() -> bool:
+    """True on the process that owns host-side effects (run dirs, the run
+    recorder, checkpoint and SAE files). Always true single-process."""
+    return process_index() == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """A process group and its members' global ranks, in group order."""
+
+    pg: tp.Any
+    ranks: tuple[int, ...]
+    backend: str
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def comm_device(self) -> torch.device:
+        """Where a host value goes for a collective: NCCL takes only CUDA
+        tensors; gloo takes host tensors."""
+        return torch.device("cuda", torch.cuda.current_device()) if self.backend == "nccl" else torch.device("cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The (data, sweep) grid of the job's processes and this rank's place
+    in it. `data` and `sweep` are None where they would hold one process:
+    collectives over them are the identity."""
+
+    n_data: int
+    n_sweep: int
+    d: int
+    s: int
+    data: Group | None
+    sweep: Group | None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {DATA_AXIS: self.n_data, SWEEP_AXIS: self.n_sweep, FEATURE_AXIS: 1}
+
+
+def _group(ranks: list[int], backend: str) -> Group:
+    return Group(pg=dist.new_group(ranks), ranks=tuple(ranks), backend=backend)
+
+
+def make_mesh(*, sweep: int = 1, feature: int = 1) -> Mesh:
+    """The (data, sweep) grid over every process of the job: n_data = world
+    / sweep, rank = d * sweep + s. Every process must call it, in the same
+    order as the others (process groups are made collectively).
+
+    Raises ValueError when `sweep` does not divide the world, and
+    NotImplementedError for a feature axis: latent-sharded training is not
+    ported (ROADMAP §1 item 9)."""
+    if feature != 1:
+        raise NotImplementedError(
+            f"feature_parallel={feature}: latent-sharded training is not ported yet (ROADMAP §1 item 9)"
+        )
+    world = process_count()
+    if sweep < 1 or world % sweep:
+        raise ValueError(f"sweep_parallel={sweep} does not divide the job's {world} process(es)")
+    n_data = world // sweep
+    rank = process_index()
+    d, s = divmod(rank, sweep)
+    if world == 1:
+        return Mesh(n_data=1, n_sweep=1, d=0, s=0, data=None, sweep=None)
+    backend = dist.get_backend()
+    # new_group is collective: every rank makes every group, in one order.
+    data = [_group([dd * sweep + ss for dd in range(n_data)], backend) for ss in range(sweep)] if n_data > 1 else None
+    swept = [_group([dd * sweep + ss for ss in range(sweep)], backend) for dd in range(n_data)] if sweep > 1 else None
+    return Mesh(n_data=n_data, n_sweep=sweep, d=d, s=s, data=data[s] if data else None,
+                sweep=swept[d] if swept else None)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on device tensors (identity where the group is None)
+# ---------------------------------------------------------------------------
+
+
+def all_reduce(t: torch.Tensor, op: str, group: Group | None) -> torch.Tensor:
+    """`t` reduced over the group ("sum", "max" or "min"), in place; returned."""
+    if group is not None:
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()), group=group.pg)
+    return t
+
+
+def all_reduce_mean(tensors: list[torch.Tensor], group: Group | None) -> list[torch.Tensor]:
+    """The mean of each tensor over the group, in one collective on one flat
+    f32 buffer (the tensors are f32)."""
+    if group is None:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce(flat, "sum", group).div_(group.size)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at : at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+def gather_rows(t: torch.Tensor, group: Group | None) -> torch.Tensor:
+    """The members' `t` (the same shape on each) concatenated along axis 0
+    in group order, in one all_gather_into_tensor."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    out = torch.empty((group.size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group.pg)
+    return out
+
+
+def shard_batch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """This process's rows (global_batch / world) -> the rows of its sweep
+    group (global_batch / n_data), in rank order."""
+    return gather_rows(x, mesh.sweep)
+
+
+def shard_sweep(mesh: Mesh, tree):
+    """This rank's n_sae / n_sweep SAEs of a stacked tree: rows [s * m, (s +
+    1) * m) of every leaf with a leading axis (a tensor's copied, so that
+    the rest of the stack can be freed); 0-d leaves stay whole."""
+    def one(x):
+        if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim == 0 or mesh.n_sweep == 1:
+            return x
+        if x.shape[0] % mesh.n_sweep:
+            raise ValueError(f"a leading axis of {x.shape[0]} does not divide over sweep_parallel={mesh.n_sweep}")
+        m = x.shape[0] // mesh.n_sweep
+        part = x[mesh.s * m : (mesh.s + 1) * m]
+        return part.clone() if isinstance(part, torch.Tensor) else part
+
+    return _map(one, tree)
+
+
+def to_host(mesh: Mesh, tree):
+    """A tree of this rank's SAEs -> the whole stack as numpy on every rank
+    of its sweep group (a collective there): leaves with a leading axis are
+    gathered along it, 0-d leaves are this rank's."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if x.ndim:
+                x = gather_rows(x, mesh.sweep)
+            return x.cpu().numpy()
+        return np.asarray(x)
+
+    return _map(one, tree)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Host values across the job's processes
+# ---------------------------------------------------------------------------
+
+
+def world_group() -> Group | None:
+    """Every process of the job as one group; None single-process."""
+    if process_count() == 1:
+        return None
+    return Group(pg=dist.group.WORLD, ranks=tuple(range(process_count())), backend=dist.get_backend())
+
+
+def _host_reduce(values, op: str) -> np.ndarray:
+    arr = np.asarray(values)
+    group = world_group()
+    if group is None:
+        return arr
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(group.comm_device())
+    return all_reduce(t, op, group).cpu().numpy()
+
+
+def global_sum(values) -> np.ndarray:
+    """Element-wise sum of a small host array over every process (identity
+    single-process): host accumulators each process builds from its rows."""
+    return _host_reduce(values, "sum")
+
+
+def global_min(values) -> np.ndarray:
+    """Element-wise min of a small host array over every process (identity
+    single-process): a count of collective-bearing steps all agree on."""
+    return _host_reduce(values, "min")
+
+
+def broadcast_from_primary(tree):
+    """Rank 0's host tree (numpy leaves) on every process (identity
+    single-process): data-dependent initialization read from each rank's
+    own partition starts from rank 0's values everywhere."""
+    group = world_group()
+    if group is None:
+        return tree
+
+    def one(x):
+        arr = np.asarray(x)
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(group.comm_device())
+        dist.broadcast(t, src=0, group=group.pg)
+        return t.cpu().numpy().reshape(arr.shape)
+
+    return _map(one, tree)
+
+
+def sync() -> None:
+    """Barrier over every process (no-op single-process): one all_reduce
+    whose result the host waits for."""
+    _host_reduce(np.zeros(1, np.int32), "sum")
 
 
 def _fetch_ahead(

@@ -389,9 +389,9 @@ def test_crash_between_cohort_saves_resumes_from_common_step(tmp_path, monkeypat
     restore_steps = []
     real_restore = checkpoints.restore
 
-    def spy_restore(root, gk, step, template):
+    def spy_restore(root, gk, step, template, **kwargs):
         restore_steps.append(step)
-        return real_restore(root, gk, step, template)
+        return real_restore(root, gk, step, template, **kwargs)
 
     monkeypatch.setattr(checkpoints, "restore", spy_restore)
     runtimes, run, steps = train.train([dataclasses.replace(c, resume=True) for c in cfgs])
@@ -405,10 +405,18 @@ def test_crash_between_cohort_saves_resumes_from_common_step(tmp_path, monkeypat
 
 
 def test_multi_gpu_options_raise(tmp_path):
+    """In a job of one process: feature_parallel is not ported (item 9); a
+    sweep_parallel that does not divide the processes, and a loader
+    partition set in the config (the trainer sets rank and world), raise
+    before any data is read."""
     base = _cfgs("torch", tmp_path, tmp_path, tmp_path)[0]
-    for bad in (dict(sweep_parallel=2), dict(feature_parallel=2),
-                dict(train_data=dataclasses.replace(base.train_data, world=2))):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for bad, err, match in (
+        (dict(feature_parallel=2), NotImplementedError, "item 9"),
+        (dict(sweep_parallel=2), ValueError, "sweep_parallel=2 does not divide the job's 1 process"),
+        (dict(train_data=dataclasses.replace(base.train_data, world=2)), ValueError,
+         "the trainer partitions the loader"),
+    ):
+        with pytest.raises(err, match=match):
             train.train([dataclasses.replace(base, **bad)])
 
 
