@@ -230,12 +230,33 @@ script exits non-zero:
                 once step 2's is written, resumed to step 4, eval, the SAE
                 files: rank 0 writes every checkpoint and each file once and
                 the others none, the files load with `nn.load` bit for bit
-                the trained params, eval L0 32. Each rank's cohort is the
-                same bits as the others', K1-K5 launch on every rank in
-                (a) and (b), K2-K5 in (c), K1-K6 in (d), no plain version
-                runs. Logs each case's ms/step on every rank beside the
-                one-rank step's, and the ms of the data step's gradient
-                all-reduce and of the sweep group's row gather.
+                the trained params, eval L0 32; (e) feature-parallel
+                training (feature_parallel = ranks, one SAE, TopK 32, AuxK
+                512, 5% pinned dead, Adam) through `make_step_router` from
+                one step before AuxK starts: warm, dense, then the tight
+                rung, 3 steps; (f) the same at d_sae 65536 (the one-rank
+                step's threshold takes the wide route, csrc/kth_wide.cu,
+                a shard of 32768 or fewer the narrow one); one Muon step
+                under (e)'s layout. Each held to the one-rank step from the
+                same state and batches: every step's TopK threshold bit for
+                bit K6 (or its wide route) on the whole rows the feature
+                group gathers, and the first step's bit for bit the
+                one-rank step's where the pre-activations are the same
+                bits; n_dead and the route equal; stats within
+                MULTI_FEATURE_STAT_REL and params within
+                MULTI_FEATURE_PARAM_REL rel-norm. Before the ranks start,
+                K1's threshold entry is held bit for bit to K1 on the same
+                rows (at (e)'s shard and through the wide route) and to
+                its plain version, and the candidate step of the sharded
+                threshold (csrc/kth_shard.cu) to its plain version. Each
+                rank's cohort is the same bits as the others', K1-K5 launch
+                on every rank in (a) and (b), K2-K5 in (c), K1-K6 in (d),
+                K1's threshold entry, K3-K7 and the candidate step in (e)
+                and (f) and K2 not, no plain version runs. Logs each case's
+                ms/step on every rank beside the one-rank step's, the ms of
+                the data step's gradient all-reduce and of the sweep group's
+                row gather, and the feature group's base all-reduce and
+                candidate gathers.
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, activations, muon, high, multi: each rank's
@@ -295,7 +316,8 @@ P1_PRODUCT = "encode_stats_wgmma_kernel"
 # K1 (streamed rows, and one CTA a row), P1 (x rounded, the product), K5, K6
 # (streamed rows, and one CTA a row)
 SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_round_kernel", P1_PRODUCT,
-                  "kth_masked_kernel", "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel")
+                  "kth_masked_kernel", "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel",
+                  "topk_given_stream_kernel", "topk_given_kernel", "kth_candidates_kernel")
 # Registers K1's streamed kernel may not exceed at the production width,
 # where two 256-thread CTAs share an SM (its count before K6 took K1's
 # select), and P1's product, two 128-thread CTAs an SM (its count when it
@@ -312,6 +334,7 @@ PASS_KERNELS = ("kth_ops_stream_kernel", "kth_ops_kernel", "count_loop_stream_ke
 # may reach one (`plain_spy`).
 PLAIN_VERSIONS = (
     ("cuda_topk", "_topk_stats_plain"), ("cuda_kth", "_kth_plain"), ("cuda_kth", "_kth_masked_plain"),
+    ("cuda_kth", "_kth_candidates_plain"),
     ("cuda_matryoshka", "grouped_prefix_err_plain"), ("cuda_matryoshka", "grouped_matmul_dgrad_plain"),
     ("cuda_matryoshka", "grouped_matmul_wgrad_plain"), ("cuda_matryoshka", "grouped_prefix_base_plain"),
 )
@@ -362,6 +385,15 @@ def wrappers() -> dict:
     }
 
 
+def helper_wrappers() -> dict:
+    """K1's threshold entry and the sharded threshold's candidate step
+    (csrc/kth_shard.cu), which feature-parallel training launches: counted
+    apart from the eleven (`helper_counts`)."""
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk
+
+    return {"topk_stats_given": cuda_topk.topk_stats_given_cuda, "kth_candidates": cuda_kth.kth_candidates_cuda}
+
+
 @contextlib.contextmanager
 def plain_spy():
     """Counts, for the duration, each call of a plain version that a kernel
@@ -388,8 +420,12 @@ def plain_spy():
 
 
 def reset_counts() -> None:
-    for fn in wrappers().values():
+    for fn in (wrappers() | helper_wrappers()).values():
         fn.launches = 0
+
+
+def helper_counts() -> dict:
+    return {k: fn.launches for k, fn in helper_wrappers().items()}
 
 
 def counts() -> dict:
@@ -2371,8 +2407,8 @@ def phase_activations(errs: dict) -> dict:
         # value, and the first SAE's pre-activations for timing.
         seen, seen_h, real = [], [], modeling.batch_topk_train
 
-        def spy(h, k, momentum, threshold, group=None, real=real, seen=seen, seen_h=seen_h):
-            f, new = real(h, k, momentum, threshold, group)
+        def spy(h, k, momentum, threshold, group=None, feature=None, *, real=real, seen=seen, seen_h=seen_h):
+            f, new = real(h, k, momentum, threshold, group, feature)
             fd = f.detach()
             seen.append((fd[fd > 0].min(), threshold, momentum, new))
             if not seen_h:
@@ -3031,6 +3067,26 @@ MULTI_DATA_STAT_REL = 1e-4
 MULTI_DATA_PARAM_REL = 1e-4
 MULTI_THRESHOLD_REL = 1e-5  # BatchTopK's moved threshold, after each step (an H100 gave 0)
 MULTI_STEP_KERNELS = WARM_KERNELS + ("kth_value_masked",)  # K1-K5
+# (e) feature-parallel training at the steady phase's shape, one SAE, from
+# one step before AuxK starts (warm, dense, then the tight rung); (f) the
+# same at d_sae 65536, whose tight rung holds its 5% dead.
+MULTI_FEATURE = dict(batch=B, d_model=D_MODEL, d_sae=D_SAE, top_k=TOP_K, k_aux=K_AUX, n_prefixes=N_PREFIXES,
+                     dead=N_DEAD_5, steps=3)
+MULTI_FEATURE_WIDE = dict(MULTI_FEATURE, d_sae=D_SAE_WIDE, dead=int(D_SAE_WIDE * 0.05))
+MULTI_FEATURE_ROUTE = ["warm", "dense", "tight"]
+# The feature-parallel step against the one-rank step: the partial products
+# summed over the ranks round apart from the whole ones (and the gradient's
+# norm, Muon's Gram matrices). H100s gave stats 1.83e-7 and params 6.92e-7
+# with 2 ranks over gloo, stats 4.61e-6 (f) and params 7.71e-7 with 4 over
+# NCCL: each bound about 4-6x the larger.
+MULTI_FEATURE_STAT_REL = 2e-5
+MULTI_FEATURE_PARAM_REL = 5e-6
+# What (e) and (f) launch on every rank: K1's threshold entry and the
+# candidate step (`helper_counts`), K3-K7; K2 and K1's own select never.
+MULTI_FEATURE_KERNELS = ("grouped_matmul_dgrad", "grouped_matmul_wgrad", "kth_value_masked", "kth_value",
+                         "grouped_prefix_base")
+MULTI_FEATURE_HELPERS = ("topk_stats_given", "kth_candidates")
+MULTI_FEATURE_CASES = ("feature", "feature_muon", "feature_wide")
 
 
 def _multi_steps(dims: dict, device, mesh, case: str) -> dict:
@@ -3219,6 +3275,172 @@ def _multi_job(dims: dict, device, root: pathlib.Path, train_dir, val_dir) -> di
     return out
 
 
+def _bits_checksum(t: torch.Tensor, rows: int = 1024) -> list[int]:
+    """Two int64 sums of an f32 tensor's bits (plain, and weighted by the
+    position mod a prime), a block of rows at a time: equal sums say the
+    tensors are the same bits, but for a chance collision."""
+    flat = t.reshape(t.shape[0], -1)
+    a = b = 0
+    for start in range(0, flat.shape[0], rows):
+        v = flat[start : start + rows].reshape(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(start * flat.shape[1], start * flat.shape[1] + v.numel(), device=t.device) % 1000003
+        a += int(v.sum())
+        b += int((v * pos).sum())
+    return [a, b]
+
+
+def _multi_feature(dims: dict, device, mesh, optim: str = "adam") -> dict:
+    """(e), (f) and the Muon step: one seeded SAE with dims["dead"] latents
+    pinned, through `make_step_router` at feature_parallel = the mesh's
+    feature axis, from one step before AuxK starts, on seeded global
+    batches of which this rank takes its rows. Returns each step's stats
+    (the same on every rank), ms, route and TopK threshold, whether each
+    threshold is bit for bit K6 (its wide route past 32768 columns) on the
+    whole rows the feature group gathers, the first step's whole
+    pre-activations' checksum, the launches, and the whole params. At
+    world 1 the one-rank reference."""
+    from saev_tpu_torch import ops, parallel
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import modeling, objectives
+    from saev_tpu_torch.ops import cuda_kth
+
+    cfg = modeling.SparseAutoencoderConfig(
+        d_model=dims["d_model"], d_sae=dims["d_sae"],
+        activation=modeling.TopK(top_k=dims["top_k"], aux=modeling.AuxK(k_aux=dims["k_aux"])),
+    )
+    obj = objectives.Matryoshka(n_prefixes=dims["n_prefixes"])
+    world, rank = parallel.process_count(), parallel.process_index()
+    gen = torch.Generator(device).manual_seed(SEED + 13)
+    ts = train.init_sweep_state(cfg, 1, gen, device, optim=optim)
+    _pin_dead(ts, dims["dead"])
+    xs = [torch.randn((dims["batch"], dims["d_model"]), generator=gen, device=device) for _ in range(dims["steps"])]
+    prefixes = torch.from_numpy(objectives.sample_prefixes(
+        dims["d_sae"], dims["n_prefixes"], rng=np.random.default_rng(SEED + 14))[None]).to(device)
+    hp = {"lr": torch.full((1,), 4e-4, device=device), "n_lr_warmup": torch.full((1,), 500.0, device=device),
+          "grad_clip": torch.ones((1,), device=device), "sparsity_coeff": torch.zeros((1,), device=device),
+          "aux_alpha": torch.full((1,), 1 / 32, device=device)}
+    router = train.make_step_router(cfg, obj, 6000, dims["batch"], optim=optim, mesh=mesh)
+    names = {id(router.step_fn_warm): "warm", id(router.step_fn): "dense"}
+    names |= {id(fn): ("tight", "wide")[i] for i, (_, fn) in enumerate(router.step_fn_subs)}
+    start = router.aux_from_step - 1
+    ts = ts._replace(step=torch.full((), start, dtype=torch.int32, device=device))
+    axes = parallel.latent_axes(ts, dims["d_sae"])
+    ts = parallel.shard_features(mesh, ts, dims["d_sae"])
+    seen, real = [], ops.topk_stats
+
+    def spy(h, k, *, group=None):
+        st = real(h, k, group=group)
+        seen.append((h.detach().clone(), st.kth.clone()))
+        return st
+
+    rows = dims["batch"] // world
+    out = {"stats": [], "ms": [], "route": []}
+    ops.topk_stats = spy
+    try:
+        reset_counts()
+        for i, x in enumerate(xs):
+            x = x[rank * rows : (rank + 1) * rows].contiguous()
+            fn = router.step_fn_at(start + i)
+            out["route"].append(names[id(fn)])
+            _sync(device)
+            t = time.perf_counter()
+            ts, stats = fn(ts, parallel.shard_batch(mesh, x), prefixes, hp)
+            _sync(device)
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            router.record_stats(start + i, stats)
+            out["stats"].append(parallel.to_host(mesh, stats))
+        out["launches"], out["helpers"] = counts(), helper_counts()
+    finally:
+        ops.topk_stats = real
+    del xs
+    out["kth"], out["kth_whole"] = [], []
+    for i, (h, kth) in enumerate(seen):
+        whole = parallel.gather_cols(h, mesh.feature)
+        want = cuda_kth.kth_value_cuda(whole, dims["top_k"])
+        out["kth_whole"].append(torch.equal(kth.view(torch.int32), want.view(torch.int32)))
+        out["kth"].append(kth.cpu().numpy())
+        if i == 0:
+            out["h0_checksum"] = _bits_checksum(whole)
+        del whole, want
+    seen.clear()
+    out["params"] = parallel.to_host(mesh, ts.params, axes.params)
+    return out
+
+
+def _multi_feature_collectives(dims: dict, device, mesh) -> dict:
+    """ms of the feature group's collectives in (e)'s step, 3 each after one
+    warm-up, each behind a barrier and timed to the card's end: the prefix
+    MSE's base all-reduce ((J, B, D) f32), the sharded threshold's bound
+    (a key a row, all-reduce max) and its candidate gathers (k and k_aux a
+    row, f32)."""
+    from saev_tpu_torch import parallel
+
+    base = torch.zeros((dims["n_prefixes"], dims["batch"], dims["d_model"]), device=device)
+    keys = torch.zeros((dims["batch"], 1), dtype=torch.int32, device=device)
+    cand = torch.zeros((dims["batch"], dims["top_k"]), device=device)
+    cand_aux = torch.zeros((dims["batch"], dims["k_aux"]), device=device)
+    out = {"base_mib": base.numel() * 4 / 2**20}
+    for name, fn in (("base_all_reduce", lambda: parallel.all_reduce(base, "sum", mesh.feature)),
+                     ("kth_bound", lambda: parallel.all_reduce(keys, "max", mesh.feature)),
+                     ("kth_candidates", lambda: parallel.gather_cols(cand, mesh.feature)),
+                     ("aux_candidates", lambda: parallel.gather_cols(cand_aux, mesh.feature))):
+        fn()
+        out[name] = []
+        for _ in range(3):
+            parallel.sync()
+            _sync(device)
+            t = time.perf_counter()
+            fn()
+            _sync(device)
+            out[name].append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _feature_kernel_parity() -> list[str]:
+    """K1's threshold entry at (e)'s shard shape (2 ranks) and through the
+    wide route, bit for bit K1 on the same rows (K1's kth given) and against
+    its plain version; the sharded threshold's candidate step, plain and
+    masked (5% of the columns, K5's bound), against its plain version as
+    each row's multiset; each one's ms beside its plain version's."""
+    from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
+
+    gen, lines = _gen(), []
+    for b, s in ((B, D_SAE // 2), (4096, D_SAE_WIDE)):
+        h = torch.randn((b, s), generator=gen, device="cuda")
+        k1 = cuda_topk.topk_stats_cuda(h, TOP_K)
+        given = cuda_topk.topk_stats_given_cuda(h, k1.kth)
+        plain = topk._topk_stats_plain(h, None, k1.kth)
+        same_k1 = (torch.equal(given.f.view(torch.int16), k1.f.view(torch.int16)) and torch.equal(given.live, k1.live)
+                   and torch.equal(given.l0, k1.l0) and torch.equal(given.l1.view(torch.int32), k1.l1.view(torch.int32)))
+        l1_rel = float(((given.l1 - plain.l1).abs() / plain.l1.abs()).max())
+        same_plain = (torch.equal(given.f.view(torch.int16), plain.f.view(torch.int16))
+                      and torch.equal(given.live, plain.live) and torch.equal(given.l0, plain.l0))
+        require(same_k1 and same_plain and l1_rel <= 1e-5,
+                f"multi: K1's threshold entry at {b} x {s}: K1's bits {same_k1}, plain f, live, L0 {same_plain}, "
+                f"L1 rel err {l1_rel:.3g}")
+        ms = _time(lambda: cuda_topk.topk_stats_given_cuda(h, k1.kth), 10)
+        k1_ms = _time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10)
+        lines.append(f"multi: K1's threshold entry at {b} x {s}: f, live, L0, L1 bit for bit K1's, f, live, L0 its "
+                     f"plain version's, L1 within {l1_rel:.3g}; {ms:.3f} ms against K1's {k1_ms:.3f}")
+        del h, k1, given, plain
+    h = torch.randn((B, D_SAE // 2), generator=gen, device="cuda")
+    mask = torch.rand((D_SAE // 2,), generator=gen, device="cuda") < 0.05
+    for what, m, k in (("plain", None, TOP_K), ("masked", mask, K_AUX)):
+        t0 = cuda_kth.kth_value_cuda(h, k) if m is None else cuda_kth.kth_value_masked_cuda(h, m, k)
+        got = cuda_kth.kth_candidates_cuda(h, m, t0, k)
+        want = topk._kth_candidates_plain(h, m, t0, k)
+        same = torch.equal(torch.sort(got, dim=1).values.view(torch.int32),
+                           torch.sort(want, dim=1).values.view(torch.int32))
+        require(same, f"multi: the candidate step ({what}, k {k}) differs from its plain version")
+        ms = _time(lambda: cuda_kth.kth_candidates_cuda(h, m, t0, k), 10)
+        plain_ms = _time(lambda: topk._kth_candidates_plain(h, m, t0, k), 2)
+        lines.append(f"multi: the candidate step ({what}, {B} x {D_SAE // 2}, k {k}) each row's multiset its plain "
+                     f"version's; {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    for line in lines:
+        log(line)
+    return lines
+
+
 def _multi_rank(rank: int, world: int, port: int, backend: str, root: str, dims: dict, shard_dirs: tuple) -> None:
     """One rank of the multi phase, on card `rank` over NCCL, else on cuda:0:
     joins the process group, runs every case, times the collectives, runs
@@ -3245,8 +3467,15 @@ def _multi_rank(rank: int, world: int, port: int, backend: str, root: str, dims:
             out["batch_topk"] = _multi_steps(dims, device, parallel.make_mesh(), "batch_topk")
             out["collectives"] = _multi_collectives(dims, device)
             out["job"] = _multi_job(dims["job"], device, root, *shard_dirs)
+            torch.cuda.empty_cache()
+            feature = parallel.make_mesh(feature=world)
+            out["feature"] = _multi_feature(MULTI_FEATURE, device, feature)
+            out["feature_collectives"] = _multi_feature_collectives(MULTI_FEATURE, device, feature)
+            out["feature_muon"] = _multi_feature(dict(MULTI_FEATURE, steps=1), device, feature, "muon")
+            torch.cuda.empty_cache()
+            out["feature_wide"] = _multi_feature(MULTI_FEATURE_WIDE, device, feature)
         out["plain"] = dict(plain)
-        for case in ("data", "sweep", "batch_topk"):
+        for case in ("data", "sweep", "batch_topk") + MULTI_FEATURE_CASES:
             params = out[case].pop("params")
             out[case]["digest"] = hashlib.sha256(b"".join(params[k].tobytes() for k in sorted(params))).hexdigest()
             if rank == 0:
@@ -3277,6 +3506,10 @@ def run_multi(root: pathlib.Path) -> dict:
     dims = multi_dims(world)
     dev = torch.device("cuda")
     ref = {case: _multi_steps(dims, dev, parallel.make_mesh(), case) for case in ("data", "sweep", "batch_topk")}
+    for case, fdims, optim in (("feature", MULTI_FEATURE, "adam"), ("feature_muon", dict(MULTI_FEATURE, steps=1), "muon"),
+                               ("feature_wide", MULTI_FEATURE_WIDE, "adam")):
+        torch.cuda.empty_cache()
+        ref[case] = _multi_feature(fdims, dev, parallel.make_mesh(), optim)
     _sync(dev)
     torch.cuda.empty_cache()
     job = dims["job"]
@@ -3330,7 +3563,7 @@ def check_multi(out: dict) -> list[str]:
     def require(ok: bool, what: str) -> None:
         if not ok:
             failed.append(what)
-    for case in ("data", "sweep", "batch_topk"):
+    for case in ("data", "sweep", "batch_topk") + MULTI_FEATURE_CASES:
         digests = {r["device"]: r[case]["digest"] for r in ranks}
         require(len(set(digests.values())) == 1, f"multi {case}: the ranks' cohorts differ: {digests}")
     # (a) data-parallel: within rounding of the one-rank step.
@@ -3381,6 +3614,46 @@ def check_multi(out: dict) -> list[str]:
         require(len(j["ids"]) == (2 if r == 0 else 0), f"multi job rank {r}: ids {j['ids']}")
         for l0, nmse, _ in j["eval"]:
             require(job["top_k"] <= l0 <= job["top_k"] + 1e-3 and np.isfinite(nmse), f"multi job: eval {j['eval']}")
+    # (e), (f) and the Muon step: feature-parallel against the one-rank step.
+    for case in MULTI_FEATURE_CASES:
+        got, want = ranks[0][case], ref[case]
+        width = (MULTI_FEATURE_WIDE if case == "feature_wide" else MULTI_FEATURE)["d_sae"]
+        require(all(all(r[case]["kth_whole"]) for r in ranks),
+                f"multi {case}: a TopK threshold differs from K6 on the whole rows: "
+                f"{[r[case]['kth_whole'] for r in ranks]}")
+        require(all(r[case]["route"] == want["route"] for r in ranks) and all(want["kth_whole"]),
+                f"multi {case}: routes {[r[case]['route'] for r in ranks]}, one rank {want['route']}")
+        if case != "feature_muon":
+            require(want["route"] == MULTI_FEATURE_ROUTE, f"multi {case}: one rank's route {want['route']}")
+        require(all(np.array_equal(g["n_dead"], w["n_dead"]) for g, w in zip(got["stats"], want["stats"])),
+                f"multi {case}: n_dead {[g['n_dead'].tolist() for g in got['stats']]}, one rank "
+                f"{[w['n_dead'].tolist() for w in want['stats']]}")
+        same_h = got["h0_checksum"] == want["h0_checksum"]
+        rows_same = int((got["kth"][0].view(np.int32) == want["kth"][0].view(np.int32)).sum())
+        require(not same_h or rows_same == len(want["kth"][0]),
+                f"multi {case}: the first step's pre-activations are the one rank's bits, its threshold differs "
+                f"in {len(want['kth'][0]) - rows_same} rows")
+        stat_err = max(_rel(g[k], w[k]) for g, w in zip(got["stats"], want["stats"])
+                       for k in ("loss", "mse", "aux", "l0", "l1", "grad_norm"))
+        param_err = max(rel_norm(torch.from_numpy(got["params"][k]), torch.from_numpy(want["params"][k]))
+                        for k in want["params"])
+        require(stat_err <= MULTI_FEATURE_STAT_REL and param_err <= MULTI_FEATURE_PARAM_REL,
+                f"multi {case}: stats rel err {stat_err:.3g} (<= {MULTI_FEATURE_STAT_REL}), params rel-norm "
+                f"{param_err:.3g} (<= {MULTI_FEATURE_PARAM_REL})")
+        lines.append(
+            f"multi {case} (feature_parallel {world}, d_sae {width}, {len(want['route'])} steps {want['route']}): every "
+            f"TopK threshold bit for bit K6 on the whole rows; the first step's pre-activations the one rank's bits "
+            f"{same_h}, its threshold the one rank's in {rows_same} of {len(want['kth'][0])} rows; stats (loss, mse, "
+            f"aux, l0, l1, grad_norm) max rel err {stat_err:.3g}, params max rel-norm {param_err:.3g}, n_dead "
+            f"{[int(g['n_dead'][0]) for g in got['stats']]} and the route equal")
+    for r, res in enumerate(ranks):
+        for case in ("feature", "feature_wide"):
+            for k in MULTI_FEATURE_KERNELS:
+                require(res[case]["launches"][k] > 0, f"multi rank {r} {case}: kernel {k} was never launched")
+            for k in MULTI_FEATURE_HELPERS:
+                require(res[case]["helpers"][k] > 0, f"multi rank {r} {case}: {k} was never launched")
+            require(res[case]["launches"]["grouped_prefix_err"] == 0 and res[case]["launches"]["topk_stats"] == 0,
+                    f"multi rank {r} {case}: K2 or K1's select launched: {res[case]['launches']}")
     j0 = ranks[0]["job"]
     require(all(j0["files_bitwise"]) and len(j0["files_bitwise"]) == 2, f"multi job: files {j0['files_bitwise']}")
     require(len(j0["ckpts"]) == 1 and j0["ckpts"][0].endswith(f"step_{job['steps']:08d}"),
@@ -3399,12 +3672,16 @@ def phase_multi(root: pathlib.Path) -> dict:
     """Training over torch.distributed at the steady phase's shape
     (`multi_dims`), on the ranks of `multi_layout`: the data-parallel,
     sweep-parallel and BatchTopK steps held to the one-rank step, a
-    checkpointed, stopped and resumed worker_fn job; K1-K5 launched on every
-    rank. Logs ms/step of each case beside the one-rank step, and the
-    collectives' ms. Returns the launches, summed over the ranks."""
+    checkpointed, stopped and resumed worker_fn job, and feature-parallel
+    training (K1's threshold entry and the candidate step first held to K1
+    and their plain versions); K1-K7 launched on every rank. Logs ms/step of
+    each case beside the one-rank step, and the collectives' ms. Returns the
+    launches, summed over the ranks, K1's threshold entry's in K1's."""
     from saev_tpu_torch.ops import _build
 
     _build.lib()  # built here, before the ranks start: each would build it otherwise
+    _feature_kernel_parity()
+    torch.cuda.empty_cache()
     world, backend = multi_layout()
     if backend == "gloo":
         log(f"multi: {torch.cuda.device_count()} card(s): {world} ranks on cuda:0 over gloo (NCCL takes one card "
@@ -3412,7 +3689,7 @@ def phase_multi(root: pathlib.Path) -> dict:
     else:
         log(f"multi: {world} ranks over NCCL, one card each")
     out = run_multi(root)
-    for case in ("data", "sweep", "batch_topk"):
+    for case in ("data", "sweep", "batch_topk") + MULTI_FEATURE_CASES:
         ref_ms = out["ref"][case]["ms"]
         log(f"multi {case}: ms/step " + "; ".join(
             f"rank {r} {[round(t, 2) for t in res[case]['ms']]}" for r, res in enumerate(out["ranks"]))
@@ -3422,10 +3699,24 @@ def phase_multi(root: pathlib.Path) -> dict:
         log(f"multi rank {r} collectives ({backend}, {world} ranks): all_reduce_mean of {c['bucket_mib']:.1f} MiB "
             f"{[round(t, 2) for t in c['all_reduce_mean']]} ms, gather_rows of {c['rows_mib']:.1f} MiB a rank "
             f"{[round(t, 2) for t in c['gather_rows']]} ms")
+        c = res["feature_collectives"]
+        log(f"multi rank {r} feature collectives ({backend}, {world} ranks): base all-reduce of {c['base_mib']:.1f} "
+            f"MiB {[round(t, 2) for t in c['base_all_reduce']]} ms, threshold bound all-reduce "
+            f"{[round(t, 3) for t in c['kth_bound']]} ms, candidate gathers (k {TOP_K}) "
+            f"{[round(t, 3) for t in c['kth_candidates']]} ms, (k_aux {K_AUX}) "
+            f"{[round(t, 3) for t in c['aux_candidates']]} ms")
+    if backend == "gloo":
+        log("multi: over gloo the ranks share one card and each collective goes through the host: the feature "
+            "cases' times record the path, not a speedup")
     check_multi(out)
     log(f"multi: ranks ran {out['spawn_s']:.1f} s in all, start-up included")
-    return {k: sum(res[case]["launches"][k] for res in out["ranks"] for case in ("data", "sweep", "batch_topk", "job"))
-            for k in KERNELS}
+    cases = ("data", "sweep", "batch_topk", "job") + MULTI_FEATURE_CASES
+    given = sum(res[case]["helpers"]["topk_stats_given"] for res in out["ranks"] for case in MULTI_FEATURE_CASES)
+    cand = sum(res[case]["helpers"]["kth_candidates"] for res in out["ranks"] for case in MULTI_FEATURE_CASES)
+    log(f"multi: K1's threshold entry launched {given} times, the candidate step {cand}, summed over the ranks")
+    launches = {k: sum(res[case]["launches"][k] for res in out["ranks"] for case in cases) for k in KERNELS}
+    launches["topk_stats"] += given
+    return launches
 
 
 def main() -> int:
@@ -3477,7 +3768,9 @@ def main() -> int:
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k] + multi_counts[k]
                 for k in KERNELS}
-    launches |= {k: bench_counts[k] for k in BENCH_KERNELS}
+    # K7 runs on the multi path (feature-parallel training); the other bench
+    # kernels only in the benches phase.
+    launches |= {k: bench_counts[k] for k in BENCH_KERNELS if k != "grouped_prefix_base"}
     for path, got, kernels in (("slice", warm_counts, WARM_KERNELS),
                                ("wide steps", wide_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("steady", steady_counts, WARM_KERNELS + ("kth_value_masked",)),
@@ -3487,7 +3780,7 @@ def main() -> int:
                                ("activations", act_counts, WARM_KERNELS[1:] + ("kth_value_masked",)),
                                ("muon", muon_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("high", high_counts, ("kth_value", "kth_value_masked")),
-                               ("multi", multi_counts, JOB_KERNELS),
+                               ("multi", multi_counts, JOB_KERNELS + ("grouped_prefix_base",)),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

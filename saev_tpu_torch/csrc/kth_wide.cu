@@ -121,115 +121,122 @@ __host__ __device__ inline int wide_chunk_width(int n, int n_chunks) {
 // One row a CTA (blockIdx.x): kth_out[row] and, for STATS (K1), f[row, :],
 // live, l0_out[row] and l1_out[row]. The row's n keys are S, in n_chunks
 // chunks of cs, or for K5 the *n_live columns listed at idx, chunked here.
-template <bool VEC, bool MASKED, bool STATS>
+// GIVEN (K1's threshold entry, STATS only) skips the select: kth_out[row]
+// holds the threshold on entry.
+template <bool VEC, bool MASKED, bool STATS, bool GIVEN = false>
 __global__ void __launch_bounds__(kWideThreads)
     wide_row_kernel(const float* __restrict__ h, const int* __restrict__ idx, const int* __restrict__ n_live,
                     int S, int k, int n_chunks, int cs, float* __restrict__ kth_out,
                     __nv_bfloat16* __restrict__ f, int* __restrict__ live, float* __restrict__ l0_out,
                     float* __restrict__ l1_out, int* __restrict__ fallback) {
+  static_assert(!GIVEN || (STATS && !MASKED), "a given threshold is K1's");
   __shared__ WideSmem sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int n_warps = kWideThreads / 32;
   const long row = blockIdx.x;
   const float* hr = h + row * S;
-  const int n = MASKED ? *n_live : S;
-  if constexpr (MASKED) {
-    n_chunks = wide_chunks(n);
-    cs = wide_chunk_width(n, n_chunks);
-  }
-  if (tid == 0) {
-    sm.n_cand = 0;
-    sm.kth_key = 0;
-  }
-  __syncthreads();
-
-  // 1-3. The chunks: each one's k-th largest key, the lower bound L, and
-  // the candidates.
-  uint32_t lower = 0, top = 0;
-#pragma unroll 1
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int c0 = ch * cs, len = min(cs, n - c0);
-    uint32_t key[kWideVpt];
-    const uint32_t mx = chunk_keys<VEC, MASKED>(MASKED ? hr : hr + c0, MASKED ? idx + c0 : nullptr, len, key);
-    top = max(top, mx);
-    uint32_t t = 0;
-    if (len >= k) t = select_kth_key<kWideVpt, kWideThreads>(key, mx, len, k, sm.sel, nullptr, [] {});
-    const uint32_t theta = max(max(t, lower), 1u);
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < kWideVpt; ++j) c += key[j] >= theta;
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    int base = 0;
-    if (lane == 31) base = atomicAdd(&sm.n_cand, incl);
-    int pos = __shfl_sync(0xffffffffu, base, 31) + incl - c;
-#pragma unroll
-    for (int j = 0; j < kWideVpt; ++j) {
-      if (key[j] >= theta) {
-        if (pos < kWideCap) sm.cand[pos] = key[j];
-        ++pos;
-      }
-    }
-    lower = max(lower, t);
-    __syncthreads();  // the next chunk's select reuses sm.sel
-  }
-  top = __reduce_max_sync(0xffffffffu, top);
-  if (lane == 0) sm.top[warp] = top;
-  __syncthreads();
-  uint32_t hi = 0;
-  for (int w = 0; w < n_warps; ++w) hi = max(hi, sm.top[w]);
-  const int n_cand = sm.n_cand;
-
-  // A block-wide count: this thread's part c at bisection step b.
-  auto block_count = [&](int c, int b) {
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (lane == 0) sm.counts[b & 1][warp] = c;
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < n_warps; ++w) total += sm.counts[b & 1][w];
-    return total;
-  };
-
-  // 4-5. The k-th largest key of the row.
   uint32_t kth;
-  if (n_cand <= kWideThreads) {
-    if (tid < n_cand) {
-      const uint32_t v = sm.cand[tid];
-      int gt = 0, ge = 0;
-#pragma unroll 4
-      for (int j = 0; j < n_cand; ++j) {
-        const uint32_t u = sm.cand[j];
-        gt += u > v;
-        ge += u >= v;
-      }
-      if (gt < k && k <= ge) sm.kth_key = v;
+  if constexpr (GIVEN) {
+    kth = float_key(kth_out[row]);
+  } else {
+    const int n = MASKED ? *n_live : S;
+    if constexpr (MASKED) {
+      n_chunks = wide_chunks(n);
+      cs = wide_chunk_width(n, n_chunks);
+    }
+    if (tid == 0) {
+      sm.n_cand = 0;
+      sm.kth_key = 0;
     }
     __syncthreads();
-    kth = sm.kth_key;
-  } else if (n_cand <= kWideCap) {
-    kth = bisect(lower, hi, k, 0, [&](uint32_t t, int b) {
-      int c = 0;
-      for (int j = tid; j < n_cand; j += kWideThreads) c += sm.cand[j] >= t;
-      return block_count(c, b);
-    });
-  } else {
-    kth = bisect(lower, hi, k, 0, [&](uint32_t t, int b) {
-      int c = 0;
+
+    // 1-3. The chunks: each one's k-th largest key, the lower bound L, and
+    // the candidates.
+    uint32_t lower = 0, top = 0;
 #pragma unroll 1
-      for (int ch = 0; ch < n_chunks; ++ch) {
-        const int c0 = ch * cs;
-        uint32_t key[kWideVpt];
-        chunk_keys<VEC, MASKED>(MASKED ? hr : hr + c0, MASKED ? idx + c0 : nullptr, min(cs, n - c0), key);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * cs, len = min(cs, n - c0);
+      uint32_t key[kWideVpt];
+      const uint32_t mx = chunk_keys<VEC, MASKED>(MASKED ? hr : hr + c0, MASKED ? idx + c0 : nullptr, len, key);
+      top = max(top, mx);
+      uint32_t t = 0;
+      if (len >= k) t = select_kth_key<kWideVpt, kWideThreads>(key, mx, len, k, sm.sel, nullptr, [] {});
+      const uint32_t theta = max(max(t, lower), 1u);
+      int c = 0;
 #pragma unroll
-        for (int j = 0; j < kWideVpt; ++j) c += key[j] >= t;
+      for (int j = 0; j < kWideVpt; ++j) c += key[j] >= theta;
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
       }
-      return block_count(c, b);
-    });
-    if (fallback != nullptr && tid == 0) atomicAdd(fallback, 1);
+      int base = 0;
+      if (lane == 31) base = atomicAdd(&sm.n_cand, incl);
+      int pos = __shfl_sync(0xffffffffu, base, 31) + incl - c;
+#pragma unroll
+      for (int j = 0; j < kWideVpt; ++j) {
+        if (key[j] >= theta) {
+          if (pos < kWideCap) sm.cand[pos] = key[j];
+          ++pos;
+        }
+      }
+      lower = max(lower, t);
+      __syncthreads();  // the next chunk's select reuses sm.sel
+    }
+    top = __reduce_max_sync(0xffffffffu, top);
+    if (lane == 0) sm.top[warp] = top;
+    __syncthreads();
+    uint32_t hi = 0;
+    for (int w = 0; w < n_warps; ++w) hi = max(hi, sm.top[w]);
+    const int n_cand = sm.n_cand;
+
+    // A block-wide count: this thread's part c at bisection step b.
+    auto block_count = [&](int c, int b) {
+      c = __reduce_add_sync(0xffffffffu, c);
+      if (lane == 0) sm.counts[b & 1][warp] = c;
+      __syncthreads();
+      int total = 0;
+      for (int w = 0; w < n_warps; ++w) total += sm.counts[b & 1][w];
+      return total;
+    };
+
+    // 4-5. The k-th largest key of the row.
+    if (n_cand <= kWideThreads) {
+      if (tid < n_cand) {
+        const uint32_t v = sm.cand[tid];
+        int gt = 0, ge = 0;
+#pragma unroll 4
+        for (int j = 0; j < n_cand; ++j) {
+          const uint32_t u = sm.cand[j];
+          gt += u > v;
+          ge += u >= v;
+        }
+        if (gt < k && k <= ge) sm.kth_key = v;
+      }
+      __syncthreads();
+      kth = sm.kth_key;
+    } else if (n_cand <= kWideCap) {
+      kth = bisect(lower, hi, k, 0, [&](uint32_t t, int b) {
+        int c = 0;
+        for (int j = tid; j < n_cand; j += kWideThreads) c += sm.cand[j] >= t;
+        return block_count(c, b);
+      });
+    } else {
+      kth = bisect(lower, hi, k, 0, [&](uint32_t t, int b) {
+        int c = 0;
+#pragma unroll 1
+        for (int ch = 0; ch < n_chunks; ++ch) {
+          const int c0 = ch * cs;
+          uint32_t key[kWideVpt];
+          chunk_keys<VEC, MASKED>(MASKED ? hr : hr + c0, MASKED ? idx + c0 : nullptr, min(cs, n - c0), key);
+#pragma unroll
+          for (int j = 0; j < kWideVpt; ++j) c += key[j] >= t;
+        }
+        return block_count(c, b);
+      });
+      if (fallback != nullptr && tid == 0) atomicAdd(fallback, 1);
+    }
   }
 
   if constexpr (!STATS) {
@@ -340,7 +347,7 @@ __global__ void __launch_bounds__(kCompactThreads)
   if (tid == 0) *n_live = base;
 }
 
-template <bool MASKED, bool STATS>
+template <bool MASKED, bool STATS, bool GIVEN = false>
 int launch_wide(const float* h, const int* idx, const int* n_live, int B, int S, int k, float* kth,
                 __nv_bfloat16* f, int* live, float* l0, float* l1, int* fallback, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
@@ -348,13 +355,13 @@ int launch_wide(const float* h, const int* idx, const int* n_live, int B, int S,
   if constexpr (!MASKED) {  // K5 gathers: no 16-byte loads
     if (S % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
         (!STATS || reinterpret_cast<uintptr_t>(f) % 8 == 0)) {
-      wide_row_kernel<true, MASKED, STATS><<<B, kWideThreads, 0, stream>>>(h, idx, n_live, S, k, n_chunks, cs,
-                                                                           kth, f, live, l0, l1, fallback);
+      wide_row_kernel<true, MASKED, STATS, GIVEN><<<B, kWideThreads, 0, stream>>>(
+          h, idx, n_live, S, k, n_chunks, cs, kth, f, live, l0, l1, fallback);
       return cudaGetLastError();
     }
   }
-  wide_row_kernel<false, MASKED, STATS><<<B, kWideThreads, 0, stream>>>(h, idx, n_live, S, k, n_chunks, cs, kth,
-                                                                        f, live, l0, l1, fallback);
+  wide_row_kernel<false, MASKED, STATS, GIVEN><<<B, kWideThreads, 0, stream>>>(h, idx, n_live, S, k, n_chunks, cs,
+                                                                               kth, f, live, l0, l1, fallback);
   return cudaGetLastError();
 }
 
@@ -366,6 +373,13 @@ int launch_wide(const float* h, const int* idx, const int* n_live, int B, int S,
 extern "C" int saev_topk_stats_wide(const float* h, int B, int S, int k, float* kth, __nv_bfloat16* f,
                                     int* live, float* l0, float* l1, int* fallback, cudaStream_t stream) {
   return launch_wide<false, true>(h, nullptr, nullptr, B, S, k, kth, f, live, l0, l1, fallback, stream);
+}
+
+// K1's threshold entry on a row of any width: kth (B floats) is read, not
+// written; live must be zeroed by the caller.
+extern "C" int saev_topk_stats_given_wide(const float* h, int B, int S, float* kth, __nv_bfloat16* f, int* live,
+                                          float* l0, float* l1, cudaStream_t stream) {
+  return launch_wide<false, true, true>(h, nullptr, nullptr, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
 }
 
 // K6 on a row of any width.

@@ -221,8 +221,10 @@ __device__ __forceinline__ uint32_t select_kth_key(const uint32_t (&key)[VPT], u
 // thread of the CTA must call it, with blockDim.x <= MAXT, blockDim.x * VPT
 // >= S and, for VEC, S % 4 == 0 and hr and f 16- and 8-byte aligned. Every
 // thread calls released() once the row is in its registers and no thread
-// reads hr again.
-template <int VPT, int MAXT, bool VEC, class Released>
+// reads hr again. GIVEN skips the select: kth_out[row] holds the threshold
+// on entry (a latent-sharded row's, found over its shards), and the
+// epilogue runs from it.
+template <int VPT, int MAXT, bool VEC, bool GIVEN = false, class Released>
 __device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int S, int k,
                                                long row, TopkRowSmem<MAXT>& sm,
                                                float* __restrict__ kth_out,
@@ -237,7 +239,14 @@ __device__ __forceinline__ void topk_stats_row(const float* __restrict__ hr, int
 
   uint32_t key[VPT];
   const uint32_t mx = row_keys<VPT, VEC>(hr, S, key);
-  const uint32_t kth_key = select_kth_key<VPT, MAXT>(key, mx, S, k, sm.sel, fallback, released);
+  uint32_t kth_key;
+  if constexpr (GIVEN) {
+    __syncthreads();  // every thread's keys are in registers
+    released();
+    kth_key = float_key(kth_out[row]);
+  } else {
+    kth_key = select_kth_key<VPT, MAXT>(key, mx, S, k, sm.sel, fallback, released);
+  }
   const float kth = key_float(kth_key);
   // x >= kth, a float compare, needs key(x) >= key(kth), or x = -0.0 beside
   // kth = +0.0 (key 0x80000000, the key of -0.0 just below it).

@@ -16,9 +16,11 @@ The data stream is not checkpointed: on resume the shuffled loader restarts
 with its seeded RNG and reads the data in a new random order.
 
 In a job of several processes every process calls `save`, rank 0 with the
-whole cohort (`parallel.to_host`); rank 0 writes and prunes, and a barrier
-ends each call, so another rank reads only what is written. Every process
-restores the whole cohort and keeps its own SAEs (`restore(mesh=...)`).
+whole cohort (`parallel.to_host`, its latents gathered too); rank 0 writes
+and prunes, and a barrier ends each call, so another rank reads only what is
+written. Every process restores the whole cohort and keeps its own SAEs and
+latents (`restore(mesh=..., d_sae=...)`), so a checkpoint resumes under any
+(data, sweep, feature) layout.
 """
 
 import logging
@@ -123,16 +125,20 @@ def _like(template: tp.Any, saved: tp.Any) -> tp.Any:
 
 def restore(
     runs_root: pathlib.Path, group_key: str, step: int, template: tp.Any,
-    mesh: parallel.Mesh | None = None,
+    mesh: parallel.Mesh | None = None, d_sae: int | None = None,
 ) -> tp.Any:
     """Restore the sweep state saved at `step`, shaped and placed like
     `template` (only its structure, shapes, dtypes and devices are read).
-    Under a `mesh`, `template` holds this rank's SAEs and the saved cohort's
-    slice of them is taken (`parallel.shard_sweep`)."""
+    Under a `mesh`, `template` holds this rank's SAEs (and, with a feature
+    axis, its latents of each, which `d_sae`, the whole dictionary's width,
+    locates) and the saved cohort's slice of them is taken
+    (`parallel.shard_features`)."""
     path = state_dir(runs_root, group_key) / f"step_{step:08d}"
     saved = torch.load(path / _FILE, weights_only=True, map_location="cpu")
     if mesh is not None:
-        saved = parallel.shard_sweep(mesh, saved)
+        if mesh.n_feature > 1 and d_sae is None:
+            raise ValueError("restoring under a feature axis needs the dictionary's d_sae")
+        saved = parallel.shard_features(mesh, saved, d_sae) if mesh.n_feature > 1 else parallel.shard_sweep(mesh, saved)
     restored = _like(template, saved)
     logger.info("Restored train state from '%s'.", path)
     return restored

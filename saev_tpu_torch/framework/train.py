@@ -30,14 +30,19 @@ checkpoints (`framework/checkpoints.py`) it can resume from; `evaluate` runs
 The sweep is looped in Python.
 
 Multi-GPU (`torchrun --nproc-per-node N -m saev_tpu_torch.framework.train
-...`): one process a card on a (data, sweep) grid of ranks (`parallel.Mesh`,
-`sweep_parallel` ranks a sweep group). Each rank loads global_batch / world
-rows from its own shard partition (`_partitioned_data_cfg`); a sweep group
-gathers its members' rows and each of its ranks trains n_sae /
-sweep_parallel whole SAEs on them, with every kernel of the step; the ranks
-of a data group hold the same SAEs and average their gradients in one
-collective a step, before the clip. Rank 0 writes the run, the checkpoints
-and the SAE files. `feature_parallel` above 1 raises NotImplementedError.
+...`): one process a card on a (data, sweep, feature) grid of ranks
+(`parallel.Mesh`). Each rank loads global_batch / world rows from its own
+shard partition (`_partitioned_data_cfg`); the ranks of one data index
+gather their rows, and each trains n_sae / sweep_parallel SAEs on them (its
+sweep index's), of each the d_sae / feature_parallel latents of its feature
+index (`parallel.shard_features`), with every kernel of the step; the
+members of a feature group combine what spans the latents (the exact TopK
+and AuxK thresholds, the prefix MSE's partial products, n_dead, L0, L1, the
+gradient's norm and Muon's Gram matrices: nn/objectives.py and `_muon_update`),
+and the ranks of a data group hold the same latents of the same SAEs and
+average their gradients in one collective a step, before the clip. Rank 0
+writes the run, the checkpoints and the SAE files, from whole arrays; a
+checkpoint resumes under any layout.
 """
 
 import collections
@@ -150,14 +155,63 @@ def _adam_update(grads, opt_state, lr_per_sae, *, b1=0.9, b2=0.999, eps=1e-8):
     return updates, {"m": m, "v": v, "count": count}
 
 
-def _newton_schulz(g: torch.Tensor, steps: int = 5, eps: float = 1e-7) -> torch.Tensor:
+# The latent axis of each param leaf (modeling's layout, stacked or not):
+# what `parallel.shard_features` slices. b_dec is whole on every rank.
+_PARAM_LATENT = {"W_enc": -1, "W_dec": -2, "b_enc": -1}
+
+
+def _check_feature_parallel(sae_cfg: modeling.SparseAutoencoderConfig, feature_parallel: int) -> None:
+    """The JAX package's check that d_sae divides over the feature axis
+    (saev_tpu/framework/train.py:560-564), with its message; and d_model !=
+    d_sae, by which `parallel.shard_features` tells the latent dim apart."""
+    if sae_cfg.d_sae % feature_parallel:
+        raise ValueError(
+            f"d_sae={sae_cfg.d_sae} must divide over feature_parallel="
+            f"{feature_parallel}; otherwise GSPMD silently replicates the latent "
+            "dimension and the sharding saves no memory."
+        )
+    if feature_parallel > 1 and sae_cfg.d_model == sae_cfg.d_sae:
+        raise ValueError(
+            f"feature_parallel={feature_parallel} needs d_model != d_sae (both {sae_cfg.d_sae}): the latent "
+            "dim of a leaf is told apart by its size"
+        )
+
+
+def _newton_schulz(
+    g: torch.Tensor, steps: int = 5, eps: float = 1e-7, feature: parallel.Group | None = None,
+    latent_axis: int | None = None,
+) -> torch.Tensor:
     """Orthogonalize the last two axes by the quintic Newton-Schulz
     iteration (saev_tpu/framework/train.py:358-370; torch.optim.Muon's
     _zeropower_via_newtonschulz), on stacked (n_sae, a, b) tensors, each
     SAE's matrix scaled by its own Frobenius norm. The iteration runs in
     float32 with TF32 off, as the JAX package keeps it (torch.optim.Muon
-    runs it in bf16): batched products, one per term and iteration."""
+    runs it in bf16): batched products, one per term and iteration.
+
+    With a `feature` group, `g` is this member's part of each whole matrix
+    along `latent_axis` (-1 or -2), and its part of the whole iteration's
+    result comes back: whether to transpose is decided on the whole shape;
+    where the latents are then the columns, the Frobenius norm's square and
+    the Gram matrix x x^T (the short side squared) are summed over the
+    group, so each part iterates as the whole matrix's columns do; else the
+    whole matrix is gathered, iterated and sliced."""
     a, b, c = 3.4445, -4.7750, 2.0315
+    if feature is not None:
+        whole = list(g.shape)
+        whole[latent_axis] *= feature.size
+        transpose = whole[-2] > whole[-1]
+        if (latent_axis == -2) != transpose:  # the latents would be x's rows
+            n = g.shape[latent_axis]
+            every = parallel.gather_rows(g.movedim(latent_axis, 0), feature).movedim(0, latent_axis)
+            return _newton_schulz(every, steps, eps).narrow(latent_axis, feature.index * n, n)
+        x = g.mT if transpose else g
+        sq = parallel.all_reduce(torch.sum(x * x, dim=(-2, -1), keepdim=True), "sum", feature)
+        x = x / torch.clamp(torch.sqrt(sq), min=eps)
+        with modeling._f32_products():
+            for _ in range(steps):
+                gram = parallel.all_reduce(x @ x.mT, "sum", feature)
+                x = a * x + (b * gram + c * gram @ gram) @ x
+        return x.mT if transpose else x
     transpose = g.shape[-2] > g.shape[-1]
     x = g.mT if transpose else g
     x = x / torch.clamp(torch.linalg.norm(x, dim=(-2, -1), keepdim=True), min=eps)
@@ -185,13 +239,15 @@ def _opt_init(optim: str, params) -> dict[str, tp.Any]:
     raise ValueError(f"Unknown optimizer: {optim}")
 
 
-def _muon_update(params, grads, opt_state, lr_per_sae, *, beta=0.95, weight_decay=0.1):
+def _muon_update(params, grads, opt_state, lr_per_sae, *, beta=0.95, weight_decay=0.1, feature=None):
     """torch.optim.Muon's update on the stacked 2-D leaves (3-D here), Adam
     on the rest (saev_tpu/framework/train.py:380-409): EMA momentum (mu =
     beta mu + (1 - beta) g), the Nesterov blend (1 - beta) g + beta mu,
     Newton-Schulz, lr scaled by sqrt(max(1, rows / cols)), and decoupled
     weight decay on `params` at the unscaled lr. The Adam state advances for
-    every leaf, as the JAX package's does."""
+    every leaf, as the JAX package's does. With a `feature` group the
+    matrices are this member's latents of the whole ones: Newton-Schulz runs
+    over the group and the scale takes the whole shape."""
     mu = {k: beta * opt_state["mu"][k] + (1.0 - beta) * g for k, g in grads.items()}
     adam_updates, adam_state = _adam_update(grads, opt_state["adam"], lr_per_sae)
     updates = {}
@@ -199,24 +255,33 @@ def _muon_update(params, grads, opt_state, lr_per_sae, *, beta=0.95, weight_deca
         if mu[k].ndim < 3:
             updates[k] = adam_updates[k]
             continue
-        ortho = _newton_schulz((1.0 - beta) * g + beta * mu[k])
+        latent = None if feature is None else _PARAM_LATENT.get(k)
+        ortho = _newton_schulz((1.0 - beta) * g + beta * mu[k], feature=None if latent is None else feature,
+                               latent_axis=latent)
+        whole = list(mu[k].shape)
+        if latent is not None:
+            whole[latent] *= feature.size
         # An f32 square root, as jnp.sqrt takes the ratio.
-        scale = float(np.sqrt(np.float32(max(1.0, mu[k].shape[-2] / mu[k].shape[-1]))))
+        scale = float(np.sqrt(np.float32(max(1.0, whole[-2] / whole[-1]))))
         lr = lr_per_sae.reshape((-1,) + (1,) * (mu[k].ndim - 1))
         updates[k] = -lr * weight_decay * params[k] - lr * scale * ortho
     return updates, {"mu": mu, "adam": adam_state, "count": opt_state["count"] + 1}
 
 
-def _per_sae_global_norm(grads) -> torch.Tensor:
+def _per_sae_global_norm(grads, feature: parallel.Group | None = None) -> torch.Tensor:
     """L2 norm over all of each SAE's params: (n_sae,). Leaves in sorted key
     order, as jax.tree.leaves walks a dict. Each SAE's sums are reductions
     of their own, whose order does not depend on the sweep's size: an SAE
     gets the same bits in a sweep split over processes (sweep_parallel) as
-    in the whole sweep."""
+    in the whole sweep. The latent-sharded leaves' sum of squares is summed
+    over a `feature` group, and the whole leaves' (b_dec) added once."""
     n_sae = grads[next(iter(grads))].shape[0]
-    return torch.stack([
-        torch.sqrt(sum(torch.sum(grads[k][i] ** 2) for k in sorted(grads))) for i in range(n_sae)
-    ])
+    keys = sorted(grads)
+    sharded = [k for k in keys if k in _PARAM_LATENT]
+    whole = [k for k in keys if k not in _PARAM_LATENT]
+    sq = torch.stack([sum(torch.sum(grads[k][i] ** 2) for k in sharded) for i in range(n_sae)])
+    sq = parallel.all_reduce(sq, "sum", feature)
+    return torch.sqrt(sq + torch.stack([sum(torch.sum(grads[k][i] ** 2) for k in whole) for i in range(n_sae)]))
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +321,12 @@ def make_train_step(
     the loss terms are averaged over the data group (one flat buffer, one
     collective) before the parallel-gradient removal and the clip, and the
     counters count the whole batch.
+
+    Under a `mesh` with a feature group, the state holds this rank's latents
+    of its SAEs (`parallel.shard_features`) and every term is the whole
+    dictionary's (`objectives.matryoshka_loss(feature=...)`): the loss terms,
+    n_dead, the gradient's norm (`_per_sae_global_norm`) and aux_risk are the
+    same on every member, and Muon runs over the group (`_muon_update`).
     """
     if optim not in ("adam", "muon"):
         raise ValueError(f"Unknown optimizer: {optim}")
@@ -266,6 +337,9 @@ def make_train_step(
     any_dead = None if aux_enabled else False
     group = None if mesh is None else mesh.data
     n_data = 1 if group is None else group.size
+    feature = None if mesh is None else mesh.feature
+    if feature is not None:
+        _check_feature_parallel(sae_cfg, feature.size)
 
     def grad_one(params_i, sae_state_i, obj_state_i, x, x_abs_max, prefixes_i, coeff, alpha, momentum):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params_i.items()}
@@ -273,7 +347,7 @@ def make_train_step(
             obj_cfg, sae_cfg, leaves, sae_state_i, obj_state_i, x, prefixes_i,
             training=True, hp={"sparsity_coeff": coeff, "aux_alpha": alpha, "momentum": momentum},
             precision=matmul_precision, any_dead=any_dead, aux_subspace_cap=aux_subspace_cap, group=group,
-            x_abs_max=x_abs_max,
+            x_abs_max=x_abs_max, feature=feature,
         )
         keys = sorted(leaves)
         grads = torch.autograd.grad(loss.loss, [leaves[k] for k in keys])
@@ -310,7 +384,7 @@ def make_train_step(
         grads = modeling.remove_parallel_grads(sae_cfg, params, grads)
 
         # Per-SAE global-norm clip (torch.nn.utils.clip_grad_norm_ semantics).
-        grad_norm = _per_sae_global_norm(grads)
+        grad_norm = _per_sae_global_norm(grads, feature)
         clip_coef = torch.clamp(hp["grad_clip"] / (grad_norm + 1e-6), max=1.0)
         grads = {
             k: g * clip_coef.reshape((-1,) + (1,) * (g.ndim - 1)) for k, g in grads.items()
@@ -323,15 +397,15 @@ def make_train_step(
         if optim == "adam":
             updates, opt_state = _adam_update(grads, ts.opt_state, lr)
         else:
-            updates, opt_state = _muon_update(params, grads, ts.opt_state, lr)
+            updates, opt_state = _muon_update(params, grads, ts.opt_state, lr, feature=feature)
         new_params = {k: params[k] + updates[k] for k in params}
         obj_state = _stack(obj_states)
 
         # Upper bound on n_dead over the next AUX_RISK_HORIZON steps.
         risk_floor = obj_cfg.dead_threshold_tokens - AUX_RISK_HORIZON * x.shape[0] * n_data
-        aux_risk = torch.sum(
+        aux_risk = parallel.all_reduce(torch.sum(
             obj_state["toks_since_active"] >= risk_floor, dim=-1
-        ).to(torch.int32)
+        ).to(torch.int32), "sum", feature)
 
         stats = {
             "mse": terms.mse,
@@ -363,20 +437,23 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 
 
-def dictionary_coherence(w: torch.Tensor, block: int = 1024) -> torch.Tensor:
+def dictionary_coherence(w: torch.Tensor, block: int = 1024, feature: parallel.Group | None = None) -> torch.Tensor:
     """max off-diagonal |<w_i/|w_i|, w_j/|w_j|>| over decoder rows, in row
-    blocks so the (d_sae, d_sae) Gram matrix is never built."""
-    d_sae = w.shape[0]
+    blocks so the (d_sae, d_sae) Gram matrix is never built. With a
+    `feature` group, `w` is this member's rows: each member takes its rows
+    against all of them (gathered), and the max over the group."""
     wn = w / torch.linalg.norm(w, dim=1, keepdim=True)
-    block = min(block, d_sae)
-    ids = torch.arange(d_sae, device=w.device)
+    every = parallel.gather_rows(wn, feature)
+    offset = 0 if feature is None else feature.index * w.shape[0]
+    block = min(block, w.shape[0])
+    ids = torch.arange(every.shape[0], device=w.device)
     coh = torch.zeros((), dtype=torch.float32, device=w.device)
-    for start in range(0, d_sae, block):
+    for start in range(0, w.shape[0], block):
         rows = wn[start : start + block]
-        gram = torch.abs(rows @ wn.T)
-        off_diag = ids[start : start + rows.shape[0], None] != ids[None, :]
+        gram = torch.abs(rows @ every.T)
+        off_diag = ids[offset + start : offset + start + rows.shape[0], None] != ids[None, :]
         coh = torch.maximum(coh, torch.where(off_diag, gram, 0.0).max())
-    return coh
+    return parallel.all_reduce(coh, "max", feature)
 
 
 def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig, mesh: parallel.Mesh | None = None):
@@ -391,16 +468,18 @@ def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig, mesh: parallel.Me
     Under a `mesh` with a data group, `x` is this rank's share of the batch
     and the metrics are the whole batch's: sums (in f64 where they make a
     variance) and fired counts are summed over the group, and BatchTopK
-    takes the whole batch's threshold.
+    takes the whole batch's threshold. With a feature group, the params are
+    this rank's latents and every metric is the whole dictionary's.
 
     Signature: metrics(sweep_state, x, prefixes) -> {name: (n_sae,) tensor}
     (`prefixes` is accepted for the JAX package's signature and not read).
     """
     group = None if mesh is None else mesh.data
+    feature = None if mesh is None else mesh.feature
 
     def one(params, sae_state, x):
-        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=True, group=group)
-        x_hat = modeling.decode(sae_cfg, params, enc.f_x)[:, -1, :]
+        enc, _ = modeling.encode(sae_cfg, params, sae_state, x, training=True, group=group, feature=feature)
+        x_hat = modeling.decode(sae_cfg, params, enc.f_x, feature=feature)[:, -1, :]
         residual = x - x_hat
         fired = (torch.abs(enc.f_x) > 1e-12).sum(dim=0)
         if group is None:
@@ -414,12 +493,19 @@ def make_metrics_fn(sae_cfg: modeling.SparseAutoencoderConfig, mesh: parallel.Me
             n = x.numel() * group.size
             sse = sums[1].float()
             explained = (1.0 - (sums[1] - sums[0] ** 2 / n) / (sums[3] - sums[2] ** 2 / n)).float()
+        row_norms = torch.linalg.norm(params["W_dec"], dim=1)
+        if feature is None:
+            dead_pct, avg_norm = (fired == 0).to(torch.float32).mean(), row_norms.mean()
+        else:
+            sums = parallel.all_reduce(torch.stack([(fired == 0).sum().to(torch.float32), row_norms.sum()]),
+                                       "sum", feature)
+            dead_pct, avg_norm = sums[0] / sae_cfg.d_sae, sums[1] / sae_cfg.d_sae
         return {
             "sse_sae": sse,
             "explained_variance": explained,
-            "dead_unit_pct": (fired == 0).to(torch.float32).mean(),
-            "dictionary_coherence": dictionary_coherence(params["W_dec"]),
-            "avg_decoder_row_norm": torch.linalg.norm(params["W_dec"], dim=1).mean(),
+            "dead_unit_pct": dead_pct,
+            "dictionary_coherence": dictionary_coherence(params["W_dec"], feature=feature),
+            "avg_decoder_row_norm": avg_norm,
         }
 
     @torch.no_grad()
@@ -589,8 +675,10 @@ class Config:
     """SAEs per vmap chunk in the JAX package's step; here the sweep is looped
     in Python one SAE at a time, and the field only splits cohorts as there."""
     feature_parallel: int = 1
-    """Shard d_sae over this many devices. Not ported yet: above 1 raises
-    (ROADMAP §1 item 9)."""
+    """Shard the latent dimension (d_sae) over this many processes (one card
+    each): each holds d_sae / feature_parallel latents of its SAEs, for
+    dictionaries too wide for one card. sweep_parallel * feature_parallel
+    must divide the job's processes, and feature_parallel d_sae."""
     matmul_precision: tp.Literal["highest", "high", "default"] = "default"
     """Train-step matmul precision: default = bf16 operands with f32
     accumulation on the card (f32 on the CPU), highest = f32 with TF32 off,
@@ -800,7 +888,7 @@ def make_saes(
 
 class _CohortRuntime(tp.NamedTuple):
     cohort: Cohort
-    ts: SweepState  # this rank's SAEs of the cohort
+    ts: SweepState  # this rank's SAEs of the cohort, its latents of each
     # The cohort's step variants (warm, dense, subspace rungs) and the
     # routing state that picks one a step.
     router: StepRouter
@@ -808,10 +896,11 @@ class _CohortRuntime(tp.NamedTuple):
     hp: dict[str, torch.Tensor]
     prefix_rng: np.random.Generator
     mesh: parallel.Mesh
+    axes: SweepState | None = None  # the latent axis of each leaf of ts (`parallel.latent_axes`)
 
 
 def _device_mesh(batch_size: int, sweep: int = 1, feature: int = 1) -> parallel.Mesh:
-    """The (data, sweep) grid over every process of the job (counterpart of
+    """The (data, sweep, feature) grid over every process of the job (counterpart of
     the JAX package's `_device_mesh`, which shrinks its data axis until it
     divides the batch; here a process cannot be left out, so
     `_check_full_mesh` raises instead)."""
@@ -867,14 +956,17 @@ def _group_key(cfg: Config) -> str:
             return tuple(canonical(v) for v in x)
         return x
 
-    return hashlib.sha256(repr(canonical(_parallel_key(cfg))).encode()).hexdigest()[:16]
+    # A checkpoint holds whole arrays: it resumes under any layout.
+    layout_free = dataclasses.replace(cfg, sweep_parallel=1, feature_parallel=1)
+    return hashlib.sha256(repr(canonical(_parallel_key(layout_free))).encode()).hexdigest()[:16]
 
 
-def _cohort_for_primary(mesh: parallel.Mesh, tree):
+def _cohort_for_primary(mesh: parallel.Mesh, tree, axes):
     """The whole cohort as numpy on rank 0, for its writes; None elsewhere.
-    `parallel.to_host` is a collective over a sweep group, so the ranks of
-    rank 0's (d = 0) take part; the others copy nothing."""
-    return parallel.to_host(mesh, tree) if mesh.d == 0 else None
+    `parallel.to_host` is a collective over a sweep group (and, with the
+    tree's latent `axes`, over a feature group first), so the ranks of rank
+    0's data index (d = 0) take part; the others copy nothing."""
+    return parallel.to_host(mesh, tree, axes) if mesh.d == 0 else None
 
 
 def _sample_prefixes(rt: _CohortRuntime, device) -> torch.Tensor:
@@ -942,7 +1034,8 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
     # Every process runs the same number of collective-bearing steps.
     n_steps = int(parallel.global_min(len(limited)))
     bsz = cfg.train_data.batch_size
-    logger.info("Mesh: %d process(es), data %d x sweep %d.", world, mesh.n_data, mesh.n_sweep)
+    logger.info("Mesh: %d process(es), data %d x sweep %d x feature %d.", world, mesh.n_data, mesh.n_sweep,
+                mesh.n_feature)
 
     runtimes: list[_CohortRuntime] = []
     for ci, cohort in enumerate(make_cohorts(cfgs)):
@@ -950,10 +1043,14 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             raise ValueError(
                 f"Cohort of {len(cohort.cfgs)} SAEs is not divisible by sweep_parallel={mesh.n_sweep}."
             )
-        params, sae_state, obj_state = parallel.shard_sweep(
-            mesh, make_saes(cohort.cfgs, limited, seed=cfg.seed + ci, device=device)
-        )
         c0 = cohort.cfgs[0]
+        _check_feature_parallel(c0.sae, mesh.n_feature)
+        whole = make_saes(cohort.cfgs, limited, seed=cfg.seed + ci, device=device)
+        # The latent axes, from the whole cohort's shapes (the optimizer's on the meta device).
+        meta = {k: torch.empty(v.shape, device="meta") for k, v in whole[0].items()}
+        axes = parallel.latent_axes(SweepState(*whole, _opt_init(c0.optim, meta), None), c0.sae.d_sae)
+        params, sae_state, obj_state = parallel.shard_features(mesh, whole, c0.sae.d_sae)
+        del whole
         ts = SweepState(
             params=params,
             sae_state=sae_state,
@@ -965,6 +1062,7 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             _CohortRuntime(
                 cohort=cohort,
                 ts=ts,
+                axes=axes,
                 router=make_step_router(
                     c0.sae, c0.objective, n_steps, bsz, c0.optim, c0.matmul_precision, mesh=mesh
                 ),
@@ -990,7 +1088,8 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
         latest = int(parallel.broadcast_from_primary(np.asarray(max(common) if common else -1)))
         if latest >= 0:
             for ci, rt in enumerate(runtimes):
-                restored = checkpoints.restore(cfg.runs_root, f"{group_key}_c{ci}", latest, rt.ts, mesh=mesh)
+                restored = checkpoints.restore(cfg.runs_root, f"{group_key}_c{ci}", latest, rt.ts, mesh=mesh,
+                                               d_sae=rt.cohort.cfgs[0].sae.d_sae)
                 runtimes[ci] = rt._replace(ts=restored)
             start_step = latest
             logger.info("Resuming training from step %d.", start_step)
@@ -1086,7 +1185,8 @@ def train(cfgs: list[Config]) -> tuple[list[_CohortRuntime], ParallelWandbRun, i
             # all cohorts.
             for ci, rt in enumerate(runtimes):
                 checkpoints.save(
-                    cfg.runs_root, f"{group_key}_c{ci}", global_step, _cohort_for_primary(mesh, rt.ts), prune=False
+                    cfg.runs_root, f"{group_key}_c{ci}", global_step, _cohort_for_primary(mesh, rt.ts, rt.axes),
+                    prune=False,
                 )
             for ci in range(len(runtimes)):
                 checkpoints.prune_below(cfg.runs_root, f"{group_key}_c{ci}", global_step)
@@ -1125,10 +1225,11 @@ class EvalMetrics:
 
 
 @torch.no_grad()
-def _eval_one(c0: Config, params, sae_state, obj_state, x, prefixes) -> dict[str, torch.Tensor]:
-    """One SAE's eval forward on one batch, at "highest"."""
+def _eval_one(c0: Config, params, sae_state, obj_state, x, prefixes, feature=None) -> dict[str, torch.Tensor]:
+    """One SAE's eval forward on one batch, at "highest" (its latents of the
+    SAE with a `feature` group: the firing stats are its latents')."""
     loss, out, _, _ = objectives.matryoshka_loss(
-        c0.objective, c0.sae, params, sae_state, obj_state, x, prefixes, training=False
+        c0.objective, c0.sae, params, sae_state, obj_state, x, prefixes, training=False, feature=feature
     )
     residual = x - out.x_hats[:, -1, :]
     return {
@@ -1147,9 +1248,11 @@ def evaluate(cfgs: list[Config], runtimes: list[_CohortRuntime]) -> list[EvalMet
     float64, as in the JAX package.
 
     Multi-process: each process reads its partition of the val shards, as in
-    training; each rank sums its own SAEs' outputs on its sweep group's rows
+    training; each rank sums its own SAEs' outputs on its data index's rows
     and the x statistics of its own rows, and the sums cross processes once
-    at the end (`parallel.global_sum`)."""
+    at the end (`parallel.global_sum`): each rank's firing stats at its
+    latents, the loss terms (the whole dictionary's on every member of a
+    feature group) from feature index 0 alone."""
     if len(split_cfgs(cfgs)) != 1:
         raise ValueError(f"Configs are not parallelizeable: {cfgs}.")
 
@@ -1195,15 +1298,17 @@ def evaluate(cfgs: list[Config], runtimes: list[_CohortRuntime]) -> list[EvalMet
                 gi = rt.cohort.indices[mesh.s * n_local + si]
                 out = _eval_one(
                     c0, _index(rt.ts.params, si), _index(rt.ts.sae_state, si),
-                    _index(rt.ts.obj_state, si), x, prefixes[si],
+                    _index(rt.ts.obj_state, si), x, prefixes[si], mesh.feature,
                 )
                 out = {k: v.cpu().numpy() for k, v in out.items()}
-                total_l0[gi] += float(out["l0"]) * bsz
-                total_l1[gi] += float(out["l1"]) * bsz
-                total_mse[gi] += float(out["mse"]) * bsz
-                total_sse[gi] += float(out["sse"])
-                n_fired[gi] += out["n_fired"]
-                values[gi] += out["values"]
+                if mesh.f == 0:
+                    total_l0[gi] += float(out["l0"]) * bsz
+                    total_l1[gi] += float(out["l1"]) * bsz
+                    total_mse[gi] += float(out["mse"]) * bsz
+                    total_sse[gi] += float(out["sse"])
+                mine = slice(mesh.f * len(out["n_fired"]), (mesh.f + 1) * len(out["n_fired"]))
+                n_fired[gi, mine] += out["n_fired"]
+                values[gi, mine] += out["values"]
 
     if world > 1:
         n_tokens = int(parallel.global_sum(np.asarray(n_tokens, np.int64)))
@@ -1261,8 +1366,8 @@ def worker_fn(cfgs: list[Config]) -> list[str]:
     # rank 0 only (run.finish gives no ids elsewhere).
     flat: dict[int, tuple[Config, modeling.Params, modeling.State]] = {}
     for rt in runtimes:
-        params_np = _cohort_for_primary(rt.mesh, rt.ts.params)
-        state_np = _cohort_for_primary(rt.mesh, rt.ts.sae_state)
+        params_np = _cohort_for_primary(rt.mesh, rt.ts.params, rt.axes.params)
+        state_np = _cohort_for_primary(rt.mesh, rt.ts.sae_state, rt.axes.sae_state)
         if params_np is None:
             continue
         for si, gi in enumerate(rt.cohort.indices):

@@ -25,6 +25,14 @@ product with an f32 result (`_mm_bf16x3`), for about 16 bits of each
 operand; the backward's products too. It is not TF32, whose operands keep
 10 bits. On a CPU tensor "default" and "high" are float32 products, as
 JAX-CPU's DEFAULT and HIGH are.
+
+Latent-sharded ("feature-parallel") SAEs: with a `feature` group of
+saev_tpu_torch.parallel, the params hold this member's latents [o, o +
+d_sae / F) (W_enc's columns, b_enc, W_dec's rows; b_dec whole) and the
+config keeps the whole d_sae. `encode` takes the whole row's TopK threshold
+and BatchTopK's whole-batch one over the group, and `decode` sums each
+member's partial products over it (differentiably, `parallel.sum_over`), so
+every member gets the whole reconstruction.
 """
 
 import contextlib
@@ -377,16 +385,22 @@ def _linear_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, precision: s
     return _LinearBias.apply(x, w, b, precision)
 
 
-def topk_activation(h: torch.Tensor, k: int) -> torch.Tensor:
+def _width(h: torch.Tensor, feature: parallel.Group | None) -> int:
+    """The whole row's width of this member's columns of it."""
+    return h.shape[-1] * (1 if feature is None else feature.size)
+
+
+def topk_activation(h: torch.Tensor, k: int, feature: parallel.Group | None = None) -> torch.Tensor:
     """Per-row TopK as a threshold mask: keeps every entry >= the exact k-th
-    largest, ties included (torch.topk's mask would keep exactly k)."""
-    kth = ops.exact_kth_value(h.detach(), min(k, h.shape[-1]))
+    largest, ties included (torch.topk's mask would keep exactly k). With a
+    `feature` group, of the whole row."""
+    kth = ops.exact_kth_value(h.detach(), min(k, _width(h, feature)), group=feature)
     return torch.where(h >= kth, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def batch_topk_train(
     h: torch.Tensor, k: int, momentum: torch.Tensor | float, threshold: torch.Tensor,
-    group: parallel.Group | None = None,
+    group: parallel.Group | None = None, feature: parallel.Group | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """BatchTopK in training mode (saev_tpu/nn/modeling.py:249-273): keeps
     every entry >= the batch's k * B-th largest (`ops.batch_global_kth_value`,
@@ -397,15 +411,17 @@ def batch_topk_train(
 
     With a data `group` (saev_tpu_torch.parallel), `h` is this rank's rows
     of the batch: B, the k * B-th value and the least positive kept value
-    are the whole batch's, the same on every rank of the group."""
-    bsz, d_sae = h.shape
-    bsz *= 1 if group is None else group.size
-    kth = ops.batch_global_kth_value(h, min(k * bsz, d_sae * bsz), group=group)
+    are the whole batch's, the same on every rank of the group. With a
+    `feature` group, `h` is this member's columns, and both are the whole
+    dictionary's too."""
+    bsz = h.shape[0] * (1 if group is None else group.size)
+    d_sae = _width(h, feature)
+    kth = ops.batch_global_kth_value(h, min(k * bsz, d_sae * bsz), group=group, feature=feature)
     zero = torch.zeros((), dtype=h.dtype, device=h.device)
     f = torch.where(h >= kth, h, zero)
     with torch.no_grad():
         pos_min = torch.where(f > 0, f, torch.full((), float("inf"), dtype=h.dtype, device=h.device)).min()
-        parallel.all_reduce(pos_min, "min", group)
+        parallel.all_reduce(parallel.all_reduce(pos_min, "min", group), "min", feature)
         new_threshold = torch.where(
             torch.isfinite(pos_min), (1.0 - momentum) * threshold + momentum * pos_min, threshold
         )
@@ -422,7 +438,7 @@ def batch_topk_eval(h: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
 def encode(
     cfg: SparseAutoencoderConfig, params: Params, state: State, x: torch.Tensor, *,
     training: bool, momentum: torch.Tensor | float | None = None, precision: str | None = None,
-    group: parallel.Group | None = None,
+    group: parallel.Group | None = None, feature: parallel.Group | None = None,
 ) -> tuple[EncodeOut, State]:
     """x @ W_enc + b_enc at `precision` (None: MATMUL_PRECISION), then the
     activation (saev_tpu/nn/modeling.py:325-370): Relu, TopK (the threshold
@@ -432,7 +448,9 @@ def encode(
     carries the moved EMA threshold, every other returns `state`.
     `momentum` overrides BatchTopK's configured momentum with a per-SAE
     value (the sweep's hp["momentum"]). A data `group` makes BatchTopK's
-    training forward take the whole batch's threshold (`batch_topk_train`)."""
+    training forward take the whole batch's threshold (`batch_topk_train`);
+    a `feature` group makes the params this member's latents and TopK's and
+    BatchTopK's thresholds the whole dictionary's (module doc)."""
     if x.ndim != 2 or x.shape[1] != params["W_enc"].shape[0]:
         raise ValueError(
             f"x has shape {tuple(x.shape)}; expected (batch, {cfg.d_model}) "
@@ -444,11 +462,11 @@ def encode(
     if isinstance(act, Relu):
         f_x = torch.relu(h_x)
     elif isinstance(act, TopK):
-        f_x = topk_activation(h_x, act.top_k)
+        f_x = topk_activation(h_x, act.top_k, feature)
     elif isinstance(act, BatchTopK):
         if training:
             f_x, threshold = batch_topk_train(
-                h_x, act.top_k, act.momentum if momentum is None else momentum, state["threshold"], group
+                h_x, act.top_k, act.momentum if momentum is None else momentum, state["threshold"], group, feature
             )
             new_state = {**state, "threshold": threshold}
         else:
@@ -466,7 +484,7 @@ def encode(
 def decode(
     cfg: SparseAutoencoderConfig, params: Params, f_x: torch.Tensor,
     prefixes: torch.Tensor | None = None, *, group_size: int = 1024,
-    precision: str | None = None,
+    precision: str | None = None, feature: parallel.Group | None = None,
 ) -> torch.Tensor:
     """Decode latents to per-prefix reconstructions (batch, n_prefixes,
     d_model) (saev_tpu/nn/modeling.py:373-467): x_hats[:, j] = f_x[:, :p_j]
@@ -482,6 +500,13 @@ def decode(
     (None: MATMUL_PRECISION), the mask contraction's too: at bf16 it would
     round the partial sums, the dominant term of every reconstruction
     (saev_tpu/nn/modeling.py:436-450). The cuts are read on the host.
+
+    With a `feature` group, f_x and W_dec hold this member's latents [o, o +
+    n) of the whole dictionary and the prefixes count the whole one: each
+    member takes the partial products of its latents below each cut (the
+    cuts clip(p_j - o, 0, n), which may be 0 or n), in groups of
+    min(group_size, n), and their sum over the group plus b_dec is every
+    member's reconstruction.
     """
     if f_x.ndim != 2 or f_x.shape[1] != params["W_dec"].shape[0]:
         raise ValueError(
@@ -489,10 +514,22 @@ def decode(
             f"latents for this {cfg.d_sae}-latent SAE"
         )
     precision = precision or MATMUL_PRECISION
-    w_dec, b_dec = params["W_dec"], params["b_dec"]
+    w_dec = params["W_dec"]
     if prefixes is None or prefixes.shape[0] == 1:
-        return (matmul(f_x, w_dec, precision) + b_dec)[:, None, :]
+        partial = matmul(f_x, w_dec, precision)[:, None, :]
+    else:
+        n = w_dec.shape[0]
+        offset = 0 if feature is None else feature.index * n
+        cuts = [min(max(int(p) - offset, 0), n) for p in prefixes.tolist()]
+        partial = _prefix_products(f_x, w_dec, cuts, group_size, precision)
+    return parallel.sum_over(partial, feature) + params["b_dec"]
 
+
+def _prefix_products(
+    f_x: torch.Tensor, w_dec: torch.Tensor, cuts: list[int], group_size: int, precision: str
+) -> torch.Tensor:
+    """(batch, J, d_model): f_x[:, :p_j] @ W_dec[:p_j] for each cut p_j (0 <=
+    p_j <= d_sae, ascending), by `decode`'s grouped products."""
     b, d_sae = f_x.shape
     d_model = w_dec.shape[1]
     g = min(group_size, d_sae)
@@ -505,7 +542,6 @@ def decode(
     partial = matmul(
         f_pad.reshape(b, n_groups, g).transpose(0, 1), w_pad.reshape(n_groups, g, d_model), precision
     )
-    cuts = [int(p) for p in prefixes.tolist()]
     m = [p // g for p in cuts]  # group holding each cut
     r = [p - mj * g for p, mj in zip(cuts, m)]  # lanes of that group below the cut
     group_mask = (
@@ -525,7 +561,7 @@ def decode(
             torch.where(lane < r[j], f_m, torch.zeros((), dtype=f_m.dtype, device=f_m.device)),
             w_pad[start : start + g], precision,
         )
-        x_hats.append(base[j] + rem + b_dec)
+        x_hats.append(base[j] + rem)
     return torch.stack(x_hats, dim=1)
 
 

@@ -14,6 +14,14 @@ the CPU; None is modeling.MATMUL_PRECISION, "highest"). The
 autodiff-through-decode path, which eval, one prefix, a d_sae that is not a
 multiple of 1024 and "high" and "highest" training take, runs the
 multi-prefix `modeling.decode` with `scale_stabilized_mse`.
+
+Over a feature group (latent-sharded SAEs, nn/modeling.py) the objective is
+the whole dictionary's on every member: the dead-latent counters stay with
+their latents, n_dead, L0 and L1 are summed over the group, the AuxK
+threshold is the whole row's among the dead latents (`ops.
+exact_kth_value_masked(group=...)`), the subspace is the `cap` stalest of
+all latents (`stalest_columns`), and each reconstruction is summed over the
+group.
 """
 
 import dataclasses
@@ -108,6 +116,11 @@ def scale_stabilized_mse(
     return ((x_hat / upper - x / upper) ** 2) * upper * upper
 
 
+def _count(mask: torch.Tensor, feature: parallel.Group | None) -> torch.Tensor:
+    """The set entries of a latent mask, over the whole dictionary."""
+    return parallel.all_reduce(mask.sum(), "sum", feature)
+
+
 def _aux_mse(
     aux_cfg: modeling.AuxK, aux_recon: torch.Tensor, residual: torch.Tensor,
     n_dead: torch.Tensor, alpha: torch.Tensor | float | None,
@@ -128,9 +141,11 @@ def _aux_loss(
     dead_mask: torch.Tensor,
     alpha: torch.Tensor | float | None = None,
     precision: str | None = None,
+    feature: parallel.Group | None = None,
 ) -> torch.Tensor:
     """AuxK dead-latent loss, dense form (saev_tpu/nn/objectives.py:131-167),
-    its decode at `precision`.
+    its decode at `precision`; with a `feature` group, the whole
+    dictionary's (module doc).
 
     The k_aux largest pre-activations among dead latents reconstruct the
     detached residual of the main reconstruction. With kth the k_aux-th
@@ -143,11 +158,11 @@ def _aux_loss(
     """
     residual = (x - x_hat_full).detach()
     k_aux = min(aux_cfg.k_aux, sae_cfg.d_sae)
-    kth = ops.exact_kth_value_masked(h_x, dead_mask, k_aux)
+    kth = ops.exact_kth_value_masked(h_x, dead_mask, k_aux, group=feature)
     keep = (h_x >= kth) & dead_mask[None, :]
     aux_acts = torch.where(keep, h_x, torch.zeros((), dtype=h_x.dtype, device=h_x.device))
-    aux_recon = modeling.decode(sae_cfg, params, aux_acts, precision=precision)[:, -1, :]
-    return _aux_mse(aux_cfg, aux_recon, residual, dead_mask.sum(), alpha)
+    aux_recon = modeling.decode(sae_cfg, params, aux_acts, precision=precision, feature=feature)[:, -1, :]
+    return _aux_mse(aux_cfg, aux_recon, residual, _count(dead_mask, feature), alpha)
 
 
 def default_subspace_cap(d_sae: int, k_aux: int) -> int:
@@ -167,11 +182,28 @@ def subspace_cap_ladder(d_sae: int, k_aux: int) -> list[int]:
     return sorted({c for c in (tight, wide) if c < d_sae})
 
 
-def stalest_columns(toks: torch.Tensor, cap: int) -> torch.Tensor:
+def stalest_columns(toks: torch.Tensor, cap: int, feature: parallel.Group | None = None) -> torch.Tensor:
     """Indices of the `cap` largest staleness counters, ties in ascending
     index order, as `lax.top_k` orders them (counters tie constantly: every
-    latent that fired this step has counter 0)."""
-    return torch.sort(toks, descending=True, stable=True).indices[:cap]
+    latent that fired this step has counter 0).
+
+    With a `feature` group, `toks` holds this member's latents [o, o + n)
+    of the whole dictionary: the `cap` stalest of all its latents, ties in
+    ascending whole index, are chosen from each member's min(cap, n) stalest
+    (which hold every chosen latent of its own), gathered as (counter, whole
+    index) pairs; the member's own ones come back, as local indices in that
+    order (possibly none)."""
+    local = torch.sort(toks, descending=True, stable=True).indices[:cap]
+    if feature is None:
+        return local
+    n = toks.shape[0]
+    offset = feature.index * n
+    counters = parallel.gather_rows(toks[local], feature)
+    index = parallel.gather_rows(local + offset, feature)
+    by_index = torch.argsort(index)
+    order = torch.sort(counters[by_index], descending=True, stable=True).indices
+    chosen = index[by_index][order][:cap]
+    return chosen[(chosen >= offset) & (chosen < offset + n)] - offset
 
 
 def _aux_loss_subspace(
@@ -185,11 +217,15 @@ def _aux_loss_subspace(
     cap: int,
     alpha: torch.Tensor | float | None = None,
     precision: str | None = None,
+    feature: parallel.Group | None = None,
 ) -> torch.Tensor:
     """AuxK loss in the gathered subspace of the `cap` stalest latents
     (saev_tpu/nn/objectives.py:190-250), its two products at `precision`
     (None: "highest", as in `decode`; the JAX package's dots take the
-    backend's default there).
+    backend's default there). With a `feature` group, the subspace is the
+    `cap` stalest of the whole dictionary, each member computing on its own
+    (`stalest_columns`), and the threshold, the dead count and the
+    reconstruction are the whole subspace's.
 
     Every dead latent sorts above every live one, so whenever n_dead <= cap
     the subspace holds all dead latents and this loss and its gradients equal
@@ -203,14 +239,21 @@ def _aux_loss_subspace(
     residual = (x - x_hat_full).detach()
     cap = min(cap, sae_cfg.d_sae)
     k_aux = min(aux_cfg.k_aux, cap)
-    idx = stalest_columns(toks, cap)
+    idx = stalest_columns(toks, cap, feature)
+    # A member may hold none of the subspace: it takes part in the
+    # collectives with no columns.
+    empty = idx.numel() == 0
     dead_sub = toks[idx] >= dead_threshold
-    h_sub = modeling.matmul(x, params["W_enc"][:, idx], precision) + params["b_enc"][idx]
-    kth = ops.exact_kth_value_masked(h_sub, dead_sub, k_aux)
+    if empty:
+        h_sub = x.new_zeros((x.shape[0], 0))
+    else:
+        h_sub = modeling.matmul(x, params["W_enc"][:, idx], precision) + params["b_enc"][idx]
+    kth = ops.exact_kth_value_masked(h_sub, dead_sub, k_aux, group=feature)
     keep = (h_sub >= kth) & dead_sub[None, :]
     aux_acts = torch.where(keep, h_sub, torch.zeros((), dtype=h_sub.dtype, device=h_sub.device))
-    aux_recon = modeling.matmul(aux_acts, params["W_dec"][idx], precision) + params["b_dec"]
-    return _aux_mse(aux_cfg, aux_recon, residual, dead_sub.sum(), alpha)
+    partial = torch.zeros_like(x) if empty else modeling.matmul(aux_acts, params["W_dec"][idx], precision)
+    aux_recon = parallel.sum_over(partial, feature) + params["b_dec"]
+    return _aux_mse(aux_cfg, aux_recon, residual, _count(dead_sub, feature), alpha)
 
 
 def matryoshka_loss(
@@ -229,6 +272,7 @@ def matryoshka_loss(
     aux_subspace_cap: int | None = None,
     group: parallel.Group | None = None,
     x_abs_max: torch.Tensor | None = None,
+    feature: parallel.Group | None = None,
 ) -> tuple[MatryoshkaLoss, modeling.Output, modeling.State, ObjectiveState]:
     """One objective forward (saev_tpu/nn/objectives.py:253-441). Returns
     the loss terms, the SAE forward's outputs, the SAE state (BatchTopK's
@@ -252,6 +296,13 @@ def matryoshka_loss(
     train step averages with the gradients. `x_abs_max`, the whole batch's
     max|x|, spares the loss its own reduction over the group (the train step
     takes it once for the sweep).
+
+    A `feature` group makes the params, the counters and `Output`'s h_x and
+    f_x this member's latents of the whole dictionary (nn/modeling.py), and
+    the loss terms the whole dictionary's, the same on every member: the
+    TopK statistics pass runs over the group (`ops.topk_stats(group=...)`),
+    the fused prefix MSE with it (`ops.matryoshka.prefix_mse(feature=...)`),
+    and n_dead, L0 and L1 are summed over it.
 
     Two paths, picked as the JAX package picks them:
     - fused: training at `precision` None or "default" with more than one
@@ -284,13 +335,13 @@ def matryoshka_loss(
         x_abs_max = parallel.all_reduce(x.detach().abs().max(), "max", group)
     if use_stats:
         h_x = modeling._linear_bias(x, params["W_enc"], params["b_enc"], precision or modeling.MATMUL_PRECISION)
-        st = ops.topk_stats(h_x, sae_cfg.activation.top_k)
+        st = ops.topk_stats(h_x, min(sae_cfg.activation.top_k, sae_cfg.d_sae), group=feature)
         enc = modeling.EncodeOut(h_x=h_x, f_x=st.f)
     else:
         st = None
         enc, sae_state = modeling.encode(
             sae_cfg, params, sae_state, x, training=training, momentum=hp.get("momentum"), precision=precision,
-            group=group,
+            group=group, feature=feature,
         )
     bsz = x.shape[0] * (1 if group is None else group.size)
 
@@ -308,12 +359,12 @@ def matryoshka_loss(
 
     if use_fused:
         mse, xhat_full = _fused.prefix_mse(
-            params["W_dec"], params["b_dec"], enc.f_x, x, prefixes, min(1024, sae_cfg.d_sae), x_abs_max
+            params["W_dec"], params["b_dec"], enc.f_x, x, prefixes, min(1024, sae_cfg.d_sae), x_abs_max, feature
         )
         xhat_full = xhat_full.detach()
         x_hats = xhat_full[:, None, :]
     else:
-        x_hats = modeling.decode(sae_cfg, params, enc.f_x, prefixes, precision=precision)
+        x_hats = modeling.decode(sae_cfg, params, enc.f_x, prefixes, precision=precision, feature=feature)
         mse = scale_stabilized_mse(x_hats, x[:, None, :].expand_as(x_hats), x_abs_max).mean()
         xhat_full = x_hats[:, -1, :]
     out = modeling.Output(h_x=enc.h_x, f_x=enc.f_x, x_hats=x_hats)
@@ -324,15 +375,15 @@ def matryoshka_loss(
         if aux_subspace_cap is not None and aux_subspace_cap < sae_cfg.d_sae:
             aux = _aux_loss_subspace(
                 aux_cfg, sae_cfg, params, x, xhat_full, new_obj_state["toks_since_active"],
-                obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha, precision=precision,
+                obj_cfg.dead_threshold_tokens, aux_subspace_cap, alpha=alpha, precision=precision, feature=feature,
             )
         else:
             aux = _aux_loss(aux_cfg, sae_cfg, params, x, enc.h_x, xhat_full, dead_mask, alpha=alpha,
-                            precision=precision)
+                            precision=precision, feature=feature)
     else:
         aux = torch.zeros((), dtype=x.dtype, device=x.device)
     n_dead = (
-        dead_mask.sum().to(torch.int32) if dead_mask is not None
+        _count(dead_mask, feature).to(torch.int32) if dead_mask is not None
         else torch.zeros((), dtype=torch.int32, device=x.device)
     )
 
@@ -340,8 +391,8 @@ def matryoshka_loss(
         l1_full = st.l1[:, 0].mean(dim=0)
         l0_full = st.l0[:, 0].to(x.dtype).mean(dim=0)
     else:
-        l1_full = enc.f_x.abs().sum(dim=1).mean(dim=0)
-        l0_full = (enc.f_x != 0).to(x.dtype).sum(dim=1).mean(dim=0)
+        l1_full = parallel.sum_over(enc.f_x.abs().sum(dim=1), feature).mean(dim=0)
+        l0_full = parallel.all_reduce((enc.f_x != 0).to(x.dtype).sum(dim=1), "sum", feature).mean(dim=0)
     sparsity_cfg = sae_cfg.activation.sparsity
     if hp.get("sparsity_coeff") is not None and isinstance(sparsity_cfg, modeling.L1Sparsity):
         sparsity = l1_full * hp["sparsity_coeff"]
@@ -349,6 +400,9 @@ def matryoshka_loss(
         # Its loss reads no latent: the f32 latents are not built (XLA drops
         # them in the JAX package, saev_tpu/nn/objectives.py:330-332).
         sparsity = torch.zeros((), dtype=x.dtype, device=x.device)
+    elif feature is not None:
+        # L1Sparsity's loss, from the whole rows' sums.
+        sparsity = l1_full * sparsity_cfg.coeff
     else:
         # The f32 latents, as the JAX package's Output.f_x on either path.
         f_api = enc.f_x if st is None else torch.where(h_x >= st.kth, h_x, 0.0)

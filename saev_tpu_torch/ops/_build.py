@@ -43,6 +43,9 @@ SIGNATURES = {
     "saev_kth": [_P, _I, _I, _I, _P, _P, _P],
     "saev_kth_masked": [_P, _P, _I, _I, _I, _P, _P],
     "saev_topk_stats_wide": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "saev_topk_stats_given": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "saev_topk_stats_given_wide": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "saev_kth_candidates": [_P, _P, _I, _I, _I, _P, _P, _P],
     "saev_kth_wide": [_P, _I, _I, _I, _P, _P, _P],
     "saev_kth_masked_wide": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -7,13 +7,17 @@ Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
 CPU tensor takes the plain version, `ops.topk._kth_plain` or
 `ops.topk._kth_masked_plain`. There is no fallback from one to the other.
+
+`kth_candidates_cuda` (csrc/kth_shard.cu) is the step between them on a
+latent-sharded row (ops/topk.py `_sharded_kth`): a shard's values above a
+bound, padded with it; its plain version is `ops.topk._kth_candidates_plain`.
 """
 
 import torch
 
 from . import _build
 from .cuda_topk import NARROW_S
-from .topk import _kth_masked_plain, _kth_plain
+from .topk import _kth_candidates_plain, _kth_masked_plain, _kth_plain
 
 
 def _check_h(h: torch.Tensor, k: int, what: str) -> int:
@@ -83,3 +87,35 @@ def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.
 
 kth_value_cuda.launches = 0
 kth_value_masked_cuda.launches = 0
+
+
+def kth_candidates_cuda(h: torch.Tensor, mask: torch.Tensor | None, t0: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, k) f32: each row's values of a (B, S) f32 batch (at the columns
+    where the (S,) bool `mask`, when given, is set) whose order key is above
+    that of the row's bound t0 (B, 1), then copies of t0. The caller's t0 is
+    at least the row's k-th largest key, so fewer than k values lie above
+    it."""
+    if h.device.type != "cuda":
+        return _kth_candidates_plain(h, mask, t0, k)
+    b, s = h.shape
+    if h.dtype != torch.float32 or h.ndim != 2 or not h.is_contiguous():
+        raise ValueError(f"kth_candidates wants a contiguous (B, S) float32 tensor, got {tuple(h.shape)} {h.dtype}")
+    if t0.dtype != torch.float32 or tuple(t0.shape) != (b, 1) or t0.device != h.device:
+        raise ValueError(f"kth_candidates wants a ({b}, 1) float32 bound on {h.device}")
+    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (s,) or mask.device != h.device):
+        raise ValueError(f"kth_candidates wants a ({s},) bool mask on {h.device}")
+    t0 = t0.contiguous()
+    if s == 0:
+        return t0.expand(b, k).contiguous()
+    mask = None if mask is None else mask.contiguous()
+    out = torch.empty((b, k), dtype=torch.float32, device=h.device)
+    code = _build.lib().saev_kth_candidates(
+        h.data_ptr(), None if mask is None else mask.data_ptr(), b, s, k, t0.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(h),
+    )
+    _build.check(code, "kth_candidates")
+    kth_candidates_cuda.launches += 1
+    return out
+
+
+kth_candidates_cuda.launches = 0

@@ -22,11 +22,25 @@ Two paths, chosen by `_use_kernels` on the latents' tensor:
 
 The second output is the full reconstruction xhat_J. It carries no gradient:
 callers detach it.
+
+Over a feature group (saev_tpu_torch.parallel; each member holds the
+latents [o, o + S / F) of f and W_dec), each member forms its partial
+products base_j = f[:, :p'_j] @ W[:p'_j] on its own latents, with the local
+cuts p'_j = clip(p_j - o, 0, S / F), in groups of gcd(g, S / F): on the
+kernel path kernel K7 (f32 base), on the plain path the same algebra in f32.
+One all-reduce (sum) of base (J, B, D) over the group gives every member
+the whole E_j = base_j + (b_dec - x) (rounded to bf16 on the kernel path, as
+K2 rounds it) and the same loss; the backward runs K3 and K4 (or the plain
+algebra) on the member's latents with that E and the local cuts, and
+b_dec's gradient, from E, is the same on every member.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from . import cuda_matryoshka as _cm
 
 _BF16 = torch.bfloat16
@@ -51,11 +65,18 @@ def _loss_from_e(e: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
 
 
 def _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, upper):
+    base, xhat_nobias = _base_plain(w_dec, f_x, ms, rs, g)
+    e = base + (b_dec - x)[None]
+    return _loss_from_e(e, upper), xhat_nobias + b_dec, e
+
+
+def _base_plain(w_dec, f_x, ms, rs, g):
+    """(base (J, B, D), f @ W (B, D)), base_j = f[:, :p_j] @ W[:p_j], in f32
+    by groups of g."""
     n_groups = f_x.shape[1] // g
     a = torch.stack(
         [f_x[:, i * g : (i + 1) * g] @ w_dec[i * g : (i + 1) * g] for i in range(n_groups)]
     )  # (G, B, D)
-    xhat_full = a.sum(dim=0) + b_dec
     mask = (
         torch.arange(n_groups, device=f_x.device)[:, None]
         < torch.tensor(ms, device=f_x.device)[None, :]
@@ -67,8 +88,7 @@ def _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, upper):
         mc = min(mj, n_groups - 1)  # a cut at d_sae has r = 0: nothing to add
         f_m = torch.where(lane < rj, f_x[:, mc * g : (mc + 1) * g], 0.0)
         rems.append(f_m @ w_dec[mc * g : (mc + 1) * g])
-    e = base + torch.stack(rems) + (b_dec - x)[None]
-    return _loss_from_e(e, upper), xhat_full, e
+    return base + torch.stack(rems), a.sum(dim=0)
 
 
 def _bwd_plain(f, w, e, ms, rs, g, scale):
@@ -100,12 +120,17 @@ def _bwd_plain(f, w, e, ms, rs, g, scale):
 
 class _PrefixMSE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max):
+    def forward(ctx, w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max, feature):
         b, d_sae = f_x.shape
-        g = min(group_size, d_sae)
-        if d_sae % g:
-            raise ValueError(f"d_sae {d_sae} must divide into groups of {g}")
         p32 = prefixes.to(torch.int32)
+        if feature is None:
+            g = min(group_size, d_sae)
+            if d_sae % g:
+                raise ValueError(f"d_sae {d_sae} must divide into groups of {g}")
+        else:
+            # This member's latents [o, o + d_sae) of the whole row, and its cuts.
+            g = math.gcd(min(group_size, d_sae * feature.size), d_sae)
+            p32 = torch.clamp(p32 - feature.index * d_sae, 0, d_sae)
         m = torch.div(p32, g, rounding_mode="floor")
         r = p32 - m * g
         ctx.g = g
@@ -140,17 +165,32 @@ class _PrefixMSE(torch.autograd.Function):
                 fb = torch.cat([fb, fb.new_zeros((pad, fb.shape[1]))])
                 xp = torch.cat([xp, bp.expand(pad, -1)])
             upper = _upper(x, x_abs_max)
-            e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
-                fb, wb, xp.contiguous(), bp.contiguous(), 1.0 / upper,
-                m.contiguous(), r.contiguous(), group_size=gp,
-            )
+            if feature is None:
+                e, xhat_nb, loss_sum = _cm.grouped_prefix_err(
+                    fb, wb, xp.contiguous(), bp.contiguous(), 1.0 / upper,
+                    m.contiguous(), r.contiguous(), group_size=gp,
+                )
+            else:
+                # K2's E and loss from the whole base: bf16(base_j + (b_dec
+                # - x)), sum (f32(E_j) / upper)^2.
+                base, _ = _cm.grouped_prefix_base(fb, wb, m.contiguous(), r.contiguous(), group_size=gp)
+                parallel.all_reduce(base, "sum", feature)
+                e = (base + (bp - xp)[None]).to(_BF16)
+                loss_sum = ((e.float() * (1.0 / upper)) ** 2).sum()
+                xhat_nb = base[-1]
             loss = loss_sum / (m.shape[0] * b * d_model) * upper * upper
             xhat = xhat_nb[:b, :d_model] + b_dec
             ctx.b, ctx.gp, ctx.d_model = b, gp, d_model
             ctx.save_for_backward(fb, wb, e, m, r)
         else:
             ms, rs = m.tolist(), r.tolist()
-            loss, xhat, e = _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, _upper(x, x_abs_max))
+            if feature is None:
+                loss, xhat, e = _fwd_plain(w_dec, b_dec, f_x, x, ms, rs, g, _upper(x, x_abs_max))
+            else:
+                base, _ = _base_plain(w_dec, f_x, ms, rs, g)
+                parallel.all_reduce(base, "sum", feature)
+                e = base + (b_dec - x)[None]
+                loss, xhat = _loss_from_e(e, _upper(x, x_abs_max)), base[-1] + b_dec
             ctx.cuts = (ms, rs)
             ctx.save_for_backward(f_x, w_dec, e)
         ctx.mark_non_differentiable(xhat)
@@ -180,10 +220,10 @@ class _PrefixMSE(torch.autograd.Function):
             scale = t_loss * 2.0 / (b * j_n * d_model)
             db_dec = e.sum(dim=(0, 1)) * scale
             df, dw = _bwd_plain(f, w, e, *ctx.cuts, g, scale)
-        return dw, db_dec, df.to(ctx.f_dtype), None, None, None, None
+        return dw, db_dec, df.to(ctx.f_dtype), None, None, None, None, None
 
 
-def prefix_mse(w_dec, b_dec, f_x, x, prefixes, group_size: int = 1024, x_abs_max=None):
+def prefix_mse(w_dec, b_dec, f_x, x, prefixes, group_size: int = 1024, x_abs_max=None, feature=None):
     """(scale-stabilized mean prefix MSE, full reconstruction).
 
     w_dec (d_sae, d_model), b_dec (d_model,), f_x (batch, d_sae) latents,
@@ -191,5 +231,9 @@ def prefix_mse(w_dec, b_dec, f_x, x, prefixes, group_size: int = 1024, x_abs_max
     points with the last equal to d_sae. d_sae must divide by group_size.
     `x_abs_max` replaces max|x| as the reduction's scale (a data-parallel
     step passes the whole batch's); it moves only the loss's rounding.
+
+    With a `feature` group, w_dec and f_x hold this member's latents of the
+    whole dictionary, the prefixes count the whole one, and the loss and
+    reconstruction are the whole one's on every member (module doc).
     """
-    return _PrefixMSE.apply(w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max)
+    return _PrefixMSE.apply(w_dec, b_dec, f_x, x, prefixes, group_size, x_abs_max, feature)

@@ -2,28 +2,40 @@
 host-to-device transfer of the train loop (counterpart of
 saev_tpu/parallel/__init__.py).
 
-The processes form a 2-D grid: rank = d * n_sweep + s, with d the data index
-and s the sweep index (`make_mesh`). Every process loads global_batch / world
-rows from its own shard partition; the global batch of a step is those slices
-in rank order.
+The processes form a 3-D grid in the JAX package's axis order, the feature
+axis innermost: rank = (d * n_sweep + s) * n_feature + f, with d the data
+index, s the sweep index and f the feature index (`make_mesh`). Every process
+loads global_batch / world rows from its own shard partition; the global
+batch of a step is those slices in rank order.
 
-- `sweep`: the ranks with the same d form a sweep group. Each owns
-  n_sae / n_sweep whole SAEs (`shard_sweep`), and the group all-gathers its
-  members' rows (`shard_batch`), so that every rank of data index d computes
-  on the same global_batch / n_data rows.
-- `data`: the ranks with the same s form a data group. They own the same
-  SAEs, and all-reduce their gradients and the statistics that span the
-  batch (BatchTopK's threshold, the dead-latent counters, max|x|).
+- `rows`: the ranks with the same d (every sweep and feature index) form a
+  rows group, which all-gathers its members' rows (`shard_batch`), so that
+  every rank of data index d computes on the same global_batch / n_data
+  rows.
+- `sweep`: the ranks with the same d and f form a sweep group. Each owns
+  n_sae / n_sweep whole SAEs (`shard_sweep`).
+- `feature`: the ranks with the same d and s form a feature group. They own
+  the same SAEs, each the contiguous latents [f * S / F, (f + 1) * S / F) of
+  every leaf with a latent dim (`shard_features`: W_enc's columns, W_dec's
+  rows, b_enc, the dead-latent counters and the optimizer moments that
+  mirror them); b_dec and scalars are whole on every member. The train step
+  combines what spans the latents over the group: the exact TopK threshold
+  of a whole row, the partial reconstructions, the row sums, the dead
+  counts, the gradient's norm and Muon's Gram matrices.
+- `data`: the ranks with the same s and f form a data group. They own the
+  same SAEs (and the same latents of them), and all-reduce their gradients
+  and the statistics that span the batch (BatchTopK's threshold, the
+  dead-latent counters, max|x|).
 
-The JAX package keeps its sweep axis inside one process (its `make_mesh`
-refuses one that crosses processes); here it crosses processes by design,
-and the sweep group's gather keeps the same semantics. The `feature` axis is
-not ported: anything but 1 raises.
+The JAX package keeps its sweep and feature axes inside one process (its
+`make_mesh` refuses ones that cross processes); here they cross processes by
+design, and the groups' collectives keep the same semantics.
 
 Host-side effects (run dirs, the run recorder, checkpoint and SAE files)
-happen on rank 0 (`is_primary`), and host-accumulated statistics cross
-processes by `global_sum` / `global_min`. At world 1 every helper is the
-identity and needs no process group.
+happen on rank 0 (`is_primary`), from whole arrays (`to_host` gathers the
+latents and the sweep), and host-accumulated statistics cross processes by
+`global_sum` / `global_min`. At world 1 every helper is the identity and
+needs no process group.
 
 Backends are explicit: "nccl" for CUDA, "gloo" for the CPU; gloo over CUDA
 tensors (two ranks on one card, which NCCL refuses) only where the caller
@@ -117,6 +129,11 @@ class Group:
     def size(self) -> int:
         return len(self.ranks)
 
+    @property
+    def index(self) -> int:
+        """This process's place in the group."""
+        return self.ranks.index(process_index())
+
     def comm_device(self) -> torch.device:
         """Where a host value goes for a collective: NCCL takes only CUDA
         tensors; gloo takes host tensors."""
@@ -125,9 +142,9 @@ class Group:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The (data, sweep) grid of the job's processes and this rank's place
-    in it. `data` and `sweep` are None where they would hold one process:
-    collectives over them are the identity."""
+    """The (data, sweep, feature) grid of the job's processes and this
+    rank's place in it. A group is None where it would hold one process:
+    collectives over it are the identity."""
 
     n_data: int
     n_sweep: int
@@ -135,10 +152,14 @@ class Mesh:
     s: int
     data: Group | None
     sweep: Group | None
+    n_feature: int = 1
+    f: int = 0
+    feature: Group | None = None
+    rows: Group | None = None
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.n_data, SWEEP_AXIS: self.n_sweep, FEATURE_AXIS: 1}
+        return {DATA_AXIS: self.n_data, SWEEP_AXIS: self.n_sweep, FEATURE_AXIS: self.n_feature}
 
 
 def _group(ranks: list[int], backend: str) -> Group:
@@ -146,31 +167,40 @@ def _group(ranks: list[int], backend: str) -> Group:
 
 
 def make_mesh(*, sweep: int = 1, feature: int = 1) -> Mesh:
-    """The (data, sweep) grid over every process of the job: n_data = world
-    / sweep, rank = d * sweep + s. Every process must call it, in the same
-    order as the others (process groups are made collectively).
+    """The (data, sweep, feature) grid over every process of the job:
+    n_data = world / (sweep * feature), rank = (d * sweep + s) * feature + f.
+    Every process must call it, in the same order as the others (process
+    groups are made collectively).
 
-    Raises ValueError when `sweep` does not divide the world, and
-    NotImplementedError for a feature axis: latent-sharded training is not
-    ported (ROADMAP §1 item 9)."""
-    if feature != 1:
-        raise NotImplementedError(
-            f"feature_parallel={feature}: latent-sharded training is not ported yet (ROADMAP §1 item 9)"
-        )
+    Raises ValueError when sweep * feature does not divide the world."""
     world = process_count()
-    if sweep < 1 or world % sweep:
-        raise ValueError(f"sweep_parallel={sweep} does not divide the job's {world} process(es)")
-    n_data = world // sweep
-    rank = process_index()
-    d, s = divmod(rank, sweep)
+    if sweep < 1 or feature < 1 or world % (sweep * feature):
+        what = f"sweep_parallel={sweep}" + (f" x feature_parallel={feature}" if feature != 1 else "")
+        raise ValueError(f"{what} does not divide the job's {world} process(es)")
+    inner = sweep * feature
+    n_data = world // inner
+    d, rem = divmod(process_index(), inner)
+    s, f = divmod(rem, feature)
     if world == 1:
         return Mesh(n_data=1, n_sweep=1, d=0, s=0, data=None, sweep=None)
     backend = dist.get_backend()
+
+    def rank(dd, ss, ff):
+        return (dd * sweep + ss) * feature + ff
+
     # new_group is collective: every rank makes every group, in one order.
-    data = [_group([dd * sweep + ss for dd in range(n_data)], backend) for ss in range(sweep)] if n_data > 1 else None
-    swept = [_group([dd * sweep + ss for ss in range(sweep)], backend) for dd in range(n_data)] if sweep > 1 else None
-    return Mesh(n_data=n_data, n_sweep=sweep, d=d, s=s, data=data[s] if data else None,
-                sweep=swept[d] if swept else None)
+    data = {(ss, ff): _group([rank(dd, ss, ff) for dd in range(n_data)], backend)
+            for ss in range(sweep) for ff in range(feature)} if n_data > 1 else {}
+    swept = {(dd, ff): _group([rank(dd, ss, ff) for ss in range(sweep)], backend)
+             for dd in range(n_data) for ff in range(feature)} if sweep > 1 else {}
+    feat = {(dd, ss): _group([rank(dd, ss, ff) for ff in range(feature)], backend)
+            for dd in range(n_data) for ss in range(sweep)} if feature > 1 else {}
+    if sweep > 1 and feature > 1:
+        rows = {dd: _group([dd * inner + i for i in range(inner)], backend) for dd in range(n_data)}
+    else:
+        rows = {dd: (swept or feat).get((dd, 0)) for dd in range(n_data)}
+    return Mesh(n_data=n_data, n_sweep=sweep, d=d, s=s, data=data.get((s, f)), sweep=swept.get((d, f)),
+                n_feature=feature, f=f, feature=feat.get((d, s)), rows=rows[d])
 
 
 # ---------------------------------------------------------------------------
@@ -210,10 +240,38 @@ def gather_rows(t: torch.Tensor, group: Group | None) -> torch.Tensor:
     return out
 
 
+def sum_over(t: torch.Tensor, group: Group | None) -> torch.Tensor:
+    """The sum of `t` over the group, out of place, differentiable: its
+    backward passes the cotangent through as it is, which is the gradient
+    where every member computes the same loss from the sum (a feature
+    group's partial reconstructions and row sums)."""
+    return t if group is None else _SumOver.apply(t, group)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_cols(t: torch.Tensor, group: Group | None) -> torch.Tensor:
+    """The members' (B, n) `t` (the same shape on each) side by side, (B,
+    size * n), in group order: one all_gather_into_tensor."""
+    if group is None:
+        return t
+    b = t.shape[0]
+    return gather_rows(t, group).reshape(group.size, b, -1).transpose(0, 1).reshape(b, -1)
+
+
 def shard_batch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """This process's rows (global_batch / world) -> the rows of its sweep
-    group (global_batch / n_data), in rank order."""
-    return gather_rows(x, mesh.sweep)
+    """This process's rows (global_batch / world) -> the rows of its data
+    index (global_batch / n_data), gathered over its rows group in rank
+    order."""
+    return gather_rows(x, mesh.rows)
 
 
 def shard_sweep(mesh: Mesh, tree):
@@ -232,10 +290,71 @@ def shard_sweep(mesh: Mesh, tree):
     return _map(one, tree)
 
 
-def to_host(mesh: Mesh, tree):
+def latent_axes(tree, d_sae: int):
+    """The latent axis of each leaf of a whole stacked tree (the same
+    structure, an int or None a leaf), by the JAX package's structural rule
+    (saev_tpu/parallel/__init__.py `shard_features`): the first dim of size
+    d_sae beyond the leading stacked axis, one a leaf. Keep d_model !=
+    d_sae, or W_enc's d_model dim would be taken for it."""
+    def one(x):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            return next((i for i in range(1, x.ndim) if x.shape[i] == d_sae), None)
+        return None
+
+    return _map(one, tree)
+
+
+def shard_features(mesh: Mesh, tree, d_sae: int):
+    """This rank's part of a whole stacked tree (counterpart of the JAX
+    package's `shard_features`): its SAEs (`shard_sweep`), and of each leaf
+    with a latent dim (`latent_axes`) its latents [f * S / F, (f + 1) * S /
+    F), copied; other leaves whole. Raises ValueError where F does not
+    divide d_sae."""
+    n_feature = mesh.n_feature
+    tree = shard_sweep(mesh, tree)
+    if n_feature == 1:
+        return tree
+    if d_sae % n_feature:
+        raise ValueError(
+            f"d_sae={d_sae} is not divisible by the feature axis ({n_feature}); "
+            "the latent dimension would silently replicate instead of sharding."
+        )
+    width = d_sae // n_feature
+
+    def one(x, axis):
+        if axis is None:
+            return x
+        part = x.narrow(axis, mesh.f * width, width) if isinstance(x, torch.Tensor) else \
+            np.take(x, np.arange(mesh.f * width, (mesh.f + 1) * width), axis=axis)
+        return part.clone() if isinstance(part, torch.Tensor) else part
+
+    return _map2(one, tree, latent_axes(tree, d_sae))
+
+
+def gather_features(mesh: Mesh, tree, axes):
+    """The inverse of `shard_features`' latent slicing (a collective over
+    the feature group): each tensor leaf whose `axes` entry is an int is
+    all-gathered along that axis, in latent order; other leaves as they
+    are."""
+    if mesh.feature is None:
+        return tree
+
+    def one(x, axis):
+        if axis is None or not isinstance(x, torch.Tensor):
+            return x
+        return gather_rows(x.detach().movedim(axis, 0), mesh.feature).movedim(0, axis)
+
+    return _map2(one, tree, axes)
+
+
+def to_host(mesh: Mesh, tree, axes=None):
     """A tree of this rank's SAEs -> the whole stack as numpy on every rank
-    of its sweep group (a collective there): leaves with a leading axis are
-    gathered along it, 0-d leaves are this rank's."""
+    of its sweep group (a collective there, and over the feature group
+    first where `axes`, the tree's `latent_axes`, is given): leaves with a
+    leading axis are gathered along it, 0-d leaves are this rank's."""
+    if axes is not None:
+        tree = gather_features(mesh, tree, axes)
+
     def one(x):
         if isinstance(x, torch.Tensor):
             x = x.detach()
@@ -255,6 +374,17 @@ def _map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _map2(fn, tree, other):
+    """fn(leaf, its entry of `other`, a tree of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map2(fn, v, o) for v, o in zip(tree, other)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ card, so neither has a counterpart here.
 """
 
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -24,7 +25,7 @@ TOP_K = 32
 SEED = 0
 
 
-def device_profile(fn, args=(), n: int = 10, warmup: int = 3, expect=(), tries: int = 4
+def device_profile(fn, args=(), n: int = 10, warmup: int = 3, expect=(), tries: int = 8
                    ) -> list[tuple[str, float, int]]:
     """Run `fn(*args)` `warmup` times, then `n` times under the profiler;
     return [(kernel name, device ms per iteration, calls per iteration)],
@@ -35,10 +36,11 @@ def device_profile(fn, args=(), n: int = 10, warmup: int = 3, expect=(), tries: 
     gets the mean of its recorded launches times its launches a call; one
     launched in fewer calls gets its total over the n calls. It can also
     miss a whole profile (on the card, one of a `chip_smoke.py` run's
-    profiles once recorded no device time at all), so a profile that
-    recorded no kernel, or lacks a kernel whose name holds one of `expect`,
-    is taken again, up to `tries` times in all; after that the last one's
-    rows are returned, empty or short.
+    profiles once recorded no device time at all, and once four in a row),
+    so a profile that recorded no kernel, or lacks a kernel whose name
+    holds one of `expect`, is taken again after a pause of a second, up to
+    `tries` times in all; after that the last one's rows are returned, empty
+    or short.
     `device_profile.retakes` counts the profiles taken again."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_profile needs a CUDA device; it does not profile the CPU")
@@ -46,7 +48,9 @@ def device_profile(fn, args=(), n: int = 10, warmup: int = 3, expect=(), tries: 
         fn(*args)
     torch.cuda.synchronize()
     for attempt in range(tries):
-        device_profile.retakes += attempt > 0
+        if attempt:
+            device_profile.retakes += 1
+            time.sleep(1.0)
         rows = _profile_once(fn, args, n)
         if rows and all(any(name in k for k, _, _ in rows) for name in expect):
             break

@@ -370,12 +370,13 @@ class _Event:
 @pytest.mark.parametrize("expect, recorded, want_profiles", [
     ((), [[], [], [("k_main", 3000.0, 2)]], 3),  # two empty profiles, then one with device time
     (("k_main", "k_tail"), [[("k_main", 3000.0, 2)], [("k_main", 3000.0, 2), ("k_tail", 500.0, 2)]], 2),
-    ((), [[]] * 6, 4),  # never recorded: gives up after `tries` and returns no rows
+    ((), [[]] * 10, 8),  # never recorded: gives up after `tries` and returns no rows
 ])
 def test_device_profile_takes_a_missed_profile_again(monkeypatch, expect, recorded, want_profiles):
     """A profile that recorded no kernel, or missed an expected one, is taken
-    again; warm-up runs once, each profile runs fn n times."""
-    made = []
+    again after a pause; warm-up runs once, each profile runs fn n times."""
+    made, pauses = [], []
+    monkeypatch.setattr(kprof.time, "sleep", pauses.append)
 
     class FakeProfile:
         def __init__(self, activities):
@@ -397,7 +398,7 @@ def test_device_profile_takes_a_missed_profile_again(monkeypatch, expect, record
     calls = []
     rows = kprof.device_profile(lambda: calls.append(1), n=2, warmup=1, expect=expect)
     assert len(made) == want_profiles
-    assert kprof.device_profile.retakes == want_profiles - 1
+    assert kprof.device_profile.retakes == want_profiles - 1 == len(pauses)
     assert len(calls) == 1 + 2 * want_profiles
     want = sorted(((k, us / 1e3 / c * round(c / 2), round(c / 2)) for k, us, c in recorded[want_profiles - 1]),
                   key=lambda row: -row[1])

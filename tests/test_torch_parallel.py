@@ -75,7 +75,7 @@ def test_make_mesh_shapes_and_world1_identities():
     assert (mesh.d, mesh.s, mesh.data, mesh.sweep) == (0, 0, None, None)
     with pytest.raises(ValueError, match="does not divide"):
         parallel.make_mesh(sweep=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="sweep_parallel=1 x feature_parallel=2 does not divide the job's 1 process"):
         parallel.make_mesh(feature=2)
 
     v = np.asarray([1.5, 2.5])

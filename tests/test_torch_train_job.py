@@ -405,13 +405,19 @@ def test_crash_between_cohort_saves_resumes_from_common_step(tmp_path, monkeypat
 
 
 def test_multi_gpu_options_raise(tmp_path):
-    """In a job of one process: feature_parallel is not ported (item 9); a
-    sweep_parallel that does not divide the processes, and a loader
-    partition set in the config (the trainer sets rank and world), raise
-    before any data is read."""
+    """In a job of one process: a feature_parallel or sweep_parallel that
+    does not divide the processes, and a loader partition set in the config
+    (the trainer sets rank and world), raise before any data is read; a
+    d_sae that feature_parallel does not divide raises the JAX package's
+    message, and so does d_model == d_sae under a feature axis."""
     base = _cfgs("torch", tmp_path, tmp_path, tmp_path)[0]
+    with pytest.raises(ValueError, match="d_sae=63 must divide over feature_parallel=2"):
+        train._check_feature_parallel(dataclasses.replace(base.sae, d_sae=63), 2)
+    with pytest.raises(ValueError, match="needs d_model != d_sae"):
+        train._check_feature_parallel(dataclasses.replace(base.sae, d_sae=base.sae.d_model), 2)
+    train._check_feature_parallel(base.sae, 2)
     for bad, err, match in (
-        (dict(feature_parallel=2), NotImplementedError, "item 9"),
+        (dict(feature_parallel=2), ValueError, "sweep_parallel=1 x feature_parallel=2 does not divide the job's 1 process"),
         (dict(sweep_parallel=2), ValueError, "sweep_parallel=2 does not divide the job's 1 process"),
         (dict(train_data=dataclasses.replace(base.train_data, world=2)), ValueError,
          "the trainer partitions the loader"),

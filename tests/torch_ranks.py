@@ -226,7 +226,7 @@ def train_rank(rank: int, world: int, out: pathlib.Path, cfgs) -> None:
     runtimes, run, steps = train.train(cfgs)
     run.finish()
     (rt,) = runtimes
-    host = parallel.to_host(rt.mesh, rt.ts)
+    host = parallel.to_host(rt.mesh, rt.ts, rt.axes)
     _save_log(out, rank, log, "train")
     if rank == 0:
         np.savez(out / "train_final.npz", **{f"p.{k}": v for k, v in host.params.items()}, steps=steps)
@@ -300,8 +300,200 @@ def job_rank(rank: int, world: int, out: pathlib.Path, cfgs, stop_at: int) -> No
             ids = None
         _save_log(out, rank, log, what)
     (rt,) = finals["train"][0]
-    host = parallel.to_host(rt.mesh, rt.ts)
+    host = parallel.to_host(rt.mesh, rt.ts, rt.axes)
     (out / f"job_rank{rank}.json").write_text(json.dumps({"writes": writes, "ids": ids}))
     if rank == 0:
         np.savez(out / "job_final.npz", **{f"p.{k}": v for k, v in host.params.items()},
                  **{f"s.{k}": v for k, v in host.sae_state.items()}, step=host.step)
+
+
+# ---------------------------------------------------------------------------
+# Feature-parallel (latent-sharded) training, tests/test_torch_feature_parallel.py
+# ---------------------------------------------------------------------------
+
+
+def _whole_state(data: dict, optim: str):
+    from saev_tpu_torch.framework import train
+
+    params = {k[2:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("p.")}
+    return train.SweepState(
+        params=params,
+        sae_state={k[2:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("s.")},
+        obj_state={"toks_since_active": torch.from_numpy(data["toks"])},
+        opt_state=train._opt_init(optim, params), step=torch.zeros((), dtype=torch.int32),
+    )
+
+
+def feature_step(out: pathlib.Path, name: str, mesh, tag: str) -> None:
+    """The step of case `out/<name>.npz` (as `step_rank` reads it) under
+    `mesh`: the whole state sharded over its feature axis, this rank's rows
+    of each global batch; rank 0 writes the whole final state and each
+    step's stats to `out/<name>_<tag>.npz`. A spec with "kernels" runs the
+    kernel path's algebra (`matryoshka._use_kernels` patched)."""
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import objectives
+    from saev_tpu_torch.ops import matryoshka
+
+    spec = json.loads((out / f"{name}.json").read_text())
+    data = dict(np.load(out / f"{name}.npz"))
+    whole = _whole_state(data, spec["optim"])
+    axes = parallel.latent_axes(whole, spec["d_sae"])
+    ts = parallel.shard_features(mesh, whole, spec["d_sae"])
+    real = matryoshka._use_kernels
+    if spec.get("kernels"):
+        matryoshka._use_kernels = lambda t: True
+    try:
+        step = train.make_train_step(
+            _sae_cfg(spec), objectives.Matryoshka(n_prefixes=spec["n_prefixes"], dead_threshold_tokens=spec["dead"]),
+            n_steps=10, optim=spec["optim"], matmul_precision=spec["precision"],
+            aux_enabled=spec["aux_enabled"], aux_subspace_cap=spec["cap"], mesh=mesh,
+        )
+        hp = {k[3:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("hp.")}
+        stats_log = []
+        world, rank = parallel.process_count(), parallel.process_index()
+        for i in range(spec["n_steps"]):
+            x = np.split(data[f"x{i}"], world)[rank]
+            ts, stats = step(ts, parallel.shard_batch(mesh, torch.from_numpy(x)), torch.from_numpy(data["prefixes"]),
+                             hp)
+            stats_log.append({k: v.numpy() for k, v in stats.items()})
+    finally:
+        matryoshka._use_kernels = real
+    host = parallel.to_host(mesh, ts, axes)
+    if rank == 0:
+        flat = {f"p.{k}": v for k, v in host.params.items()}
+        flat |= {f"s.{k}": v for k, v in host.sae_state.items()}
+        flat["toks"] = host.obj_state["toks_since_active"]
+        flat |= {f"stats{i}.{k}": v for i, st in enumerate(stats_log) for k, v in st.items()}
+        np.savez(out / f"{name}_{tag}.npz", **flat)
+
+
+def feature_ops(out: pathlib.Path, mesh) -> None:
+    """At feature_parallel = world, on this rank's columns: the whole row's
+    k-th largest (plain and masked, and masked over columns split unevenly,
+    one rank holding none) and `topk_stats` over the group for each k of
+    `out/kth.npz`; `stalest_columns` for each cap; Newton-Schulz on each
+    matrix of `out/ns.npz`; the prefix MSE with its gradients, plain and on
+    the kernel path's algebra. Each rank writes its
+    results to `out/ops_rank<r>.npz`."""
+    from saev_tpu_torch import ops, parallel
+    from saev_tpu_torch.nn import objectives
+    from saev_tpu_torch.ops import matryoshka
+
+    group, rank, world = mesh.feature, parallel.process_index(), parallel.process_count()
+    res = {}
+    kd = dict(np.load(out / "kth.npz"))
+    h, mask = kd["h"], kd["mask"]
+    w = h.shape[1] // world
+    mine = slice(rank * w, (rank + 1) * w)
+    hl, ml = torch.from_numpy(h[:, mine].copy()), torch.from_numpy(mask[mine].copy())
+    # Uneven: rank 0 holds the first `split` columns, the others none.
+    split = int(kd["split"])
+    hu = torch.from_numpy(h[:, :split].copy() if rank == 0 else np.zeros((h.shape[0], 0), np.float32))
+    mu = torch.from_numpy(mask[:split].copy() if rank == 0 else np.zeros(0, bool))
+    for k in kd["ks"].tolist():
+        res[f"kth{k}"] = ops.exact_kth_value(hl, k, group=group).numpy()
+        res[f"masked{k}"] = ops.exact_kth_value_masked(hl, ml, k, group=group).numpy()
+        if k <= split:
+            res[f"uneven{k}"] = ops.exact_kth_value_masked(hu, mu, k, group=group).numpy()
+        st = ops.topk_stats(hl.clone().requires_grad_(True), k, group=group)
+        res |= {f"stats{k}.{f}": getattr(st, f).detach().float().numpy() for f in st._fields}
+    toks = torch.from_numpy(kd["toks"])
+    for cap in kd["caps"].tolist():
+        res[f"stalest{cap}"] = objectives.stalest_columns(toks[mine], cap, group).numpy()
+
+    from saev_tpu_torch.framework import train
+
+    # Newton-Schulz on this rank's latents of whole matrices, wider and
+    # narrower than d_model (the Gram path and the gather path).
+    for name, g in dict(np.load(out / "ns.npz")).items():
+        axis = -1 if name.startswith("enc") else -2
+        n = g.shape[axis] // world
+        part = torch.from_numpy(g).narrow(axis, rank * n, n).contiguous()
+        res[f"ns.{name}"] = train._newton_schulz(part, feature=group, latent_axis=axis).numpy()
+
+    md = dict(np.load(out / "mse.npz"))
+    real = matryoshka._use_kernels
+    try:
+        for route in ("plain", "kernels"):
+            matryoshka._use_kernels = (lambda t: True) if route == "kernels" else real
+            for name in ("cuts_a", "cuts_b"):
+                w_dec = torch.from_numpy(md["w"][mine].copy()).requires_grad_(True)
+                b_dec = torch.from_numpy(md["b"]).requires_grad_(True)
+                f = torch.from_numpy(md["f"][:, mine].copy()).requires_grad_(True)
+                loss, xhat = matryoshka.prefix_mse(w_dec, b_dec, f, torch.from_numpy(md["x"]),
+                                                   torch.from_numpy(md[name]), 64, None, group)
+                loss.backward()
+                res |= {f"mse.{route}.{name}.{k}": v.detach().float().numpy() for k, v in
+                        (("loss", loss), ("xhat", xhat), ("dw", w_dec.grad), ("db", b_dec.grad), ("df", f.grad))}
+    finally:
+        matryoshka._use_kernels = real
+    np.savez(out / f"ops_rank{rank}.npz", **res)
+
+
+def feature_router(out: pathlib.Path, mesh) -> None:
+    """`make_step_router` at feature_parallel = world on the state of
+    `out/router.npz`: the variant each rank's router picks at each step,
+    by name, to `out/router_rank<r>.json`."""
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.framework import train
+    from saev_tpu_torch.nn import objectives
+
+    spec = json.loads((out / "router.json").read_text())
+    data = dict(np.load(out / "router.npz"))
+    cfg = _sae_cfg(spec)
+    obj = objectives.Matryoshka(n_prefixes=spec["n_prefixes"], dead_threshold_tokens=spec["dead"])
+    router = train.make_step_router(cfg, obj, 10, spec["router_batch"], mesh=mesh)
+    names = {id(router.step_fn): "dense", id(router.step_fn_warm): "warm"}
+    names |= {id(fn): f"cap{cap}" for cap, fn in router.step_fn_subs}
+    ts = parallel.shard_features(mesh, _whole_state(data, "adam"), spec["d_sae"])
+    hp = {k[3:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("hp.")}
+    world, rank = parallel.process_count(), parallel.process_index()
+    picked = []
+    for i in range(spec["n_steps"]):
+        fn = router.step_fn_at(i)
+        picked.append(names[id(fn)])
+        x = np.split(data[f"x{i}"], world)[rank]
+        ts, stats = fn(ts, parallel.shard_batch(mesh, torch.from_numpy(x)), torch.from_numpy(data["prefixes"]), hp)
+        router.record_stats(i, stats)
+    (out / f"router_rank{rank}.json").write_text(json.dumps(picked))
+
+
+def feature_rank2(rank: int, world: int, out: pathlib.Path, names: list[str], cfgs, stop_at: int) -> None:
+    """The world-2 battery: each step case at feature_parallel 2, the
+    threshold, subspace and prefix-MSE operations, the router, then a
+    worker_fn job at feature_parallel 2 (`job_rank`)."""
+    from saev_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(feature=2)
+    for name in names:
+        feature_step(out, name, mesh, "F2")
+    feature_ops(out, mesh)
+    feature_router(out, mesh)
+    job_rank(rank, world, out, cfgs, stop_at)
+
+
+def feature_rank4(rank: int, world: int, out: pathlib.Path, names: list[str]) -> None:
+    """The world-4 battery: each step case at feature_parallel 4 and at data
+    2 x feature 2; the meshes' groups and `shard_features`' placement of a
+    stacked tree at sweep 2 x feature 2, with its gather back."""
+    from saev_tpu_torch import parallel
+
+    res = {}
+    for tag, kw in (("F4", dict(feature=4)), ("D2F2", dict(feature=2)), ("S2F2", dict(sweep=2, feature=2))):
+        mesh = parallel.make_mesh(**kw)
+        res[tag] = {"shape": mesh.shape, "dsf": [mesh.d, mesh.s, mesh.f]}
+        res[tag] |= {g: None if getattr(mesh, g) is None else list(getattr(mesh, g).ranks)
+                     for g in ("data", "sweep", "feature", "rows")}
+        if tag != "S2F2":
+            for name in names:
+                feature_step(out, name, mesh, tag)
+            continue
+        tree = {"W_enc": torch.arange(4 * 16 * 32.0).reshape(4, 16, 32), "W_dec": torch.arange(4 * 32 * 16.0).reshape(4, 32, 16),
+                "b_enc": torch.arange(4 * 32.0).reshape(4, 32), "b_dec": torch.arange(4 * 16.0).reshape(4, 16),
+                "scalar": torch.tensor(3.0)}
+        local = parallel.shard_features(mesh, tree, 32)
+        res["placed"] = {k: v.tolist() for k, v in local.items()}
+        back = parallel.to_host(mesh, local, parallel.latent_axes(tree, 32))
+        res["back"] = all(np.array_equal(back[k], tree[k].numpy()) for k in tree)
+    (out / f"rank4_{rank}.json").write_text(json.dumps(res))
