@@ -206,9 +206,23 @@ script exits non-zero:
                 DINOv3 ViT-L/16 (random params; one batch also on two
                 grids) through `Recorder` on Gaussian patch tokens at batch
                 128, each within BF16_REL of its float32 forward on the
-                card: images/s and peak memory. Launches no saev kernel;
-                logs whether Pillow and pandas are importable (it needs
-                neither).
+                card: images/s and peak memory. Then (a) the same
+                `framework.shards.cli` config at `multi_layout`'s ranks
+                (one card a rank over NCCL with 2 cards or more, else 2
+                ranks on cuda:0 over gloo: a record, not a speedup), each
+                rank its own batches (`parallel.batch_spans`), spawned with
+                a limit (EXTRACT_RANKS_LIMIT) and, as torchrun spawns its
+                workers, OMP_NUM_THREADS=1: the second directory bit for
+                bit the first (every file, the file list), each rank's
+                forwards its share of the batches; logs clips/s at 1 and W
+                ranks and each rank's loader wait, forward and write; and
+                (b) DINOv2 ViT-L/14 with 4 registers from a random torch.hub
+                checkpoint with the released 1 + 37 x 37 position table,
+                resized onto the 16 x 16 grid by `vit.interpolate_pos`'s
+                numpy bicubic with Pillow blocked from import, through
+                `Recorder` as CLIP's and DINOv3's.
+                Launches no saev kernel; logs whether Pillow and pandas
+                are importable (it needs neither).
 17. multi    -- training over torch.distributed (`multi_layout`): one
                 rank (process) a card over NCCL where there are 2 cards or
                 more, up to 4, else 2 ranks on cuda:0 over gloo (logged),
@@ -2753,12 +2767,14 @@ def _extract_spies(seen: dict):
     """Times, while inside, each batch's wait on the extraction loader, the
     ViT forward (synchronized), the Recorder call around it (the tokens'
     upload, the forward, the taps' copy to the host, the token select) and
-    ShardWriter's write; keeps the first Recorder and its first batch."""
+    ShardWriter's (or RowWriter's) write; keeps the first Recorder and its
+    first batch."""
     from saev_tpu_torch.data import extract, models, shards
     from saev_tpu_torch.models import vit
 
     real_iter, real_call = extract.ThreadedDataLoader.__iter__, models.Recorder.__call__
     real_fwd, real_write = vit.forward, shards.ShardWriter.write_batch
+    real_rows = shards.RowWriter.write_batch
 
     def it(self):
         seen["start"] = time.perf_counter()
@@ -2790,26 +2806,31 @@ def _extract_spies(seen: dict):
 
     depth = []
 
-    def write(self, *a, **kw):
-        # A batch that crosses a shard's end writes its tail by a call of its own.
-        depth.append(None)
-        t = time.perf_counter()
-        try:
-            out = real_write(self, *a, **kw)
-        finally:
-            depth.pop()
-        if not depth:
-            seen["end"] = time.perf_counter()
-            seen["write"].append(seen["end"] - t)
-        return out
+    def timed_write(real):
+        def write(self, *a, **kw):
+            # A batch that crosses a shard's end writes its tail by a call of its own.
+            depth.append(None)
+            t = time.perf_counter()
+            try:
+                out = real(self, *a, **kw)
+            finally:
+                depth.pop()
+            if not depth:
+                seen["end"] = time.perf_counter()
+                seen["write"].append(seen["end"] - t)
+            return out
+
+        return write
 
     extract.ThreadedDataLoader.__iter__, models.Recorder.__call__ = it, call
-    vit.forward, shards.ShardWriter.write_batch = fwd, write
+    vit.forward, shards.ShardWriter.write_batch = fwd, timed_write(real_write)
+    shards.RowWriter.write_batch = timed_write(real_rows)
     try:
         yield seen
     finally:
         extract.ThreadedDataLoader.__iter__, models.Recorder.__call__ = real_iter, real_call
         vit.forward, shards.ShardWriter.write_batch = real_fwd, real_write
+        shards.RowWriter.write_batch = real_rows
 
 
 def _layer_errs(got: torch.Tensor, want: torch.Tensor) -> list[float]:
@@ -2912,7 +2933,7 @@ def _bird_mae_extract(root: pathlib.Path) -> dict:
         "forward_ms": [round(1e3 * v, 2) for v in seen["forward"]],
         "copy_ms": [round(1e3 * (r - f), 2) for r, f in zip(seen["record"], seen["forward"])],
         "write_ms": [round(1e3 * v, 2) for v in seen["write"]],
-        "cpu_f32_s": t_cpu, "errs": errs,
+        "cpu_f32_s": t_cpu, "errs": errs, "cfg": cfg, "dir": shards_dir,
     }
     fwd_ms = statistics.median(out["forward_ms"][1:]) if n > 1 else out["forward_ms"][0]
     flops = 2 * EXTRACT_BATCH * tokens * 12 * spec.d_model**2 * spec.n_layers
@@ -2926,6 +2947,143 @@ def _bird_mae_extract(root: pathlib.Path) -> dict:
         f"{out['shard_gb']:.3f} GB; peak {peak:.2f} GiB; second forward bit for bit; against the CPU's float32 "
         f"forward of 2 clips ({t_cpu:.2f} s) rel-norm by layer {[f'{e:.3g}' for e in errs]}; shuffled loader "
         f"batch of layer {EXTRACT_LAYERS[1]} {act.shape} equal to the shard rows")
+    return out
+
+
+EXTRACT_RANKS_LIMIT = 300  # seconds the extraction ranks may take, together, before they count as stalled
+
+
+def _extract_rank(rank: int, world: int, port: int, backend: str, root: str, cfg) -> None:
+    """One rank of the extract phase's (a): `framework.shards.cli(cfg)`
+    under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, the
+    rendezvous), so that over NCCL the CLI joins the process group itself,
+    one card a rank; over gloo (NCCL takes one card a rank) the rank joins
+    it here first, on cuda:0. The parent spawns it with torchrun's
+    OMP_NUM_THREADS. Saves what `_extract_spies` saw to
+    root/extract_rank<rank>.pt; a failure is saved there too."""
+    import os
+    import traceback
+
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.framework import shards as fshards
+
+    root = pathlib.Path(root)
+    out = {}
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"extract rank {rank}: no CUDA device")
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank if backend == "nccl" else 0),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        if backend == "gloo":
+            parallel.init_distributed(torch.device("cuda", 0), backend="gloo",
+                                      timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+        seen = {"wait": [], "record": [], "forward": [], "write": []}
+        t0 = time.perf_counter()
+        with _extract_spies(seen):
+            fshards.cli(cfg)
+        out = {k: seen[k] for k in ("wait", "record", "forward", "write")}
+        out |= {"start": seen.get("start"), "end": seen.get("end"), "cli_s": time.perf_counter() - t0,
+                "device": torch.cuda.current_device()}
+    except BaseException:  # noqa: BLE001 - saved for the parent, then the rank exits non-zero
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, root / f"extract_rank{rank}.pt")
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def _same_file(a: pathlib.Path, b: pathlib.Path, chunk: int = 1 << 26) -> bool:
+    size = a.stat().st_size
+    if size != b.stat().st_size:
+        return False
+    if size == 0:
+        return True
+    ma, mb = np.memmap(a, mode="r", dtype=np.uint8), np.memmap(b, mode="r", dtype=np.uint8)
+    return all(np.array_equal(ma[i : i + chunk], mb[i : i + chunk]) for i in range(0, size, chunk))
+
+
+def _bird_mae_extract_ranks(root: pathlib.Path, one: dict) -> dict:
+    """(a): `_bird_mae_extract`'s config through the CLI at `multi_layout`'s
+    ranks (`_extract_rank`, spawned together, killed past
+    EXTRACT_RANKS_LIMIT) into a second shards root: the directory bit for
+    bit the one-rank directory, each rank's forwards its share of the
+    batches. Returns what it logs."""
+    import dataclasses
+    import multiprocessing
+    import os
+    import socket
+
+    from saev_tpu_torch import parallel
+    from saev_tpu_torch.data import shards
+
+    world, backend = multi_layout()
+    shards_root = root / "ranks" / "saev" / "shards"
+    shards_root.mkdir(parents=True)
+    cfg = dataclasses.replace(one["cfg"], shards_root=shards_root)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_extract_rank, args=(r, world, port, backend, str(root), cfg)) for r in range(world)]
+    # torchrun sets OMP_NUM_THREADS=1 for its workers where it is unset; it
+    # reaches OpenBLAS as the ranks import numpy.
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = threads or "1"
+    t = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if threads is None:
+            del os.environ["OMP_NUM_THREADS"]
+    deadline = time.monotonic() + EXTRACT_RANKS_LIMIT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    stalled = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    spawn_s = time.perf_counter() - t
+    ranks = [torch.load(root / f"extract_rank{r}.pt", weights_only=False) if (root / f"extract_rank{r}.pt").exists()
+             else {"error": "no result"} for r in range(world)]
+    errors = {r: res["error"] for r, res in enumerate(ranks) if "error" in res}
+    require(not stalled and not errors and all(p.exitcode == 0 for p in procs),
+            f"extract ranks: stalled past {EXTRACT_RANKS_LIMIT} s: {stalled}; exit codes "
+            f"{[p.exitcode for p in procs]}; " + "".join(f"\n--- rank {r}\n{e}" for r, e in errors.items()))
+
+    (got,) = [p for p in shards_root.iterdir() if p.is_dir()]
+    want = one["dir"]
+    names = sorted(p.name for p in want.iterdir())
+    require(got.name == want.name and sorted(p.name for p in got.iterdir()) == names,
+            f"extract ranks: {sorted(p.name for p in got.iterdir())} in {got.name}, one rank {names} in {want.name}")
+    t0 = time.perf_counter()
+    differ = [n for n in names if not _same_file(got / n, want / n)]
+    t_cmp = time.perf_counter() - t0
+    require(not differ, f"extract ranks: {differ} differ from the one-rank directory's")
+    md = shards.Metadata.load(got)
+    require(md.n_examples == EXTRACT_CLIPS, f"extract ranks: {md.n_examples} examples, {EXTRACT_CLIPS} clips")
+    for r, res in enumerate(ranks):
+        share = len(parallel.batch_spans(EXTRACT_CLIPS, EXTRACT_BATCH, r, world))
+        require(len(res["forward"]) == len(res["write"]) == share,
+                f"extract rank {r}: {len(res['forward'])} forwards, {len(res['write'])} writes, its share {share}")
+    loop = max(res["end"] for res in ranks) - min(res["start"] for res in ranks)
+    out = {"world": world, "backend": backend, "omp_threads": threads or "1", "clips_s": EXTRACT_CLIPS / loop,
+           "loop_s": loop, "spawn_s": spawn_s,
+           "ranks": [{k: [round(1e3 * v, 2) for v in res[k]] for k in ("wait", "forward", "write")}
+                     | {"cli_s": res["cli_s"], "device": res["device"]} for res in ranks]}
+    per_rank = "; ".join(
+        f"rank {r} (cuda:{res['device']}) loader wait ms {res['wait']}, forward ms {res['forward']}, write ms "
+        f"{res['write']}, entry point {res['cli_s']:.2f} s" for r, res in enumerate(out["ranks"]))
+    shared = " (the ranks share one card: the times are a record, not a speedup)" if backend == "gloo" else ""
+    log(f"extract ranks: Bird-MAE-Large through framework.shards.cli at {world} ranks over {backend}{shared}, "
+        f"OMP_NUM_THREADS={out['omp_threads']} in the ranks as torchrun sets it (the one rank: this process's "
+        f"{threads or 'unset'}): {out['clips_s']:.1f} clips/s over the {loop:.2f} s loop (first batch to last write, "
+        f"every rank), against {one['clips_s']:.1f} clips/s at one rank; {per_rank}; ranks ran {spawn_s:.1f} s in all, start-up "
+        f"included; the directory {got.name} bit for bit the one-rank directory ({len(names)} files, compared in "
+        f"{t_cmp:.2f} s)")
     return out
 
 
@@ -2978,6 +3136,29 @@ def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) 
     return out
 
 
+@contextlib.contextmanager
+def _without(package: str):
+    """While inside, `package` cannot be imported, whether or not this
+    machine has it: its loaded modules are set aside and a finder refuses
+    it; both are undone after."""
+    import importlib.abc
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] == package:
+                raise ImportError(f"{package} is blocked here")
+            return None
+
+    aside = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == package}
+    finder = Refuse()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(aside)
+
+
 def phase_extract() -> dict:
     """Extraction at full width (module doc, phase 16): launches no saev
     kernel. Returns what it logs."""
@@ -2990,6 +3171,8 @@ def phase_extract() -> dict:
     root = pathlib.Path(tempfile.mkdtemp(prefix="saev_extract_"))
     try:
         out = {"bird_mae": _bird_mae_extract(root)}
+        torch.cuda.empty_cache()
+        out["bird_mae_ranks"] = _bird_mae_extract_ranks(root, out["bird_mae"])
         torch.cuda.empty_cache()
         # CLIP ViT-L/14 from a random OpenCLIP checkpoint: its 257-entry
         # position table fits the 16 x 16 grid, so no interpolation.
@@ -3014,6 +3197,35 @@ def phase_extract() -> dict:
         mixed = np.array([[16, 16], [8, 32]] * (IMAGE_BATCH // 2))
         out["dinov3"] = _image_family("DINOv3 ViT-L/16", dv3, dv332, toks, [uniform, mixed])
         del dv3, dv332, params
+        torch.cuda.empty_cache()
+        # (b) DINOv2 ViT-L/14 with registers from a random torch.hub
+        # checkpoint with the released 1 + 37 x 37 table (518 px): loading
+        # resizes it onto the 16 x 16 grid by the numpy bicubic.
+        arch = "dinov2_vitl14_reg"
+        spec = families.DINOV2_PRESETS[arch].spec
+        require((spec.d_model, spec.n_layers, spec.n_heads, spec.n_registers) == (1024, 24, 16, 4),
+                f"extract: {arch} is {spec}")
+        ckpt = root / f"{arch}.pt"
+        torch.save(vit_route.dinov2_state_dict(spec, torch.Generator().manual_seed(SEED + 21), 1 + 37 * 37), ckpt)
+        t0 = time.perf_counter()
+        with _without("PIL"):
+            dv2 = families.Dinov2(f"{arch}={ckpt}")
+        t_load = time.perf_counter() - t0
+        table = torch.load(ckpt)["pos_embed"].numpy().reshape(1 + 37 * 37, spec.d_model)
+        t0 = time.perf_counter()
+        want = vit.interpolate_pos(table, 1, (37, 37), (16, 16))
+        t_resize = time.perf_counter() - t0
+        pos = dv2.params["pos"].cpu().numpy()
+        require(pos.shape == (1 + 4 + 256, spec.d_model) and np.array_equal(pos[:1], want[:1])
+                and not pos[1:5].any() and np.array_equal(pos[5:], want[1:]),
+                f"extract {arch}: the position table {pos.shape} is not the resized checkpoint's")
+        dv232 = families.Dinov2(f"{arch}={ckpt}", params=dv2.params, precision="highest")
+        toks = rng.normal(size=(IMAGE_BATCH, 256, 3 * 14 * 14)).astype(np.float32)
+        out["dinov2"] = _image_family("DINOv2 ViT-L/14 reg", dv2, dv232, toks, [None])
+        log(f"extract {arch}: loaded in {t_load:.2f} s with Pillow blocked from import, from a checkpoint with a "
+            f"1 + 37 x 37 position table, resized onto 16 x 16 by the numpy bicubic ({t_resize * 1e3:.1f} ms over "
+            f"{spec.d_model} channels)")
+        del dv2, dv232
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()

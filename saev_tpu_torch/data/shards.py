@@ -18,6 +18,9 @@ Pure numpy, byte-compatible with the JAX package's and the reference's protocol
   `saev_tpu.data.datasets` (`encode_dataset_cfg`), so one extraction gets one
   directory name from either package and either package's restricted
   unpickler reads the other's metadata.
+- Data-parallel extraction writes one directory from several processes:
+  `create_files` (rank 0), a `RowWriter` a process, then `finish` (rank 0),
+  byte for byte what one `ShardWriter` writes.
 """
 
 import base64
@@ -461,12 +464,105 @@ class ShardWriter:
     def next_shard(self) -> None:
         self.flush()
         self.shard += 1
-        self.acts_path = self.shards_dir / f"acts{self.shard:06}.bin"
+        self.acts_path = self.shards_dir / acts_name(self.shard)
         self.acts = np.memmap(
             self.acts_path, mode="w+", dtype=np.float32, shape=self.md.shard_shape
         )
         self.filled = 0
         self.logger.info("Opened shard '%s'.", self.acts_path)
+
+
+def acts_name(shard: int) -> str:
+    return f"acts{shard:06}.bin"
+
+
+# ---------------------------------------------------------------------------
+# Several writers, one directory (data-parallel extraction): `create_files`,
+# then each writer's `RowWriter`, then `finish`, leave the bytes one
+# ShardWriter leaves.
+# ---------------------------------------------------------------------------
+
+
+def shard_info(md: Metadata) -> ShardInfo:
+    """The shards.json of a complete directory: `md.n_shards` acts files,
+    every one full but the last, as ShardWriter records them."""
+    eps = md.examples_per_shard
+    return ShardInfo([Shard(name=acts_name(i), n_examples=min(eps, md.n_examples - i * eps))
+                      for i in range(md.n_shards)])
+
+
+def create_files(shards_dir: pathlib.Path, md: Metadata, *, labels: bool) -> None:
+    """Every acts file at `md.shard_shape`, zero-filled, as
+    `ShardWriter.next_shard` makes it (the last one too), and labels.bin at
+    (n_examples, content_tokens_per_example) where `labels`. The rows come
+    from `RowWriter`s."""
+    shards_dir = pathlib.Path(shards_dir)
+    shards_dir.mkdir(exist_ok=True)
+    assert disk.is_shards_dir(shards_dir)
+    sizes = {acts_name(i): math.prod(md.shard_shape) * 4 for i in range(md.n_shards)}
+    if labels:
+        sizes["labels.bin"] = md.n_examples * md.content_tokens_per_example
+    for name, size in sizes.items():
+        with open(shards_dir / name, "wb") as fd:
+            fd.truncate(size)
+
+
+class RowWriter:
+    """Writes batches of activation rows (and patch labels) at their global
+    example offsets into the files `create_files` made, opened r+, splitting
+    a batch at shard boundaries as `ShardWriter.write_batch` does. In any
+    order, and one of several writers of a directory: none writes
+    shards.json (`finish` does, once)."""
+
+    def __init__(self, shards_dir: pathlib.Path, md: Metadata):
+        self.shards_dir = pathlib.Path(shards_dir)
+        self.md = md
+        self.wrote_labels = False
+
+    def write_batch(
+        self,
+        activations: np.ndarray,
+        start_idx: int,
+        patch_labels: np.ndarray | None = None,
+    ) -> None:
+        acts = np.ascontiguousarray(activations, dtype=np.float32)
+        n, eps = len(acts), self.md.examples_per_shard
+        assert acts.shape[1:] == self.md.shard_shape[1:], acts.shape
+        assert 0 <= start_idx and start_idx + n <= self.md.n_examples
+        row_bytes = math.prod(self.md.shard_shape[1:]) * 4
+        done = 0
+        while done < n:
+            shard, at = divmod(start_idx + done, eps)
+            take = min(n - done, eps - at)
+            with open(self.shards_dir / acts_name(shard), "r+b") as fd:
+                fd.seek(at * row_bytes)
+                fd.write(acts[done : done + take].data)
+            done += take
+        if patch_labels is not None:
+            labels = np.ascontiguousarray(patch_labels, dtype=np.uint8)
+            assert labels.shape == (n, self.md.content_tokens_per_example)
+            with open(self.shards_dir / "labels.bin", "r+b") as fd:
+                fd.seek(start_idx * self.md.content_tokens_per_example)
+                fd.write(labels.data)
+            self.wrote_labels = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        pass
+
+
+def finish(shards_dir: pathlib.Path, md: Metadata, *, labels_written: bool) -> None:
+    """After every `RowWriter` of the directory is done: shards.json
+    (`shard_info`), and labels.bin removed where no writer wrote labels, as
+    `ShardWriter.__exit__` removes it."""
+    shards_dir = pathlib.Path(shards_dir)
+    shard_info(md).dump(shards_dir)
+    labels = shards_dir / "labels.bin"
+    if not labels_written and labels.exists():
+        labels.unlink()
+        logger.info("Removed empty labels file '%s'.", labels)
 
 
 def pixel_to_patch_labels(

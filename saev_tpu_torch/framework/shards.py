@@ -7,15 +7,22 @@
 CLI-contract mirror of reference `src/saev/framework/shards.py:30-138` (field
 names/defaults are the public interface), with `device` defaulting to "cuda".
 The body just routes the config into `saev_tpu_torch.data.extract.worker_fn`,
-locally or through a Slurm job.
+locally or through a Slurm job. Under torchrun it extracts over several
+cards, one process a card (`cli`):
+
+    torchrun --nproc-per-node N -m saev_tpu_torch.framework.shards ...
 """
 
 import dataclasses
 import inspect
 import logging
+import os
 import pathlib
 import typing as tp
 
+import torch.distributed as dist
+
+from .. import parallel
 from ..data import PixelAgg, datasets, extract
 
 logger = logging.getLogger("shards")
@@ -93,7 +100,16 @@ def _worker_kwargs(cfg: Config) -> dict:
 
 
 def cli(cfg: Config) -> None:
-    """Entry point behind `python -m saev_tpu_torch.framework.shards`."""
+    """Entry point behind `python -m saev_tpu_torch.framework.shards`.
+
+    Under torchrun (WORLD_SIZE above 1) every process joins the job's
+    process group (`parallel.init_distributed`: NCCL on "cuda", one card a
+    process, card LOCAL_RANK; gloo on "cpu") unless the caller has joined
+    one, and extracts its share of the batches into one directory, byte for
+    byte what a single process writes (`extract` module doc). Rank 0 alone
+    logs progress and writes metadata.json and shards.json. The Slurm branch
+    runs one process.
+    """
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s] [%(levelname)s] [%(name)s] %(message)s",
@@ -101,7 +117,14 @@ def cli(cfg: Config) -> None:
     kwargs = _worker_kwargs(cfg)
 
     if not cfg.slurm_acct:
-        extract.worker_fn(**kwargs)
+        joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
+        if joined:
+            kwargs["device"] = str(parallel.init_distributed(cfg.device))
+        try:
+            extract.worker_fn(**kwargs)
+        finally:
+            if joined:
+                dist.destroy_process_group()
         return
 
     try:

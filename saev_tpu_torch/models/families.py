@@ -13,7 +13,8 @@ weights come from a local checkpoint file resolved in this order:
 Preprocessing is PIL+numpy (the reference uses torchvision/open_clip transforms):
 resize → center-crop → normalize with each family's published statistics.
 Pillow is imported only where an image is resized; a position table that
-already fits the preset's grid needs none (`vit.interpolate_pos`). The model
+changes its grid (DINOv2's 37 x 37 onto 16 x 16) takes `vit.interpolate_pos`,
+a numpy copy of Pillow's bicubic resize, so loading needs no Pillow. The model
 is built on `device` ("cuda" unless the caller asks for "cpu").
 """
 

@@ -18,7 +18,9 @@
   (saev_tpu/models/vit.py:372-376), in no Pallas kernel.
 - `run` takes numpy tokens and returns float32 numpy, as JAX's does; it runs
   on the device that holds the params (`to_device`), with no jit cache and no
-  mesh.
+  mesh (extraction over several cards runs a process a card, `data/extract.py`).
+- `interpolate_pos` resizes a learned position table in numpy, Pillow's
+  bicubic bit for bit, so no family needs Pillow to load.
 
 Families map onto `Spec` as:
     CLIP/OpenCLIP ViT  pre-LN, learned pos, CLS, GELU MLP, pre-proj LN
@@ -616,32 +618,76 @@ def forward_from(
     return x
 
 
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic kernel (a = -0.5, support 2; Resample.c
+    `bicubic_filter`), in its order of operations."""
+    a = -0.5
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _bicubic_taps(n_in: int, n_out: int) -> list[tuple[int, list[float]]]:
+    """Each output's first input and its weights, as Pillow's
+    `precompute_coeffs` makes them for a resize of the whole axis: centers at
+    (i + 0.5) * scale, the support widened by the scale where the axis
+    shrinks, bounds rounded by truncation, weights normalized to sum to 1."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    taps = []
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        first = max(int(center - support + 0.5), 0)
+        count = min(int(center + support + 0.5), n_in) - first
+        weights = [_bicubic((x + first - center + 0.5) * ss) for x in range(count)]
+        total = 0.0
+        for w in weights:
+            total += w
+        if total != 0.0:
+            weights = [w / total for w in weights]
+        taps.append((first, weights))
+    return taps
+
+
+def _resample_axis(img: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+    """One pass of Pillow's BICUBIC resize of a float32 image ("F" mode) along
+    `axis`: each output a float64 sum taken tap by tap in order, stored as
+    float32 (Resample.c `ImagingResample{Horizontal,Vertical}_32bpc`). An
+    axis that keeps its size is passed through, as Pillow skips its pass."""
+    if img.shape[axis] == n_out:
+        return img
+    src = np.moveaxis(img, axis, 0)
+    out = np.empty((n_out,) + src.shape[1:], np.float32)
+    for i, (first, weights) in enumerate(_bicubic_taps(src.shape[0], n_out)):
+        acc = np.zeros(src.shape[1:], np.float64)
+        for j, w in enumerate(weights):
+            acc += src[first + j].astype(np.float64) * w
+        out[i] = acc
+    return np.moveaxis(out, 0, axis)
+
+
 def interpolate_pos(
     pos: np.ndarray, n_prefix: int, grid_from: tuple[int, int], grid_to: tuple[int, int]
 ) -> np.ndarray:
     """Bicubic-interpolate a learned positional table to a new patch grid
-    (DINOv2-style; prefix entries pass through). Only a table that must change
-    its grid needs Pillow."""
+    (DINOv2-style; prefix entries pass through): the JAX package's Pillow
+    resize of each channel as a mode-"F" image (saev_tpu/models/vit.py:592),
+    in numpy, bit for bit: the horizontal pass, then the vertical pass on its
+    float32 result."""
     if grid_from == grid_to:
         return pos
-    from PIL import Image
-
     prefix, patch = pos[:n_prefix], pos[n_prefix:]
     h0, w0 = grid_from
     h1, w1 = grid_to
     d = patch.shape[1]
-    img = patch.reshape(h0, w0, d)
-    out = np.stack(
-        [
-            np.asarray(
-                Image.fromarray(img[:, :, c].astype(np.float32), mode="F").resize(
-                    (w1, h1), Image.BICUBIC
-                )
-            )
-            for c in range(d)
-        ],
-        axis=-1,
-    )
+    img = patch.reshape(h0, w0, d).astype(np.float32)
+    out = _resample_axis(_resample_axis(img, 1, w1), 0, h1)
     return np.concatenate([prefix, out.reshape(h1 * w1, d)], axis=0).astype(np.float32)
 
 
@@ -656,7 +702,10 @@ def run(
     precision: str = "default",
 ) -> tuple[np.ndarray, np.ndarray]:
     """`forward` on the params' device from host tokens; returns float32 numpy
-    (out, taps) (saev_tpu/models/vit.py:640, on one device)."""
+    (out, taps) (saev_tpu/models/vit.py:640). One device: where the JAX
+    package shards a batch over its devices, the port splits the work by
+    whole batches, one process a card (`data/extract.py`'s `worker_fn`,
+    `parallel.batch_spans`)."""
     device = params_device(params)
     x = torch.as_tensor(np.asarray(tokens, dtype=np.float32)).to(device)
     with torch.no_grad():

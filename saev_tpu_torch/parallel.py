@@ -31,6 +31,15 @@ The JAX package keeps its sweep and feature axes inside one process (its
 `make_mesh` refuses ones that cross processes); here they cross processes by
 design, and the groups' collectives keep the same semantics.
 
+Extraction (`data/extract.py`) runs one process a card too, with no mesh:
+it splits the examples into the one-process run's batches
+(`helpers.batched_idx`) and deals them round-robin (`batch_spans`: rank r
+runs batches r, r + W, ...), so that every forward sees the rows and the
+shape it sees in one process. Rank 0 writes metadata.json and creates every
+acts file at full size, each rank writes its batches' rows at their global
+offsets, and rank 0 writes shards.json after the last of them
+(`data/shards.py`'s `create_files`, `RowWriter`, `finish`).
+
 Host-side effects (run dirs, the run recorder, checkpoint and SAE files)
 happen on rank 0 (`is_primary`), from whole arrays (`to_host` gathers the
 latents and the sweep), and host-accumulated statistics cross processes by
@@ -54,6 +63,8 @@ import typing as tp
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import helpers
 
 logger = logging.getLogger("parallel")
 
@@ -109,6 +120,17 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def batch_spans(n_examples: int, batch_size: int, rank: int | None = None,
+                world: int | None = None) -> list[tuple[int, int]]:
+    """The (start, end) example spans of this rank's batches: the batches of
+    a one-process run (`helpers.batched_idx`) dealt round-robin, rank r
+    taking batches r, r + world, r + 2 * world, ... (none where world
+    exceeds the batches). rank and world default to this process's."""
+    rank = process_index() if rank is None else rank
+    world = process_count() if world is None else world
+    return list(helpers.batched_idx(n_examples, batch_size))[rank::world]
 
 
 def is_primary() -> bool:

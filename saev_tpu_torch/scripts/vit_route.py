@@ -13,8 +13,8 @@ patched to True: bf16-rounded operands with float32 products, attention's
 plain version on bf16 q, k, v and probabilities), and its line says so.
 
 chip_smoke.py builds its extraction phase from the same functions:
-`synth_clip`, `bird_mae_state_dict`, `openclip_state_dict` and
-`random_params`.
+`synth_clip`, `bird_mae_state_dict`, `openclip_state_dict`,
+`dinov2_state_dict` and `random_params`.
 """
 
 import argparse
@@ -101,6 +101,39 @@ def openclip_state_dict(spec: vit.Spec, g: torch.Generator, n_pos: int) -> dict[
         _linear(sd, f"{b}.mlp.c_proj", g, d, spec.d_mlp)
     _norm(sd, "ln_post", g, d)
     return {f"visual.{k}": v for k, v in sd.items()}
+
+
+def dinov2_state_dict(spec: vit.Spec, g: torch.Generator, n_pos: int) -> dict[str, torch.Tensor]:
+    """A random DINOv2 checkpoint in torch.hub's layout (the keys
+    `convert.from_timm` reads): an `n_pos`-entry position table (1 + 37 x 37
+    in every released checkpoint, for 518 px), register tokens where the spec
+    has them, LayerScale gammas near 0.1, a GELU or fused SwiGLU MLP."""
+    d, p = spec.d_model, spec.patch_size
+    sd = {
+        "patch_embed.proj.weight": _normal(g, d, spec.in_chans, p, p, scale=(spec.in_chans * p * p) ** -0.5),
+        "patch_embed.proj.bias": _normal(g, d, scale=0.02),
+        "cls_token": _normal(g, 1, 1, d, scale=0.02),
+        "pos_embed": _normal(g, 1, n_pos, d, scale=0.02),
+        "mask_token": torch.zeros(1, d),
+    }
+    if spec.n_registers:
+        sd["register_tokens"] = _normal(g, 1, spec.n_registers, d, scale=0.02)
+    for i in range(spec.n_layers):
+        b = f"blocks.{i}"
+        _norm(sd, f"{b}.norm1", g, d)
+        _linear(sd, f"{b}.attn.qkv", g, 3 * d, d)
+        _linear(sd, f"{b}.attn.proj", g, d, d)
+        _norm(sd, f"{b}.norm2", g, d)
+        if spec.mlp_kind == "swiglu":
+            _linear(sd, f"{b}.mlp.w12", g, 2 * spec.d_mlp, d)
+            _linear(sd, f"{b}.mlp.w3", g, d, spec.d_mlp)
+        else:
+            _linear(sd, f"{b}.mlp.fc1", g, spec.d_mlp, d)
+            _linear(sd, f"{b}.mlp.fc2", g, d, spec.d_mlp)
+        sd[f"{b}.ls1.gamma"] = 0.1 + _normal(g, d, scale=0.02)
+        sd[f"{b}.ls2.gamma"] = 0.1 + _normal(g, d, scale=0.02)
+    _norm(sd, "norm", g, d)
+    return sd
 
 
 def random_params(spec: vit.Spec, g: torch.Generator, *, n_pos: int | None = None) -> dict:

@@ -9,13 +9,16 @@ Tolerances:
   float32 products here;
 - the numpy tables, converters, transforms and the Bird-MAE filterbank are
   copies of the JAX package's numpy code: exactly equal (the filterbank also
-  within 1e-6, as the port's contract states it);
+  within 1e-6, as the port's contract states it); the position table's
+  bicubic resize is the JAX package's Pillow resize bit for bit, and loads
+  with Pillow blocked;
 - the card's route (bf16 operands, `modeling._bf16_operands` patched to True
   on the CPU, attention's plain version) against the float32 forward: the
   bound `BF16_REL`, which chip_smoke.py holds the card to.
 """
 
 import dataclasses
+import pathlib
 
 import jax
 import numpy as np
@@ -245,6 +248,77 @@ def test_interpolate_pos_matches_jax():
     assert tvit.interpolate_pos(pos, 1, (4, 4), (4, 4)) is pos
     assert np.array_equal(tvit.interpolate_pos(pos, 1, (4, 4), (6, 5)),
                           jvit.interpolate_pos(pos, 1, (4, 4), (6, 5)))
+
+
+# (grid_from, grid_to, channels): DINOv2's 37 x 37 table onto the 224-px
+# presets' 16 x 16 grid at ViT-L's width, an upscale, a non-square target,
+# and grids of one row.
+RESIZES = {
+    "dinov2-37-to-16": ((37, 37), (16, 16), 1024),
+    "upscale": ((16, 16), (37, 37), 8),
+    "non-square": ((37, 37), (24, 40), 16),
+    "one-row": ((1, 8), (3, 5), 8),
+    "one-row-to-one-row": ((1, 8), (1, 5), 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIZES))
+def test_interpolate_pos_is_pillow_bit_for_bit(name):
+    """The port's numpy resize against the JAX package's Pillow one, on
+    entries over six decades."""
+    grid_from, grid_to, d = RESIZES[name]
+    rng = np.random.default_rng(10)
+    pos = (rng.normal(size=(1 + grid_from[0] * grid_from[1], d))
+           * rng.choice([1e-3, 1.0, 1e3], size=(1, d))).astype(np.float32)
+    got = tvit.interpolate_pos(pos, 1, grid_from, grid_to)
+    want = jvit.interpolate_pos(pos, 1, grid_from, grid_to)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (1 + grid_to[0] * grid_to[1], d)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+NO_PILLOW = r"""
+import dataclasses, importlib.abc, sys
+import numpy as np, torch
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("PIL", "jax", "saev_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+from saev_tpu_torch.models import families, vit
+from saev_tpu_torch.scripts import vit_route
+
+ckpt, out = sys.argv[1], sys.argv[2]
+name = "dinov2_vits14_reg"
+spec = dataclasses.replace(families.DINOV2_PRESETS[name].spec, d_model=32, n_layers=1, n_heads=2)
+families.DINOV2_PRESETS[name] = dataclasses.replace(families.DINOV2_PRESETS[name], spec=spec)
+torch.save(vit_route.dinov2_state_dict(spec, torch.Generator().manual_seed(3), 1 + 37 * 37), ckpt)
+model = families.Dinov2(f"{name}={ckpt}", device="cpu")
+np.save(out, model.params["pos"].numpy())
+assert "PIL" not in sys.modules
+"""
+
+
+def test_dinov2_loads_without_pillow(tmp_path):
+    """`families.Dinov2` loads a checkpoint with DINOv2's 1 + 37 x 37 table
+    onto the 16 x 16 grid with Pillow blocked from import (the card's
+    machine has none): the JAX package's Pillow resize of the same table,
+    bit for bit, with the registers' zero entries after CLS."""
+    import subprocess
+    import sys
+
+    ckpt, out = tmp_path / "dinov2.pt", tmp_path / "pos.npy"
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", NO_PILLOW, str(ckpt), str(out)], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    table = torch.load(ckpt)["pos_embed"].numpy().reshape(1 + 37 * 37, 32)
+    want = jvit.interpolate_pos(table, 1, (37, 37), (16, 16))
+    want = np.concatenate([want[:1], np.zeros((4, 32), np.float32), want[1:]])
+    got = np.load(out)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_init_has_the_jax_layout():

@@ -1,5 +1,6 @@
 """Ranks of a multi-process job of the port on the CPU, for
-tests/test_torch_parallel.py: `spawn` starts `world` processes with
+tests/test_torch_parallel.py, test_torch_feature_parallel.py and
+test_torch_extract_parallel.py: `spawn` starts `world` processes with
 torch.multiprocessing over gloo, each running one of the functions below,
 which read their inputs from and write their results to a directory.
 
@@ -497,3 +498,59 @@ def feature_rank4(rank: int, world: int, out: pathlib.Path, names: list[str]) ->
         back = parallel.to_host(mesh, local, parallel.latent_axes(tree, 32))
         res["back"] = all(np.array_equal(back[k], tree[k].numpy()) for k in tree)
     (out / f"rank4_{rank}.json").write_text(json.dumps(res))
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel extraction
+# ---------------------------------------------------------------------------
+
+
+class Injected(RuntimeError):
+    """Stands in for a failure of one rank's forward."""
+
+
+def extract_rank(rank: int, world: int, out: pathlib.Path, cases: list[dict]) -> None:
+    """Each case's extraction (`worker_fn(**case["kw"], device="cpu")`)
+    into out/<name>/saev/shards, with the fake-clip params of
+    case["params"] (a pickle) in place of the port's own, and the Bird-MAE
+    spec case["bird_spec"] (kwargs of `dataclasses.replace`) as
+    Bird-MAE-Base's, where given. Each rank writes its forwards' batch sizes
+    to out/<name>_rank<r>.json. Where case["fail_rank"] is this rank, its
+    first forward raises `Injected`; in such a case every rank writes the
+    error it raised to out/<name>_error<r>.txt and goes on."""
+    import dataclasses
+    import pickle
+
+    from saev_tpu_torch.data import extract, fake_vit, models
+    from saev_tpu_torch.models import bird_mae, vit
+
+    real_make, real_call = fake_vit._make_params, models.Recorder.__call__
+    real_spec = bird_mae.PRETRAINED_SPECS["Bird-MAE-Base"]
+    for case in cases:
+        name, sizes = case["name"], []
+        fail = case.get("fail_rank") == rank
+
+        def call(self, batch, **kw):
+            if fail:
+                raise Injected(f"rank {rank}: injected failure")
+            sizes.append(len(batch))
+            return real_call(self, batch, **kw)
+
+        models.Recorder.__call__ = call
+        if "params" in case:
+            params = pickle.loads(pathlib.Path(case["params"]).read_bytes())
+            fake_vit._make_params = lambda seed: vit.to_device(params, "cpu")
+        if "bird_spec" in case:
+            bird_mae.PRETRAINED_SPECS["Bird-MAE-Base"] = dataclasses.replace(real_spec, **case["bird_spec"])
+        root = out / name / "saev" / "shards"
+        root.mkdir(parents=True, exist_ok=True)
+        try:
+            extract.worker_fn(**case["kw"], shards_root=root, device="cpu")
+        except Exception as err:  # noqa: BLE001 - the failure case's, written for the test
+            if "fail_rank" not in case:
+                raise
+            (out / f"{name}_error{rank}.txt").write_text(f"{type(err).__name__}: {err}")
+        finally:
+            models.Recorder.__call__, fake_vit._make_params = real_call, real_make
+            bird_mae.PRETRAINED_SPECS["Bird-MAE-Base"] = real_spec
+        (out / f"{name}_rank{rank}.json").write_text(json.dumps(sizes))
