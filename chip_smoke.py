@@ -156,8 +156,37 @@ script exits non-zero:
                 1e-4 relative (where finite), metrics.json's normalized MSE
                 within 1e-4 of the eval's. Logs tokens/s, seconds a batch
                 split into loader wait, forward, compaction and host
-                assembly, and peak memory; then removes the job's root.
-13. activations -- Relu and BatchTopK at full width: K2-K4 held to their
+                assembly, and peak memory.
+13. interpret -- the interpretation layer, while the job's SAE files
+                exist: (1) the inference example's `run`
+                (`saev_tpu_torch.examples.inference`) on CLIP ViT-L/14 from a
+                random OpenCLIP checkpoint (257 positions, as the extract
+                phase builds it), the job's first SAE file at layer -2, one
+                synthetic 300 x 260 PNG drawn with numpy, select "max", k 5:
+                K6 launched once (256 rows x 16384, TopK 32) and no plain
+                version, five 224 x 224 heatmaps, f_x bit for bit the same
+                forward with K6's plain version on the card and within
+                INTERP_REL_MSE relative MSE of the CPU's f32 SAE forward on
+                the same activations; logs what "filtered" selects, and by
+                CUDA events the Recorder call, the SAE forward and the
+                host's compositing, cold (that run) and warm (a second
+                run), and K6 at the example's shape against its plain
+                version, the library and its bound; (2) Grad-CAM's `run`
+                (`saev_tpu_torch.scripts.gradcam`) on the same checkpoint and
+                image, gradcam, gradcam++ and eigencam at "default" (bf16
+                products forward and backward, through
+                `modeling._Matmul`): tap gradients finite and not zero, no
+                saev kernel; the tap gradient within GRADCAM_REL rel-norm of
+                "highest"'s from the same tap (and, logged, from its own
+                tap); CUDA events time the forward to the tap,
+                `forward_from` and the backward; logs whether
+                torch.mm(..., out_dtype=) has a derivative here; (3) the
+                example's `demo` on the card (the fake backend's extraction,
+                a d_sae 64 SAE: K6 once, three heatmaps). First it logs
+                whether Pillow, matplotlib, scikit-learn and pandas import
+                (it needs Pillow alone, and stops naming it without it).
+                Then the job's root is removed.
+14. activations -- Relu and BatchTopK at full width: K2-K4 held to their
                 plain versions on a Relu layer's dense latents (about half
                 nonzero) first, then two sweeps of 2 SAEs, 4 steps each, on
                 `make_train_step`: BatchTopK (k 32, AuxK 512 in the tight
@@ -168,7 +197,7 @@ script exits non-zero:
                 in [32, 32 + 4/B] and its new threshold (1 - m) * old + m *
                 (least positive kept value, read from the step's f). Logs
                 ms/step, peak memory and the batch-global k-th value's time.
-14. muon     -- Muon (`optim="muon"`) at the steady phase's shape, n_sae 2,
+15. muon     -- Muon (`optim="muon"`) at the steady phase's shape, n_sae 2,
                 "default", the tight rung with 5% of the latents pinned dead:
                 first 3 steps of a small 2-SAE sweep (d_model 128, d_sae
                 2048; warm-up and AuxK subspace with 1/16 dead) against the
@@ -179,7 +208,7 @@ script exits non-zero:
                 step's Newton-Schulz inputs (both leaves of both SAEs)
                 iterated in f32 on the card against f64 on the card
                 (NS_REL), the CPU's f32 iteration beside it.
-15. high     -- matmul_precision "high" (bf16x3 on the card), Adam, the
+16. high     -- matmul_precision "high" (bf16x3 on the card), Adam, the
                 muon phase's shapes: the small sweep against the CPU's f32
                 step within HIGH_STEP_REL (mse, loss, grad_norm), l0 and
                 n_dead equal, K6 (and K5 with AuxK) once a step and SAE and
@@ -188,7 +217,7 @@ script exits non-zero:
                 timed beside the bf16 and f32 products; then 1 + 5 steps at
                 full width (K6 and K5 once a step and SAE, K1-K4 never):
                 ms/step and peak memory.
-16. extract  -- activation extraction at full width, in a temporary root
+17. extract  -- activation extraction at full width, in a temporary root
                 that it removes: 272 synthetic 5 s clips (int16 .wav, 32
                 kHz) in BirdCLEF 2025's layout, 16 of them under a non-Aves
                 label, and a random timm-layout Bird-MAE-Large checkpoint
@@ -206,7 +235,9 @@ script exits non-zero:
                 DINOv3 ViT-L/16 (random params; one batch also on two
                 grids) through `Recorder` on Gaussian patch tokens at batch
                 128, each within BF16_REL of its float32 forward on the
-                card: images/s and peak memory. Then (a) the same
+                card, and bit for bit the taps of the dense products' route
+                before `modeling._Matmul` (one `_mm_bf16` call each):
+                images/s and peak memory. Then (a) the same
                 `framework.shards.cli` config at `multi_layout`'s ranks
                 (one card a rank over NCCL with 2 cards or more, else 2
                 ranks on cuda:0 over gloo: a record, not a speedup), each
@@ -223,7 +254,7 @@ script exits non-zero:
                 `Recorder` as CLIP's and DINOv3's.
                 Launches no saev kernel; logs whether Pillow and pandas
                 are importable (it needs neither).
-17. multi    -- training over torch.distributed (`multi_layout`): one
+18. multi    -- training over torch.distributed (`multi_layout`): one
                 rank (process) a card over NCCL where there are 2 cards or
                 more, up to 4, else 2 ranks on cuda:0 over gloo (logged),
                 spawned after the kernels are built, with a limit
@@ -273,7 +304,7 @@ script exits non-zero:
                 candidate gathers.
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
-metrics, benches, job, inference, activations, muon, high, multi: each rank's
+metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
 counts, summed): every count is set to 0 just before the path and read just
 after.
 
@@ -287,6 +318,7 @@ is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -2367,6 +2399,282 @@ def phase_inference(root: pathlib.Path, job: dict) -> dict:
     return launches
 
 
+# The interpret phase (module doc, phase 13): the inference example and
+# Grad-CAM on CLIP ViT-L/14 from a random OpenCLIP checkpoint, the job's SAE
+# files at its layer -2 (d_model 1024), one synthetic image.
+INTERP_KERNELS = ("kth_value",)
+INTERP_K = 5  # latents the example draws ("max")
+INTERP_REL_MSE = 1e-4  # f_x on the card against the CPU's f32 SAE forward: ROADMAP's "highest" gate
+# The tap gradient at "default" (bf16 products, forward and backward) against
+# "highest" from the same tap, one block and the final norm after layer 22:
+# the CPU model of the route gave 2.1e-3 and 2.8e-3 at this width
+# (tests/test_torch_interpret.py holds the small spec to the same bound).
+GRADCAM_REL = 2e-2
+GRADCAM_METHODS = ("gradcam", "gradcam++", "eigencam")
+
+
+def _interp_image(path: pathlib.Path) -> None:
+    """A 300 x 260 RGB image drawn with numpy: a color gradient, three discs
+    and noise, saved as a PNG."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 31)
+    h, w = 260, 300
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    img = np.stack([xx / w, yy / h, 0.5 + 0.5 * np.sin(xx / 17 + yy / 23)], axis=-1) * 200
+    for cy, cx, r, col in ((80, 90, 40, (250, 40, 40)), (170, 200, 55, (30, 220, 60)), (60, 230, 25, (40, 60, 250))):
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = col
+    img += rng.normal(scale=8, size=img.shape)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+
+
+@contextlib.contextmanager
+def _interp_spies(seen: dict):
+    """CUDA events around each call, while inside, of the example's ViT step
+    (`Recorder.__call__`: the tokens' upload, the forward, the taps' copy to
+    the host), its SAE forward (`sae_forward`) and its compositing
+    (`save_heatmaps`, host work: the events, on an idle stream, read its wall
+    time). Each call appends its ms to seen[name]."""
+    from saev_tpu_torch.data import models
+    from saev_tpu_torch.examples import inference as example
+
+    real = {"vit": (models.Recorder, "__call__"), "sae": (example, "sae_forward"),
+            "composite": (example, "save_heatmaps")}
+    saved = {name: getattr(owner, attr) for name, (owner, attr) in real.items()}
+
+    def timed_call(name):
+        def call(*a, **kw):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0.record()
+            out = saved[name](*a, **kw)
+            t1.record()
+            t1.synchronize()
+            seen.setdefault(name, []).append(t0.elapsed_time(t1))
+            return out
+
+        return call
+
+    for name, (owner, attr) in real.items():
+        setattr(owner, attr, timed_call(name))
+    try:
+        yield seen
+    finally:
+        for name, (owner, attr) in real.items():
+            setattr(owner, attr, saved[name])
+
+
+@contextlib.contextmanager
+def _k6_plain():
+    """While inside, K6's wrapper takes its plain version on a card tensor."""
+    from saev_tpu_torch.ops import cuda_kth, topk
+
+    real = cuda_kth.kth_value_cuda
+    cuda_kth.kth_value_cuda = lambda h, k, fallback=None: topk._kth_plain(h, min(k, h.shape[-1]))
+    try:
+        yield
+    finally:
+        cuda_kth.kth_value_cuda = real
+
+
+def _mm_out_dtype_backward() -> str:
+    """Whether torch.mm(..., out_dtype=torch.float32) on bf16 operands has a
+    derivative on this torch (the ViT's bf16 products took it before they
+    went through `modeling._Matmul`)."""
+    a = torch.randn(64, 64, device="cuda").to(torch.bfloat16).requires_grad_()
+    b = torch.randn(64, 64, device="cuda").to(torch.bfloat16)
+    try:
+        torch.mm(a, b, out_dtype=torch.float32).sum().backward()
+    except (RuntimeError, NotImplementedError) as err:
+        return f"has no derivative ({str(err).splitlines()[0]})"
+    return "has a derivative"
+
+
+def phase_interpret(job: dict) -> dict:
+    """The interpretation layer on the card (module doc, phase 13). Returns
+    the path's launches (the example's run, then its demo), and K6's
+    timing at the example's shape."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib", "sklearn", "pandas")}
+    log(f"interpret environment: Pillow importable {have['PIL']}, matplotlib {have['matplotlib']}, "
+        f"scikit-learn {have['sklearn']}, pandas {have['pandas']}; the phase needs Pillow only")
+    if not have["PIL"]:
+        raise RuntimeError("interpret: Pillow (PIL) is not importable here; the example and Grad-CAM read and "
+                           "write images with it")
+    from PIL import Image
+
+    from saev_tpu_torch.examples import inference as example
+    from saev_tpu_torch.models import families, vit
+    from saev_tpu_torch.nn import modeling, serialize
+    from saev_tpu_torch.ops import cuda_kth, topk
+    from saev_tpu_torch.scripts import gradcam, vit_route
+
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_interpret_"))
+    try:
+        preset = families.CLIP_PRESETS["ViT-L-14"]
+        t0 = time.perf_counter()
+        torch.save(vit_route.openclip_state_dict(preset.spec, torch.Generator().manual_seed(SEED + 30), 257),
+                   root / "ViT-L-14.pt")
+        ckpt = f"ViT-L-14={root / 'ViT-L-14.pt'}"
+        image = root / "image.png"
+        _interp_image(image)
+        sae_file = job["runs_root"] / job["ids"][0] / "checkpoint" / "sae.pt"
+        log(f"interpret: a random OpenCLIP ViT-L/14 checkpoint written in {time.perf_counter() - t0:.1f} s; the SAE "
+            f"{sae_file.parent.parent.name} (d_model {JOB['d_model']}, d_sae {JOB['d_sae']}, TopK {JOB['top_k']})")
+
+        # 1. The example's run, the main path: K6 once, no plain version.
+        cfg = example.RunConfig(sae_ckpt=sae_file, family="clip", ckpt=ckpt, layer=-2, content_tokens=256,
+                                image=image, k=INTERP_K, select="max", out=root / "heatmaps")
+        seen = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        with plain_spy() as plain, _interp_spies(seen):
+            t0 = time.perf_counter()
+            res = example.run(cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        got = counts()
+        require(not plain, f"interpret run: plain versions ran on the card: {plain}")
+        want = dict.fromkeys(KERNELS, 0) | {"kth_value": 1}
+        require(got == want, f"interpret run: launches {got}, expected {want}")
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        f_x, patch_acts = res["f_x"], res["patch_acts"]
+        nnz = (f_x != 0).sum(axis=1)
+        require(f_x.shape == (256, JOB["d_sae"]) and bool(np.isfinite(f_x).all()) and (nnz >= JOB["top_k"]).all(),
+                f"interpret run: f_x {f_x.shape}, nonzeros a row {nnz.min()}-{nnz.max()}")
+        require(len(res["paths"]) == INTERP_K and all(Image.open(p).size == (224, 224) for p in res["paths"]),
+                f"interpret run: heatmaps {[p.name for p in res['paths']]}")
+        filtered = example.select_top_latents_filtered(f_x, k=INTERP_K)
+        log(f"interpret run: {run_s:.2f} s with the ViT's and the SAE's loads; latents by max "
+            f"{res['latents'].tolist()}, by filtered {filtered.tolist()}; {len(res['paths'])} heatmaps; f_x "
+            f"{nnz.min()}-{nnz.max()} nonzeros a row; K6 launched once, no plain version")
+
+        # f_x against the same forward with K6's plain version on the card,
+        # and against the CPU's f32 forward.
+        sae_cfg, params, state = serialize.load(sae_file, device="cuda")
+        with _k6_plain():
+            f_plain, _ = example.sae_forward(sae_cfg, params, state, patch_acts)
+        require(same_bits(torch.from_numpy(f_x), torch.from_numpy(f_plain)),
+                "interpret: f_x differs from the forward with K6's plain version")
+        cpu = serialize.load(sae_file, device="cpu")
+        f_cpu, _ = example.sae_forward(*cpu, patch_acts)
+        f64, c64 = f_x.astype(np.float64), f_cpu.astype(np.float64)
+        rel_mse = float(((f64 - c64) ** 2).sum() / (c64 ** 2).sum())
+        support = int(((f_x != 0) != (f_cpu != 0)).sum())
+        require(rel_mse <= INTERP_REL_MSE, f"interpret: f_x against the CPU's f32 forward: relative MSE {rel_mse:.3g}"
+                f" > {INTERP_REL_MSE} ({support} entries differ in support)")
+        log(f"interpret: f_x bit for bit the forward with K6's plain version on the card; against the CPU's f32 "
+            f"forward relative MSE {rel_mse:.3g} ({support} of {f_x.size} entries differ in support)")
+
+        # Cold (the run above) and warm (a second run) times of its parts.
+        with _interp_spies(seen):
+            example.run(dataclasses.replace(cfg, out=root / "heatmaps2"))
+        out["example_ms"] = {k: v for k, v in seen.items()}
+        log("interpret run, CUDA events, cold then warm: " + "; ".join(
+            f"{k} {v[0]:.2f} then {v[1]:.2f} ms" for k, v in seen.items())
+            + " (vit: the Recorder call, upload, forward and the taps' copy to the host; composite: host work, "
+              f"{INTERP_K} heatmaps)")
+
+        # K6 at the example's shape: 256 rows x 16384, k 32.
+        x = torch.from_numpy(patch_acts).cuda()
+        h = modeling._linear_bias(x, params["W_enc"], params["b_enc"], "highest")
+        kth = cuda_kth.kth_value_cuda(h, JOB["top_k"])
+        row = timed(_time(lambda: cuda_kth.kth_value_cuda(h, JOB["top_k"]), 50),
+                    _time(lambda: topk._kth_plain(h, JOB["top_k"]), 10), _selection_bound(h, kth),
+                    library_kth_ms(h, JOB["top_k"], "the example's h"))
+        log_timing("kth_value", row, f" at the example's {tuple(h.shape)}, k {JOB['top_k']}")
+        out["kth_value"] = row
+        del x, h, kth, params, state, cpu
+        torch.cuda.empty_cache()
+
+        # 2. Grad-CAM's run, all three methods at "default": no saev kernel.
+        log(f"interpret: torch.mm(..., out_dtype=torch.float32) {_mm_out_dtype_backward()} on torch "
+            f"{torch.__version__}; the ViT's bf16 products go through modeling._Matmul")
+        for method in GRADCAM_METHODS:
+            reset_counts()
+            t0 = time.perf_counter()
+            cam = gradcam.run(gradcam.Args(family="clip", ckpt=ckpt, image_path=image, layer=-2, content_tokens=256,
+                                           method=method, out=root / f"cam_{method}.png"))
+            torch.cuda.synchronize()
+            cam_s = time.perf_counter() - t0
+            got = counts()
+            require(not any(got.values()), f"interpret gradcam {method}: saev kernels launched {got}")
+            g = cam["grads"]
+            require(bool(np.isfinite(g).all()) and float(np.abs(g).max()) > 0 and cam["cam"].shape == (256,)
+                    and Image.open(root / f"cam_{method}.png").size == (224, 224),
+                    f"interpret gradcam {method}: grads finite {bool(np.isfinite(g).all())}, max |g| "
+                    f"{float(np.abs(g).max())}, cam {cam['cam'].shape}")
+            log(f"interpret gradcam {method}: score {cam['score']:.4f}, |grad| max {float(np.abs(g).max()):.3g}, "
+                f"cam nonzero on {int((cam['cam'] > 0).sum())} of 256 patches; {cam_s:.2f} s with the ViT's load")
+
+        # The tap gradient at "default" against "highest": from the same tap,
+        # and each from its own tap; then times of the three parts.
+        model = families.Clip(ckpt)
+        spec, vparams, grid = model.spec, model.params, model.preset.grid
+        img_tr, _ = families.Clip.make_transforms(ckpt, 256)
+        tokens = torch.from_numpy(np.asarray(img_tr(Image.open(image)))[None]).cuda()
+        layer = -2 % spec.n_layers
+        grads = {}
+        for tap_p in ("default", "highest"):
+            taps = gradcam.tap(spec, vparams, tokens, layer, grid, tap_p)
+            for p in ("default", "highest"):
+                (grads[tap_p, p],) = torch.autograd.grad(gradcam.score(spec, vparams, taps, layer, grid, -1, p), taps)
+        same = rel_norm(grads["default", "default"], grads["default", "highest"])
+        own = rel_norm(grads["default", "default"], grads["highest", "highest"])
+        require(same <= GRADCAM_REL, f"interpret gradcam: the tap gradient at default is {same:.3g} from highest's "
+                f"from the same tap (bound {GRADCAM_REL})")
+        parts = {"forward": [], "forward_from": [], "backward": []}
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            taps = gradcam.tap(spec, vparams, tokens, layer, grid)
+            ev[1].record()
+            s = gradcam.score(spec, vparams, taps, layer, grid, -1)
+            ev[2].record()
+            torch.autograd.grad(s, taps)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(parts):
+                parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+        out["gradcam_ms"] = parts
+        with torch.no_grad():
+            fwd = lambda: vit.forward(spec, vparams, tokens, (layer,), grid=grid)  # noqa: E731
+            route_ms = _time(fwd, 5)
+            with _dense_before():
+                before_ms = _time(fwd, 5)
+        log(f"interpret gradcam: the tap gradient at default against highest, rel-norm {same:.3g} from the same tap "
+            f"(bound {GRADCAM_REL}), {own:.3g} each from its own tap; CUDA events, first then median of 3: "
+            + "; ".join(f"{k} {v[0]:.2f} then {statistics.median(v):.2f} ms" for k, v in parts.items())
+            + f" (forward: embedding and {layer + 1} blocks to the tap; forward_from: "
+              f"{spec.n_layers - layer - 1} block and the final norm; backward: through it); the forward alone, "
+              f"mean of 5: {route_ms:.2f} ms, {before_ms:.2f} by the route before modeling._Matmul")
+        del model, vparams, tokens, taps, grads
+        torch.cuda.empty_cache()
+
+        # 3. The example's demo on the card: the fake backend's extraction
+        # and a d_sae 64 SAE's forward (K6).
+        reset_counts()
+        with plain_spy() as plain:
+            paths = example.demo(example.DemoConfig(out=root / "demo"))
+            torch.cuda.synchronize()
+        got = counts()
+        require(not plain and len(paths) == 3 and all(p.exists() for p in paths),
+                f"interpret demo: {len(paths)} heatmaps, plain versions {plain}")
+        require(got == dict.fromkeys(KERNELS, 0) | {"kth_value": 1}, f"interpret demo: launches {got}")
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        log(f"interpret demo on the card: {len(paths)} heatmaps, K6 launched once, no plain version; the phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
 def _activations_parity(errs: dict) -> None:
     """K2-K4 against their plain versions on a Relu layer's latents at the
     production shape: relu(x @ W + b), about half of them nonzero, in bf16
@@ -2395,7 +2703,7 @@ ACTIVATION_RUNS = (
 
 
 def phase_activations(errs: dict) -> dict:
-    """Relu and BatchTopK at full width (module doc, phase 13). Returns the
+    """Relu and BatchTopK at full width (module doc, phase 14). Returns the
     path's launches."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
@@ -2496,7 +2804,7 @@ def phase_activations(errs: dict) -> dict:
 
 
 EXTRACT_CLIPS, EXTRACT_OTHER = 256, 16  # Aves clips kept, non-Aves clips filtered out
-# Muon and "high" at full width (module doc, phases 14 and 15): the steady
+# Muon and "high" at full width (module doc, phases 15 and 16): the steady
 # phase's shape, n_sae 2, the tight rung with 5% of the latents pinned dead.
 N_SAE_FULL = 2
 HIGH_REL = 3e-5  # bf16x3 against the f64 product: about 2^-16 of each operand
@@ -2607,7 +2915,7 @@ def _full_width_steps(what: str, step, ts, want: dict, n: int = 5) -> dict:
 
 
 def phase_muon() -> tuple[dict, dict]:
-    """Muon at full width (module doc, phase 14). Returns the launch counts
+    """Muon at full width (module doc, phase 15). Returns the launch counts
     of its timed path and what it logs."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
@@ -2675,7 +2983,7 @@ def phase_muon() -> tuple[dict, dict]:
 
 
 def phase_high() -> tuple[dict, dict]:
-    """matmul_precision "high" at full width (module doc, phase 15). Returns
+    """matmul_precision "high" at full width (module doc, phase 16). Returns
     the launch counts of its timed path and what it logs."""
     from saev_tpu_torch.framework import train
     from saev_tpu_torch.nn import modeling, objectives
@@ -2840,7 +3148,7 @@ def _layer_errs(got: torch.Tensor, want: torch.Tensor) -> list[float]:
 
 def _bird_mae_extract(root: pathlib.Path) -> dict:
     """Bird-MAE-Large through `framework.shards.cli` at full width (module
-    doc, phase 16). Returns what it logs."""
+    doc, phase 17). Returns what it logs."""
     from saev_tpu_torch.data import ShuffledConfig, ShuffledDataLoader, datasets, shards
     from saev_tpu_torch.framework import shards as fshards
     from saev_tpu_torch.models import bird_mae, vit
@@ -3087,11 +3395,34 @@ def _bird_mae_extract_ranks(root: pathlib.Path, one: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _dense_before():
+    """While inside, the ViT's dense products take the route they had before
+    they went through `modeling._Matmul` (for Grad-CAM's backward): one
+    `modeling._mm_bf16` call, `torch.mm(..., out_dtype=)` on the card."""
+    from saev_tpu_torch.models import vit
+    from saev_tpu_torch.nn import modeling
+
+    def dense(x, p, bf16):
+        if bf16:
+            y = modeling._mm_bf16(x.reshape(-1, x.shape[-1]), p["w"])
+            return y.reshape(*x.shape[:-1], y.shape[-1]) + p["b"]
+        return x @ p["w"] + p["b"]
+
+    real, vit._dense = vit._dense, dense
+    try:
+        yield
+    finally:
+        vit._dense = real
+
+
 def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) -> dict:
     """One image family through `Recorder` at batch IMAGE_BATCH on Gaussian
     pre-patchified tokens, against the same family at "highest" (float32
-    products, TF32 off) on the card, for each grid set; time and peak memory
-    on the first. Returns what it logs."""
+    products, TF32 off) on the card, for each grid set, and bit for bit
+    against the dense products' route before `modeling._Matmul`
+    (`_dense_before`); time and peak memory on the first. Returns what it
+    logs."""
     from saev_tpu_torch.data import models
     from saev_tpu_torch.models import vit
 
@@ -3108,6 +3439,10 @@ def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) 
         require(acts.shape == (IMAGE_BATCH, len(EXTRACT_LAYERS), tokens.shape[1] + 1, model.d_model)
                 and bool(np.isfinite(acts).all()), f"extract {what}: taps {acts.shape}")
         require(np.array_equal(acts.view(np.int32), acts2.view(np.int32)), f"extract {what}: two forwards differ")
+        with _dense_before():
+            _, acts_before = rec(tokens, **kw)
+        require(np.array_equal(acts.view(np.int32), acts_before.view(np.int32)),
+                f"extract {what}: the taps differ from the dense products' route before modeling._Matmul")
         errs = _layer_errs(torch.from_numpy(acts), torch.from_numpy(acts32))
         require(max(errs) <= BF16_REL, f"extract {what} grids {gi}: rel-norm by layer {errs} against float32")
         out["errs"].append(errs)
@@ -3132,7 +3467,8 @@ def _image_family(what: str, model, model_f32, tokens: np.ndarray, grids: list) 
         f"{IMAGE_BATCH / out['recorder_ms'] * 1e3:.1f} images/s with the taps' copy to the host "
         f"({out['recorder_ms']:.2f} ms a batch), forward alone {out['forward_ms']:.2f} ms "
         f"({IMAGE_BATCH / out['forward_ms'] * 1e3:.1f} images/s), peak {out['peak_gib']:.2f} GiB; against "
-        f"float32 rel-norm by layer {[[f'{e:.3g}' for e in es] for es in out['errs']]}; two forwards bit for bit")
+        f"float32 rel-norm by layer {[[f'{e:.3g}' for e in es] for es in out['errs']]}; two forwards, and the "
+        f"route before modeling._Matmul, bit for bit")
     return out
 
 
@@ -3160,7 +3496,7 @@ def _without(package: str):
 
 
 def phase_extract() -> dict:
-    """Extraction at full width (module doc, phase 16): launches no saev
+    """Extraction at full width (module doc, phase 17): launches no saev
     kernel. Returns what it logs."""
     import importlib.util
 
@@ -3961,6 +4297,8 @@ def main() -> int:
         job_counts = job["launches"]
         torch.cuda.empty_cache()
         infer_counts = phase_inference(root, job)
+        torch.cuda.empty_cache()
+        interp_counts = phase_interpret(job)["launches"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3978,7 +4316,8 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
-                + infer_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k] + multi_counts[k]
+                + infer_counts[k] + interp_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k]
+                + multi_counts[k]
                 for k in KERNELS}
     # K7 runs on the multi path (feature-parallel training); the other bench
     # kernels only in the benches phase.
@@ -3989,6 +4328,7 @@ def main() -> int:
                                ("metrics", metric_counts, ("kth_value",)),
                                ("job", job_counts, JOB_KERNELS),
                                ("inference", infer_counts, INFER_KERNELS),
+                               ("interpret", interp_counts, INTERP_KERNELS),
                                ("activations", act_counts, WARM_KERNELS[1:] + ("kth_value_masked",)),
                                ("muon", muon_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("high", high_counts, ("kth_value", "kth_value_masked")),

@@ -337,10 +337,13 @@ def _bf16(x: torch.Tensor, precision: str) -> bool:
 
 
 def _dense(x: torch.Tensor, p: dict, bf16: bool) -> torch.Tensor:
-    """x @ w + b with a float32 result; x (..., d_in)."""
+    """x @ w + b with a float32 result; x (..., d_in). The bf16 product is
+    `modeling._Matmul`'s: the same `_mm_bf16` call forward, and a backward
+    of bf16 products, which `torch.mm(..., out_dtype=)` lacks (Grad-CAM
+    differentiates through it)."""
     if bf16:
         lead = x.shape[:-1]
-        y = modeling._mm_bf16(x.reshape(-1, x.shape[-1]), p["w"])
+        y = modeling._Matmul.apply(x.reshape(-1, x.shape[-1]), p["w"], modeling.BF16)
         return y.reshape(*lead, y.shape[-1]) + p["b"]
     return x @ p["w"] + p["b"]
 

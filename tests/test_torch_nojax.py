@@ -1,8 +1,9 @@
 """saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL,
-pandas and the JAX package (saev_tpu) blocked: the machine with the card has
-no JAX (and maybe no Pillow or pandas). The library surface that reads a run
-(the `nn` names, `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the
-schedulers) and Muon's and "high"'s code run there too."""
+pandas, scikit-learn, matplotlib and the JAX package (saev_tpu) blocked: the
+machine with the card has no JAX (and maybe no Pillow, pandas, scikit-learn
+or matplotlib). The library surface that reads a run (the `nn` names,
+`IndexedDataset`, `csr_topk`, `PercentileEstimator`, the schedulers), Muon's
+and "high"'s code and the interpretation layer's colormap run there too."""
 
 import pathlib
 import subprocess
@@ -13,7 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "saev_tpu")
+BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "sklearn", "matplotlib", "saev_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -42,6 +43,8 @@ est.update(1.0)
 assert scheduling.WarmupCosine(0.0, 2, 1.0, 10, 0.0).step() == 0.5
 assert train._newton_schulz(torch.eye(4)[None]).shape == (1, 4, 4)
 assert torch.equal(modeling.matmul(torch.eye(3), torch.eye(3), "high"), torch.eye(3))
+from saev_tpu_torch import viz
+assert viz.colormap([0.0, 1.0]).shape == (2, 4) and viz.parse_color("#ff0000") == (1.0, 0.0, 0.0)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -74,14 +77,27 @@ EXTRACT_MODULES = {
 }
 
 
+# The interpretation layer's modules (the inference example, Grad-CAM, the
+# web backend, export_demo and the interactive reports), each imported with
+# the blocked packages above.
+INTERPRET_MODULES = {
+    "saev_tpu_torch.colors", "saev_tpu_torch.viz", "saev_tpu_torch.examples.inference",
+    "saev_tpu_torch.scripts.gradcam", "saev_tpu_torch.scripts.export_demo", "saev_tpu_torch.web.backend",
+    "saev_tpu_torch.web.__main__", "saev_tpu_torch.interactive.shards", "saev_tpu_torch.interactive.metrics",
+    "saev_tpu_torch.interactive.features",
+}
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     # The subpackages and their modules: 41 since the training job, 44 since
-    # inference, 57 since extraction, 58 since indexed.
-    assert int(proc.stdout.split()[-1]) >= 58
+    # inference, 57 since extraction, 58 since indexed, 72 since the
+    # interpretation layer.
+    assert int(proc.stdout.split()[-1]) >= 72
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
     assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])
+    assert INTERPRET_MODULES <= set(proc.stdout.split()[:-1])
