@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's production SAE train step, and one training job
-around it, on one CUDA card (and its multi-process training on two ranks).
+"""Drive the PyTorch port's production SAE train step, one training job
+around it, inference, extraction, interpretation and trait discovery after
+it, on one CUDA card (and its multi-process training on two ranks).
 
     python3 chip_smoke.py
 
@@ -303,9 +304,38 @@ script exits non-zero:
                 row gather, and the feature group's base all-reduce and
                 candidate gathers.
 
+19. tdiscovery -- trait discovery at ViT-L/14 width (d_model 1024, d_sae
+                16384), in a temporary root that it removes: (a) probe1d's
+                `Sparse1DProbe` fit on the card over a seeded CSR x of
+                1,048,576 tokens x 16384 latents, 32 nonzeros a row (33.5M
+                events) and 10 classes with planted (latent, class) pairs,
+                at the `Config` defaults (class slab 8, max_iter 30, 4096 MiB):
+                a second fit the same bits; 16 sampled pairs (the planted
+                ones, the empty latent, drawn ones) within rtol 1e-3 and
+                atol 1e-4 of `Reference1DProbe` (float64 numpy, 8 host
+                threads); `loss_matrix_with_aux`'s counts integers, equal to
+                numpy's on those pairs; logs the fit's wall seconds, each LM
+                iteration's ms (CUDA events), n_iter_ by slab and peak
+                memory. (b) `SparseAutoencoderScorer.transform` of a random
+                schema-5 TopK-32 SAE file over 3 batches of 16384 rows: K6
+                at 16384 x 16384, f_x bit for bit the forward with K6's
+                plain version; logs ms a batch and the forward alone, and K6
+                on the scorer's h against its plain version, the library and
+                its bound. (c) `python -m saev_tpu_torch.tdiscovery`
+                baseline::train (k-means, k 4096, eval on the test shards),
+                baseline::inference on both splits, probe1d and metrics, on
+                labelled shards of the port's writer (128 + 64 images of 256
+                tokens, labels.bin), then `fishvista.evaluation.worker_fn`
+                with method sae (K6) and kmeans (the trained run): every
+                artifact loaded back; logs each command's seconds. (d) the
+                k-means step alone at 16384 x 1024 x 16384: its inertia
+                within 1e-5 of float64 distances on the card, the share of
+                assignments off the float64 argmin, ms a step. K6 launched
+                once a scored batch and nothing else, no plain version.
+
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
-counts, summed): every count is set to 0 just before the path and read just
+counts, summed; tdiscovery): every count is set to 0 just before the path and read just
 after.
 
 The line before the last is {"kernels": [...]} with every number measured or
@@ -4267,6 +4297,411 @@ def phase_multi(root: pathlib.Path) -> dict:
     return launches
 
 
+TD = dict(tokens=1 << 20, d_sae=D_SAE, nnz_row=TOP_K, n_classes=10, pairs=16, max_iter=30, d_model=D_MODEL,
+          patch_tokens=256, train_images=128, test_images=64, clusters=64, centers=4096, n_train_fv=4096,
+          batch=B, scorer_batches=3, kmeans_k=D_SAE)
+TD_KERNELS = ("kth_value",)
+# Sampled (latent, class) pairs against the dense float64 reference: the
+# tolerance of tests/test_probe1d.py::test_sparse_matches_reference.
+TD_REF_RTOL, TD_REF_ATOL = 1e-3, 1e-4
+TD_INERTIA_REL = 1e-5  # the k-means step's inertia against float64 distances on the card
+
+
+def _td_probe_data(dims: dict, seed: int):
+    """A CSR x of `tokens` rows x `d_sae` latents as a TopK SAE writes it:
+    `nnz_row` nonzeros a row, one in each of `nnz_row` equal bins of the
+    latents at an offset drawn as floor(bin * u^3) (so latents fire at skewed
+    rates), values 0.1 + Exp(1); the last latent never fires. One class a
+    token out of `n_classes`: 0 with probability 1/2, else uniform, then,
+    where latent c * bin fires with value v, c with probability
+    sigmoid(2v - 2) (a planted pair for each class c >= 1). Returns (x,
+    labels, the planted latents)."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    n, s, k, n_classes = dims["tokens"], dims["d_sae"], dims["nnz_row"], dims["n_classes"]
+    width = s // k
+    offsets = np.floor(width * rng.random((n, k)) ** 3).astype(np.int32)
+    cols = offsets + np.arange(k, dtype=np.int32) * width
+    cols[cols == s - 1] = s - 2
+    vals = (0.1 + rng.exponential(size=(n, k))).astype(np.float32)
+    x = scipy.sparse.csr_matrix((vals.reshape(-1), cols.reshape(-1), np.arange(0, n * k + 1, k)), shape=(n, s))
+    labels = np.where(rng.random(n) < 0.5, 0, rng.integers(1, n_classes, size=n))
+    planted = np.arange(1, n_classes) * width
+    for c, latent in enumerate(planted, start=1):
+        v = np.asarray(x[:, latent].todense()).ravel()
+        hit = (v > 0) & (rng.random(n) < 1 / (1 + np.exp(-(2 * v - 2))))
+        labels[hit] = c
+    return x, labels.astype(np.uint8), planted
+
+
+@contextlib.contextmanager
+def _td_iteration_spy(ms: list):
+    """CUDA events around each LM iteration of Sparse1DProbe.fit (the fit
+    syncs once an iteration, so each pair of events spans one iteration's
+    device work and launch gaps); appends each iteration's ms."""
+    from saev_tpu_torch.tdiscovery import probe1d
+
+    real = probe1d.Sparse1DProbe._iteration
+    events = []
+
+    def spy(self, *a, **kw):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real(self, *a, **kw)
+        t1.record()
+        events.append((t0, t1))
+        return out
+
+    probe1d.Sparse1DProbe._iteration = spy
+    try:
+        yield ms
+    finally:
+        probe1d.Sparse1DProbe._iteration = real
+        torch.cuda.synchronize()
+        ms.extend(t0.elapsed_time(t1) for t0, t1 in events)
+
+
+def _td_probe(dims: dict, device: str) -> dict:
+    """(a) Sparse1DProbe at `dims`: two fits (the same bits), the sampled
+    pairs against Reference1DProbe, the confusion counts of the sampled
+    pairs against numpy's."""
+    import concurrent.futures
+
+    from saev_tpu_torch.tdiscovery import probe1d
+
+    out = {}
+    t0 = time.perf_counter()
+    x, labels, planted = _td_probe_data(dims, SEED + 40)
+    y = np.eye(dims["n_classes"], dtype=np.float32)[labels]
+    out["data_s"] = time.perf_counter() - t0
+    nnz = x.getnnz(axis=0)
+    plan = probe1d.plan_memory(n_latents=dims["d_sae"], n_classes=dims["n_classes"], nnz=x.nnz,
+                               n_samples=dims["tokens"], max_class_slab=8)
+    log(f"tdiscovery probe data: {x.shape[0]} tokens x {x.shape[1]} latents, {x.nnz} events "
+        f"({12 * x.nnz / 2**20:.0f} MiB on the device), {dims['n_classes']} classes (class shares "
+        f"{np.round(np.bincount(labels) / len(labels), 3).tolist()}), latent events {nnz.min()}-{nnz.max()} "
+        f"({int((nnz == 0).sum())} empty), made in {out['data_s']:.1f} s; plan: slab {plan.class_slab_size}, "
+        f"chunk {plan.event_chunk_size}, {-(-x.nnz // plan.event_chunk_size)} chunks an iteration, slab state "
+        f"{plan.slab_bytes / 1e6:.1f} MB")
+    fits = []
+    for _ in range(2):
+        probe = probe1d.Sparse1DProbe(n_latents=dims["d_sae"], n_classes=dims["n_classes"],
+                                      max_iter=dims["max_iter"], device=device)
+        it_ms = []
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        spy = _td_iteration_spy(it_ms) if device == "cuda" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with spy:
+            probe.fit(x, y)
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        fits.append(probe)
+        log(f"tdiscovery probe fit: {fit_s:.2f} s wall, n_iter_ by slab {sorted(set(probe.n_iter_.tolist()))}, "
+            f"{len(it_ms)} LM iterations" + (f" of {statistics.median(it_ms):.2f} ms median "
+                                              f"({min(it_ms):.2f}-{max(it_ms):.2f}, CUDA events)" if it_ms else "")
+            + f", peak {peak:.2f} GiB")
+        out.setdefault("fit_s", []).append(fit_s)
+        out.setdefault("iteration_ms", []).append(it_ms)
+        out["peak_gib"] = peak
+    a, b = fits
+    require(all(np.array_equal(p.view(np.int32), q.view(np.int32)) for p, q in
+                ((a.intercept_, b.intercept_), (a.coef_, b.coef_))) and np.array_equal(a.n_iter_, b.n_iter_),
+            "tdiscovery probe: two fits of the same data differ")
+
+    rng = np.random.default_rng(SEED + 41)
+    live = np.flatnonzero(nnz >= 64)
+    pairs = [(int(p), c) for c, p in enumerate(planted, start=1)] + [(dims["d_sae"] - 1, 3)]
+    while len(pairs) < dims["pairs"]:
+        pair = (int(rng.choice(live)), int(rng.integers(dims["n_classes"])))
+        if pair not in pairs:
+            pairs.append(pair)
+    csc = x.tocsc()
+    cols = {lat: np.asarray(csc[:, lat].todense()).ravel() for lat, _ in pairs}
+
+    def ref(pair):
+        lat, c = pair
+        return probe1d.Reference1DProbe(max_iter=dims["max_iter"]).fit(cols[lat], y[:, c])
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        refs = list(pool.map(ref, pairs))
+    worst = 0.0
+    for (lat, c), r in zip(pairs, refs):
+        for got, want in ((a.intercept_[lat, c], r.intercept_), (a.coef_[lat, c], r.coef_)):
+            err = abs(float(got) - want)
+            worst = max(worst, err / (TD_REF_ATOL + TD_REF_RTOL * abs(want)))
+            require(err <= TD_REF_ATOL + TD_REF_RTOL * abs(want),
+                    f"tdiscovery probe: pair ({lat}, {c}) {float(got)} against the float64 reference's {want}")
+    log(f"tdiscovery probe: {len(pairs)} sampled pairs (the {len(planted)} planted, the empty latent, "
+        f"{len(pairs) - len(planted) - 1} drawn) within rtol {TD_REF_RTOL}, atol {TD_REF_ATOL} of the float64 "
+        f"reference (worst at {worst:.3f} of the bound; {time.perf_counter() - t0:.1f} s on 8 host threads); "
+        f"planted coef_ {[round(float(a.coef_[p, c]), 3) for p, c in pairs[:len(planted)]]}")
+
+    t0 = time.perf_counter()
+    loss, tp, fp, tn, fn = a.loss_matrix_with_aux(x, y)
+    out["aux_s"] = time.perf_counter() - t0
+    for name, m in (("tp", tp), ("fp", fp), ("tn", tn), ("fn", fn)):
+        require(bool((m == np.round(m)).all()) and bool((m >= 0).all()), f"tdiscovery probe: {name} not counts")
+    require(bool(np.isfinite(loss).all()) and bool(((tp + fp + tn + fn) == dims["tokens"]).all()),
+            "tdiscovery probe: loss not finite or counts not summing to the tokens")
+    for lat, c in pairs:
+        z = a.intercept_[lat, c] + a.coef_[lat, c] * cols[lat].astype(np.float32)
+        pred, pos = z > 0, labels == c
+        want = [(pred & pos).sum(), (pred & ~pos).sum(), (~pred & ~pos).sum(), (~pred & pos).sum()]
+        got = [int(m[lat, c]) for m in (tp, fp, tn, fn)]
+        require(got == want, f"tdiscovery probe: counts of ({lat}, {c}) {got}, numpy {want}")
+    log(f"tdiscovery probe: loss_matrix_with_aux in {out['aux_s']:.2f} s; tp, fp, tn, fn integers summing to "
+        f"{dims['tokens']}, equal to numpy's counts on the {len(pairs)} pairs")
+    return out
+
+
+def _td_sae(dims: dict, device: str, root: pathlib.Path) -> pathlib.Path:
+    """A schema-5 TopK SAE file at (d_model, d_sae), random from a seed."""
+    from saev_tpu_torch.nn import modeling, serialize
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=dims["d_model"], d_sae=dims["d_sae"],
+                                           activation=modeling.TopK(top_k=dims["nnz_row"]))
+    params, state = modeling.init(cfg, torch.Generator(device).manual_seed(SEED + 42), device=device)
+    fpath = root / "sae.pt"
+    serialize.dump(fpath, cfg, params, state)
+    return fpath
+
+
+def _td_scorer(dims: dict, device: str, sae_file: pathlib.Path) -> dict:
+    """(b) SparseAutoencoderScorer.transform over `scorer_batches` batches:
+    f_x bit for bit the same forward with K6's plain version."""
+    from saev_tpu_torch.tdiscovery import saes
+
+    scorer = saes.SparseAutoencoderScorer(str(sae_file), device=device)
+    gen = torch.Generator().manual_seed(SEED + 43)
+    xs = [torch.randn((dims["batch"], dims["d_model"]), generator=gen).numpy() for _ in range(dims["scorer_batches"])]
+    out = {"transform_ms": []}
+    for x in xs:
+        t0 = time.perf_counter()
+        f = scorer.transform(x)
+        out["transform_ms"].append((time.perf_counter() - t0) * 1e3)
+        nnz = (f != 0).sum(axis=1)
+        require(f.shape == (dims["batch"], dims["d_sae"]) and bool(np.isfinite(f).all())
+                and int(nnz.min()) >= dims["nnz_row"], f"tdiscovery scorer: f_x {f.shape}, nonzeros {nnz.min()}")
+        with _k6_plain():
+            f_plain = scorer.transform(x)
+        require(np.array_equal(f.view(np.int32), f_plain.view(np.int32)),
+                "tdiscovery scorer: f_x differs from the forward with K6's plain version")
+    out["scorer"], out["x"] = scorer, xs[0]
+    return out
+
+
+def _td_shards(root: pathlib.Path, n_images: int, dims: dict, centers: np.ndarray, seed: int) -> pathlib.Path:
+    """Labelled shards (the port's ShardWriter, labels.bin): each token a
+    cluster's centre plus unit noise, its label the cluster's class (cluster
+    mod n_classes) 4 times in 5, else a uniform class."""
+    from saev_tpu_torch.data import shards
+
+    tokens, d_model = dims["patch_tokens"], dims["d_model"]
+    md = shards.Metadata(
+        family="clip", ckpt="random", layers=(0,), content_tokens_per_example=tokens, cls_token=False,
+        d_model=d_model, n_examples=n_images, max_tokens_per_shard=tokens * 64, data="e30=", dataset=root,
+    )
+    md.dump(root)
+    rng = np.random.default_rng(seed)
+    with shards.ShardWriter(root, md) as writer:
+        for start in range(0, n_images, 32):
+            n = min(32, n_images - start)
+            cluster = rng.integers(len(centers), size=(n, tokens))
+            acts = centers[cluster] + rng.standard_normal((n, tokens, d_model), dtype=np.float32)
+            labels = np.where(rng.random((n, tokens)) < 0.8, cluster % dims["n_classes"],
+                              rng.integers(dims["n_classes"], size=(n, tokens)))
+            writer.write_batch(acts[:, None].astype(np.float32), start, labels.astype(np.uint8))
+    return root / md.hash
+
+
+def _td_command(root: pathlib.Path, args: list[str], limit: int = 300) -> float:
+    """`python -m saev_tpu_torch.tdiscovery ARGS` in root; its seconds."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(pathlib.Path(__file__).resolve().parent)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "saev_tpu_torch.tdiscovery", *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=limit)
+    took = time.perf_counter() - t0
+    require(proc.returncode == 0, f"tdiscovery {args[0]}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    return took
+
+
+def _td_entry_points(dims: dict, device: str, root: pathlib.Path, sae_file: pathlib.Path) -> dict:
+    """(c) The launcher's subcommands on labelled shards, then the FishVista
+    evaluation with method sae and kmeans; every artifact loaded back."""
+    import scipy.sparse
+
+    from saev_tpu_torch import disk
+    from saev_tpu_torch.data import OrderedConfig
+    from saev_tpu_torch.tdiscovery import baselines
+    from saev_tpu_torch.tdiscovery.fishvista import evaluation
+
+    shards_root, runs_root = root / "saev" / "shards", root / "saev" / "runs"
+    shards_root.mkdir(parents=True)
+    runs_root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    centers = (2 * np.random.default_rng(SEED + 44).standard_normal((dims["clusters"], dims["d_model"]))).astype(
+        np.float32)
+    train = _td_shards(shards_root, dims["train_images"], dims, centers, SEED + 45)
+    test = _td_shards(shards_root, dims["test_images"], dims, centers, SEED + 46)
+    out = {"shards_s": time.perf_counter() - t0, "commands_s": {}}
+    batch = str(min(dims["batch"], dims["test_images"] * dims["patch_tokens"]))
+    data = lambda name, d: [f"--{name}.shards", str(d), f"--{name}.layer", "0", f"--{name}.batch-size", batch]  # noqa: E731
+    dev = ["--device", device]
+    n_train = str(dims["train_images"] * dims["patch_tokens"])
+    n_val = str(dims["test_images"] * dims["patch_tokens"])
+    out["commands_s"]["baseline::train"] = _td_command(root, [
+        "baseline::train", "--method", "kmeans", "--k", str(dims["centers"]), *data("train-data", train),
+        "--train-data.buffer-size", "4", "val-data:config", *data("val-data", test), "--val-data.buffer-size", "4",
+        "--n-train", n_train, "--n-val", n_val, "--runs-root", str(runs_root), "--seed", str(SEED), *dev])
+    (run_dir,) = [p for p in runs_root.iterdir() if not p.name.startswith(".")]
+    for split in (train, test):
+        out["commands_s"][f"baseline::inference {split.name[:8]}"] = _td_command(root, [
+            "baseline::inference", "--run", str(run_dir), *data("data", split), *dev])
+    out["commands_s"]["probe1d"] = _td_command(root, [
+        "probe1d", "--run", str(run_dir), "--train-shards", str(train), "--test-shards", str(test), *dev])
+    out["commands_s"]["metrics"] = _td_command(root, [
+        "metrics", "--run", str(run_dir), "--train-shards", str(train), "--test-shards", str(test)])
+
+    run = disk.Run(run_dir)
+    km = baselines.load(run, device=device)
+    require(km.k == dims["centers"] and km.cluster_centers_.shape == (dims["centers"], dims["d_model"]),
+            f"tdiscovery: baseline.pt holds {km.cluster_centers_.shape}")
+    train_metrics = json.loads((run_dir / "metrics.json").read_text())
+    require("eval/inertia" in train_metrics, f"tdiscovery: metrics.json {sorted(train_metrics)}")
+    for split, n_img in ((train, dims["train_images"]), (test, dims["test_images"])):
+        art = run.inference / split.name
+        acts = scipy.sparse.load_npz(art / "token_acts.npz")
+        n_tok = n_img * dims["patch_tokens"]
+        require(acts.shape == (n_tok, dims["centers"]) and (np.diff(acts.tocsr().indptr) == 1).all(),
+                f"tdiscovery: token_acts {acts.shape}")
+        for name, shape in (("sparsity", (dims["centers"],)), ("mean_values", (dims["centers"],)),
+                            ("distributions", (n_tok, 25))):
+            t = torch.load(art / f"{name}.pt", weights_only=True)
+            require(tuple(t.shape) == shape, f"tdiscovery: {name}.pt {tuple(t.shape)}")
+        json.loads((art / "metrics.json").read_text())
+        with np.load(art / "probe1d_metrics.npz") as fd:
+            probe = {k: fd[k] for k in fd}
+        require(sorted(probe) == ["biases", "fn", "fp", "loss", "tn", "tp", "weights"]
+                and probe["loss"].shape == (dims["centers"], dims["n_classes"])
+                and bool(np.isfinite(probe["loss"]).all()), f"tdiscovery: probe1d_metrics.npz {sorted(probe)}")
+    trait = json.loads((run.inference / test.name / "trait_metrics.json").read_text())
+    with np.load(run.inference / test.name / f"probe1d_metrics__train-{train.name}.npz") as fd:
+        require(fd["top_labels"].shape[0] == dims["centers"], "tdiscovery: the metrics npz")
+    out["mean_ap"] = trait["mean_ap"]
+
+    ordered = lambda d: OrderedConfig(shards=d, layer=0, batch_size=int(batch))  # noqa: E731
+    for method, kw in (("sae", dict(sae_ckpt=str(sae_file))), ("kmeans", dict(baseline_run=str(run_dir)))):
+        t0 = time.perf_counter()
+        res = evaluation.worker_fn(evaluation.Config(
+            method=method, train_acts=ordered(train), test_acts=ordered(test), n_train=dims["n_train_fv"],
+            dump_to=root / "results", seed=SEED, device=device, **kw))
+        out["commands_s"][f"fishvista {method}"] = time.perf_counter() - t0
+        want_k = dims["d_sae"] if method == "sae" else dims["centers"]
+        require(res.n_prototypes == want_k and len(res.test_ap_per_class) == dims["n_classes"]
+                and (root / "results" / f"fishvista_{method}_{want_k}.json").exists(),
+                f"tdiscovery fishvista {method}: {res.n_prototypes} prototypes")
+        out[f"fishvista_{method}_map"] = res.mean_ap
+    log(f"tdiscovery entry points ({dims['train_images']} + {dims['test_images']} images of "
+        f"{dims['patch_tokens']} tokens at d_model {dims['d_model']}, shards written in {out['shards_s']:.1f} s): "
+        + "; ".join(f"{k} {v:.1f} s" for k, v in out["commands_s"].items())
+        + f"; every artifact loaded; probe mAP {out['mean_ap']:.3f}, fishvista mAP sae "
+          f"{out['fishvista_sae_map']:.3f}, kmeans {out['fishvista_kmeans_map']:.3f}")
+    return out
+
+
+def _td_kmeans_step(dims: dict, device: str) -> dict:
+    """(d) The k-means step alone at (batch, d_model) x kmeans_k centres:
+    its inertia against float64 distances computed on the same device, the
+    share of assignments off the float64 argmin, its ms."""
+    from saev_tpu_torch.tdiscovery import baselines
+
+    gen = torch.Generator(device).manual_seed(SEED + 47)
+    x = torch.randn((dims["batch"], dims["d_model"]), generator=gen, device=device)
+    centers = torch.randn((dims["kmeans_k"], dims["d_model"]), generator=gen, device=device)
+    with torch.no_grad():
+        assign, counts, sums, inertia = baselines.kmeans_step(centers, x)
+        x64, c64 = x.double(), centers.double()
+        d2 = (x64**2).sum(1, keepdim=True) - 2.0 * (x64 @ c64.T) + (c64**2).sum(1)[None, :]
+        min64, arg64 = d2.min(dim=1)
+        inertia64 = float(min64.clamp_min(0).mean())
+        off = float((assign != arg64).float().mean())
+        del d2
+    rel = abs(float(inertia) - inertia64) / inertia64
+    require(rel <= TD_INERTIA_REL and int(counts.sum()) == dims["batch"],
+            f"tdiscovery k-means: inertia {float(inertia)} against float64 {inertia64} (rel {rel:.3g})")
+    out = {"inertia_rel": rel, "off_argmin": off}
+    if device == "cuda":
+        out["step_ms"] = _time(lambda: baselines.kmeans_step(centers, x), 5)
+    return out
+
+
+def run_tdiscovery(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """Trait discovery's device path at `dims` (module doc, phase 19): (a)
+    the probe, (b) the SAE scorer, (c) the entry points, (d) the k-means
+    step. The CPU runs it too, at small `dims`."""
+    out = {"probe": _td_probe(dims, device)}
+    sae_file = _td_sae(dims, device, root)
+    out["scorer"] = _td_scorer(dims, device, sae_file)
+    out["entry"] = _td_entry_points(dims, device, root, sae_file)
+    out["kmeans"] = _td_kmeans_step(dims, device)
+    return out
+
+
+def phase_tdiscovery() -> dict:
+    """Trait discovery on the card at ViT-L/14 width (module doc, phase 19).
+    Returns the path's launches (K6 in the scorer and in FishVista's sae
+    scoring)."""
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_tdiscovery_"))
+    try:
+        reset_counts()
+        with plain_spy() as plain:
+            out = run_tdiscovery(TD, "cuda", root)
+        launches = counts()
+        require(not plain, f"tdiscovery: plain versions ran on the card: {plain}")
+        n_batches = TD["scorer_batches"] + sum(-(-n * TD["patch_tokens"] // TD["batch"])
+                                               for n in (TD["train_images"], TD["test_images"]))
+        want = dict.fromkeys(KERNELS, 0) | {"kth_value": n_batches}
+        require(launches == want, f"tdiscovery: launches {launches}, expected {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    from saev_tpu_torch.nn import modeling
+    from saev_tpu_torch.ops import cuda_kth, topk
+
+    sc, km = out["scorer"], out["kmeans"]
+    scorer, x = sc.pop("scorer"), torch.from_numpy(sc.pop("x")).cuda()
+    with torch.no_grad():
+        fwd_ms = _time(lambda: modeling.encode(scorer.cfg, scorer.params, scorer.state, x, training=False,
+                                               precision="highest"), 3)
+        h = modeling._linear_bias(x, scorer.params["W_enc"], scorer.params["b_enc"], "highest")
+    log(f"tdiscovery scorer: transform {statistics.median(sc['transform_ms']):.1f} ms a batch of {TD['batch']} rows "
+        f"(median of {TD['scorer_batches']}: upload, forward, f_x's {TD['batch'] * TD['d_sae'] * 4 / 2**30:.0f} GiB "
+        f"copy to the host), the forward alone {fwd_ms:.2f} ms (CUDA events, mean of 3); f_x bit for bit the "
+        f"forward with K6's plain version; K6 launched {launches['kth_value']} times in the phase (the scorer's "
+        f"{TD['scorer_batches']} batches, FishVista's sae scoring), no plain version")
+    kth = cuda_kth.kth_value_cuda(h, TOP_K)
+    row = timed(_time(lambda: cuda_kth.kth_value_cuda(h, TOP_K), 20), _time(lambda: topk._kth_plain(h, TOP_K), 3),
+                _selection_bound(h, kth), library_kth_ms(h, TOP_K, "the scorer's h"))
+    log_timing("kth_value", row, f" on the scorer's h {tuple(h.shape)}, k {TOP_K}")
+    sc["forward_ms"] = fwd_ms
+    log(f"tdiscovery k-means step at {TD['batch']} x {TD['d_model']} x {TD['kmeans_k']}: {km['step_ms']:.2f} ms "
+        f"(CUDA events, mean of 5); inertia {km['inertia_rel']:.3g} relative from float64 distances on the card "
+        f"(bound {TD_INERTIA_REL}); {100 * km['off_argmin']:.3f}% of assignments off the float64 argmin; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del scorer, x, h, kth
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["kth_value"] = row
+    return out
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4315,9 +4750,11 @@ def main() -> int:
         multi_counts = phase_multi(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    td_counts = phase_tdiscovery()["launches"]
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + interp_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k]
-                + multi_counts[k]
+                + multi_counts[k] + td_counts[k]
                 for k in KERNELS}
     # K7 runs on the multi path (feature-parallel training); the other bench
     # kernels only in the benches phase.
@@ -4333,6 +4770,7 @@ def main() -> int:
                                ("muon", muon_counts, WARM_KERNELS + ("kth_value_masked",)),
                                ("high", high_counts, ("kth_value", "kth_value_masked")),
                                ("multi", multi_counts, JOB_KERNELS + ("grouped_prefix_base",)),
+                               ("tdiscovery", td_counts, TD_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

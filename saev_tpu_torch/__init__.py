@@ -8,7 +8,9 @@ the loop, the log-step metrics, and the training job around them
 datapoint init, step checkpoints, eval on the multi-prefix decode, SAE files),
 inference (`framework.inference`) and activation extraction
 (`framework.shards`: the ViT engine and model families of `models/`, the
-datasets and the extraction worker of `data/`), on plain PyTorch tensors,
+datasets and the extraction worker of `data/`), interpretation and trait
+discovery (`tdiscovery`), with `python -m saev_tpu_torch` for launch.py's
+subcommands, on plain PyTorch tensors,
 with the TPU's Pallas kernels written again as CUDA C++ for Hopper (`csrc/`,
 built by `ops/_build.py`). It imports `torch` and never `jax`.
 """

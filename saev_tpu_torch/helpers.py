@@ -1,8 +1,8 @@
 """Shared utilities: the cache directory, filesystem-safe names, progress
 logging, JSON dumps, dotted-dict access and flattening, batching math,
-hashing, and top-k over numpy arrays and scipy sparse matrices (saev_tpu/
-helpers.py but its Slurm helpers, copied so the port imports nothing of the
-JAX package).
+hashing, top-k over numpy arrays and scipy sparse matrices, and Slurm
+introspection and array-aware job submission (saev_tpu/helpers.py, copied so
+the port imports nothing of the JAX package).
 
 Functional parity with the reference's `src/saev/helpers.py` (see file:line citations on
 each function), implemented without orjson/beartype dependencies.
@@ -37,6 +37,9 @@ __all__ = [
     "np_topk",
     "csr_topk",
     "NumpyTopK",
+    "get_slurm_max_array_size",
+    "get_slurm_job_count",
+    "submit_job_array",
 ]
 
 
@@ -368,3 +371,83 @@ def csr_topk(arr, k: int, axis: int, batch_size: int = 4096) -> NumpyTopK:
         return _csr_topk_axis1(arr, k, batch_size)
     else:
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+
+
+# ---------------------------------------------------------------------------
+# Slurm introspection + array-aware batch submission (saev_tpu/helpers.py:372-453,
+# reference helpers.py:227-411). Host-only.
+# ---------------------------------------------------------------------------
+
+
+def get_slurm_max_array_size(default: int = 1000) -> int:
+    """MaxArraySize from `scontrol show config`; `default` when not on Slurm
+    (reference helpers.py:296-331)."""
+    logger = logging.getLogger("helpers.slurm")
+    try:
+        result = subprocess.run(
+            ["scontrol", "show", "config"], capture_output=True, text=True, check=True
+        )
+        match = re.search(r"MaxArraySize\s*=\s*(\d+)", result.stdout)
+        if match:
+            return int(match.group(1))
+        logger.warning("Could not find MaxArraySize; using default %d.", default)
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        logger.info("scontrol unavailable; assuming MaxArraySize=%d.", default)
+    return default
+
+
+def get_slurm_job_count() -> int:
+    """Number of queued/running jobs for the current user, counting array
+    elements individually (reference helpers.py:389-411). 0 off-Slurm."""
+    import getpass
+
+    try:
+        result = subprocess.run(
+            ["squeue", "-r", "-u", getpass.getuser(), "-h"],
+            capture_output=True, text=True, check=True,
+        )
+        return len([line for line in result.stdout.splitlines() if line.strip()])
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return 0
+
+
+def submit_job_array(
+    executor,
+    fn: tp.Callable,
+    args_list: list,
+    *,
+    logger: logging.Logger | None = None,
+    margin: float = 0.8,
+):
+    """Submit jobs in MaxArraySize-respecting batches; yields (index, result),
+    with None results for jobs that did not finish (reference helpers.py:227-292)."""
+    try:
+        from submitit.core.utils import UncompletedJobError
+    except ImportError:
+        class UncompletedJobError(Exception):
+            """Sentinel that never matches: without submitit, job exceptions
+            must propagate rather than be swallowed as 'did not finish'."""
+
+    arr_size = max(int(get_slurm_max_array_size() * margin), 1)
+    n_total = len(args_list)
+
+    for arr_start, arr_end in batched_idx(n_total, arr_size):
+        batch_args = args_list[arr_start:arr_end]
+        if logger:
+            logger.info(
+                "Submitting batch of %d jobs (%d-%d of %d).",
+                len(batch_args), arr_start + 1, arr_end, n_total,
+            )
+        with executor.batch():
+            jobs = [executor.submit(fn, arg) for arg in batch_args]
+        time.sleep(getattr(executor, "_saev_sleep_s", 5.0))
+        for i, job in enumerate(jobs):
+            global_idx = arr_start + i
+            try:
+                yield global_idx, job.result()
+            except UncompletedJobError:
+                if logger:
+                    logger.warning(
+                        "Job %s (%d) did not finish.", job.job_id, global_idx
+                    )
+                yield global_idx, None

@@ -1,0 +1,25 @@
+"""Trait discovery on PyTorch tensors (counterpart of contrib/trait_discovery/
+src/tdiscovery): sparse 1-D logistic probes for every (latent, class) pair
+(`probe1d`), dictionary baselines (`baselines`: k-means, semi-NMF, PCA,
+random directions), the SAE scorer (`saes`), average precision and purity
+(`metrics`) and the FishVista evaluation (`fishvista`).
+
+    python -m saev_tpu_torch.tdiscovery {probe1d,baseline::train,baseline::inference,metrics} ...
+
+The device work (the probe's Levenberg-Marquardt iterations over CSR events,
+the k-means step, the semi-NMF encode, the SAE forward with kernel K6) runs
+on the card unless the caller passes `device="cpu"` (`--device cpu`)."""
+
+import torch
+
+
+def device_of(name: str) -> torch.device:
+    """`name` as a torch device; raises where it names the card and torch
+    sees none, so nothing falls back to the CPU unasked."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'trait discovery runs on device "{name}" and torch sees no CUDA device; '
+            'pass device="cpu" (--device cpu) to run it on the CPU'
+        )
+    return device

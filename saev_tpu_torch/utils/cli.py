@@ -10,6 +10,8 @@ this environment, so this module implements the same surface on argparse:
 - union-of-dataclasses fields are selected with a bare `path.to.field:choice`
   token (choice = kebab-case class name), then that branch's fields are exposed
 - scalars: int/float/str/bool/Path/Literal/tuple/list, plus `T | None`
+- an optional dataclass field (`Config | None = None`) stays None unless
+  `path.to.field:choice` selects its dataclass
 - `--help` prints all flags with the field docstrings' first lines where cheap
 
 Public API: `parse(cls, args) -> instance`, `run(fns, args)` for subcommand
@@ -149,6 +151,10 @@ def _collect_leaves(
                 else:
                     chosen = union[0]
                 selections[path] = chosen
+            if chosen is type(None):
+                # An optional config left at its default None: no flags
+                # until `path:choice` selects one of its dataclasses.
+                continue
             leaves.extend(_collect_leaves(chosen, path, selections))
         elif _is_dataclass_type(t):
             leaves.extend(_collect_leaves(t, path, selections))

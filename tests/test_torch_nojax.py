@@ -3,7 +3,8 @@ pandas, scikit-learn, matplotlib and the JAX package (saev_tpu) blocked: the
 machine with the card has no JAX (and maybe no Pillow, pandas, scikit-learn
 or matplotlib). The library surface that reads a run (the `nn` names,
 `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the schedulers), Muon's
-and "high"'s code and the interpretation layer's colormap run there too."""
+and "high"'s code, the interpretation layer's colormap and trait discovery's
+probe fit and memory plan run there too."""
 
 import pathlib
 import subprocess
@@ -45,6 +46,13 @@ assert train._newton_schulz(torch.eye(4)[None]).shape == (1, 4, 4)
 assert torch.equal(modeling.matmul(torch.eye(3), torch.eye(3), "high"), torch.eye(3))
 from saev_tpu_torch import viz
 assert viz.colormap([0.0, 1.0]).shape == (2, 4) and viz.parse_color("#ff0000") == (1.0, 0.0, 0.0)
+from saev_tpu_torch.tdiscovery import probe1d
+x = scipy.sparse.csr_matrix(np.array([[1.0, 0.0], [0.0, 2.0], [1.5, 0.0], [0.0, 0.0]], dtype=np.float32))
+y = np.array([[1.0], [0.0], [1.0], [0.0]], dtype=np.float32)
+probe = probe1d.Sparse1DProbe(n_latents=2, n_classes=1, max_iter=5, device="cpu").fit(x, y)
+assert np.isfinite(probe.coef_).all() and probe.coef_[0, 0] > 0
+assert probe1d.plan_memory(n_latents=16384, n_classes=10, nnz=1 << 25, n_samples=1 << 20,
+                           max_class_slab=8).class_slab_size == 8
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -88,6 +96,16 @@ INTERPRET_MODULES = {
 }
 
 
+# Trait discovery, the launchers and the Slurm helpers' module, each imported
+# with the blocked packages above.
+TDISCOVERY_MODULES = {
+    "saev_tpu_torch.__main__", "saev_tpu_torch.scripts.activations", "saev_tpu_torch.tdiscovery",
+    "saev_tpu_torch.tdiscovery.__main__", "saev_tpu_torch.tdiscovery.probe1d", "saev_tpu_torch.tdiscovery.baselines",
+    "saev_tpu_torch.tdiscovery.saes", "saev_tpu_torch.tdiscovery.metrics", "saev_tpu_torch.tdiscovery.fishvista",
+    "saev_tpu_torch.tdiscovery.fishvista.utils", "saev_tpu_torch.tdiscovery.fishvista.evaluation",
+}
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
@@ -95,9 +113,10 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # The subpackages and their modules: 41 since the training job, 44 since
     # inference, 57 since extraction, 58 since indexed, 72 since the
-    # interpretation layer.
-    assert int(proc.stdout.split()[-1]) >= 72
+    # interpretation layer, 83 since trait discovery.
+    assert int(proc.stdout.split()[-1]) >= 83
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
     assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])
     assert INTERPRET_MODULES <= set(proc.stdout.split()[:-1])
+    assert TDISCOVERY_MODULES <= set(proc.stdout.split()[:-1])
