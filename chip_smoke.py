@@ -1,6 +1,7 @@
 """Drive the PyTorch port's production SAE train step, one training job
-around it, inference, extraction, interpretation and trait discovery after
-it, on one CUDA card (and its multi-process training on two ranks).
+around it, inference, extraction, interpretation, trait discovery and
+interactive interpretability after it, on one CUDA card (and its
+multi-process training on two ranks).
 
     python3 chip_smoke.py
 
@@ -333,10 +334,38 @@ script exits non-zero:
                 assignments off the float64 argmin, ms a step. K6 launched
                 once a scored batch and nothing else, no plain version.
 
+20. interactive_interp -- contrib's interactive interpretability at
+                ViT-L/14 width (d_model 1024, 256 tokens an image, ADE20K's
+                151 classes), in a temporary root that it removes: labelled
+                shards of the port's writer (512 train images, 256 val
+                images: 4 ordered batches of 16384), a schema-5 TopK-32 SAE
+                at d_sae 16384 whose first 302 latents read and write the
+                clusters the tokens are drawn around. (a) semseg: `train`
+                of 6 probes (3 lr x 2 wd) at batch 4096 over 131072 tokens,
+                each probe's loss falling from the first step to the last,
+                and the `train` subcommand; `validate` (host numpy) on 8
+                images; `visuals`; `quantify` with all three methods, twice,
+                the same CSV; `interactive` (8 examples). (b) semprobe
+                `score` on 64 images, two tasks. (c) the [CLS] probe grid
+                (2 lr x 2 wd, a TOML sweep) on [CLS] shards of an image
+                folder of 3 classes. (d) FishVista's `supervised` grid at
+                its 10 classes. (e) birdsong's `trace_report(out_dir=None)`
+                on a random Bird-MAE-Large checkpoint with channel 295
+                planted, 2 clips: found on the card and on the CPU, the
+                card's dominance and channel means within BF16_REL of the
+                CPU's. K6 launched exactly as the encodes call it (one a
+                batch, one an embedded example), no plain version; a
+                batch's f_x within 1e-4 relative MSE of the CPU's f32
+                forward on its first 2048 rows. Logs each step's seconds,
+                the probe step's ms, an encode batch's ms split into K6 and
+                the rest, and K6 at 16384 x 16384 and 256 x 16384 against
+                its plain version, the library and its bound, each beside
+                the card's name and power limit.
+
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
-counts, summed; tdiscovery): every count is set to 0 just before the path and read just
-after.
+counts, summed; tdiscovery; interactive_interp): every count is set to 0 just before
+the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -534,14 +563,19 @@ def kth_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def card_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = card_and_limit()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4702,6 +4736,401 @@ def phase_tdiscovery() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# interactive_interp: semseg probes, interventions, semprobe, the [CLS] probe
+# grid, FishVista's supervised skyline and Bird-MAE's channel trace
+# ---------------------------------------------------------------------------
+
+# ViT-L/14 width with ADE20K's 151 classes: 512 train and 256 val images of
+# 256 content tokens (the val split is 4 ordered batches of 16384), a TopK-32
+# SAE at d_sae 16384 whose first `clusters` latents read and write the
+# clusters the tokens are drawn around; the probe grid 3 lr x 2 wd at batch
+# 4096 over 131072 tokens.
+II = dict(d_model=D_MODEL, tokens=256, n_classes=151, train_images=512, val_images=256, batch=B, d_sae=D_SAE,
+          top_k=TOP_K, probe_batch=4096, clusters=302, lrs=(1e-4, 3e-4, 1e-3), wds=(1e-4, 1e-3),
+          semprobe_images=64, validate_images=8, examples=8, fv_classes=10, fv_train_images=64, fv_test_images=32,
+          fv_batch=4096, cls_classes=3, cls_train=32, cls_val=16, ref_rows=2048, clips=2, bad_channel=295)
+II_KERNELS = ("kth_value",)
+II_REL_MSE = INTERP_REL_MSE  # a batch's f_x on the card against the CPU's f32 forward
+
+
+def _ii_sae(dims: dict, device: str, root: pathlib.Path, centers: np.ndarray) -> pathlib.Path:
+    """A schema-5 TopK SAE file at (d_model, d_sae), random from a seed but
+    for its first `clusters` latents: encoder column and decoder row j the
+    unit direction of centre j."""
+    from saev_tpu_torch.nn import modeling, serialize
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=dims["d_model"], d_sae=dims["d_sae"],
+                                           activation=modeling.TopK(top_k=dims["top_k"]))
+    params, state = modeling.init(cfg, torch.Generator(device).manual_seed(SEED + 50), device=device)
+    unit = torch.from_numpy(centers / np.linalg.norm(centers, axis=1, keepdims=True)).to(device)
+    params["W_enc"][:, : len(centers)] = unit.T
+    params["W_dec"][: len(centers)] = unit
+    fpath = root / "sae.pt"
+    serialize.dump(fpath, cfg, params, state)
+    return fpath
+
+
+def _ii_images(root: pathlib.Path, n_classes: int, n_per: int, seed: int) -> pathlib.Path:
+    """An image folder of n_classes x n_per 8 x 8 PNGs."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(n_classes):
+        (root / f"class{c}").mkdir(parents=True)
+        for i in range(n_per):
+            Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(root / f"class{c}" / f"{i}.png")
+    return root
+
+
+def _ii_cls_shards(root: pathlib.Path, images: pathlib.Path, dims: dict, n_per: int, centers: np.ndarray,
+                   seed: int) -> pathlib.Path:
+    """[CLS] shards over `images` (its ImgFolder config in the metadata):
+    each example's [CLS] row its class's centre plus unit noise, the content
+    rows noise."""
+    from saev_tpu_torch.data import datasets, shards
+
+    n, tokens, d_model = dims["cls_classes"] * n_per, dims["tokens"], dims["d_model"]
+    md = shards.Metadata(
+        family="clip", ckpt="random", layers=(0,), content_tokens_per_example=tokens, cls_token=True,
+        d_model=d_model, n_examples=n, max_tokens_per_shard=(tokens + 1) * 64,
+        data=shards.encode_dataset_cfg(datasets.ImgFolder(root=images)), dataset=images,
+    )
+    md.dump(root)
+    rng = np.random.default_rng(seed)
+    with shards.ShardWriter(root, md) as writer:
+        for start in range(0, n, 32):
+            m = min(32, n - start)
+            acts = rng.standard_normal((m, 1, tokens + 1, d_model), dtype=np.float32)
+            acts[:, 0, 0] += centers[(start + np.arange(m)) // n_per]
+            writer.write_batch(acts, start)
+    return root / md.hash
+
+
+@contextlib.contextmanager
+def _ii_step_spy(seen: dict):
+    """Each semseg probe step's losses and ms (CUDA events on the card)."""
+    from saev_tpu_torch.interactive_interp.semseg import training
+
+    real = training._make_step
+
+    def make(n_classes):
+        step = real(n_classes)
+
+        def spy(params, *a):
+            cuda = params["w"].is_cuda
+            if cuda:
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+            out = step(params, *a)
+            if cuda:
+                t1.record()
+                seen["events"].append((t0, t1))
+            seen["losses"].append(out[2].cpu().numpy())
+            return out
+
+        return spy
+
+    training._make_step = make
+    try:
+        yield seen
+    finally:
+        training._make_step = real
+        if seen["events"]:
+            torch.cuda.synchronize()
+        seen["ms"] = [t0.elapsed_time(t1) for t0, t1 in seen.pop("events")]
+
+
+def _ii_timed(out: dict, name: str, fn):
+    t0 = time.perf_counter()
+    res = fn()
+    out.setdefault("seconds", {})[name] = time.perf_counter() - t0
+    return res
+
+
+def _ii_semseg(dims: dict, device: str, root: pathlib.Path, out: dict) -> dict:
+    """(a) the probe grid, validate, visuals, quantify twice, the
+    intervention app."""
+    from saev_tpu_torch.data import OrderedConfig
+    from saev_tpu_torch.interactive_interp.semseg import __main__ as semseg_main
+    from saev_tpu_torch.interactive_interp.semseg import interactive, quantitative, training, validation, visuals
+
+    sh = out["shards"]
+    ordered = lambda d, b=dims["batch"]: OrderedConfig(shards=d, layer=0, batch_size=b)  # noqa: E731
+    cfgs = [training.Train(shards=sh["train"], layer=0, n_classes=dims["n_classes"], learning_rate=lr,
+                           weight_decay=wd, n_train=dims["train_images"] * dims["tokens"],
+                           batch_size=dims["probe_batch"], seed=SEED, ckpt_path=root / "probes", device=device)
+            for lr in dims["lrs"] for wd in dims["wds"]]
+    require(cfgs[0].device == device and training.Train().device == "cuda", "semseg: Train's device")
+    seen = {"events": [], "losses": []}
+    with _ii_step_spy(seen):
+        params = _ii_timed(out, "semseg train", lambda: training.train(cfgs))
+    training.dump(cfgs[0].ckpt_path, cfgs, params)
+    losses = np.stack(seen["losses"])
+    n_steps = -(-cfgs[0].n_train // cfgs[0].batch_size)
+    require(losses.shape == (n_steps, len(cfgs)) and bool(np.isfinite(losses).all())
+            and bool((losses[-1] < losses[0]).all()) and params["w"].shape == (len(cfgs), dims["d_model"],
+                                                                               dims["n_classes"]),
+            f"semseg train: losses {losses.shape}, first {losses[0]}, last {losses[-1]}")
+    out["probe_losses"], out["probe_step_ms"] = losses, seen["ms"]
+    # One probe through the CLI's subcommand, in-process.
+    semseg_main.train(dataclasses.replace(cfgs[-1], n_train=dims["probe_batch"], ckpt_path=root / "probe_cli"))
+    require((root / "probe_cli" / "probes.npz").exists(), "semseg train subcommand: no probes.npz")
+
+    rows = _ii_timed(out, "validate", lambda: validation.worker_fn(validation.Config(
+        probe_ckpt=cfgs[0].ckpt_path, acts=ordered(sh["validate"]), n_classes=dims["n_classes"],
+        dump_to=root / "validate")))
+    require(len(rows) == len(cfgs) and (root / "validate" / "validation.csv").exists()
+            and all(0 <= r["accuracy"] <= 1 for r in rows), f"validate: {rows}")
+    out["validate_best"] = rows[0]
+
+    proposals = _ii_timed(out, "visuals", lambda: visuals.worker_fn(visuals.Config(
+        sae_ckpt=sh["sae"], acts=ordered(sh["val"]), n_classes=dims["n_classes"], dump_to=root / "visuals",
+        device=device)))
+    require(len(proposals) > dims["n_classes"] // 2 and (root / "visuals" / "proposed_latents.json").exists(),
+            f"visuals: proposals for {len(proposals)} classes")
+    out["visuals_classes"] = len(proposals)
+
+    csvs, reports = [], None
+    for run in ("a", "b"):
+        reports = _ii_timed(out, f"quantify {run}", lambda run=run: quantitative.worker_fn(quantitative.Config(
+            sae_ckpt=sh["sae"], probe_ckpt=cfgs[0].ckpt_path, acts=ordered(sh["val"]), n_classes=dims["n_classes"],
+            dump_to=root / f"quantify_{run}", device=device)))
+        csvs.append((root / f"quantify_{run}" / "results.csv").read_text())
+    require(csvs[0] == csvs[1] and len(csvs[0].strip().splitlines()) == 4,
+            f"quantify: two runs give different CSVs\n{csvs[0]}\n{csvs[1]}")
+    out["quantify"] = {r.method: (round(r.mean_target_change, 4), round(r.mean_other_change, 4),
+                                  len(r.class_results)) for r in reports}
+    require(all(n > 0 and 0 <= t <= 1 and 0 <= o <= 1 for t, o, n in out["quantify"].values()),
+            f"quantify: (target change, other change, classes) {out['quantify']}")
+
+    page = _ii_timed(out, "interactive", lambda: interactive.worker_fn(interactive.Config(
+        sae_ckpt=sh["sae"], head_ckpt=cfgs[0].ckpt_path, acts=ordered(sh["val"]), n_classes=dims["n_classes"],
+        n_examples=dims["examples"], sparsity_max=0.05, out=root / "app.html", device=device)))
+    payload = json.loads(page.read_text().split("const D = ", 1)[1].split(";\nconst P = ", 1)[0])
+    require(len(payload["examples"]) == dims["examples"] and payload["candidates"]
+            and len(payload["examples"][0]["fx"]) == dims["tokens"], "interactive: the payload")
+    out["interactive_candidates"] = len(payload["candidates"])
+    return out
+
+
+def _ii_semprobe_cls_fv(dims: dict, device: str, root: pathlib.Path, out: dict) -> dict:
+    """(b) semprobe's score, (c) the [CLS] probe grid, (d) FishVista's
+    supervised grid."""
+    from saev_tpu_torch.data import OrderedConfig
+    from saev_tpu_torch.interactive_interp.classification import __main__ as cls_main
+    from saev_tpu_torch.interactive_interp.semprobe import scoring
+    from saev_tpu_torch.tdiscovery.fishvista import supervised
+
+    sh = out["shards"]
+    n = dims["semprobe_images"]
+    labels = tuple(f"{'spots' if i % 2 else 'stripes'}-{'positive' if (i // 2) % 3 else 'negative'}" for i in range(n))
+    res = _ii_timed(out, "semprobe score", lambda: scoring.score(scoring.Score(
+        sae_ckpt=sh["sae"], shards=sh["semprobe"], labels=labels, threshold=1.0, dump_to=root / "semprobe",
+        device=device)))
+    require(set(res) == {"spots", "stripes"} and all(r["n_images"] == n // 2 for r in res.values())
+            and (root / "semprobe" / "semprobe_scores.json").exists(), f"semprobe: {res}")
+    out["semprobe_best_f1"] = {k: v["best_f1"] for k, v in res.items()}
+
+    sweep = root / "cls_sweep.toml"
+    sweep.write_text("learning_rate = [1e-3, 1e-4]\nweight_decay = [1e-4, 1e-3]\n")
+    cls_cfg = cls_main.training.Train(train_shards=sh["cls_train"], val_shards=sh["cls_val"], layer=0,
+                                      ckpt_path=root / "cls", device=device)
+    _ii_timed(out, "classification train", lambda: cls_main.train(cls_cfg, sweep=sweep))
+    report = json.loads((root / "cls" / "report.json").read_text())
+    accs = [r["val_accuracy"] for r in report]
+    require(len(report) == 4 and max(accs) > 1 / dims["cls_classes"], f"classification: val accuracies {accs}")
+    out["cls_accuracy"] = accs
+
+    ordered = lambda d: OrderedConfig(shards=d, layer=0, batch_size=dims["batch"])  # noqa: E731
+    fv = _ii_timed(out, "fishvista supervised", lambda: supervised.worker_fn(supervised.Config(
+        train_acts=ordered(sh["fv_train"]), test_acts=ordered(sh["fv_test"]), n_classes=dims["fv_classes"],
+        n_train=dims["fv_train_images"] * dims["tokens"], batch_size=dims["fv_batch"], dump_to=root / "fishvista",
+        seed=SEED, device=device)))
+    require(fv["n_probes"] == 6 and len(fv["best"]["ap_per_class"]) == dims["fv_classes"]
+            and np.isfinite(fv["best"]["mean_ap"]), f"fishvista supervised: {fv['best']}")
+    out["fv_map"] = fv["best"]["mean_ap"]
+    return out
+
+
+def _ii_shards(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """Every input of the phase, from seeds: the labelled shards, the SAE,
+    the image folders and their [CLS] shards."""
+    shards_root = root / "saev" / "shards"
+    shards_root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 51)
+    centers = (2 * rng.standard_normal((dims["clusters"], dims["d_model"]))).astype(np.float32)
+    tok = dict(patch_tokens=dims["tokens"], d_model=dims["d_model"], n_classes=dims["n_classes"])
+    sh = {name: _td_shards(shards_root, dims[f"{name}_images"], tok, centers, SEED + 52 + i)
+          for i, name in enumerate(("train", "val", "semprobe", "validate"))}
+    fv_tok = dict(tok, n_classes=dims["fv_classes"])
+    sh["fv_train"] = _td_shards(shards_root, dims["fv_train_images"], fv_tok, centers, SEED + 56)
+    sh["fv_test"] = _td_shards(shards_root, dims["fv_test_images"], fv_tok, centers, SEED + 57)
+    sh["sae"] = _ii_sae(dims, device, root, centers)
+    cls_centers = (2 * rng.standard_normal((dims["cls_classes"], dims["d_model"]))).astype(np.float32)
+    for split, n_per, seed in (("cls_train", dims["cls_train"], SEED + 58), ("cls_val", dims["cls_val"], SEED + 59)):
+        images = _ii_images(root / "images" / split, dims["cls_classes"], n_per, seed)
+        sh[split] = _ii_cls_shards(shards_root, images, dims, n_per, cls_centers, seed)
+    return sh
+
+
+def _ii_encodes(dims: dict) -> int:
+    """K6 launches of the phase's encodes: one a batch of 16384 rows; the
+    f_x check's batch; visuals' pass over val; quantify's two passes (an
+    encode a batch for the statistics, one for the interventions); the
+    intervention app's aggregate batch (its 8192-token budget) and its
+    examples; semprobe's batches of whole images."""
+    per = lambda n_images, batch: -(-n_images * dims["tokens"] // batch)  # noqa: E731
+    val = per(dims["val_images"], dims["batch"])
+    agg = min(val, -(-8192 // dims["batch"]))
+    semprobe_batch = max(2048 // dims["tokens"] * dims["tokens"], dims["tokens"])
+    return 1 + val + 2 * 2 * val + agg + dims["examples"] + per(dims["semprobe_images"], semprobe_batch)
+
+
+def _ii_trace(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """(e) `trace_report(out_dir=None)` on a random Bird-MAE-Large checkpoint
+    (the extract phase's) with channel `bad_channel` planted in the patch
+    embedding's bias, on `clips` random clips: on `device` and on the CPU."""
+    from saev_tpu_torch.birdsong import trace
+    from saev_tpu_torch.models import bird_mae, convert, vit
+    from saev_tpu_torch.scripts import vit_route
+
+    spec = bird_mae.PRETRAINED_SPECS["Bird-MAE-Large"]
+    # The extract phase's checkpoint, converted as loading converts it.
+    params, pos = convert.from_timm(vit_route.bird_mae_state_dict(spec, torch.Generator().manual_seed(SEED + 60)),
+                                    spec)
+    params["pos"] = bird_mae.pos_table(spec.d_model) if pos is None else pos
+    model = bird_mae.Transformer("Bird-MAE-Large", params=params, device=device)
+    model.params["patch_embed"]["b"][dims["bad_channel"]] = 50.0
+    cpu = bird_mae.Transformer("Bird-MAE-Large", params=vit.to_device(model.params, "cpu"), device="cpu")
+    tokens = np.random.default_rng(SEED + 61).normal(size=(dims["clips"], bird_mae.N_PATCHES, 256)).astype(np.float32)
+    grid = (bird_mae.N_TIME_PATCHES, bird_mae.N_MEL_PATCHES)
+    t0 = time.perf_counter()
+    got = trace.trace_report(model, tokens, grid)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = trace.trace_report(cpu, tokens, grid)
+    t_cpu = time.perf_counter() - t0
+    require(got["channel"] == want["channel"] == dims["bad_channel"] and got["n_layers"] == spec.n_layers,
+            f"birdsong trace: channel {got['channel']} on {device}, {want['channel']} on the CPU, planted "
+            f"{dims['bad_channel']}")
+    errs = {}
+    for key in ("dominance_by_site", "chan_mean"):
+        for site in trace.SITES:
+            a, b = np.asarray(got[key][site], np.float64), np.asarray(want[key][site], np.float64)
+            errs[f"{key} {site}"] = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= BF16_REL, f"birdsong trace: {worst} {errs[worst]} from the CPU's (bound {BF16_REL})")
+    dom = np.asarray(got["dominance_by_site"]["resid"])
+    require(bool((dom > 10).all()), f"birdsong trace: resid dominance {dom.min()}")
+    return {"seconds": t_dev, "cpu_seconds": t_cpu, "worst": (worst, errs[worst]), "dominance_min": float(dom.min())}
+
+
+def run_interactive_interp(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """The interactive_interp phase's path at `dims` (module doc, phase 20):
+    (a) semseg, (b) semprobe, (c) classification, (d) FishVista's supervised
+    grid on `device`; (e) the channel trace. The CPU runs it too, at small
+    `dims`. Returns what it logs, and the f_x check's batch (card encode,
+    its rows) for the CPU reference, which runs after."""
+    from saev_tpu_torch import nn
+    from saev_tpu_torch.data import OrderedConfig, OrderedDataLoader
+    from saev_tpu_torch.interactive_interp.semseg import quantitative
+
+    out = {}
+    out["shards"] = _ii_timed(out, "shards", lambda: _ii_shards(dims, device, root))
+    cfg, params, state = nn.load(out["shards"]["sae"], device=device)
+    dl = OrderedDataLoader(OrderedConfig(shards=out["shards"]["val"], layer=0, batch_size=dims["batch"]))
+    try:
+        x = np.asarray(next(iter(dl))["act"], np.float32)
+    finally:
+        dl.shutdown()
+    with torch.no_grad():
+        f = quantitative.encode_f(cfg, params, state, torch.from_numpy(x).to(device))
+    out["fx_check"] = (x[: dims["ref_rows"]], f[: dims["ref_rows"]].cpu())
+    _ii_semseg(dims, device, root, out)
+    _ii_semprobe_cls_fv(dims, device, root, out)
+    out["trace"] = _ii_timed(out, "birdsong trace", lambda: _ii_trace(dims, device, root))
+    return out
+
+
+def phase_interactive_interp() -> dict:
+    """contrib's interactive interpretability on the card at ViT-L/14 width
+    (module doc, phase 20). Returns the path's launches (K6 in every SAE
+    encode) and K6's timing at the phase's two shapes."""
+    from saev_tpu_torch import nn
+    from saev_tpu_torch.data import OrderedConfig, OrderedDataLoader
+    from saev_tpu_torch.interactive_interp.semseg import quantitative
+    from saev_tpu_torch.nn import modeling
+    from saev_tpu_torch.ops import cuda_kth, topk
+
+    t_phase = time.perf_counter()
+    card = card_and_limit()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_interactive_interp_"))
+    try:
+        reset_counts()
+        with plain_spy() as plain:
+            out = run_interactive_interp(II, "cuda", root)
+        launches = counts()
+        require(not plain, f"interactive_interp: plain versions ran on the card: {plain}")
+        want = dict.fromkeys(KERNELS, 0) | {"kth_value": _ii_encodes(II)}
+        require(launches == want, f"interactive_interp: launches {launches}, expected {want}")
+        # The f_x check: the card's batch against the CPU's f32 forward on its first rows.
+        x, f_card = out.pop("fx_check")
+        cfg, params, state = nn.load(out["shards"]["sae"], device="cpu")
+        with torch.no_grad():
+            f_cpu = quantitative.encode_f(cfg, params, state, torch.from_numpy(x))
+        rel_mse = float(((f_card - f_cpu) ** 2).sum() / (f_cpu**2).sum())
+        require(rel_mse <= II_REL_MSE, f"interactive_interp: f_x {rel_mse:.3g} relative MSE from the CPU's")
+        # An encode batch's ms split into the whole encode, K6 and the rest;
+        # K6 at the phase's two shapes against its plain version, the library
+        # and its bound.
+        cfg, params, state = nn.load(out["shards"]["sae"], device="cuda")
+        dl = OrderedDataLoader(OrderedConfig(shards=out["shards"]["val"], layer=0, batch_size=II["batch"]))
+        try:
+            xb = torch.from_numpy(np.asarray(next(iter(dl))["act"], np.float32)).cuda()
+        finally:
+            dl.shutdown()
+        with torch.no_grad():
+            enc_ms = _time(lambda: quantitative.encode_f(cfg, params, state, xb), 5)
+            rows = {}
+            for what, h in (("batch", modeling._linear_bias(xb, params["W_enc"], params["b_enc"], "highest")),
+                            ("example", modeling._linear_bias(xb[: II["tokens"]], params["W_enc"], params["b_enc"],
+                                                              "highest"))):
+                kth = cuda_kth.kth_value_cuda(h, TOP_K)
+                rows[what] = timed(_time(lambda h=h: cuda_kth.kth_value_cuda(h, TOP_K), 20),
+                                   _time(lambda h=h: topk._kth_plain(h, TOP_K), 3), _selection_bound(h, kth),
+                                   library_kth_ms(h, TOP_K, f"the interactive_interp {what}'s h"))
+                log_timing("kth_value", rows[what], f" on the interactive_interp {what}'s h {tuple(h.shape)}, k "
+                                                     f"{TOP_K} ({card})")
+            del h, kth
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    k6 = rows["batch"]["ms"]
+    sec = out["seconds"]
+    log(f"interactive_interp ({card}): " + "; ".join(f"{k} {v:.2f} s" for k, v in sec.items()))
+    log(f"interactive_interp semseg ({card}): {len(II['lrs']) * len(II['wds'])} probes, "
+        f"{len(out['probe_step_ms'])} steps at batch {II['probe_batch']}, a step {statistics.median(out['probe_step_ms']):.3f} "
+        f"ms median ({min(out['probe_step_ms']):.3f}-{max(out['probe_step_ms']):.3f}, CUDA events), losses "
+        f"{np.round(out['probe_losses'][0], 3).tolist()} -> {np.round(out['probe_losses'][-1], 3).tolist()}; "
+        f"validate best {out['validate_best']}; visuals proposed latents for {out['visuals_classes']} classes; "
+        f"quantify (target change, other change, classes) {out['quantify']}, the same CSV twice; the app "
+        f"{out['interactive_candidates']} candidate latents")
+    log(f"interactive_interp encode ({card}): a batch of {II['batch']} rows at d_sae {II['d_sae']} {enc_ms:.3f} ms "
+        f"(CUDA events, mean of 5) = K6 {k6:.3f} + the rest {enc_ms - k6:.3f} (the f32 encoder product, TF32 off, "
+        f"and the mask); f_x {rel_mse:.3g} relative MSE from the CPU's f32 forward on {II['ref_rows']} rows (bound "
+        f"{II_REL_MSE}); K6 launched {launches['kth_value']} times in the phase, as its encodes call it, no plain "
+        f"version")
+    tr = out["trace"]
+    log(f"interactive_interp semprobe best F1 {out['semprobe_best_f1']}; classification val accuracies "
+        f"{out['cls_accuracy']}; fishvista supervised best mAP {out['fv_map']:.4f}; birdsong trace of "
+        f"Bird-MAE-Large on {II['clips']} clips, channel {II['bad_channel']} planted and found on the card and "
+        f"the CPU, resid dominance at least {tr['dominance_min']:.1f}, the worst of dominance and channel means "
+        f"{tr['worst'][0]} {tr['worst'][1]:.3g} rel-norm from the CPU's (bound {BF16_REL}), card {tr['seconds']:.2f} "
+        f"s, CPU {tr['cpu_seconds']:.2f} s; the phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "kth_value": rows, "encode_ms": enc_ms, "rel_mse": rel_mse}
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4752,9 +5181,11 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     td_counts = phase_tdiscovery()["launches"]
+    torch.cuda.empty_cache()
+    ii_counts = phase_interactive_interp()["launches"]
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + interp_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k]
-                + multi_counts[k] + td_counts[k]
+                + multi_counts[k] + td_counts[k] + ii_counts[k]
                 for k in KERNELS}
     # K7 runs on the multi path (feature-parallel training); the other bench
     # kernels only in the benches phase.
@@ -4771,6 +5202,7 @@ def main() -> int:
                                ("high", high_counts, ("kth_value", "kth_value_masked")),
                                ("multi", multi_counts, JOB_KERNELS + ("grouped_prefix_base",)),
                                ("tdiscovery", td_counts, TD_KERNELS),
+                               ("interactive_interp", ii_counts, II_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

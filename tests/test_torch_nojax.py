@@ -3,8 +3,9 @@ pandas, scikit-learn, matplotlib and the JAX package (saev_tpu) blocked: the
 machine with the card has no JAX (and maybe no Pillow, pandas, scikit-learn
 or matplotlib). The library surface that reads a run (the `nn` names,
 `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the schedulers), Muon's
-and "high"'s code, the interpretation layer's colormap and trait discovery's
-probe fit and memory plan run there too."""
+and "high"'s code, the interpretation layer's colormap, trait discovery's
+probe fit and memory plan, and the semseg probes' AdamW step run there
+too."""
 
 import pathlib
 import subprocess
@@ -53,6 +54,11 @@ probe = probe1d.Sparse1DProbe(n_latents=2, n_classes=1, max_iter=5, device="cpu"
 assert np.isfinite(probe.coef_).all() and probe.coef_[0, 0] > 0
 assert probe1d.plan_memory(n_latents=16384, n_classes=10, nnz=1 << 25, n_samples=1 << 20,
                            max_class_slab=8).class_slab_size == 8
+from saev_tpu_torch.interactive_interp.semseg import training as semseg_training
+params = {"w": torch.zeros(1, 2, 3), "b": torch.zeros(1, 3)}
+params, opt, losses = semseg_training.step(params, semseg_training.init_opt(params), torch.ones(4, 2),
+                                           torch.tensor([0, 1, 2, 1]), torch.tensor([0.1]), torch.tensor([0.0]))
+assert opt["count"] == 1 and abs(float(losses[0]) - float(np.log(3))) < 1e-6 and params["b"][0, 1] > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -106,6 +112,24 @@ TDISCOVERY_MODULES = {
 }
 
 
+# Interactive interpretability (semseg, semprobe, classification, the figure
+# assets), FishVista's supervised skyline and Bird-MAE's channel trace, each
+# imported with the blocked packages above.
+INTERACTIVE_INTERP_MODULES = {
+    "saev_tpu_torch.interactive_interp", "saev_tpu_torch.interactive_interp.semseg",
+    "saev_tpu_torch.interactive_interp.semseg.training", "saev_tpu_torch.interactive_interp.semseg.validation",
+    "saev_tpu_torch.interactive_interp.semseg.quantitative", "saev_tpu_torch.interactive_interp.semseg.visuals",
+    "saev_tpu_torch.interactive_interp.semseg.interactive", "saev_tpu_torch.interactive_interp.semseg.__main__",
+    "saev_tpu_torch.interactive_interp.semprobe", "saev_tpu_torch.interactive_interp.semprobe.scoring",
+    "saev_tpu_torch.interactive_interp.classification", "saev_tpu_torch.interactive_interp.classification.training",
+    "saev_tpu_torch.interactive_interp.classification.transforms",
+    "saev_tpu_torch.interactive_interp.classification.download",
+    "saev_tpu_torch.interactive_interp.classification.__main__", "saev_tpu_torch.interactive_interp.scripts",
+    "saev_tpu_torch.interactive_interp.scripts.make_figures", "saev_tpu_torch.tdiscovery.fishvista.supervised",
+    "saev_tpu_torch.birdsong", "saev_tpu_torch.birdsong.trace",
+}
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
@@ -113,10 +137,12 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # The subpackages and their modules: 41 since the training job, 44 since
     # inference, 57 since extraction, 58 since indexed, 72 since the
-    # interpretation layer, 83 since trait discovery.
-    assert int(proc.stdout.split()[-1]) >= 83
+    # interpretation layer, 83 since trait discovery, 103 since interactive
+    # interpretability and the channel trace.
+    assert int(proc.stdout.split()[-1]) >= 103
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
     assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])
     assert INTERPRET_MODULES <= set(proc.stdout.split()[:-1])
     assert TDISCOVERY_MODULES <= set(proc.stdout.split()[:-1])
+    assert INTERACTIVE_INTERP_MODULES <= set(proc.stdout.split()[:-1])
