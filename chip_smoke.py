@@ -167,9 +167,11 @@ script exits non-zero:
                 synthetic 300 x 260 PNG drawn with numpy, select "max", k 5:
                 K6 launched once (256 rows x 16384, TopK 32) and no plain
                 version, five 224 x 224 heatmaps, f_x bit for bit the same
-                forward with K6's plain version on the card and within
-                INTERP_REL_MSE relative MSE of the CPU's f32 SAE forward on
-                the same activations; logs what "filtered" selects, and by
+                forward with K6's plain version on the card and agreeing
+                with the CPU's f32 SAE forward on the same activations
+                (`topk_vs_cpu`: a latent kept on one side only is a tie
+                within the two products' rounding, and the other entries
+                are within INTERP_REL_MSE relative MSE); logs what "filtered" selects, and by
                 CUDA events the Recorder call, the SAE forward and the
                 host's compositing, cold (that run) and warm (a second
                 run), and K6 at the example's shape against its plain
@@ -355,17 +357,40 @@ script exits non-zero:
                 card's dominance and channel means within BF16_REL of the
                 CPU's. K6 launched exactly as the encodes call it (one a
                 batch, one an embedded example), no plain version; a
-                batch's f_x within 1e-4 relative MSE of the CPU's f32
-                forward on its first 2048 rows. Logs each step's seconds,
+                batch's f_x agreeing with the CPU's f32 forward on its
+                first 2048 rows (`topk_vs_cpu`, 1e-4). Logs each step's seconds,
                 the probe step's ms, an encode batch's ms split into K6 and
                 the rest, and K6 at 16384 x 16384 and 256 x 16384 against
                 its plain version, the library and its bound, each beside
                 the card's name and power limit.
 
+21. contrib_host -- contrib's host-side analysis on runs that the port's
+                inference writes on the card at ViT-L/14 width (d_model
+                1024, d_sae 16384, TopK 32), in a temporary root that it
+                removes: two splits of 64 images of 256 tokens (4 classes
+                named as Heliconius subspecies, labels.bin, an
+                ImgSegFolder of 8 x 8 PNGs as the shards' dataset), two runs
+                (the second one's latents the first's permuted), inference
+                at batch 4096 on both splits of both (K6 once a batch, 16
+                batches). Then on the host: the card's token_acts agreeing
+                with the CPU's f32 encode on 2048 rows (`topk_vs_cpu`,
+                1e-4);
+                cls::train where scikit-learn imports (else its ImportError,
+                and a nearest-mean linear head written in cls::train's
+                checkpoint format), cls::eval (accuracy at least 0.75) and
+                cls::audit (the planted latents grounded in their classes);
+                mimics' tasks, scoring on both runs (the same best
+                separations), consistency (1 with the permuted witness),
+                checkpoint discovery and the scores browser; clsview's and
+                the audit's frames (pandas), the audit battery where
+                matplotlib imports. Logs each step's wall seconds and K6's
+                launch count; its line before its last names the modules it
+                ran and those it could not import.
+
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
-counts, summed; tdiscovery; interactive_interp): every count is set to 0 just before
-the path and read just after.
+counts, summed; tdiscovery; interactive_interp; contrib_host): every count is set to 0
+just before the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -555,6 +580,55 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bitwise equal f32 tensors, -0.0 and +0.0 taken as one value (adding
     +0.0 turns -0.0 into +0.0 and leaves every other value as it is)."""
     return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
+
+
+def topk_vs_cpu(f_card, h_card, f_cpu, h_cpu) -> dict:
+    """A TopK forward's f_x on the card against the CPU's f32 forward of the
+    same rows, with each side's pre-activations h (numpy or CPU tensors of
+    one shape). The two products round apart, so a latent at a row's k-th
+    value may be kept on one side only. Such a swap is a tie and not another
+    selection when the latent's CPU pre-activation lies within 2 d of the
+    CPU's k-th kept value, d the row's largest |h_card - h_cpu|: each side's
+    k-th value moves by at most d, and so does each entry.
+
+    Returns the relative MSE over all entries ("rel_mse") and over those
+    both sides keep or both drop ("rel_agree"), the rows with another
+    support ("rows_swapped"), the largest swap gap over its bound 2 d
+    ("gap_ratio", 0 without a swap; above 1 is not a tie), and the kept
+    entries of f_card that differ from h_card ("h_mismatch"; 0 when h_card
+    is the product the card's forward thresholded)."""
+    f_card, h_card, f_cpu, h_cpu = (np.asarray(a, dtype=np.float64) for a in (f_card, h_card, f_cpu, h_cpu))
+    kept_card, kept_cpu = f_card != 0, f_cpu != 0
+    rel = lambda g, w: float(((g - w) ** 2).sum() / max((w**2).sum(), 1e-300))  # noqa: E731
+    agree = kept_card == kept_cpu
+    swap = ~agree
+    gap_ratio = 0.0
+    if swap.any():
+        kth_cpu = np.where(kept_cpu, h_cpu, np.inf).min(axis=1, keepdims=True)
+        bound = 2 * np.abs(h_card - h_cpu).max(axis=1, keepdims=True)
+        gap = np.abs(h_cpu - kth_cpu)
+        gap_ratio = float(np.max(np.where(swap, gap / np.maximum(bound, 1e-300), 0.0)))
+    return {"rel_mse": rel(f_card, f_cpu), "rel_agree": rel(f_card[agree], f_cpu[agree]),
+            "rows_swapped": int(swap.any(axis=1).sum()), "gap_ratio": gap_ratio,
+            "h_mismatch": int((kept_card & (f_card != h_card)).sum())}
+
+
+def require_topk_agrees(what: str, cmp: dict, bound: float) -> None:
+    """The card's f_x agrees with the CPU's (topk_vs_cpu's `cmp`): h_card is
+    the product the card thresholded, every swap is a tie, and the relative
+    MSE over the entries both sides keep or drop is within `bound`."""
+    require(cmp["h_mismatch"] == 0, f"{what}: {cmp['h_mismatch']} kept entries of f_x differ from the card's "
+                                    f"pre-activations recomputed at the same shape")
+    require(cmp["gap_ratio"] <= 1.0, f"{what}: a latent kept on one side only lies {cmp['gap_ratio']:.3g} times the "
+                                     f"rounding bound from the CPU's k-th value: another selection, not a tie")
+    require(cmp["rel_agree"] <= bound, f"{what}: f_x {cmp['rel_agree']:.3g} relative MSE from the CPU's f32 forward "
+                                       f"over the entries both keep or drop (bound {bound})")
+
+
+def topk_note(cmp: dict, bound: float) -> str:
+    return (f"{cmp['rel_agree']:.3g} relative MSE from the CPU's f32 forward over the entries both keep or drop "
+            f"(bound {bound}), {cmp['rel_mse']:.3g} over all; {cmp['rows_swapped']} rows with another TopK support, "
+            f"every swap a tie (gap at most {cmp['gap_ratio']:.3g} of the rounding bound)")
 
 
 def kth_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2626,13 +2700,14 @@ def phase_interpret(job: dict) -> dict:
                 "interpret: f_x differs from the forward with K6's plain version")
         cpu = serialize.load(sae_file, device="cpu")
         f_cpu, _ = example.sae_forward(*cpu, patch_acts)
-        f64, c64 = f_x.astype(np.float64), f_cpu.astype(np.float64)
-        rel_mse = float(((f64 - c64) ** 2).sum() / (c64 ** 2).sum())
-        support = int(((f_x != 0) != (f_cpu != 0)).sum())
-        require(rel_mse <= INTERP_REL_MSE, f"interpret: f_x against the CPU's f32 forward: relative MSE {rel_mse:.3g}"
-                f" > {INTERP_REL_MSE} ({support} entries differ in support)")
-        log(f"interpret: f_x bit for bit the forward with K6's plain version on the card; against the CPU's f32 "
-            f"forward relative MSE {rel_mse:.3g} ({support} of {f_x.size} entries differ in support)")
+        x = torch.from_numpy(patch_acts).cuda()
+        h = modeling._linear_bias(x, params["W_enc"], params["b_enc"], "highest")
+        with torch.no_grad():
+            h_cpu = modeling._linear_bias(torch.from_numpy(patch_acts), cpu[1]["W_enc"], cpu[1]["b_enc"], "highest")
+        cmp = topk_vs_cpu(f_x, h.cpu(), f_cpu, h_cpu)
+        require_topk_agrees("interpret", cmp, INTERP_REL_MSE)
+        log(f"interpret: f_x bit for bit the forward with K6's plain version on the card; "
+            f"{topk_note(cmp, INTERP_REL_MSE)}")
 
         # Cold (the run above) and warm (a second run) times of its parts.
         with _interp_spies(seen):
@@ -2644,8 +2719,6 @@ def phase_interpret(job: dict) -> dict:
               f"{INTERP_K} heatmaps)")
 
         # K6 at the example's shape: 256 rows x 16384, k 32.
-        x = torch.from_numpy(patch_acts).cuda()
-        h = modeling._linear_bias(x, params["W_enc"], params["b_enc"], "highest")
         kth = cuda_kth.kth_value_cuda(h, JOB["top_k"])
         row = timed(_time(lambda: cuda_kth.kth_value_cuda(h, JOB["top_k"]), 50),
                     _time(lambda: topk._kth_plain(h, JOB["top_k"]), 10), _selection_bound(h, kth),
@@ -5035,6 +5108,7 @@ def run_interactive_interp(dims: dict, device: str, root: pathlib.Path) -> dict:
     from saev_tpu_torch import nn
     from saev_tpu_torch.data import OrderedConfig, OrderedDataLoader
     from saev_tpu_torch.interactive_interp.semseg import quantitative
+    from saev_tpu_torch.nn import modeling
 
     out = {}
     out["shards"] = _ii_timed(out, "shards", lambda: _ii_shards(dims, device, root))
@@ -5045,8 +5119,10 @@ def run_interactive_interp(dims: dict, device: str, root: pathlib.Path) -> dict:
     finally:
         dl.shutdown()
     with torch.no_grad():
-        f = quantitative.encode_f(cfg, params, state, torch.from_numpy(x).to(device))
-    out["fx_check"] = (x[: dims["ref_rows"]], f[: dims["ref_rows"]].cpu())
+        xd = torch.from_numpy(x).to(device)
+        f = quantitative.encode_f(cfg, params, state, xd)
+        h = modeling._linear_bias(xd, params["W_enc"], params["b_enc"], "highest")
+    out["fx_check"] = (x[: dims["ref_rows"]], f[: dims["ref_rows"]].cpu(), h[: dims["ref_rows"]].cpu())
     _ii_semseg(dims, device, root, out)
     _ii_semprobe_cls_fv(dims, device, root, out)
     out["trace"] = _ii_timed(out, "birdsong trace", lambda: _ii_trace(dims, device, root))
@@ -5075,12 +5151,13 @@ def phase_interactive_interp() -> dict:
         want = dict.fromkeys(KERNELS, 0) | {"kth_value": _ii_encodes(II)}
         require(launches == want, f"interactive_interp: launches {launches}, expected {want}")
         # The f_x check: the card's batch against the CPU's f32 forward on its first rows.
-        x, f_card = out.pop("fx_check")
+        x, f_card, h_card = out.pop("fx_check")
         cfg, params, state = nn.load(out["shards"]["sae"], device="cpu")
         with torch.no_grad():
             f_cpu = quantitative.encode_f(cfg, params, state, torch.from_numpy(x))
-        rel_mse = float(((f_card - f_cpu) ** 2).sum() / (f_cpu**2).sum())
-        require(rel_mse <= II_REL_MSE, f"interactive_interp: f_x {rel_mse:.3g} relative MSE from the CPU's")
+            h_cpu = modeling._linear_bias(torch.from_numpy(x), params["W_enc"], params["b_enc"], "highest")
+        fx_cmp = topk_vs_cpu(f_card, h_card, f_cpu, h_cpu)
+        require_topk_agrees("interactive_interp", fx_cmp, II_REL_MSE)
         # An encode batch's ms split into the whole encode, K6 and the rest;
         # K6 at the phase's two shapes against its plain version, the library
         # and its bound.
@@ -5118,9 +5195,8 @@ def phase_interactive_interp() -> dict:
         f"{out['interactive_candidates']} candidate latents")
     log(f"interactive_interp encode ({card}): a batch of {II['batch']} rows at d_sae {II['d_sae']} {enc_ms:.3f} ms "
         f"(CUDA events, mean of 5) = K6 {k6:.3f} + the rest {enc_ms - k6:.3f} (the f32 encoder product, TF32 off, "
-        f"and the mask); f_x {rel_mse:.3g} relative MSE from the CPU's f32 forward on {II['ref_rows']} rows (bound "
-        f"{II_REL_MSE}); K6 launched {launches['kth_value']} times in the phase, as its encodes call it, no plain "
-        f"version")
+        f"and the mask); f_x on {II['ref_rows']} rows: {topk_note(fx_cmp, II_REL_MSE)}; K6 launched "
+        f"{launches['kth_value']} times in the phase, as its encodes call it, no plain version")
     tr = out["trace"]
     log(f"interactive_interp semprobe best F1 {out['semprobe_best_f1']}; classification val accuracies "
         f"{out['cls_accuracy']}; fishvista supervised best mAP {out['fv_map']:.4f}; birdsong trace of "
@@ -5128,7 +5204,385 @@ def phase_interactive_interp() -> dict:
         f"the CPU, resid dominance at least {tr['dominance_min']:.1f}, the worst of dominance and channel means "
         f"{tr['worst'][0]} {tr['worst'][1]:.3g} rel-norm from the CPU's (bound {BF16_REL}), card {tr['seconds']:.2f} "
         f"s, CPU {tr['cpu_seconds']:.2f} s; the phase {time.perf_counter() - t_phase:.1f} s ({card})")
-    return {"launches": launches, "kth_value": rows, "encode_ms": enc_ms, "rel_mse": rel_mse}
+    return {"launches": launches, "kth_value": rows, "encode_ms": enc_ms, "fx": fx_cmp}
+
+
+
+# ---------------------------------------------------------------------------
+# contrib_host: trait discovery's classification heads and grounding audit,
+# and the mimics project's scores and consistency, on runs that the port's
+# inference wrote on the card
+# ---------------------------------------------------------------------------
+
+# ViT-L/14 width: two splits (training, validation) of 64 images of 256
+# content tokens, each image of one of 4 classes named as Heliconius
+# subspecies, about half its patches the class's object (labels.bin: 0
+# background, class + 1 object); two runs of a TopK-32 SAE at d_sae 16384
+# whose first 4 latents read the classes' centres, the second run's latents
+# the first's permuted; inference at batch 4096, 4 batches a split.
+CH = dict(d_model=D_MODEL, d_sae=D_SAE, top_k=TOP_K, tokens=256, images=64, batch=4096, n_classes=4,
+          ref_rows=2048, min_samples=8, max_budget=1000)
+CH_KERNELS = ("kth_value",)
+CH_SUBSPECIES = ("lativitta_dorsal", "malleti_dorsal", "cyrbia_dorsal", "cythera_dorsal")
+CH_PAIR_SPECS = ("lativitta:malleti", "cyrbia:cythera")
+CH_PAIRS = (("lativitta_dorsal", "malleti_dorsal"), ("cyrbia_dorsal", "cythera_dorsal"))
+# What the phase runs only where its package imports: (what, package).
+CH_OPTIONAL = (("tdiscovery.classification cls::train", "sklearn"), ("tdiscovery.clsview.tree_rules", "sklearn"),
+               ("tdiscovery.audit_analysis.run_battery", "matplotlib"))
+
+
+class _MeanHead:
+    """A linear head fit by class means (the nearest-mean discriminant:
+    coef_ the class means, intercept_ minus half their squared norms), with
+    the attributes and methods that cls::eval and cls::audit read from a
+    scikit-learn head. The phase writes it, in cls::train's checkpoint
+    format, where scikit-learn (which cls::train fits with) is not installed."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray):
+        self.classes_ = np.unique(y)
+        self.coef_ = np.stack([x[y == c].mean(axis=0) for c in self.classes_]).astype(np.float64)
+        self.intercept_ = -0.5 * (self.coef_**2).sum(axis=1)
+
+    def decision_function(self, x: np.ndarray) -> np.ndarray:
+        return np.asarray(x, np.float64) @ self.coef_.T + self.intercept_
+
+    def predict_proba(self, x: np.ndarray) -> np.ndarray:
+        z = self.decision_function(x)
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        return self.classes_[self.decision_function(x).argmax(axis=1)]
+
+
+def _ch_split(seg_root: pathlib.Path, shards_root: pathlib.Path, split: str, dims: dict, centers: np.ndarray,
+              rng) -> tuple[pathlib.Path, list[str]]:
+    """One split: an ImgSegFolder of 8 x 8 PNGs (the shards' dataset config;
+    its labels.csv rows returned) and its shards (the port's writer,
+    labels.bin): an object patch its class's centre plus unit noise, a
+    background patch unit noise."""
+    from PIL import Image
+
+    from saev_tpu_torch.data import datasets, shards
+
+    n, tokens, d_model = dims["images"], dims["tokens"], dims["d_model"]
+    (seg_root / "images" / split).mkdir(parents=True)
+    rows, cls = [], np.arange(n) % dims["n_classes"]
+    for i in range(n):
+        stem = f"{split}{i:04d}"
+        Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(seg_root / "images" / split / f"{stem}.png")
+        rows.append(f"{stem},{'abcdefgh'[cls[i]]},{CH_SUBSPECIES[cls[i]]}")
+    md = shards.Metadata(
+        family="clip", ckpt="random", layers=(0,), content_tokens_per_example=tokens, cls_token=False,
+        d_model=d_model, n_examples=n, max_tokens_per_shard=tokens * 32,
+        data=shards.encode_dataset_cfg(datasets.ImgSegFolder(root=seg_root, split=split)), dataset=seg_root,
+    )
+    md.dump(shards_root)
+    with shards.ShardWriter(shards_root, md) as writer:
+        for start in range(0, n, 16):
+            m = min(16, n - start)
+            obj = rng.random((m, tokens)) < 0.5
+            labels = np.where(obj, cls[start : start + m, None] + 1, 0).astype(np.uint8)
+            acts = rng.standard_normal((m, tokens, d_model), dtype=np.float32)
+            acts[obj] += centers[labels[obj] - 1]
+            writer.write_batch(acts[:, None], start, labels)
+    return shards_root / md.hash, rows
+
+
+def _ch_runs(dims: dict, device: str, root: pathlib.Path, centers: np.ndarray, split_dirs: dict) -> dict:
+    """r1 (the first n_classes latents read the classes' centres, the rest
+    are orthogonal to them) and r2
+    (r1's latents permuted by `perm`: r2's latent j is r1's perm[j]), each a
+    run dir with its schema-5 SAE and config.json."""
+    from saev_tpu_torch import disk
+    from saev_tpu_torch.nn import modeling, serialize
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=dims["d_model"], d_sae=dims["d_sae"],
+                                           activation=modeling.TopK(top_k=dims["top_k"]))
+    params, state = modeling.init(cfg, torch.Generator(device).manual_seed(SEED + 70), device=device)
+    unit = torch.from_numpy(centers / np.linalg.norm(centers, axis=1, keepdims=True)).to(device)
+    # The other latents read nothing of the centres' span, so no class
+    # shifts their pooled values: only the planted latents tell the
+    # classes apart, and each task's best latents are the same twins in
+    # both runs.
+    basis = torch.linalg.qr(unit.T)[0]
+    rest = params["W_enc"][:, len(centers) :]
+    params["W_enc"][:, len(centers) :] = rest - basis @ (basis.T @ rest)
+    params["W_enc"][:, : len(centers)] = unit.T
+    params["W_dec"][: len(centers)] = unit
+    perm = np.random.default_rng(SEED + 71).permutation(dims["d_sae"])
+    p = torch.from_numpy(perm).to(device)
+    permuted = {"W_enc": params["W_enc"][:, p].contiguous(), "b_enc": params["b_enc"][p],
+                "W_dec": params["W_dec"][p].contiguous(), "b_dec": params["b_dec"]}
+    runs_root = root / "saev" / "runs"
+    runs_root.mkdir(parents=True)
+    out = {"perm": perm, "runs_root": runs_root}
+    for run_id, prm, layer in (("r1", params, 0), ("r2", permuted, 1)):
+        run = disk.Run.new(run_id, train_shards_dir=split_dirs["training"], val_shards_dir=split_dirs["validation"],
+                           runs_root=runs_root)
+        serialize.dump(run.ckpt, cfg, prm, state)
+        (run.run_dir / "checkpoint" / "config.json").write_text(json.dumps({
+            "sae": {"d_sae": dims["d_sae"], "activation": {"key": "top-k", "top_k": dims["top_k"]}},
+            "val_data": {"layer": layer}, "objective": {"n_prefixes": 1}}))
+        out[run_id] = run.run_dir
+    return out
+
+
+def _ch_fx_check(dims: dict, run_dir: pathlib.Path, shards_dir: pathlib.Path) -> dict:
+    """The card's token_acts on a split's first `ref_rows` rows against the
+    CPU's f32 encode of the same rows (topk_vs_cpu), the card's
+    pre-activations recomputed on the inference's first batch, at its
+    shape."""
+    import scipy.sparse
+
+    from saev_tpu_torch import nn
+    from saev_tpu_torch.data import OrderedConfig, OrderedDataLoader
+    from saev_tpu_torch.nn import modeling
+
+    acts = scipy.sparse.load_npz(run_dir / "inference" / shards_dir.name / "token_acts.npz").tocsr()
+    dl = OrderedDataLoader(OrderedConfig(shards=shards_dir, layer=0, batch_size=dims["batch"]))
+    try:
+        batch = torch.from_numpy(np.asarray(next(iter(dl))["act"], np.float32))
+    finally:
+        dl.shutdown()
+    rows = dims["ref_rows"]
+    _, card, _ = nn.load(run_dir / "checkpoint" / "sae.pt", device="cuda")
+    cfg, params, state = nn.load(run_dir / "checkpoint" / "sae.pt", device="cpu")
+    with torch.no_grad():
+        h_card = modeling._linear_bias(batch.cuda(), card["W_enc"], card["b_enc"], "highest")[:rows].cpu()
+        x = batch[:rows]
+        out, _ = modeling.encode(cfg, params, state, x, training=False, precision="highest")
+        h_cpu = modeling._linear_bias(x, params["W_enc"], params["b_enc"], "highest")
+    return topk_vs_cpu(acts[:rows].toarray(), h_card, out.f_x, h_cpu)
+
+
+def _ch_timed(out: dict, name: str, fn):
+    t0 = time.perf_counter()
+    res = fn()
+    out["seconds"][name] = time.perf_counter() - t0
+    return res
+
+
+def _ch_classification(dims: dict, out: dict, runs: dict, split_dirs: dict) -> dict:
+    """cls::train (or, without scikit-learn, its ImportError and the phase's
+    nearest-mean head in its checkpoint format), cls::eval, cls::audit."""
+    import importlib.util
+    import pickle
+
+    from saev_tpu_torch import disk
+    from saev_tpu_torch.tdiscovery import classification
+
+    train, test, r1 = split_dirs["training"], split_dirs["validation"], runs["r1"]
+    if importlib.util.find_spec("sklearn") is not None:
+        head = classification.DecisionTree(max_depth=4)
+        cfg = classification.TrainConfig(run=r1, train_shards=train, test_shards=test, cls=head)
+        _ch_timed(out, "cls::train", lambda: classification.train_cli(cfg))
+        out["ran"].append("tdiscovery.classification cls::train")
+    else:
+        head = classification.SparseLinear()
+        cfg = classification.TrainConfig(run=r1, train_shards=train, test_shards=test, cls=head)
+        try:
+            classification.train_worker_fn(cfg)
+            raise AssertionError("cls::train ran without scikit-learn")
+        except ImportError as err:
+            require("pip install scikit-learn" in str(err), f"cls::train's ImportError: {err}")
+            out["import_errors"]["tdiscovery.classification cls::train"] = str(err)
+        # cls::train's features, labels and checkpoint format, with the nearest-mean head.
+        run = disk.Run(r1)
+
+        def fit():
+            x = classification._image_features(run, train, cfg.patch_agg)
+            y, names = cfg.task.apply(classification.load_image_labels(train)[1][cfg.task.source_col])
+            clf = _MeanHead(x[y >= 0], y[y >= 0])
+            x_t = classification._image_features(run, test, cfg.patch_agg)
+            y_t, _ = cfg.task.apply(classification.load_image_labels(test)[1][cfg.task.source_col], class_names=names)
+            pred = clf.predict(x_t[y_t >= 0])
+            header = {"cfg": dataclasses.asdict(cfg), "test_acc": float((pred == y_t[y_t >= 0]).mean()),
+                      "n_classes": len(names), "class_names": names}
+            fpath = classification.ckpt_fpath(run, cfg)
+            with open(fpath, "wb") as fd:
+                fd.write((json.dumps(header, default=str) + "\n").encode())
+                pickle.dump({"classifier": clf, "test_pred": pred, "test_y": y_t[y_t >= 0]}, fd)
+
+        _ch_timed(out, "nearest-mean head", fit)
+    ckpt = classification.ckpt_fpath(disk.Run(r1), cfg)
+    ev = _ch_timed(out, "cls::eval", lambda: classification.eval_worker_fn(classification.EvalConfig(
+        run=r1, test_shards=test, cls=head, top_features=5)))
+    require(ev["n_test"] == dims["images"] and ev["accuracy"] >= 0.75 and np.isfinite(ev["mean_ap"]),
+            f"cls::eval: {ev['accuracy']} accuracy, mAP {ev['mean_ap']} on {ev['n_test']} images")
+    out["ran"].append("tdiscovery.classification cls::eval")
+    audit = _ch_timed(out, "cls::audit", lambda: classification.audit_worker_fn(classification.AuditConfig(
+        run=r1, test_shards=test, cls_checkpoints=(ckpt,), max_budget=dims["max_budget"])))
+    art = r1 / "inference" / test.name
+    ap, best = np.load(art / "audit_ap_s.npy"), np.load(art / "audit_best_class_s.npy")
+    planted = np.arange(dims["n_classes"])
+    yields = audit["classifiers"][0]["yield_at_b"]
+    # The nearest-mean head ranks the planted latents first; a tree may
+    # split on any latent that the classes' centres shift.
+    top3 = yields["3"] == 1.0 if isinstance(head, classification.SparseLinear) else yields["3"] >= 0
+    require(audit["n_seg_classes"] == dims["n_classes"] and best[planted].tolist() == (planted + 1).tolist()
+            and bool((ap[planted] > 0.5).all()) and top3 and all(0 <= v <= 1 for v in yields.values()),
+            f"cls::audit: planted latents' best classes {best[planted]}, APs {ap[planted]}, yields {yields}")
+    out["ran"].append("tdiscovery.classification cls::audit")
+    out["cls"] = {"accuracy": ev["accuracy"], "mean_ap": ev["mean_ap"], "auc_b": audit["classifiers"][0]["auc_b"],
+                  "n_features_evaluated": audit["n_features_evaluated"], "planted_ap": ap[planted].round(4).tolist(),
+                  "head": type(head).__name__}
+    return out
+
+
+def _ch_mimics(dims: dict, out: dict, runs: dict, split_dirs: dict) -> dict:
+    """tasks, scoring on both runs, consistency, checkpoint discovery and the
+    scores browser."""
+    from saev_tpu_torch.mimics import checkpoints, consistency, scoring, tasks, viewer
+    from saev_tpu_torch.tdiscovery import classification
+
+    test = split_dirs["validation"]
+    specs, summary = _ch_timed(out, "mimics tasks", lambda: tasks.decide_task_specs(tasks.DecideTaskSpecsConfig(
+        shards=test, pair_specs=CH_PAIR_SPECS, min_samples_per_class=dims["min_samples"])))
+    want_tasks = sorted(f"{a}_vs_{b}" for a, b in CH_PAIRS)
+    require(sorted(s.task_name for s in specs) == want_tasks and len(summary) == 2 * len(CH_PAIR_SPECS),
+            f"mimics tasks: kept {[s.task_name for s in specs]} of {len(summary)}")
+    out["ran"].append("mimics.tasks")
+    labels = tuple(classification.load_image_labels(test)[1]["subspecies_view"])
+    scores = {}
+    for run_id in ("r1", "r2"):
+        scores[run_id] = _ch_timed(out, f"mimics score {run_id}", lambda run_id=run_id: scoring.score_run(
+            scoring.Config(run=runs[run_id], shards=test, labels=labels, pairs=CH_PAIRS,
+                           min_samples=dims["min_samples"])))
+    # Both sides' planted latents separate a pair fully; each run names one.
+    perm = runs["perm"]
+    for task in want_tasks:
+        a, b = scores["r1"][task], scores["r2"][task]
+        require(a["best_separation"] >= 0.99 and abs(b["best_separation"] - a["best_separation"]) <= 1e-6
+                and a["best_latent"] < dims["n_classes"] and perm[b["best_latent"]] < dims["n_classes"],
+                f"mimics score {task}: r1 {a['best_latent']} {a['best_separation']}, r2 {b['best_latent']} "
+                f"(r1's {perm[b['best_latent']]}) {b['best_separation']}")
+    out["ran"].append("mimics.scoring")
+    cons = _ch_timed(out, "mimics consistency", lambda: consistency.worker_fn(consistency.Config(
+        runs=(runs["r1"], runs["r2"]), shards=test, top_k=10)))
+    for run_key, by_task in cons.items():
+        for task, entries in by_task.items():
+            top = entries[0]
+            mapped = perm[top["witness_latent"]] if run_key.endswith("r1") else top["witness_latent"]
+            own = top["latent"] if run_key.endswith("r1") else perm[top["latent"]]
+            require(top["consistency"] >= 1 - 1e-5 and mapped == own,
+                    f"mimics consistency {run_key} {task}: {top}, r1's latent {own}, the witness's {mapped}")
+    out["ran"].append("mimics.consistency")
+    rows = checkpoints.discover_checkpoints(checkpoints.DiscoverCheckpointsConfig(
+        run_root_dpath=runs["runs_root"], shard_id=test.name, task_name="class"))
+    pooled = checkpoints.pool_features(rows, per_ckpt=5)
+    require(len(rows) == 1 and len(pooled) == 5 and max(pooled.values()) > 0,
+            f"mimics checkpoints: {len(rows)} rows, pooled {pooled}")
+    out["ran"].append("mimics.checkpoints")
+    page = viewer.build_scores(viewer.ScoresConfig(runs=(runs["r1"], runs["r2"]), shards=test,
+                                                   out=runs["runs_root"].parent / "scores.html"))
+    require(all(t in page.read_text() for t in want_tasks), "mimics scores browser: a task is missing")
+    out["ran"].append("mimics.viewer")
+    out["mimics"] = {t: (scores["r1"][t]["best_latent"], round(scores["r1"][t]["best_separation"], 6)) for t in want_tasks}
+    return out
+
+
+def _ch_frames(dims: dict, out: dict, runs: dict) -> dict:
+    """The frames over the runs (pandas): clsview's results, the audit's
+    frames; with matplotlib, the audit battery; with scikit-learn, a tree's
+    rules."""
+    import importlib.util
+
+    from saev_tpu_torch.tdiscovery import audit_analysis, clsview
+
+    cls_df = _ch_timed(out, "clsview frame", lambda: clsview.load_cls_results_df([runs["r1"], runs["r2"]], per_class=True))
+    require(len(cls_df) == dims["n_classes"] and cls_df["accuracy"].iloc[0] >= 0.75, f"clsview: {len(cls_df)} rows")
+    out["ran"].append("tdiscovery.clsview")
+    sae_df, clf_df = _ch_timed(out, "audit frames", lambda: audit_analysis.load_audit_frames([runs["r1"], runs["r2"]]))
+    adf = audit_analysis.analysis_frame(clf_df)
+    require(len(sae_df) == 2 and len(clf_df) == 1 and len(adf) == 1, f"audit frames: {len(sae_df)}, {len(clf_df)}")
+    out["ran"].append("tdiscovery.audit_analysis frames")
+    if importlib.util.find_spec("matplotlib") is not None:
+        _ch_timed(out, "audit battery", lambda: audit_analysis.run_battery([runs["r1"], runs["r2"]],
+                                                                           runs["runs_root"].parent / "battery"))
+        out["ran"].append("tdiscovery.audit_analysis.run_battery")
+    if importlib.util.find_spec("sklearn") is not None:
+        from saev_tpu_torch.tdiscovery import classification
+
+        (ckpt,) = sorted((runs["r1"] / "inference").glob("*/cls_class_*.pkl"))
+        clsview.tree_rules(classification.load_classifier_checkpoint(ckpt)[1]["classifier"], list("abcd"))
+        out["ran"].append("tdiscovery.clsview.tree_rules")
+    return out
+
+
+def run_contrib_host(dims: dict, device: str, root: pathlib.Path) -> dict:
+    """The contrib_host phase's path at `dims` (module doc, phase 21):
+    shards and runs, the port's inference on `device`, then the host-side
+    analysis. The CPU runs it too, at small `dims`."""
+    import importlib.util
+
+    from saev_tpu_torch.data import OrderedConfig
+    from saev_tpu_torch.framework import inference
+
+    out = {"seconds": {}, "ran": [], "import_errors": {}}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 72)
+    centers = (2 * rng.standard_normal((dims["n_classes"], dims["d_model"]))).astype(np.float32)
+    seg_root, shards_root = root / "data" / "butterflies", root / "saev" / "shards"
+    shards_root.mkdir(parents=True)
+    split_dirs, rows = {}, []
+    for split in ("training", "validation"):
+        split_dirs[split], split_rows = _ch_split(seg_root, shards_root, split, dims, centers, rng)
+        rows += split_rows
+    (seg_root / "labels.csv").write_text("stem,class,subspecies_view\n" + "\n".join(rows) + "\n")
+    runs = _ch_runs(dims, device, root, centers, split_dirs)
+    out["seconds"]["shards and runs"] = time.perf_counter() - t0
+    out["batches"] = 0
+    for run_id in ("r1", "r2"):
+        for split, d in split_dirs.items():
+            res = _ch_timed(out, f"inference {run_id} {split}", lambda run_id=run_id, d=d: inference.worker_fn(
+                inference.Config(run=runs[run_id], data=OrderedConfig(shards=d, layer=0, batch_size=dims["batch"]),
+                                 device=device)))
+            out["batches"] += res["batches"]
+    out["ran"].append("framework.inference")
+    out["runs"], out["split_dirs"] = runs, split_dirs
+    _ch_classification(dims, out, runs, split_dirs)
+    _ch_mimics(dims, out, runs, split_dirs)
+    _ch_frames(dims, out, runs)
+    out["missing"] = {what: pkg for what, pkg in CH_OPTIONAL if importlib.util.find_spec(pkg) is None}
+    return out
+
+
+def phase_contrib_host() -> dict:
+    """contrib's host-side analysis on runs the port's inference wrote on the
+    card at ViT-L/14 width (module doc, phase 21). Returns the path's
+    launches (K6 in every inference batch)."""
+    t_phase = time.perf_counter()
+    card = card_and_limit()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_contrib_host_"))
+    try:
+        reset_counts()
+        with plain_spy() as plain:
+            out = run_contrib_host(CH, "cuda", root)
+        launches = counts()
+        # The CPU's encode takes K6's plain version, so it runs after the count.
+        fx_cmp = _ch_fx_check(CH, out["runs"]["r1"], out["split_dirs"]["validation"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    require(not plain, f"contrib_host: plain versions ran on the card: {plain}")
+    want = dict.fromkeys(KERNELS, 0) | {"kth_value": out["batches"]}
+    require(launches == want, f"contrib_host: launches {launches}, expected {want}")
+    require_topk_agrees("contrib_host: token_acts", fx_cmp, INTERP_REL_MSE)
+    sec = out["seconds"]
+    log(f"contrib_host ({card}): " + "; ".join(f"{k} {v:.2f} s" for k, v in sec.items()))
+    log(f"contrib_host ({card}): {CH['images']} + {CH['images']} images of {CH['tokens']} tokens at d_model "
+        f"{CH['d_model']}, two runs of TopK-{CH['top_k']} at d_sae {CH['d_sae']}; K6 launched {launches['kth_value']} "
+        f"times (one an inference batch of {CH['batch']} rows, {out['batches']} batches), no plain version; "
+        f"token_acts on {CH['ref_rows']} rows: {topk_note(fx_cmp, INTERP_REL_MSE)}; cls ({out['cls']['head']} head) "
+        f"{out['cls']}; mimics (best latent, separation) "
+        f"{out['mimics']}, r2's the same under its permutation, consistency 1 with the permuted witness")
+    for what, err in out["import_errors"].items():
+        log(f"contrib_host: {what} raised ImportError as it must: {err}")
+    log(f"contrib_host modules ran: {', '.join(out['ran'])}; could not import: "
+        + (", ".join(f"{what} ({pkg})" for what, pkg in out["missing"].items()) or "none"))
+    log(f"contrib_host: the phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -5183,9 +5637,11 @@ def main() -> int:
     td_counts = phase_tdiscovery()["launches"]
     torch.cuda.empty_cache()
     ii_counts = phase_interactive_interp()["launches"]
+    torch.cuda.empty_cache()
+    ch_counts = phase_contrib_host()["launches"]
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + interp_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k]
-                + multi_counts[k] + td_counts[k] + ii_counts[k]
+                + multi_counts[k] + td_counts[k] + ii_counts[k] + ch_counts[k]
                 for k in KERNELS}
     # K7 runs on the multi path (feature-parallel training); the other bench
     # kernels only in the benches phase.
@@ -5203,6 +5659,7 @@ def main() -> int:
                                ("multi", multi_counts, JOB_KERNELS + ("grouped_prefix_base",)),
                                ("tdiscovery", td_counts, TD_KERNELS),
                                ("interactive_interp", ii_counts, II_KERNELS),
+                               ("contrib_host", ch_counts, CH_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

@@ -10,6 +10,7 @@ each function), implemented without orjson/beartype dependencies.
 
 import dataclasses
 import enum
+import importlib
 import json
 import logging
 import math
@@ -40,6 +41,7 @@ __all__ = [
     "get_slurm_max_array_size",
     "get_slurm_job_count",
     "submit_job_array",
+    "optional_import",
 ]
 
 
@@ -451,3 +453,20 @@ def submit_job_array(
                         "Job %s (%d) did not finish.", job.job_id, global_idx
                     )
                 yield global_idx, None
+
+
+# What to install for each optional package that host-side analysis imports.
+_DISTRIBUTIONS = {"sklearn": "scikit-learn", "matplotlib": "matplotlib", "pandas": "pandas", "PIL": "Pillow"}
+
+
+def optional_import(name: str, needed_by: str):
+    """Import the optional package (or submodule) `name` for `needed_by`.
+    Where it is not installed, raise an ImportError that names what needs it
+    and what to install: nothing falls back to another method."""
+    try:
+        return importlib.import_module(name)
+    except ImportError as err:
+        top = name.split(".")[0]
+        raise ImportError(
+            f"{needed_by} needs {top} (pip install {_DISTRIBUTIONS.get(top, top)}), which cannot be imported here: {err}"
+        ) from err

@@ -2,13 +2,21 @@
 src/tdiscovery): sparse 1-D logistic probes for every (latent, class) pair
 (`probe1d`), dictionary baselines (`baselines`: k-means, semi-NMF, PCA,
 random directions), the SAE scorer (`saes`), average precision and purity
-(`metrics`) and the FishVista evaluation (`fishvista`).
+(`metrics`) and the FishVista evaluation (`fishvista`); and the host-side
+analysis of a run's inference artifacts: image-level heads and their
+grounding audit (`classification`), the Heliconius metadata dataset
+(`datasets`), the probe-results and audit frames (`analysis`,
+`audit_analysis`), top-image galleries and their browser (`visuals`,
+`browse`) and the classification-results view (`clsview`).
 
-    python -m saev_tpu_torch.tdiscovery {probe1d,baseline::train,baseline::inference,metrics} ...
+    python -m saev_tpu_torch.tdiscovery {probe1d,baseline::train,baseline::inference,metrics,cls::train,cls::eval,cls::audit,visuals} ...
 
 The device work (the probe's Levenberg-Marquardt iterations over CSR events,
 the k-means step, the semi-NMF encode, the SAE forward with kernel K6) runs
-on the card unless the caller passes `device="cpu"` (`--device cpu`)."""
+on the card unless the caller passes `device="cpu"` (`--device cpu`). The
+analysis modules are numpy on the host, as in contrib; scikit-learn,
+matplotlib, pandas and Pillow are imported where used, and a missing one
+raises an ImportError that names it."""
 
 import torch
 

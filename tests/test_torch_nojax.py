@@ -1,11 +1,13 @@
 """saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL,
-pandas, scikit-learn, matplotlib and the JAX package (saev_tpu) blocked: the
-machine with the card has no JAX (and maybe no Pillow, pandas, scikit-learn
-or matplotlib). The library surface that reads a run (the `nn` names,
+pandas, scikit-learn, matplotlib, the JAX package (saev_tpu) and contrib
+(`contrib`, and its `tdiscovery` and `mimics` packages) blocked: the machine
+with the card has no JAX (and maybe no Pillow, pandas, scikit-learn or
+matplotlib). The library surface that reads a run (the `nn` names,
 `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the schedulers), Muon's
 and "high"'s code, the interpretation layer's colormap, trait discovery's
-probe fit and memory plan, and the semseg probes' AdamW step run there
-too."""
+probe fit and memory plan, the semseg probes' AdamW step, the audit's
+tie-aware AP and the mimic scores' AUROC run there too, and cls::train
+raises an ImportError that names scikit-learn."""
 
 import pathlib
 import subprocess
@@ -16,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "sklearn", "matplotlib", "saev_tpu")
+BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "sklearn", "matplotlib", "saev_tpu", "contrib", "tdiscovery",
+           "mimics")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -59,6 +62,17 @@ params = {"w": torch.zeros(1, 2, 3), "b": torch.zeros(1, 3)}
 params, opt, losses = semseg_training.step(params, semseg_training.init_opt(params), torch.ones(4, 2),
                                            torch.tensor([0, 1, 2, 1]), torch.tensor([0.1]), torch.tensor([0.0]))
 assert opt["count"] == 1 and abs(float(losses[0]) - float(np.log(3))) < 1e-6 and params["b"][0, 1] > 0
+from saev_tpu_torch.tdiscovery import classification
+from saev_tpu_torch.mimics import scoring
+ap = classification.tie_aware_ap(np.array([2.0, 1.0, 1.0, 0.0], np.float32), np.eye(4, 2, dtype=np.float32),
+                                 np.ones(2, np.float32))
+assert abs(float(ap[0]) - 1.0) < 1e-6 and abs(float(ap[1]) - 5 / 12) < 1e-6, ap  # rank 2 or 3: (1/2 + 1/3) / 2
+assert scoring.auroc_per_latent(np.array([[0.0], [1.0], [2.0]]), np.array([0, 1, 1], np.int8)).tolist() == [1.0]
+try:
+    classification.train_worker_fn(classification.TrainConfig())
+    raise AssertionError("cls::train ran without scikit-learn")
+except ImportError as err:
+    assert "pip install scikit-learn" in str(err), err
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -112,6 +126,19 @@ TDISCOVERY_MODULES = {
 }
 
 
+# contrib's host-side analysis (trait discovery's classification heads and
+# audit, frames, galleries and views; the mimics project), each imported
+# with the blocked packages above.
+CONTRIB_HOST_MODULES = {
+    "saev_tpu_torch.tdiscovery.datasets", "saev_tpu_torch.tdiscovery.classification",
+    "saev_tpu_torch.tdiscovery.analysis", "saev_tpu_torch.tdiscovery.audit_analysis",
+    "saev_tpu_torch.tdiscovery.visuals", "saev_tpu_torch.tdiscovery.browse", "saev_tpu_torch.tdiscovery.clsview",
+    "saev_tpu_torch.mimics", "saev_tpu_torch.mimics.__main__", "saev_tpu_torch.mimics.scoring",
+    "saev_tpu_torch.mimics.consistency", "saev_tpu_torch.mimics.checkpoints", "saev_tpu_torch.mimics.tasks",
+    "saev_tpu_torch.mimics.analysis", "saev_tpu_torch.mimics.render", "saev_tpu_torch.mimics.viewer",
+}
+
+
 # Interactive interpretability (semseg, semprobe, classification, the figure
 # assets), FishVista's supervised skyline and Bird-MAE's channel trace, each
 # imported with the blocked packages above.
@@ -138,11 +165,13 @@ def test_port_imports_without_jax():
     # The subpackages and their modules: 41 since the training job, 44 since
     # inference, 57 since extraction, 58 since indexed, 72 since the
     # interpretation layer, 83 since trait discovery, 103 since interactive
-    # interpretability and the channel trace.
-    assert int(proc.stdout.split()[-1]) >= 103
+    # interpretability and the channel trace, 119 since contrib's host-side
+    # analysis.
+    assert int(proc.stdout.split()[-1]) >= 119
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
     assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])
     assert INTERPRET_MODULES <= set(proc.stdout.split()[:-1])
     assert TDISCOVERY_MODULES <= set(proc.stdout.split()[:-1])
     assert INTERACTIVE_INTERP_MODULES <= set(proc.stdout.split()[:-1])
+    assert CONTRIB_HOST_MODULES <= set(proc.stdout.split()[:-1])

@@ -624,13 +624,18 @@ def test_activations_sweep_expands_as_jax(tmp_path):
 
 def test_launchers_list_their_subcommands(capsys):
     from saev_tpu_torch import __main__ as top
+    from saev_tpu_torch.mimics import __main__ as mimics
     from saev_tpu_torch.tdiscovery import __main__ as td
 
-    for main, names in ((td.main, ("probe1d", "baseline::train", "baseline::inference", "metrics")),
-                        (top.main, ("shards", "train", "inference"))):
+    for main, names in ((td.main, ("probe1d", "baseline::train", "baseline::inference", "metrics", "cls::train",
+                                   "cls::eval", "cls::audit", "visuals")),
+                        (top.main, ("shards", "train", "inference")),
+                        (mimics.main, ("score", "render", "consistency", "viewer", "scores"))):
         with pytest.raises(SystemExit) as exit_:
             main(["--help"])
         assert exit_.value.code == 0
         out = capsys.readouterr().out
         assert all(n in out for n in names), out
-    assert sorted(td.COMMANDS) == ["baseline::inference", "baseline::train", "metrics", "probe1d"]
+    assert sorted(td.COMMANDS) == ["baseline::inference", "baseline::train", "cls::audit", "cls::eval", "cls::train",
+                                   "metrics", "probe1d", "visuals"]
+    assert sorted(mimics.COMMANDS) == ["consistency", "render", "score", "scores", "viewer"]
