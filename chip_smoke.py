@@ -1,7 +1,7 @@
 """Drive the PyTorch port's production SAE train step, one training job
-around it, inference, extraction, interpretation, trait discovery and
-interactive interpretability after it, on one CUDA card (and its
-multi-process training on two ranks).
+around it, inference, extraction, interpretation, trait discovery,
+interactive interpretability and contrib's analysis of runs after it, on
+one CUDA card (and its multi-process training on two ranks).
 
     python3 chip_smoke.py
 
@@ -366,10 +366,11 @@ script exits non-zero:
 
 21. contrib_host -- contrib's host-side analysis on runs that the port's
                 inference writes on the card at ViT-L/14 width (d_model
-                1024, d_sae 16384, TopK 32), in a temporary root that it
-                removes: two splits of 64 images of 256 tokens (4 classes
+                1024, d_sae 16384, TopK 32), in a temporary root that phase
+                22 reuses: two splits of 64 images of 256 tokens (4 classes
                 named as Heliconius subspecies, labels.bin, an
-                ImgSegFolder of 8 x 8 PNGs as the shards' dataset), two runs
+                ImgSegFolder of 8 x 8 PNGs and masks as the shards' dataset,
+                a random OpenCLIP ViT-L/14 file as their model), two runs
                 (the second one's latents the first's permuted), inference
                 at batch 4096 on both splits of both (K6 once a batch, 16
                 batches). Then on the host: the card's token_acts agreeing
@@ -387,10 +388,44 @@ script exits non-zero:
                 launch count; its line before its last names the modules it
                 ran and those it could not import.
 
+22. contrib_last -- the last of contrib, in phase 21's root (which it
+                then removes) at Bird-MAE-Large's width (d_model 1024, 24
+                layers, 256 content tokens a clip): (a) 64 synthetic
+                BirdCLEF clips, 16 with a 10 kHz tone over time patches
+                10-12, a random Bird-MAE-Large checkpoint with channel 295
+                planted (phase 20(e)'s plant), `framework.shards.cli` at
+                layer 11 (16384 rows), a TopK-32 SAE at d_sae 16384 whose
+                latent 7 reads the tone's direction (measured from the
+                shards: the tone's patches against the other clips'),
+                inference at batch 4096 (K6 once a batch), then
+                `birdsong.visuals`, `make_html --embed`, `browse` and
+                `stats` (against phase 21's validation shards): latent 7's
+                top clips all planted, its time clip the tone's window,
+                channel 295 the first outlier, a card a latent on the page;
+                the card's token_acts agreeing with the CPU's f32 encode
+                on 2048 rows (`topk_vs_cpu`, 1e-4). (b) on phase 21's runs:
+                `runs.load_df`, `results` over seeded Result JSONs,
+                `logparse` over the stats log of a probe1d fit on the card,
+                `fishbase` (the planted latents best for their parts),
+                `mimicry` (pair counts; the harvest of the nearest-mean
+                head where scikit-learn is missing), `figplots` and
+                `ablations` tables, and their figures where matplotlib
+                imports (else their ImportError). (c) `extract_tol` over a
+                TreeOfLife store of phase 21's images (the HDF5 read where
+                h5py imports, else its ImportError), `tdiscovery.visuals`
+                on r1 (the shards' random OpenCLIP ViT-L/14 checkpoint,
+                written now) and `make_gallery` over its images. (d)
+                `format_ade20k`, `format_fishvista`, `materialize`,
+                `parse_environment` and `push_dinov3 --dry-run` (phase
+                21's and b1's SAE files loaded on the card). K6 launched
+                once an inference batch and no plain version; logs each
+                step's seconds, the extraction's clips/s, and the modules
+                that ran and the packages that could not be imported.
+
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
-counts, summed; tdiscovery; interactive_interp; contrib_host): every count is set to 0
-just before the path and read just after.
+counts, summed; tdiscovery; interactive_interp; contrib_host; contrib_last): every count
+is set to 0 just before the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -1097,6 +1132,9 @@ def phase_wide() -> dict:
         row["kth_value_masked"] = timed(_time(lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX), 5),
                                         _time(lambda: topk._kth_masked_plain(h, mask, K_AUX), 2),
                                         bound((B * n_dead * 4, mask, h[:, :1]), B * n_dead, F32_OPS_S))
+        # A yardstick, not K5's library entry: its mask here is a prefix, so
+        # the library's k-th value over the columns it selects is K5's value.
+        library_kth_ms(h[:, :n_dead], K_AUX, f"K5's selected columns {B}x{s} (wide route)")
         for k, r in row.items():
             log_timing(k, r, f" {B}x{s} (wide route), k {K_AUX if k == 'kth_value_masked' else TOP_K}")
         times[s] = row
@@ -1487,19 +1525,23 @@ def phase_wide_steps():
     many = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE, activation=modeling.TopK(top_k=TOP_K))
     obj_many = objectives.Matryoshka(n_prefixes=N_PREFIXES_MANY)
     rng = np.random.default_rng(SEED + 2)
+    results = {}
+    once = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1)
     reset_counts()
     for name, variant in variants.items():
         log(_held_step(wide, obj, variant, n_dead, f"wide step d_sae {D_SAE_WIDE} {name}", rng))
-    log(_held_step(many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", rng))
-    results = {}
-    once = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1)
     for name, variant in variants.items():
         want = once | ({} if name == "warm" else {"kth_value_masked": 1})
         results[f"d_sae {D_SAE_WIDE} {name}"] = _timed_steps(
             wide, obj, variant, n_dead, f"wide step d_sae {D_SAE_WIDE} {name}, {n_dead} dead", want)
+    wide_route = counts()
+    log(f"wide steps: launches at d_sae {D_SAE_WIDE}, K1's and K5's rows on the wide route (csrc/kth_wide.cu): "
+        f"K1 {wide_route['topk_stats']}, K5 {wide_route['kth_value_masked']}, K6 {wide_route['kth_value']}")
+    reset_counts()
+    log(_held_step(many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", rng))
     results[f"{N_PREFIXES_MANY} prefixes warm"] = _timed_steps(
         many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", once)
-    return counts(), results
+    return {k: wide_route[k] + v for k, v in counts().items()}, results
 
 
 # (fraction of latents pinned dead, the variant of each step from
@@ -4105,8 +4147,12 @@ def _feature_kernel_parity() -> list[str]:
                 f"L1 rel err {l1_rel:.3g}")
         ms = _time(lambda: cuda_topk.topk_stats_given_cuda(h, k1.kth), 10)
         k1_ms = _time(lambda: cuda_topk.topk_stats_cuda(h, TOP_K), 10)
+        plain_ms = _time(lambda: topk._topk_stats_plain(h, None, k1.kth), 2)
+        # h and kth read; f, live (int32 on the card), L0 and L1 written; a compare an element.
+        bnd = bound((h, k1.kth, given.f, s * 4, given.l0, given.l1), h.numel(), F32_OPS_S)
         lines.append(f"multi: K1's threshold entry at {b} x {s}: f, live, L0, L1 bit for bit K1's, f, live, L0 its "
-                     f"plain version's, L1 within {l1_rel:.3g}; {ms:.3f} ms against K1's {k1_ms:.3f}")
+                     f"plain version's, L1 within {l1_rel:.3g}; {ms:.3f} ms against K1's {k1_ms:.3f}, plain "
+                     f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
         del h, k1, given, plain
     h = torch.randn((B, D_SAE // 2), generator=gen, device="cuda")
     mask = torch.rand((D_SAE // 2,), generator=gen, device="cuda") < 0.05
@@ -5221,7 +5267,7 @@ def phase_interactive_interp() -> dict:
 # whose first 4 latents read the classes' centres, the second run's latents
 # the first's permuted; inference at batch 4096, 4 batches a split.
 CH = dict(d_model=D_MODEL, d_sae=D_SAE, top_k=TOP_K, tokens=256, images=64, batch=4096, n_classes=4,
-          ref_rows=2048, min_samples=8, max_budget=1000)
+          ref_rows=2048, min_samples=8, max_budget=1000, clip="ViT-L-14")
 CH_KERNELS = ("kth_value",)
 CH_SUBSPECIES = ("lativitta_dorsal", "malleti_dorsal", "cyrbia_dorsal", "cythera_dorsal")
 CH_PAIR_SPECS = ("lativitta:malleti", "cyrbia:cythera")
@@ -5256,24 +5302,27 @@ class _MeanHead:
 
 
 def _ch_split(seg_root: pathlib.Path, shards_root: pathlib.Path, split: str, dims: dict, centers: np.ndarray,
-              rng) -> tuple[pathlib.Path, list[str]]:
-    """One split: an ImgSegFolder of 8 x 8 PNGs (the shards' dataset config;
-    its labels.csv rows returned) and its shards (the port's writer,
-    labels.bin): an object patch its class's centre plus unit noise, a
-    background patch unit noise."""
+              rng, ckpt: str) -> tuple[pathlib.Path, list[str]]:
+    """One split: an ImgSegFolder of 8 x 8 PNGs and their masks (each pixel
+    the image's class + 1) (the shards' dataset config; its labels.csv rows
+    returned) and its shards (the port's writer, labels.bin, `ckpt` the
+    model named in its metadata): an object patch its class's centre plus
+    unit noise, a background patch unit noise."""
     from PIL import Image
 
     from saev_tpu_torch.data import datasets, shards
 
     n, tokens, d_model = dims["images"], dims["tokens"], dims["d_model"]
     (seg_root / "images" / split).mkdir(parents=True)
+    (seg_root / "annotations" / split).mkdir(parents=True)
     rows, cls = [], np.arange(n) % dims["n_classes"]
     for i in range(n):
         stem = f"{split}{i:04d}"
         Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(seg_root / "images" / split / f"{stem}.png")
+        Image.new("L", (8, 8), int(cls[i]) + 1).save(seg_root / "annotations" / split / f"{stem}.png")
         rows.append(f"{stem},{'abcdefgh'[cls[i]]},{CH_SUBSPECIES[cls[i]]}")
     md = shards.Metadata(
-        family="clip", ckpt="random", layers=(0,), content_tokens_per_example=tokens, cls_token=False,
+        family="clip", ckpt=ckpt, layers=(0,), content_tokens_per_example=tokens, cls_token=False,
         d_model=d_model, n_examples=n, max_tokens_per_shard=tokens * 32,
         data=shards.encode_dataset_cfg(datasets.ImgSegFolder(root=seg_root, split=split)), dataset=seg_root,
     )
@@ -5328,9 +5377,9 @@ def _ch_runs(dims: dict, device: str, root: pathlib.Path, centers: np.ndarray, s
     return out
 
 
-def _ch_fx_check(dims: dict, run_dir: pathlib.Path, shards_dir: pathlib.Path) -> dict:
-    """The card's token_acts on a split's first `ref_rows` rows against the
-    CPU's f32 encode of the same rows (topk_vs_cpu), the card's
+def _ch_fx_check(dims: dict, run_dir: pathlib.Path, shards_dir: pathlib.Path, layer: int = 0) -> dict:
+    """The card's token_acts on a split's first `ref_rows` rows (of `layer`)
+    against the CPU's f32 encode of the same rows (topk_vs_cpu), the card's
     pre-activations recomputed on the inference's first batch, at its
     shape."""
     import scipy.sparse
@@ -5340,7 +5389,7 @@ def _ch_fx_check(dims: dict, run_dir: pathlib.Path, shards_dir: pathlib.Path) ->
     from saev_tpu_torch.nn import modeling
 
     acts = scipy.sparse.load_npz(run_dir / "inference" / shards_dir.name / "token_acts.npz").tocsr()
-    dl = OrderedDataLoader(OrderedConfig(shards=shards_dir, layer=0, batch_size=dims["batch"]))
+    dl = OrderedDataLoader(OrderedConfig(shards=shards_dir, layer=layer, batch_size=dims["batch"]))
     try:
         batch = torch.from_numpy(np.asarray(next(iter(dl))["act"], np.float32))
     finally:
@@ -5525,9 +5574,12 @@ def run_contrib_host(dims: dict, device: str, root: pathlib.Path) -> dict:
     centers = (2 * rng.standard_normal((dims["n_classes"], dims["d_model"]))).astype(np.float32)
     seg_root, shards_root = root / "data" / "butterflies", root / "saev" / "shards"
     shards_root.mkdir(parents=True)
+    # The model the shards name: a random OpenCLIP checkpoint of dims["clip"]
+    # at this path, which phase 22 writes before tdiscovery.visuals reads it.
+    clip_ckpt = f"{dims['clip']}={root / 'clip.pt'}"
     split_dirs, rows = {}, []
     for split in ("training", "validation"):
-        split_dirs[split], split_rows = _ch_split(seg_root, shards_root, split, dims, centers, rng)
+        split_dirs[split], split_rows = _ch_split(seg_root, shards_root, split, dims, centers, rng, clip_ckpt)
         rows += split_rows
     (seg_root / "labels.csv").write_text("stem,class,subspecies_view\n" + "\n".join(rows) + "\n")
     runs = _ch_runs(dims, device, root, centers, split_dirs)
@@ -5541,6 +5593,8 @@ def run_contrib_host(dims: dict, device: str, root: pathlib.Path) -> dict:
             out["batches"] += res["batches"]
     out["ran"].append("framework.inference")
     out["runs"], out["split_dirs"] = runs, split_dirs
+    out |= {"seg_root": seg_root, "clip_ckpt": clip_ckpt, "n_classes": dims["n_classes"], "tokens": dims["tokens"],
+            "images": dims["images"]}
     _ch_classification(dims, out, runs, split_dirs)
     _ch_mimics(dims, out, runs, split_dirs)
     _ch_frames(dims, out, runs)
@@ -5548,22 +5602,19 @@ def run_contrib_host(dims: dict, device: str, root: pathlib.Path) -> dict:
     return out
 
 
-def phase_contrib_host() -> dict:
+def phase_contrib_host(root: pathlib.Path) -> dict:
     """contrib's host-side analysis on runs the port's inference wrote on the
-    card at ViT-L/14 width (module doc, phase 21). Returns the path's
-    launches (K6 in every inference batch)."""
+    card at ViT-L/14 width (module doc, phase 21), in `root`, which phase 22
+    reuses. Returns the path's launches (K6 in every inference batch) and
+    its output."""
     t_phase = time.perf_counter()
     card = card_and_limit()
-    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_contrib_host_"))
-    try:
-        reset_counts()
-        with plain_spy() as plain:
-            out = run_contrib_host(CH, "cuda", root)
-        launches = counts()
-        # The CPU's encode takes K6's plain version, so it runs after the count.
-        fx_cmp = _ch_fx_check(CH, out["runs"]["r1"], out["split_dirs"]["validation"])
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    reset_counts()
+    with plain_spy() as plain:
+        out = run_contrib_host(CH, "cuda", root)
+    launches = counts()
+    # The CPU's encode takes K6's plain version, so it runs after the count.
+    fx_cmp = _ch_fx_check(CH, out["runs"]["r1"], out["split_dirs"]["validation"])
     torch.cuda.empty_cache()
     require(not plain, f"contrib_host: plain versions ran on the card: {plain}")
     want = dict.fromkeys(KERNELS, 0) | {"kth_value": out["batches"]}
@@ -5582,6 +5633,594 @@ def phase_contrib_host() -> dict:
     log(f"contrib_host modules ran: {', '.join(out['ran'])}; could not import: "
         + (", ".join(f"{what} ({pkg})" for what, pkg in out["missing"].items()) or "none"))
     log(f"contrib_host: the phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "out": out}
+
+
+# Phase 22 (contrib_last): Bird-MAE-Large's width (d_model 1024, 24 layers,
+# 256 content tokens a clip), 64 BirdCLEF clips of which 16 carry a 10 kHz
+# tone over time patches 10-12, the tap at layer 11, a TopK-32 SAE at d_sae
+# 16384 whose latent 7 reads the tone's direction, inference at batch 4096;
+# then phase 21's tree (its runs, shards and images) for trait discovery's
+# study modules, the freshwater-fish tools and the data-prep scripts.
+CL = dict(bird_arch="Bird-MAE-Large", clips=64, planted=16, layer=11, tone_t=(10, 11, 12), tone_hz=10_000.0,
+          latent=7, bad_channel=295, d_sae=D_SAE, top_k=TOP_K, batch=4096, ref_rows=2048, vis_latents=3,
+          probe_iter=5, n_workers=8, tol_images=8)
+CL_KERNELS = ("kth_value",)
+# What the phase runs only where its package imports: (what, package).
+CL_OPTIONAL = (("tdiscovery.figplots figures", "matplotlib"), ("tdiscovery.ablations.fig_variant_grid", "matplotlib"),
+               ("tdiscovery.logparse figures", "matplotlib"), ("freshwater_fish.extract_tol's HDF5 read", "h5py"))
+CL_FISHBASE_PAGE = """<html><head><script>var x = "pelagic";</script></head><body><h1>Thunnus albacares</h1>
+<div>Environment: Marine; brackish; pelagic-oceanic; oceanodromous; depth range 1 - 250 m, usually 1 - 100 m.
+pH range: 6.5 - 8.0.</div></body></html>"""
+
+
+def _cl_clips(root: pathlib.Path, dims: dict, rng) -> tuple[list[int], dict]:
+    """A BirdCLEF-2025-layout root of `clips` 5 s clips at 32 kHz (int16
+    .wav): a quiet 1-4 kHz tone and noise, and in the first `planted` of a
+    seeded permutation a loud tone at `tone_hz` over the time patches
+    `tone_t`. Returns the planted clips' dataset indices and the tone's
+    sample window."""
+    import scipy.io.wavfile
+
+    from saev_tpu_torch.models import bird_mae
+
+    n, sr = dims["clips"], bird_mae.SR_HZ
+    planted = sorted(rng.permutation(n)[: dims["planted"]].tolist())
+    t = np.arange(sr * bird_mae.CLIP_SEC) / sr
+    lo = dims["tone_t"][0] * bird_mae.SAMPLES_PER_TIME_PATCH
+    hi = (dims["tone_t"][-1] + 1) * bird_mae.SAMPLES_PER_TIME_PATCH
+    labels = ("abethr1", "barswa", "compau", "grekis")
+    (root / "train_audio").mkdir(parents=True)
+    with open(root / "taxonomy.csv", "w") as fd:
+        fd.write("primary_label,inat_taxon_id,scientific_name,common_name,class_name\n")
+        fd.writelines(f"{label},{100 + i},Genus species{i},Name {i},Aves\n" for i, label in enumerate(labels))
+    rows = []
+    for i in range(n):
+        x = 0.05 * np.sin(2 * np.pi * rng.uniform(1000, 4000) * t) + 0.01 * rng.standard_normal(t.size)
+        if i in planted:
+            x[lo:hi] += 0.5 * np.sin(2 * np.pi * dims["tone_hz"] * t[lo:hi])
+        label = labels[i % len(labels)]
+        (root / "train_audio" / label).mkdir(exist_ok=True)
+        scipy.io.wavfile.write(root / "train_audio" / label / f"XC{i}.wav", sr, (x * 32767).astype(np.int16))
+        rows.append(f"{label},[],['song'],{label}/XC{i}.wav,XC,4.0")
+    (root / "train.csv").write_text("primary_label,secondary_labels,type,filename,collection,rating\n"
+                                    + "\n".join(rows) + "\n")
+    return planted, {"lo": lo, "hi": hi}
+
+
+def _cl_extract(root: pathlib.Path, dims: dict, device: str, shards_root: pathlib.Path, out: dict) -> pathlib.Path:
+    """A random timm-layout checkpoint of `bird_arch` with channel
+    `bad_channel` planted in the patch embedding's bias (phase 20(e)'s
+    plant), through `framework.shards.cli` at the one layer; logs clips/s
+    over the loop (on the card, as phase 17 times it) or the entry point."""
+    from saev_tpu_torch.data import datasets
+    from saev_tpu_torch.framework import shards as fshards
+    from saev_tpu_torch.models import bird_mae
+    from saev_tpu_torch.scripts import vit_route
+
+    spec = bird_mae.PRETRAINED_SPECS[dims["bird_arch"]]
+    sd = vit_route.bird_mae_state_dict(spec, torch.Generator().manual_seed(SEED + 80))
+    sd["patch_embed.proj.bias"][dims["bad_channel"]] = 50.0
+    ckpt = root / f"{dims['bird_arch']}.pt"
+    torch.save(sd, ckpt)
+    del sd
+    tokens = bird_mae.N_PATCHES + 1
+    cfg = fshards.Config(
+        data=datasets.BirdClef2025(root=root / "birdclef"), family="bird-mae", ckpt=f"{dims['bird_arch']}={ckpt}",
+        layers=(dims["layer"],), d_model=spec.d_model, content_tokens_per_example=bird_mae.N_PATCHES, cls_token=True,
+        shards_root=shards_root, max_tokens_per_shard=32 * tokens, batch_size=EXTRACT_BATCH,
+        n_workers=dims["n_workers"], device=device)
+    before = {p.name for p in shards_root.iterdir()}
+    seen = {"wait": [], "record": [], "forward": [], "write": []}
+    t0 = time.perf_counter()
+    with _extract_spies(seen) if device == "cuda" else contextlib.nullcontext():
+        fshards.cli(cfg)
+    t_cli = time.perf_counter() - t0
+    out["seconds"]["extraction"] = t_cli
+    loop = seen["end"] - seen["start"] if device == "cuda" else t_cli
+    out["extract"] = {"clips_s": dims["clips"] / loop, "loop_s": loop, "entry_point_s": t_cli,
+                      "forward_ms": [round(1e3 * v, 2) for v in seen["forward"]],
+                      "wait_ms": [round(1e3 * v, 2) for v in seen["wait"]]}
+    (bird,) = [p for p in shards_root.iterdir() if p.is_dir() and p.name not in before]
+    return bird
+
+
+def _cl_tone_mel_patch(wave: np.ndarray, dims: dict) -> int:
+    """The mel patch that the tone raises most within its time patches, read
+    off the clip's own log-mel spectrogram."""
+    from saev_tpu_torch.models import bird_mae
+
+    fb = bird_mae.transform(wave)
+    frames = np.zeros(fb.shape[0], bool)
+    for t in dims["tone_t"]:
+        frames[t * bird_mae.FRAMES_PER_PATCH : (t + 1) * bird_mae.FRAMES_PER_PATCH] = True
+    rise = fb[frames].mean(axis=0) - fb[~frames].mean(axis=0)
+    return int(rise.reshape(bird_mae.N_MEL_PATCHES, bird_mae.MELS_PER_PATCH).mean(axis=1).argmax())
+
+
+def _cl_sae(dims: dict, device: str, runs_root: pathlib.Path, bird: pathlib.Path, planted: list[int]) -> dict:
+    """The tone's direction: the mean of the planted clips' tone patches
+    less the mean of the other clips' patches, without `bad_channel`; the
+    threshold halfway between the other clips' largest projection and the
+    tone patches' least. Run b1: a TopK SAE whose latent `latent` reads that
+    direction, scaled so the tone's patches give at least 100 and every
+    other clip's patch a negative value, and whose other latents read
+    nothing of `bad_channel`."""
+    from saev_tpu_torch import disk
+    from saev_tpu_torch.data import IndexedConfig, IndexedDataset, Metadata, datasets
+    from saev_tpu_torch.models import bird_mae
+    from saev_tpu_torch.nn import modeling, serialize
+
+    md = Metadata.load(bird)
+    ds = IndexedDataset(IndexedConfig(shards=bird, layer=dims["layer"]))
+    acts = ds.take(np.arange(len(ds)))["act"].reshape(dims["clips"], bird_mae.N_PATCHES, md.d_model).astype(np.float64)
+    audio = datasets.get_dataset(md.make_data_cfg())
+    mel = _cl_tone_mel_patch(np.asarray(audio[planted[0]]["data"], np.float32), dims)
+    tone_tokens = [t * bird_mae.N_MEL_PATCHES + mel for t in dims["tone_t"]]
+    others = np.setdiff1d(np.arange(dims["clips"]), planted)
+    tone = acts[planted][:, tone_tokens].reshape(-1, md.d_model)
+    rest = acts[others].reshape(-1, md.d_model)
+    direction = tone.mean(axis=0) - rest.mean(axis=0)
+    direction[dims["bad_channel"]] = 0.0
+    direction /= np.linalg.norm(direction)
+    lo, hi = float((rest @ direction).max()), float((tone @ direction).min())
+    require(hi > lo, f"contrib_last: the tone's patches (least projection {hi}) do not stand apart from the other "
+                     f"clips' (largest {lo}) at layer {dims['layer']}")
+    threshold, scale = (lo + hi) / 2, 100.0 / ((hi - lo) / 2)
+    cfg = modeling.SparseAutoencoderConfig(d_model=md.d_model, d_sae=dims["d_sae"],
+                                           activation=modeling.TopK(top_k=dims["top_k"]))
+    params, state = modeling.init(cfg, torch.Generator(device).manual_seed(SEED + 81), device=device)
+    d = torch.from_numpy(direction).float().to(device)
+    params["W_enc"][dims["bad_channel"]] = 0.0
+    params["W_enc"][:, dims["latent"]] = scale * d
+    params["b_enc"][dims["latent"]] = -scale * threshold
+    params["W_dec"][dims["latent"]] = d
+    run = disk.Run.new("b1", train_shards_dir=bird, val_shards_dir=bird, runs_root=runs_root)
+    serialize.dump(run.ckpt, cfg, params, state)
+    (run.run_dir / "checkpoint" / "config.json").write_text(json.dumps({
+        "sae": {"d_sae": dims["d_sae"], "activation": {"key": "top-k", "top_k": dims["top_k"]}},
+        "val_data": {"layer": dims["layer"]}, "objective": {"n_prefixes": 1}}))
+    return {"run": run.run_dir, "mel_patch": mel, "separation": (lo, hi)}
+
+
+def _cl_samples(fpath: pathlib.Path) -> np.ndarray:
+    """A clip that birdsong.visuals wrote, as float samples."""
+    import wave
+
+    if fpath.suffix == ".ogg":
+        from saev_tpu_torch.utils import vorbis
+
+        return np.asarray(vorbis.read_ogg(fpath)[0], np.float64)
+    with wave.open(str(fpath)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float64) / 32767
+
+
+def _cl_birdsong(dims: dict, device: str, root: pathlib.Path, ch: dict, out: dict) -> dict:
+    """(a): clips, extraction, the SAE, inference on `device`, visuals,
+    make_html --embed, browse and stats; checks the planted latent's clips
+    and time clip, the outlier channel and the page."""
+    import scipy.sparse
+
+    from saev_tpu_torch import helpers
+    from saev_tpu_torch.birdsong import browse, make_html, stats, visuals
+    from saev_tpu_torch.data import Metadata, OrderedConfig, datasets
+    from saev_tpu_torch.framework import inference
+    from saev_tpu_torch.models import bird_mae
+
+    rng = np.random.default_rng(SEED + 82)
+    planted, window = _ch_timed(out, "clips", lambda: _cl_clips(root / "birdclef", dims, rng))
+    bird = _cl_extract(root, dims, device, root / "saev" / "shards", out)
+    out["ran"].append("framework.shards.cli (Bird-MAE)")
+    sae = _ch_timed(out, "tone direction and SAE", lambda: _cl_sae(dims, device, ch["runs"]["runs_root"], bird, planted))
+    b1 = sae["run"]
+    res = _ch_timed(out, "inference b1", lambda: inference.worker_fn(inference.Config(
+        run=b1, data=OrderedConfig(shards=bird, layer=dims["layer"], batch_size=dims["batch"]), device=device)))
+    out["batches"] += res["batches"]
+    out["ran"].append("framework.inference (Bird-MAE)")
+    _ch_timed(out, "birdsong.visuals", lambda: visuals.worker_fn(visuals.Config(
+        run=b1, shards=bird, latents=(dims["latent"],), n_latents=dims["vis_latents"], top_k=8, n_clips=4)))
+    out["ran"].append("birdsong.visuals")
+    art = b1 / "inference" / bird.name
+    token_acts = scipy.sparse.load_npz(art / "token_acts.npz").tocsr()
+    top = helpers.csr_topk(token_acts[:, [dims["latent"]]], k=8, axis=0)
+    ex = top.indices[:, 0][top.values[:, 0] > 0] // bird_mae.N_PATCHES
+    require(len(ex) and set(ex.tolist()) <= set(planted),
+            f"birdsong: latent {dims['latent']}'s top clips {ex.tolist()} are not all planted ({planted})")
+    (clip_f,) = (art / "clips" / str(dims["latent"])).glob("0_time_clip.*")
+    clip = _cl_samples(clip_f)
+    md = Metadata.load(bird)
+    wave0 = np.asarray(datasets.get_dataset(md.make_data_cfg())[int(ex[0])]["data"], np.float64)
+    e_window = float((wave0[window["lo"] : window["hi"]] ** 2).sum())
+    e_clip = float((clip**2).sum())
+    n_patches = len(clip) / bird_mae.SAMPLES_PER_TIME_PATCH
+    require(e_clip >= 0.98 * e_window and len(dims["tone_t"]) <= n_patches <= 2 * len(dims["tone_t"]),
+            f"birdsong: the time clip of clip {int(ex[0])} has {e_clip:.1f} of the window's {e_window:.1f} energy over "
+            f"{n_patches} time patches")
+    latents = sorted(int(p.name) for p in (art / "clips").iterdir())
+    notes = root / "notes.json"
+    notes.write_text(json.dumps({str(dims["latent"]): f"a {dims['tone_hz'] / 1e3:g} kHz tone"}))
+    page = _ch_timed(out, "birdsong.make_html --embed", lambda: make_html.make(make_html.Config(
+        run=b1, shards=bird, embed=True, notes=notes, latents=tuple(latents), out=root / "birdsong.html"))).read_text()
+    cards = sum(min(4, len(set(helpers.csr_topk(token_acts[:, [f]], k=8, axis=0).indices[:, 0] // bird_mae.N_PATCHES)))
+                for f in latents)
+    require(page.count("<section>") == len(latents) and all(f"Latent {f}</h2>" in page for f in latents)
+            and page.count('<div class="example">') == cards and "data:image/png;base64," in page,
+            f"birdsong.make_html: {page.count('<section>')} sections, {page.count('<div class=\"example\">')} "
+            f"cards for latents {latents} ({cards} expected)")
+    out["ran"].append("birdsong.make_html")
+    pages = _ch_timed(out, "birdsong.browse", lambda: browse.build_browsers([ch["runs"]["runs_root"]], root / "site"))
+    require([p.name for p in pages] == [f"b1__{bird.name}.html", "index.html"], f"birdsong.browse: {pages}")
+    out["ran"].append("birdsong.browse")
+    report = _ch_timed(out, "birdsong.stats", lambda: stats.report(
+        {"bird-mae": (bird, dims["layer"]), "image": (ch["split_dirs"]["validation"], 0)}, n=1 << 14))
+    outliers = [d["dim"] for d in report["per_set"]["bird-mae"]["outlier_dims"]]
+    require(outliers[:1] == [dims["bad_channel"]]
+            and dims["bad_channel"] not in [d["dim"] for d in report["per_set"]["image"]["outlier_dims"]],
+            f"birdsong.stats: outlier dims {outliers[:5]}, planted {dims['bad_channel']}")
+    out["ran"].append("birdsong.stats")
+    out["bird"] = {"dir": bird, "run": b1, "planted_top": sorted(set(ex.tolist())), "mel_patch": sae["mel_patch"],
+                   "separation": sae["separation"], "time_clip_patches": n_patches, "energy": (e_clip, e_window),
+                   "outliers": outliers[:3], "latents": latents, "cards": cards,
+                   "norm_ratio": report["comparisons"]["bird-mae_vs_image"]["norm_ratio"]}
+    return out
+
+
+def _cl_probe_log(dims: dict, device: str, root: pathlib.Path, run: pathlib.Path, shards_dir: pathlib.Path):
+    """A probe1d fit on `device` over a run's token_acts against the split's
+    patch labels (one-hot), with the stats logger at DEBUG into a file."""
+    import logging
+
+    import scipy.sparse
+
+    from saev_tpu_torch.data import Metadata
+    from saev_tpu_torch.tdiscovery import probe1d
+
+    x = scipy.sparse.load_npz(run / "inference" / shards_dir.name / "token_acts.npz").tocsr().astype(np.float32)
+    md = Metadata.load(shards_dir)
+    labels = np.fromfile(shards_dir / "labels.bin", np.uint8)[: md.n_examples * md.content_tokens_per_example]
+    y = np.eye(int(labels.max()) + 1, dtype=np.float32)[labels]
+    fpath = root / "probe1d.log"
+    handler = logging.FileHandler(fpath)
+    handler.setFormatter(logging.Formatter("[%(asctime)s] [%(levelname)s] [%(name)s] %(message)s"))
+    stats_log = logging.getLogger("probe1d.stats")
+    old = stats_log.level
+    stats_log.setLevel(logging.DEBUG)
+    stats_log.addHandler(handler)
+    try:
+        probe = probe1d.Sparse1DProbe(n_latents=x.shape[1], n_classes=y.shape[1], max_iter=dims["probe_iter"],
+                                      device=device).fit(x, y)
+    finally:
+        stats_log.removeHandler(handler)
+        stats_log.setLevel(old)
+        handler.close()
+    return fpath, probe, labels
+
+
+def _cl_study(dims: dict, device: str, root: pathlib.Path, ch: dict, out: dict) -> dict:
+    """(b): runs, results, logparse over a probe fit on `device`, fishbase,
+    mimicry, figplots and ablations over phase 21's runs and b1."""
+    import importlib.util
+
+    import scipy.sparse
+
+    from saev_tpu_torch.tdiscovery import ablations, figplots, fishbase, logparse, mimicry, results, runs
+    from saev_tpu_torch.tdiscovery.fishvista import utils as fv_utils
+
+    r1, r2, val = ch["runs"]["r1"], ch["runs"]["r2"], ch["split_dirs"]["validation"]
+    n_classes = ch["n_classes"]
+    specs = [runs.RunSpec(run=r1), runs.RunSpec(run=r2), runs.RunSpec(run=out["bird"]["run"], method="sae-audio")]
+    df, skipped = _ch_timed(out, "tdiscovery.runs.load_df", lambda: runs.load_df(specs))
+    nmse = f"{val.name}/normalized_mse"
+    require(len(df) == 3 and not skipped and df[nmse].iloc[:2].notna().all() and (df["d_sae"] == dims["d_sae"]).all(),
+            f"tdiscovery.runs: {len(df)} rows, {len(skipped)} skipped, columns {list(df.columns)[:12]}")
+    out["ran"].append("tdiscovery.runs")
+    rng = np.random.default_rng(SEED + 83)
+    for i, method in enumerate(("sae", "random", "pca")):
+        ap = rng.random(10).tolist()
+        fv_utils.Result(method=method, n_prototypes=dims["d_sae"], best_prototype_per_class=rng.integers(
+            0, dims["d_sae"], 10).tolist(), train_ap_per_class=rng.random(10).tolist(), test_ap_per_class=ap,
+            mean_ap=float(np.mean(ap)), n_train_patches=1 << 14, n_test_patches=1 << 14, seed=i,
+            extra={"layer": 0}).dump_json(root / "results" / f"fishvista_{method}.json")
+    rdf = _ch_timed(out, "tdiscovery.results", lambda: results.load_results_df(root / "results"))
+    table = results.map_table(rdf)
+    best = results.best_latents(rdf)
+    vs = results.method_vs_random(rdf)
+    require(len(rdf) == 30 and len(table) == 3 and table["mAP"].is_monotonic_decreasing and len(best) == 10
+            and "sae_minus_random" in vs.columns, f"tdiscovery.results: {len(rdf)} rows, map table {table}")
+    out["ran"].append("tdiscovery.results")
+    log_f, probe, labels = _ch_timed(out, "probe1d fit (logparse's log)", lambda: _cl_probe_log(dims, device, root, r1, val))
+    events = logparse.load_events(log_f)
+    summary = logparse.summarize(events)
+    require(summary["n_iterations"] >= 1 and summary["n_slabs"] >= 1 and np.isfinite(summary["final_loss_mean"])
+            and ("peak_device_gb" in summary) == (device == "cuda"), f"tdiscovery.logparse: {summary}")
+    out["ran"].append("tdiscovery.logparse")
+    # fishbase: the planted latents and 28 others, the patches' class labels
+    # as body parts, each image's class as its habitat.
+    cols = np.concatenate([np.arange(n_classes), rng.choice(np.arange(n_classes, dims["d_sae"]), 28, replace=False)])
+    acts = scipy.sparse.load_npz(r1 / "inference" / val.name / "token_acts.npz").tocsc()[:, cols].toarray()
+    tokens = ch["tokens"]
+    trait = labels.reshape(-1, tokens).max(axis=1).astype(np.int32) - 1
+    vocab, parts = fishbase.HABITATS[:n_classes], fishbase.PART_NAMES[: n_classes + 1]
+    scored = _ch_timed(out, "tdiscovery.fishbase", lambda: fishbase.score_part_by_trait(
+        acts, labels, trait, tokens, vocab=vocab, parts=parts))
+    found = {(r["part"], r["target"]): r["latent"] for r in scored.table()}
+    want = {(parts[c + 1], vocab[c]): c for c in range(n_classes)}
+    require(all(found.get(k) == v for k, v in want.items()), f"tdiscovery.fishbase: best latents {found}")
+    auc = fishbase.fast_auc(acts, labels == 1)
+    require(int(auc.argmax()) == 0 and auc[0] > 0.9, f"tdiscovery.fishbase: AUC of class 1 {auc[:n_classes]}")
+    out["ran"].append("tdiscovery.fishbase")
+    pairs = [tuple(s.split("_")[0] for s in pair) for pair in CH_PAIRS]
+    counts = mimicry.pair_counts(val, pairs)
+    per = ch["images"] // n_classes
+    require([(c["n_erato"], c["n_melpomene"]) for c in counts] == [(per, per), (0, 0)] * len(pairs),
+            f"tdiscovery.mimicry pair counts: {counts}")
+    rows = _ch_timed(out, "tdiscovery.mimicry harvest", lambda: mimicry.harvest_results(
+        ch["runs"]["runs_root"], filt=mimicry.HarvestFilter(tasks=frozenset({"class"}))))
+    sk = importlib.util.find_spec("sklearn") is not None
+    # cls::train's tree (scikit-learn) is not a sparse-linear head; the
+    # nearest-mean head that the phase writes without it is.
+    require(len(rows) == (0 if sk else 1) and all(r["balanced_acc"] >= 0.75 for r in rows),
+            f"tdiscovery.mimicry harvest: {[(r['run_id'], r['balanced_acc']) for r in rows]}")
+    difficulty = mimicry.difficulty_table(rows)
+    out["ran"].append("tdiscovery.mimicry")
+    cmp = figplots.comparison_table(df, [("top-k", {"activation": "top-k"}), ("none", {"activation": "relu"})],
+                                    columns=(("NMSE", nmse),), pick=nmse)
+    done = ablations.completeness(df, group_cols=("activation",), expected=3)
+    require(cmp["run_id"].isna().tolist() == [False, True] and done == [{"activation": "top-k", "count": 3, "expected": 3, "done": True}],
+            f"figplots.comparison_table {cmp.to_dict('records')}, ablations.completeness {done}")
+    out["ran"].append("tdiscovery.figplots tables, ablations tables")
+    if importlib.util.find_spec("matplotlib") is not None:
+        fig, fronts = figplots.fig_tradeoff(df.dropna(subset=[nmse]), x="d_sae", y=nmse, group="method")
+        grid, _ = ablations.fig_variant_grid(df.dropna(subset=[nmse]), variant_col="activation", panel_rows="method",
+                                             panel_cols="top_k", x="d_sae", y=nmse)
+        written = figplots.save_battery({"tradeoff": fig, "variants": grid, "loss": logparse.fig_loss(
+            logparse.iters_df(events))}, {"runs": cmp}, root / "battery")
+        require(len(written) == 4, f"figplots.save_battery wrote {written}")
+        out["ran"].append("tdiscovery.figplots, ablations and logparse figures")
+    else:
+        for what, fn in (("tdiscovery.figplots figures", lambda: figplots.fig_tradeoff(df)),
+                         ("tdiscovery.ablations.fig_variant_grid", lambda: ablations.fig_variant_grid(df)),
+                         ("tdiscovery.logparse figures", lambda: logparse.fig_loss(logparse.iters_df(events)))):
+            try:
+                fn()
+                raise AssertionError(f"{what} ran without matplotlib")
+            except ImportError as err:
+                require("pip install matplotlib" in str(err), f"{what}'s ImportError: {err}")
+                out["import_errors"][what] = str(err)
+    out["study"] = {"probe_iterations": summary["n_iterations"], "probe_loss": summary["final_loss_mean"],
+                    "fishbase": [found.get(k) for k in want], "harvest": [(r["run_id"], r["balanced_acc"]) for r in rows],
+                    "difficulty": [r["task"] for r in difficulty], "n_iter": probe.n_iter_.tolist()}
+    return out
+
+
+def _cl_tol_store(root: pathlib.Path, images: list[pathlib.Path]) -> int:
+    """A TreeOfLife-200M layout over `images` (PNG bytes): a resolved-taxa
+    partition (two fish orders and a beetle), the uuid -> h5_file lookup, and
+    the HDF5 file where h5py imports. Returns the fish images' count."""
+    import importlib.util
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = len(images)
+    uuids = [f"u{i}" for i in range(n)]
+    orders = ["Coleoptera" if i == n - 1 else ("Cypriniformes", "Perciformes")[i % 2] for i in range(n)]
+    (root / "resolved_taxa" / "source=gbif").mkdir(parents=True)
+    pq.write_table(pa.table({"uuid": uuids, "order": orders, "species": [f"Species {i % 3}" for i in range(n)]}),
+                   root / "resolved_taxa" / "source=gbif" / "part0.parquet")
+    (root / "lookup_tables").mkdir()
+    pq.write_table(pa.table({"uuid": uuids, "h5_file": [str(root / "images0.h5")] * n}),
+                   root / "lookup_tables" / "lookup0.parquet")
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        with h5py.File(root / "images0.h5", "w") as fd:
+            g = fd.create_group("images")
+            for uuid, p in zip(uuids, images):
+                g.create_dataset(uuid, data=np.frombuffer(p.read_bytes(), np.uint8))
+    return n - 1
+
+
+def _cl_fish(dims: dict, root: pathlib.Path, ch: dict, out: dict) -> dict:
+    """(c): extract_tol over a TreeOfLife store of phase 21's images
+    (without h5py, its ImportError once the parquet side has run);
+    tdiscovery.visuals on r1's validation split, then make_gallery over its
+    images and var.parquet."""
+    import importlib.util
+
+    import pandas as pd
+
+    from saev_tpu_torch.freshwater_fish import extract_tol, make_gallery
+    from saev_tpu_torch.models import families
+    from saev_tpu_torch.scripts import vit_route
+    from saev_tpu_torch.tdiscovery import visuals
+
+    images = sorted((ch["seg_root"] / "images" / "validation").glob("*.png"))[: dims["tol_images"]]
+    n_fish = _cl_tol_store(root / "tol", images)
+    cfg = extract_tol.Config(order_filter=("Cypriniformes", "Perciformes"), resolved_taxa_dpath=root / "tol" / "resolved_taxa",
+                             lookup_tables_dpath=root / "tol" / "lookup_tables", output_dpath=root / "fish",
+                             n_workers=4, sources=("gbif",))
+    pairs = extract_tol.collect_pairs(cfg)
+    lookup = extract_tol.load_lookup(cfg.lookup_tables_dpath, {u for u, _ in pairs})
+    require(len(pairs) == len(lookup) == n_fish, f"extract_tol: {len(pairs)} pairs, {len(lookup)} resolved")
+    if importlib.util.find_spec("h5py") is not None:
+        n = _ch_timed(out, "freshwater_fish.extract_tol", lambda: extract_tol.worker_fn(cfg))
+        written = sorted((root / "fish").rglob("*.jpg"))
+        require(n == n_fish == len(written), f"extract_tol: wrote {n} images, {len(written)} files, {n_fish} fish")
+        out["ran"].append("freshwater_fish.extract_tol")
+    else:
+        try:
+            extract_tol.worker_fn(cfg)
+            raise AssertionError("extract_tol read HDF5 without h5py")
+        except ImportError as err:
+            require("pip install h5py" in str(err), f"extract_tol's ImportError: {err}")
+            out["import_errors"]["freshwater_fish.extract_tol's HDF5 read"] = str(err)
+        out["ran"].append("freshwater_fish.extract_tol (parquet filter and lookup)")
+    # The shards' model family (a random OpenCLIP checkpoint of ch["clip"]):
+    # tdiscovery.visuals reads its patch size and resize.
+    arch, _, ckpt = ch["clip_ckpt"].partition("=")
+    spec = families.CLIP_PRESETS[arch].spec
+    _ch_timed(out, "clip checkpoint", lambda: torch.save(vit_route.openclip_state_dict(
+        spec, torch.Generator().manual_seed(SEED + 84), ch["tokens"] + 1), ckpt))
+    r1, val = ch["runs"]["r1"], ch["split_dirs"]["validation"]
+    planted = tuple(range(ch["n_classes"]))
+    _ch_timed(out, "tdiscovery.visuals", lambda: visuals.worker_fn(visuals.Config(
+        run=r1, shards=val, latents=planted, n_latents=2, top_k=4, save_distributions=False)))
+    out["ran"].append("tdiscovery.visuals")
+    gcfg = make_gallery.Config(run=r1, shards=val, dataset=ch["seg_root"], split="validation", out=root / "fish.html")
+    species = make_gallery.load_species(gcfg)
+    art = r1 / "inference" / val.name
+    cards = make_gallery.build_features(art / "images", pd.read_parquet(art / "var.parquet"), species, 80)
+    by_id = {c["id"]: c for c in cards}
+    require(all({im["label"] for im in by_id[c]["images"]} == {"abcdefgh"[c]} for c in planted),
+            f"make_gallery: planted latents' captions {[sorted({im['label'] for im in by_id[c]['images']}) for c in planted if c in by_id]}")
+    page = _ch_timed(out, "freshwater_fish.make_gallery", lambda: make_gallery.gallery(gcfg)).read_text()
+    require(all(f'"id": {c},' in page for c in planted), "make_gallery: a planted latent's card is missing")
+    out["ran"].append("freshwater_fish.make_gallery")
+    out["fish"] = {"tol_pairs": len(pairs), "cards": len(cards), "images": sum(len(c["images"]) for c in cards)}
+    return out
+
+
+def _cl_dataprep(dims: dict, device: str, root: pathlib.Path, ch: dict, out: dict) -> dict:
+    """(d): format_ade20k and format_fishvista on synthetic downloads,
+    materialize on in-memory rows, parse_environment on a stored page, and
+    push_dinov3 --dry-run, which loads phase 21's and b1's SAE files on
+    `device`."""
+    import scipy.sparse
+    from PIL import Image
+
+    from saev_tpu_torch.tdiscovery.scripts import (download_butterflies, format_ade20k, format_fishvista, push_dinov3,
+                                                   scrape_fishbase)
+
+    rng = np.random.default_rng(SEED + 85)
+    t0 = time.perf_counter()
+    ade = root / "ade"
+    stems = {f"ADE_{s}_{i:03d}": ("kitchen", "beach", "street")[i % 3] for i, s in enumerate(["train", "val"] * 4)}
+    for i, stem in enumerate(stems):
+        split = ("training", "validation")[i % 2]
+        for sub in ("images", "annotations"):
+            (ade / sub / split).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(ade / "images" / split / f"{stem}.jpg")
+        Image.fromarray(rng.integers(0, 4, (8, 8), dtype=np.uint8)).save(ade / "annotations" / split / f"{stem}.png")
+    (ade / "sceneCategories.txt").write_text("".join(f"{s} {v}\n" for s, v in stems.items()))
+    format_ade20k.main(["format", "--src-root", str(ade), "--dump-to", str(root / "ade_seg"), "--n-threads", "4"])
+    links = [p for p in (root / "ade_seg").rglob("*") if p.is_symlink()]
+    require(len((root / "ade_seg" / "image_labels.txt").read_text().splitlines()) == len(stems)
+            and len(links) == 2 * len(stems), f"format_ade20k: {len(links)} links")
+    out["ran"].append("tdiscovery.scripts.format_ade20k")
+    fv = root / "fv"
+    (fv / "Images").mkdir(parents=True)
+    (fv / "segmentation_masks" / "images").mkdir(parents=True)
+    species = ("Thunnus albacares", "Amphiprion ocellaris", "Danio rerio")
+    for k, split in enumerate(("train", "val", "test")):
+        rows = [(f"f{k}{i}.jpg", species[i % 3]) for i in range(3)]
+        for fname, _ in rows:
+            Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(fv / "Images" / fname)
+            Image.new("L", (8, 8), k).save(fv / "segmentation_masks" / "images" / f"{fname[:-4]}.png")
+        for kind in ("segmentation", "classification"):
+            (fv / f"{kind}_{split}.csv").write_text("filename,family,standardized_species\n"
+                                                    + "".join(f"{f},Testidae,{s}\n" for f, s in rows))
+    cols = ["genus", "species", *format_fishvista.HABITAT_COLS, *format_fishvista.MIGRATION_COLS, *format_fishvista.ENV_COLS]
+    traits = [{"genus": "thunnus", "species": "albacares", "pelagic-oceanic": "1.0", "marine": "1.0"},
+              {"genus": "amphiprion", "species": "ocellaris", "reef-associated": "1.0", "marine": "1.0"}]
+    (root / "traits.csv").write_text(",".join(cols) + "\n" + "".join(",".join(t.get(c, "") for c in cols) + "\n"
+                                                                    for t in traits))
+    format_fishvista.segfolder(format_fishvista.Config(fv_root=fv, dump_to=root / "fv_seg", fishbase_csv=root / "traits.csv",
+                                                       n_threads=4))
+    format_fishvista.imgfolder(format_fishvista.Config(fv_root=fv, dump_to=root / "fv_img", n_threads=4))
+    seg_rows = (root / "fv_seg" / "labels.csv").read_text().splitlines()
+    require(len(seg_rows) == 1 + 6 and len(list((root / "fv_img").rglob("*.jpg"))) == 9,
+            f"format_fishvista: {len(seg_rows) - 1} labelled images")
+    out["ran"].append("tdiscovery.scripts.format_fishvista")
+    rows = [{"stem": f"CAM{i:04d}", "subspecies": ("lativitta", "malleti")[i % 2], "view": "dorsal",
+             "image": Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)),
+             "mask": Image.fromarray(rng.integers(0, 3, (8, 8), dtype=np.uint8))} for i in range(4)]
+    counts = download_butterflies.materialize(download_butterflies.Config(out=root / "bfly"), rows)
+    require(counts == {"labels": 4, "written": 4, "skipped": 0}, f"download_butterflies.materialize: {counts}")
+    out["ran"].append("tdiscovery.scripts.download_butterflies.materialize")
+    env = scrape_fishbase.parse_environment(CL_FISHBASE_PAGE)
+    require(env["marine"] == env["pelagic-oceanic"] == 1.0 and env["max_depth_m"] == 250.0 and env["freshwater"] == "",
+            f"scrape_fishbase.parse_environment: {env}")
+    out["ran"].append("tdiscovery.scripts.scrape_fishbase.parse_environment")
+    out["seconds"]["formats, materialize, parse"] = time.perf_counter() - t0
+    # push_dinov3: eval metrics in the offline tracker, from each run's
+    # inference (L0 from token_acts, MSE a token from metrics.json).
+    runs_root = ch["runs"]["runs_root"]
+    layers = {"r1": 0, "r2": 1, "b1": dims["layer"]}
+    for run_id in layers:
+        art = runs_root / run_id / "inference" / (out["bird"]["dir"] if run_id == "b1" else ch["split_dirs"]["validation"]).name
+        acts = scipy.sparse.load_npz(art / "token_acts.npz")
+        metrics = json.loads((art / "metrics.json").read_text())
+        rec = root / "tracker" / "saev" / run_id
+        rec.mkdir(parents=True)
+        (rec / "summary.json").write_text(json.dumps({"eval/l0": acts.nnz / acts.shape[0],
+                                                      "eval/mse": metrics["mse_per_token"]}))
+    (root / "run_ids.json").write_text(json.dumps({str(v): [k] for k, v in layers.items()}))
+    staging = root / "staging"
+    _ch_timed(out, "push_dinov3 --dry-run", lambda: push_dinov3.main([
+        "push", "--runs-root", str(runs_root), "--run-ids", str(root / "run_ids.json"), "--tracker-root",
+        str(root / "tracker"), "--staging", str(staging), "--dry-run", "--device", device]))
+    manifest = json.loads((staging / "manifest.json").read_text())
+    require(sorted(m["run_id"] for m in manifest) == sorted(layers)
+            and all(m["sha256"] == push_dinov3.sha256_file(push_dinov3.ckpt_fpath(runs_root, m["run_id"])) for m in manifest)
+            and "saev_tpu_torch.nn.load" in (staging / "README.md").read_text(),
+            f"push_dinov3: staged {manifest}")
+    out["ran"].append("tdiscovery.scripts.push_dinov3 --dry-run")
+    return out
+
+
+def run_contrib_last(dims: dict, device: str, root: pathlib.Path, ch: dict) -> dict:
+    """The contrib_last phase's path at `dims` (module doc, phase 22) in
+    phase 21's root, after `run_contrib_host` (its output `ch`). The CPU
+    runs it too, at small `dims`."""
+    import importlib.util
+
+    out = {"seconds": {}, "ran": [], "import_errors": {}, "batches": 0}
+    _cl_birdsong(dims, device, root, ch, out)
+    _cl_study(dims, device, root, ch, out)
+    _cl_fish(dims, root, ch, out)
+    _cl_dataprep(dims, device, root, ch, out)
+    out["missing"] = {what: pkg for what, pkg in CL_OPTIONAL if importlib.util.find_spec(pkg) is None}
+    return out
+
+
+def phase_contrib_last(root: pathlib.Path, ch: dict) -> dict:
+    """The last of contrib on a Bird-MAE-Large run inferred on the card and
+    on phase 21's tree (module doc, phase 22). Returns the path's launches
+    (K6 in every inference batch)."""
+    t_phase = time.perf_counter()
+    card = card_and_limit()
+    reset_counts()
+    with plain_spy() as plain:
+        out = run_contrib_last(CL, "cuda", root, ch)
+    launches = counts()
+    # The CPU's encode takes K6's plain version, so it runs after the count.
+    fx_cmp = _ch_fx_check(CL, out["bird"]["run"], out["bird"]["dir"], layer=CL["layer"])
+    torch.cuda.empty_cache()
+    require(not plain, f"contrib_last: plain versions ran on the card: {plain}")
+    want = dict.fromkeys(KERNELS, 0) | {"kth_value": out["batches"]}
+    require(launches == want, f"contrib_last: launches {launches}, expected {want}")
+    require_topk_agrees("contrib_last: token_acts", fx_cmp, INTERP_REL_MSE)
+    sec, bird, ext = out["seconds"], out["bird"], out["extract"]
+    log(f"contrib_last ({card}): " + "; ".join(f"{k} {v:.2f} s" for k, v in sec.items()))
+    log(f"contrib_last ({card}): {CL['bird_arch']} (d_model 1024, 24 layers) on {CL['clips']} clips, "
+        f"{CL['planted']} with a {CL['tone_hz'] / 1e3:g} kHz tone over time patches {CL['tone_t']} (mel patch "
+        f"{bird['mel_patch']}), channel {CL['bad_channel']} planted; extraction at layer {CL['layer']}: "
+        f"{ext['clips_s']:.1f} clips/s over the {ext['loop_s']:.2f} s loop ({ext['entry_point_s']:.2f} s the entry "
+        f"point), loader wait ms {ext['wait_ms']}, forward ms {ext['forward_ms']}; the tone's projection "
+        f"{bird['separation'][1]:.3f} against the other clips' {bird['separation'][0]:.3f}; TopK-{CL['top_k']} at "
+        f"d_sae {CL['d_sae']}, K6 launched {launches['kth_value']} times (one an inference batch of {CL['batch']} "
+        f"rows, {out['batches']} batches), no plain version; token_acts on {CL['ref_rows']} rows: "
+        f"{topk_note(fx_cmp, INTERP_REL_MSE)}; latent {CL['latent']}'s top clips {bird['planted_top']} (planted), "
+        f"its time clip {bird['time_clip_patches']:g} time patches, energy {bird['energy'][0]:.1f} of the window's "
+        f"{bird['energy'][1]:.1f}; stats' outliers {bird['outliers']}, audio/image norm ratio "
+        f"{bird['norm_ratio']:.3f}; page {len(bird['latents'])} latents, {bird['cards']} cards; study "
+        f"{out['study']}; fish {out['fish']}")
+    for what, err in out["import_errors"].items():
+        log(f"contrib_last: {what} raised ImportError as it must: {err}")
+    log(f"contrib_last modules ran: {', '.join(out['ran'])}; could not import: "
+        + (", ".join(f"{what} ({pkg})" for what, pkg in out["missing"].items()) or "none"))
+    log(f"contrib_last: the phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return {"launches": launches}
 
 
@@ -5638,10 +6277,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     ii_counts = phase_interactive_interp()["launches"]
     torch.cuda.empty_cache()
-    ch_counts = phase_contrib_host()["launches"]
+    root = pathlib.Path(tempfile.mkdtemp(prefix="saev_contrib_host_"))
+    try:
+        ch = phase_contrib_host(root)
+        ch_counts = ch["launches"]
+        torch.cuda.empty_cache()
+        cl_counts = phase_contrib_last(root, ch["out"])["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     launches = {k: warm_counts[k] + wide_counts[k] + steady_counts[k] + metric_counts[k] + job_counts[k]
                 + infer_counts[k] + interp_counts[k] + act_counts[k] + muon_counts[k] + high_counts[k]
-                + multi_counts[k] + td_counts[k] + ii_counts[k] + ch_counts[k]
+                + multi_counts[k] + td_counts[k] + ii_counts[k] + ch_counts[k] + cl_counts[k]
                 for k in KERNELS}
     # K7 runs on the multi path (feature-parallel training); the other bench
     # kernels only in the benches phase.
@@ -5660,6 +6307,7 @@ def main() -> int:
                                ("tdiscovery", td_counts, TD_KERNELS),
                                ("interactive_interp", ii_counts, II_KERNELS),
                                ("contrib_host", ch_counts, CH_KERNELS),
+                               ("contrib_last", cl_counts, CL_KERNELS),
                                ("benches", bench_counts, BENCH_KERNELS)):
         for k in kernels:
             require(got[k] > 0, f"{path}: kernel {k} was never launched")

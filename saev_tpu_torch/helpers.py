@@ -303,31 +303,46 @@ def np_topk(arr: np.ndarray, k: int, axis: int | None = None) -> NumpyTopK:
     return NumpyTopK(values=topk_values, indices=topk_indices)
 
 
-def _csr_topk_axis0(arr, k: int, batch_size: int) -> NumpyTopK:
+def _csr_topk_axis0(arr, k: int) -> NumpyTopK:
     """Axis=0 top-k over a CSR matrix: top-k values across rows for each column.
 
-    Streaming min-tracking over row batches so the dense intermediate stays
-    (batch_size, n_cols). Mirrors reference helpers.py:537-...
+    The result of the reference's streaming form (helpers.py:537-..., a
+    stable descending argsort of dense row batches merged with the running
+    top-k): each column's k largest values, the implicit zeros included,
+    ties to the lower row. It is computed from the stored entries alone:
+    sorted by (column, value descending, row), each column's positive
+    entries come first, then its zero rows in ascending order (the rows it
+    stores no nonzero for), then its negative entries. A dense batch's sort
+    costs O(rows x columns log rows); this is O(nnz log nnz) plus a pass
+    over the columns with fewer than k positive entries.
     """
     n_rows, n_cols = arr.shape
+    csc = arr.tocsc()
+    counts = np.diff(csc.indptr)
+    cols = np.repeat(np.arange(n_cols), counts)
+    vals = csc.data.astype(np.float64)
+    order = np.lexsort((csc.indices, -vals, cols))
+    rows, vals = csc.indices[order].astype(np.int64), vals[order]
+    rank = np.arange(len(vals)) - csc.indptr[cols]
 
-    topk_values = np.full((k, n_cols), -np.inf, dtype=np.float64)
+    topk_values = np.zeros((k, n_cols), dtype=np.float64)
     topk_indices = np.zeros((k, n_cols), dtype=np.int64)
+    pos = (vals > 0) & (rank < k)
+    topk_values[rank[pos], cols[pos]] = vals[pos]
+    topk_indices[rank[pos], cols[pos]] = rows[pos]
 
-    for start, end in batched_idx(n_rows, batch_size):
-        block = np.asarray(arr[start:end].todense())
-        block_rows = np.arange(start, end)
+    n_pos = np.bincount(cols[vals > 0], minlength=n_cols)
+    for j in np.flatnonzero(n_pos < k):
+        lo, hi = csc.indptr[j], csc.indptr[j + 1]
+        col_rows, col_vals = rows[lo:hi], vals[lo:hi]
+        nonzero = col_rows[col_vals != 0]
+        need = k - n_pos[j]
+        zero_rows = np.setdiff1d(np.arange(min(n_rows, need + len(nonzero))), nonzero)[:need]
+        fill = np.concatenate([zero_rows, col_rows[col_vals < 0][: need - len(zero_rows)]])
+        fill_vals = np.concatenate([np.zeros(len(zero_rows)), col_vals[col_vals < 0][: need - len(zero_rows)]])
+        topk_indices[n_pos[j] :, j] = fill
+        topk_values[n_pos[j] :, j] = fill_vals
 
-        # Merge current top-k with this block, then re-select top-k per column.
-        cand_values = np.concatenate([topk_values, block], axis=0)
-        cand_indices = np.concatenate(
-            [topk_indices, np.broadcast_to(block_rows[:, None], block.shape)], axis=0
-        )
-        order = np.argsort(-cand_values, axis=0, kind="stable")[:k]
-        topk_values = np.take_along_axis(cand_values, order, axis=0)
-        topk_indices = np.take_along_axis(cand_indices, order, axis=0)
-
-    # Columns with fewer than k finite entries keep -inf values; callers may mask.
     return NumpyTopK(values=topk_values.astype(arr.dtype), indices=topk_indices)
 
 
@@ -356,7 +371,8 @@ def csr_topk(arr, k: int, axis: int, batch_size: int = 4096) -> NumpyTopK:
         arr: scipy.sparse csr_array/csr_matrix of shape (n_rows, n_cols).
         k: Number of top elements.
         axis: 0 (top rows per column) or 1 (top columns per row).
-        batch_size: Rows per processing batch.
+        batch_size: Rows per processing batch (axis 1; axis 0 reads the stored
+            entries whole).
 
     Returns:
         NumpyTopK(values, indices): shape (k, n_cols) for axis=0, (n_rows, k) for axis=1.
@@ -367,7 +383,7 @@ def csr_topk(arr, k: int, axis: int, batch_size: int = 4096) -> NumpyTopK:
     arr = arr.tocsr()
     if axis == 0:
         assert k <= arr.shape[0], f"k={k} > n_rows={arr.shape[0]}"
-        return _csr_topk_axis0(arr, k, batch_size)
+        return _csr_topk_axis0(arr, k)
     elif axis == 1:
         assert k <= arr.shape[1], f"k={k} > n_cols={arr.shape[1]}"
         return _csr_topk_axis1(arr, k, batch_size)

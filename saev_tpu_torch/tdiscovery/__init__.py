@@ -7,7 +7,12 @@ analysis of a run's inference artifacts: image-level heads and their
 grounding audit (`classification`), the Heliconius metadata dataset
 (`datasets`), the probe-results and audit frames (`analysis`,
 `audit_analysis`), top-image galleries and their browser (`visuals`,
-`browse`) and the classification-results view (`clsview`).
+`browse`) and the classification-results view (`clsview`); and the study
+modules over many runs: run tables and pareto fronts (`runs`), FishVista
+result tables (`results`), probe telemetry (`logparse`), FishBase trait x
+body-part scores (`fishbase`), mimic-pair harvests (`mimicry`), the paper's
+figure and table battery (`figplots`) and variant ablations (`ablations`),
+with the data-prep scripts under `scripts/`.
 
     python -m saev_tpu_torch.tdiscovery {probe1d,baseline::train,baseline::inference,metrics,cls::train,cls::eval,cls::audit,visuals} ...
 

@@ -22,7 +22,7 @@ import pathlib
 import numpy as np
 
 from .. import disk, helpers
-from . import analysis
+from . import analysis, figplots
 
 logger = logging.getLogger("td.audit")
 
@@ -527,20 +527,10 @@ def run_battery(run_dirs: list[pathlib.Path], out: pathlib.Path,
         agg.to_dict("records") if hasattr(agg, "to_dict") else []
     )
 
-    _save_figures(figures, out)
+    figplots.save_battery(figures, {}, out)
     (out / "audit_stats.json").write_text(
         json.dumps(results, indent=2, default=str)
     )
     logger.info("Audit battery: %d figures -> %s", len(figures), out)
     return results
 
-
-def _save_figures(figures: dict[str, object], out: pathlib.Path) -> list[pathlib.Path]:
-    """Each figure as `<name>.pdf` under `out` (contrib's
-    `figplots.save_battery` with no tables)."""
-    written = []
-    for name, fig in figures.items():
-        fpath = out / f"{name}.pdf"
-        fig.savefig(fpath, bbox_inches="tight")
-        written.append(fpath)
-    return written

@@ -4,8 +4,9 @@ package's, on the same numpy inputs:
 - `saev_tpu_torch.nn.__all__` names the JAX package's `nn` surface, and
   each name is the port's own (classes, functions, modules);
 - `helpers.np_topk` (axis None, 0, 1, -1) and `helpers.csr_topk` (axis 0
-  and 1, with batches smaller than the rows and ties in the values): values
-  and indices equal; `flattened` equal; `RemovedFeatureError` a
+  and 1, with batches smaller than the rows and ties in the values; axis 0
+  also on columns with fewer than k positive entries, stored zeros and
+  negative values): values and indices equal; `flattened` equal; `RemovedFeatureError` a
   RuntimeError;
 - `statistics.PercentileEstimator` on one seeded stream, scalar and
   per-column: equal estimates at every step;
@@ -61,6 +62,26 @@ def test_csr_topk_matches_jax(axis, batch_size):
     for pkg in (helpers, jhelpers):
         with pytest.raises(ValueError, match="axis must be 0 or 1"):
             pkg.csr_topk(arr, 4, 2)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_csr_topk_axis0_sparse_columns_match_jax(seed):
+    """Axis 0 reads the stored entries: columns with fewer than k positive
+    entries (their zero rows, stored or not, then their negative entries),
+    ties to the lower row, k up to the row count, as the JAX package's
+    streaming dense form gives them."""
+    rng = np.random.default_rng(10 + seed)
+    n_rows, n_cols = int(rng.integers(3, 40)), int(rng.integers(1, 30))
+    dense = (rng.integers(-2, 4, size=(n_rows, n_cols)) * (rng.random((n_rows, n_cols)) < rng.random())).astype(np.float32)
+    dense[:, 0] = -1.0  # a column of negatives alone
+    arr = scipy.sparse.csr_array(dense)
+    arr.data[rng.random(arr.nnz) < 0.2] = 0.0  # stored zeros
+    k = int(rng.integers(1, n_rows + 1))
+    for batch_size in (1, 5, 4096):
+        got, want = helpers.csr_topk(arr, k, 0, batch_size), jhelpers.csr_topk(arr, k, 0, batch_size)
+        assert got.values.dtype == want.values.dtype and got.indices.dtype == want.indices.dtype
+        np.testing.assert_array_equal(got.values, want.values)
+        np.testing.assert_array_equal(got.indices, want.indices)
 
 
 def test_flattened_matches_jax():

@@ -1,13 +1,16 @@
 """saev_tpu_torch and chip_smoke.py import with jax, jaxlib, orbax, PIL,
-pandas, scikit-learn, matplotlib, the JAX package (saev_tpu) and contrib
-(`contrib`, and its `tdiscovery` and `mimics` packages) blocked: the machine
-with the card has no JAX (and maybe no Pillow, pandas, scikit-learn or
-matplotlib). The library surface that reads a run (the `nn` names,
+pandas, scikit-learn, matplotlib, h5py, the JAX package (saev_tpu) and
+contrib (`contrib`, and its `tdiscovery`, `mimics`, `birdsong` and
+`freshwater_fish` packages) blocked: the machine with the card has no JAX
+(and maybe no Pillow, pandas, scikit-learn, matplotlib or h5py). The library surface that reads a run (the `nn` names,
 `IndexedDataset`, `csr_topk`, `PercentileEstimator`, the schedulers), Muon's
 and "high"'s code, the interpretation layer's colormap, trait discovery's
 probe fit and memory plan, the semseg probes' AdamW step, the audit's
-tie-aware AP and the mimic scores' AUROC run there too, and cls::train
-raises an ImportError that names scikit-learn."""
+tie-aware AP and the mimic scores' AUROC run there too, as do birdsong's
+statistics, the study modules' numpy (pareto fronts, fishbase's scores,
+probe telemetry lines) and the data-prep parsers; cls::train raises an
+ImportError that names scikit-learn, the study figures one that names
+matplotlib, and the TreeOfLife extraction one that names h5py."""
 
 import pathlib
 import subprocess
@@ -18,8 +21,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "sklearn", "matplotlib", "saev_tpu", "contrib", "tdiscovery",
-           "mimics")
+BLOCKED = ("jax", "jaxlib", "orbax", "PIL", "pandas", "sklearn", "matplotlib", "h5py", "saev_tpu", "contrib",
+           "tdiscovery", "mimics", "birdsong", "freshwater_fish")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -73,6 +76,29 @@ try:
     raise AssertionError("cls::train ran without scikit-learn")
 except ImportError as err:
     assert "pip install scikit-learn" in str(err), err
+from saev_tpu_torch.birdsong import stats as bird_stats
+from saev_tpu_torch.freshwater_fish import extract_tol
+from saev_tpu_torch.tdiscovery import ablations, figplots, fishbase, logparse, runs
+from saev_tpu_torch.tdiscovery.scripts import push_dinov3, scrape_fishbase
+acts = np.random.default_rng(0).normal(size=(200, 8))
+acts[:, 3] *= 50.0
+assert bird_stats.outlier_dims(bird_stats.compute_stats(acts))[0]["dim"] == 3
+assert runs.pareto_front(np.array([1.0, 1.0, 2.0]), np.array([0.5, 0.4, 0.6])).tolist() == [False, True, False]
+assert fishbase.fast_pearson(np.array([[0.0], [1.0]]), np.array([0, 1]))[0] > 0.99
+ev = logparse.parse_line('[x] {"event": "probe_iteration", "timestamp": "2026-01-01T00:00:00", "slab": [0, 2], "iter": 3}')
+assert ev.slab == (0, 2) and ev.iter == 3
+assert scrape_fishbase.parse_environment("<p>Marine; demersal; depth range 5 - 40 m</p>")["max_depth_m"] == 40.0
+picked = push_dinov3.select_pareto([push_dinov3.RunMetrics("a", 0, 2.0, 0.5), push_dinov3.RunMetrics("b", 0, 4.0, 0.6)])
+assert [r.run_id for r in picked] == ["a"]
+for what, fn in (("matplotlib", lambda: figplots.fig_tradeoff(None)), ("matplotlib", lambda: logparse.fig_loss(None)),
+                 ("matplotlib", lambda: ablations.fig_variant_grid(None)),
+                 ("h5py", lambda: extract_tol.extract_h5_file("x.h5", [], 90)),
+                 ("pandas", lambda: runs.load_df([]))):
+    try:
+        fn()
+        raise AssertionError(f"ran without {what}")
+    except ImportError as err:
+        assert f"pip install {what}" in str(err), err
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("saev_tpu",))
 assert not leaked, leaked
 print(" ".join(names))
@@ -157,6 +183,22 @@ INTERACTIVE_INTERP_MODULES = {
 }
 
 
+# The last of contrib (birdsong's statistics, clip galleries and browser;
+# trait discovery's study modules and data-prep scripts; the freshwater-fish
+# tools), each imported with the blocked packages above.
+CONTRIB_LAST_MODULES = {
+    "saev_tpu_torch.birdsong.stats", "saev_tpu_torch.birdsong.visuals", "saev_tpu_torch.birdsong.make_html",
+    "saev_tpu_torch.birdsong.browse", "saev_tpu_torch.birdsong.__main__", "saev_tpu_torch.tdiscovery.runs",
+    "saev_tpu_torch.tdiscovery.results", "saev_tpu_torch.tdiscovery.logparse", "saev_tpu_torch.tdiscovery.fishbase",
+    "saev_tpu_torch.tdiscovery.mimicry", "saev_tpu_torch.tdiscovery.figplots", "saev_tpu_torch.tdiscovery.ablations",
+    "saev_tpu_torch.freshwater_fish", "saev_tpu_torch.freshwater_fish.extract_tol",
+    "saev_tpu_torch.freshwater_fish.make_gallery", "saev_tpu_torch.tdiscovery.scripts",
+    "saev_tpu_torch.tdiscovery.scripts.format_ade20k", "saev_tpu_torch.tdiscovery.scripts.format_fishvista",
+    "saev_tpu_torch.tdiscovery.scripts.download_butterflies", "saev_tpu_torch.tdiscovery.scripts.scrape_fishbase",
+    "saev_tpu_torch.tdiscovery.scripts.push_dinov3",
+}
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
@@ -166,8 +208,8 @@ def test_port_imports_without_jax():
     # inference, 57 since extraction, 58 since indexed, 72 since the
     # interpretation layer, 83 since trait discovery, 103 since interactive
     # interpretability and the channel trace, 119 since contrib's host-side
-    # analysis.
-    assert int(proc.stdout.split()[-1]) >= 119
+    # analysis, 140 since the last of contrib.
+    assert int(proc.stdout.split()[-1]) >= 140
     assert JOB_MODULES <= set(proc.stdout.split()[:-1])
     assert EXTRACT_MODULES <= set(proc.stdout.split()[:-1])
     assert LIBRARY_MODULES <= set(proc.stdout.split()[:-1])
@@ -175,3 +217,4 @@ def test_port_imports_without_jax():
     assert TDISCOVERY_MODULES <= set(proc.stdout.split()[:-1])
     assert INTERACTIVE_INTERP_MODULES <= set(proc.stdout.split()[:-1])
     assert CONTRIB_HOST_MODULES <= set(proc.stdout.split()[:-1])
+    assert CONTRIB_LAST_MODULES <= set(proc.stdout.split()[:-1])
