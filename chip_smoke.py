@@ -51,11 +51,13 @@ script exits non-zero:
                 with 65. No card call of a parity case runs a plain version
                 (a spy on them).
    wide      -- K1, K6 (k 32 and 512) and K5 (k 512) at 16384 x 65536 and
-                16384 x 131072, where their wrappers take the two-level
-                select of csrc/kth_wide.cu, on the parity phase's edge rows
-                and masks, bit for bit against their plain versions (rows 0
-                and 4 take its whole-row fallback), then timed against their
-                plain versions, torch.topk and their byte bounds.
+                16384 x 131072, where their wrappers take csrc/kth_wide.cu
+                (K1 a thread block cluster a row, K6 the walk, K5 the group
+                route or the walk by its unmasked columns), on the parity
+                phase's edge rows and masks, bit for bit against their plain
+                versions (rows 0 and 4 take the whole-row fallback), then
+                timed against their plain versions, torch.topk and their byte
+                bounds, K5 also at 40% unmasked and none masked.
 4. reference -- the step on the card (kernel path, matmul_precision
                 "default": bf16 operands with f32 results) against the same
                 step on the CPU (plain f32 path) at a small shape: the
@@ -479,9 +481,12 @@ WGMMA_PRODUCTS = ("prefix_wgmma_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kern
 P2_PRODUCT = "gouter_wgmma_kernel"
 P1_PRODUCT = "encode_stats_wgmma_kernel"
 # K1 (streamed rows, and one CTA a row), P1 (x rounded, the product), K5, K6
-# (streamed rows, and one CTA a row)
+# (streamed rows, and one CTA a row), the wide route's walk, K5's list, K1's
+# cluster and K5's group route (csrc/kth_wide.cu), K1's threshold entry and
+# the sharded threshold's candidates
 SELECT_KERNELS = ("topk_stats_stream_kernel", "topk_stats_kernel", "encode_round_kernel", P1_PRODUCT,
                   "kth_masked_kernel", "kth_stream_kernel", "kth_kernel", "wide_row_kernel", "compact_mask_kernel",
+                  "wide_cluster_kernel", "wide_masked_group_kernel",
                   "topk_given_stream_kernel", "topk_given_kernel", "kth_candidates_kernel")
 # Registers K1's streamed kernel may not exceed at the production width,
 # where two 256-thread CTAs share an SM (its count before K6 took K1's
@@ -1095,18 +1100,25 @@ def _grouped_full_batch(errs: dict) -> None:
 
 
 def phase_wide() -> dict:
-    """K1, K6 and K5 on rows wider than their narrow kernels hold (the
-    two-level select of csrc/kth_wide.cu), at 16384 x 65536 and x 131072,
-    bit for bit against their plain versions with no plain version run by
-    the card's call: K1 at k 32, K6 at k 32 and k_aux 512 on Gaussian rows
-    with the parity phase's edge rows (rows 0 and 4 overflow the candidate
-    buffer and bisect the whole row), K5 at k_aux 512 under the parity
-    phase's masks. Then each one's time against its plain version,
-    torch.topk and its byte bound. Returns those rows by width."""
-    from saev_tpu_torch.ops import cuda_kth, cuda_topk, topk
+    """K1, K6 and K5 on rows wider than their narrow kernels hold
+    (csrc/kth_wide.cu: K1 on its cluster route, K6 on the walk, K5 on the
+    group route or the walk by its unmasked columns), at 16384 x 65536 and
+    x 131072, bit for bit against their plain versions with no plain
+    version run by the card's call: K1 at k 32, K6 at k 32 and k_aux 512 on
+    Gaussian rows with the parity phase's edge rows (rows 0 and 4 overflow
+    the candidate buffers and bisect the whole row, in K1's cluster and in
+    K6's walk), K5 at k_aux 512 under the parity phase's masks. Then each
+    one's time against its plain version, torch.topk and its byte bound, K5
+    also at 40% of the columns unmasked (scattered: the dense AuxK step at
+    40% dead) and none masked. Returns those rows by width."""
+    from saev_tpu_torch.ops import _build, cuda_kth, cuda_topk, topk
 
     errs, times = {}, {}
     for s in WIDE_S:
+        ctas, clusters = _build.lib().saev_wide_cluster_ctas(s), _build.lib().saev_wide_clusters(s)
+        require(ctas >= 2 and clusters >= 1, f"K1 {B}x{s}: cluster route {ctas} CTAs, {clusters} clusters")
+        log(f"wide {B}x{s}: K1 on its cluster route, {ctas} CTAs a cluster ({s // ctas} columns a CTA), {clusters} "
+            f"clusters resident; K6 on the walk; K5 on the group route up to 32768 unmasked columns, the walk past")
         h = _k1_inputs(s)
         fell = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], TOP_K)]
         require(fell == [0, 4], f"K1 {B}x{s}: edge rows {fell} took the fallback, expected [0, 4]")
@@ -1137,6 +1149,21 @@ def phase_wide() -> dict:
         library_kth_ms(h[:, :n_dead], K_AUX, f"K5's selected columns {B}x{s} (wide route)")
         for k, r in row.items():
             log_timing(k, r, f" {B}x{s} (wide route), k {K_AUX if k == 'kth_value_masked' else TOP_K}")
+        scattered = torch.zeros(s, dtype=torch.bool, device="cuda")
+        scattered[torch.randperm(s, generator=_gen(), device="cuda")[:int(s * 0.4)]] = True
+        for what, m in ((f"{int(s * 0.4)} unmasked (40%, scattered)", scattered),
+                        ("none masked", torch.ones(s, dtype=torch.bool, device="cuda"))):
+            n = int(m.sum())
+            with plain_spy() as plain:
+                got = cuda_kth.kth_value_masked_cuda(h, m, K_AUX)
+                torch.cuda.synchronize()
+            require(not plain, f"K5 {B}x{s} {what}: the card call ran plain versions {plain}")
+            require(same_bits(got, topk._kth_masked_plain(h, m, K_AUX)), f"K5 {B}x{s} {what}: differs")
+            log_timing("kth_value_masked", timed(_time(lambda: cuda_kth.kth_value_masked_cuda(h, m, K_AUX), 5),
+                                                 _time(lambda: topk._kth_masked_plain(h, m, K_AUX), 2),
+                                                 bound((B * n * 4, m, h[:, :1]), B * n, F32_OPS_S)),
+                       f" {B}x{s} (wide route, {'group route' if n <= 32768 else 'walk'}), k {K_AUX}, {what}, "
+                       f"bitwise equal")
         times[s] = row
         del h
         torch.cuda.empty_cache()

@@ -103,16 +103,45 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// --- thread block clusters (P2, prefix_gouter.cu) ---------------------------------
+// --- thread block clusters (P2, prefix_gouter.cu; K1's wide route, kth_wide.cu) ---
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
+__device__ __forceinline__ uint32_t cluster_ctas() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// The 32-bit word at shared address `addr` of CTA `cta` of the cluster (the
+// same offset as in this CTA), read through distributed shared memory.
+__device__ __forceinline__ uint32_t dsmem_ld(uint32_t addr, uint32_t cta) {
+  uint32_t v;
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %1, %2;\n"
+      " ld.shared::cluster.u32 %0, [remote];\n}\n"
+      : "=r"(v)
+      : "r"(addr), "r"(cta)
+      : "memory");
+  return v;
+}
 // Every thread of every CTA of the cluster; also a barrier of the CTA.
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// cluster_sync that orders shared memory alone: each thread's writes to its
+// CTA's shared memory before it against the cluster's reads after it. The
+// full barrier's release also waits for this CTA's global stores and bulk
+// copies in flight, which K1's wide route has at every row
+// (scripts/select_probe.py `k1_wide_variants` times both). Needs PTX ISA
+// 8.6 (CUDA 12.8).
+__device__ __forceinline__ void cluster_sync_shared() {
+  asm volatile(
+      "fence.release.sync_restrict::shared::cta.cluster;\n"
+      "barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;\n"
+      "fence.acquire.sync_restrict::shared::cluster.cluster;\n" ::: "memory");
 }
 // One arrival on the mbarrier at shared address `bar` of CTA `cta` of the
 // cluster (the same offset as in this CTA), with the default (CTA-scope)

@@ -48,6 +48,8 @@ SIGNATURES = {
     "saev_kth_candidates": [_P, _P, _I, _I, _I, _P, _P, _P],
     "saev_kth_wide": [_P, _I, _I, _I, _P, _P, _P],
     "saev_kth_masked_wide": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "saev_wide_cluster_ctas": [_I],
+    "saev_wide_clusters": [_I],
     "saev_prefix_err": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "saev_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "saev_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

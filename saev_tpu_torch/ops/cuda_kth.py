@@ -1,7 +1,7 @@
 """Wrappers of kernels K6 and K5, the exact per-row k-th largest value, plain
 (csrc/kth.cu, on K1's select in csrc/topk_row.cuh) and with a column mask
-(csrc/kth_masked.cu); both take rows wider than NARROW_S through the
-two-level select of csrc/kth_wide.cu.
+(csrc/kth_masked.cu); both take rows wider than NARROW_S through
+csrc/kth_wide.cu (K6 its chunked walk, K5 its unmasked columns alone).
 
 Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a

@@ -14,7 +14,8 @@ from . import _build
 from .topk import TopKStats, _topk_stats_plain
 
 # The narrow kernels stage a row in registers: at most 64 keys a thread, 512
-# threads. A wider row takes the two-level select of csrc/kth_wide.cu.
+# threads. A wider row takes csrc/kth_wide.cu: K1 a thread block cluster a
+# row (its threshold entry too), K5 its unmasked columns, K6 a chunked walk.
 NARROW_S = 512 * 64
 
 

@@ -1,4 +1,4 @@
-"""Device time of K2, K7 and K5's wide route in one tree of this repository,
+"""Device time of K2, K7 and the wide route of K1, K5 and K6 in one tree of this repository,
 with their outputs' sha256 and K2's and K7's registers and spills, to set two
 trees side by side on one card.
 
@@ -12,10 +12,12 @@ file), builds its kernels and prints, by `kprof.device_profile`:
   lanes) and at the script's own 10 cuts;
 - K1 (`topk_stats_cuda`) and K6 (`kth_value_cuda`) at k 32 and K5
   (`kth_value_masked_cuda`, k 512) at 16384 x 65536, where they take the
-  wide route, on Gaussian rows; K5 under 5% of the columns unmasked, as a
-  prefix and scattered.
+  wide route (csrc/kth_wide.cu), on Gaussian rows; K1 also at 16384 x
+  131072; K5 under 5% of the columns unmasked, as a prefix and scattered,
+  40% scattered (the dense AuxK step at 40% dead) and none masked.
 Run it once with each tree's root in one call, in the order parent, change,
-change, parent; equal sha256 mean equal bits.
+change, parent; equal sha256 mean equal bits (K1's also without L1, which
+each route sums in its own fixed order).
 """
 
 import pathlib
@@ -61,22 +63,37 @@ def main(argv: list[str]) -> None:
     del g
     torch.cuda.empty_cache()
 
+    # The tree's K1 kernel on the wide route: the cluster route's, or the
+    # walk's in a tree from before it.
+    wide_src = (root / "saev_tpu_torch" / "csrc" / "kth_wide.cu").read_text()
+    k1_kernel = "wide_cluster_kernel" if "wide_cluster_kernel" in wide_src else "wide_row_kernel"
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def timed(what: str, fn, kernel: str) -> None:
+        rows = kprof.device_profile(fn, n=20, warmup=3, expect=(kernel,))
+        out = fn()
+        line = f"{what}: {kprof.total_device_ms(rows):.4f} ms device per call, sha256 {digests.output_digest(*out)}"
+        if len(out) == 5:  # K1: also without L1, whose order of summation a route sets
+            line += f", without L1 {digests.output_digest(*out[:4])}"
+        print(line)
+
     h = torch.randn((16384, WIDE_S), generator=gen, device="cuda")
-    for name, fn in (("K1", lambda: cuda_topk.topk_stats_cuda(h, TOP_K)),
-                     ("K6", lambda: (cuda_kth.kth_value_cuda(h, TOP_K),))):
-        rows = kprof.device_profile(fn, n=20, warmup=3, expect=("wide_row_kernel",))
-        print(f"{name} 16384x{WIDE_S} k {TOP_K}: {kprof.total_device_ms(rows):.4f} ms device per call, "
-              f"sha256 {digests.output_digest(*fn())}")
-    n_live = int(WIDE_S * 0.05)
-    masks = {"prefix": torch.arange(WIDE_S, device="cuda") < n_live,
-             "scattered": torch.zeros(WIDE_S, dtype=torch.bool, device="cuda")}
-    masks["scattered"][torch.randperm(WIDE_S, generator=gen, device="cuda")[:n_live]] = True
+    timed(f"K1 16384x{WIDE_S} k {TOP_K}", lambda: cuda_topk.topk_stats_cuda(h, TOP_K), k1_kernel)
+    timed(f"K6 16384x{WIDE_S} k {TOP_K}", lambda: (cuda_kth.kth_value_cuda(h, TOP_K),), "wide_row_kernel")
+    cols = torch.arange(WIDE_S, device="cuda")
+    masks = {f"{int(WIDE_S * 0.05)} unmasked, prefix": cols < int(WIDE_S * 0.05)}
+    for frac in (0.05, 0.4):
+        n = int(WIDE_S * frac)
+        masks[f"{n} unmasked, scattered"] = torch.zeros(WIDE_S, dtype=torch.bool, device="cuda")
+        masks[f"{n} unmasked, scattered"][torch.randperm(WIDE_S, generator=gen, device="cuda")[:n]] = True
+    masks["none masked"] = cols >= 0
     for what, mask in masks.items():
-        fn = lambda: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX)  # noqa: E731
-        rows = kprof.device_profile(fn, n=20, warmup=3, expect=("wide_row_kernel",))
-        print(f"K5 16384x{WIDE_S} k {K_AUX}, {n_live} unmasked ({what}): {kprof.total_device_ms(rows):.4f} ms "
-              f"device per call, sha256 {digests.output_digest(fn())}")
+        timed(f"K5 16384x{WIDE_S} k {K_AUX}, {what}", lambda: (cuda_kth.kth_value_masked_cuda(h, mask, K_AUX),),
+              "compact_mask_kernel")
+    del h
+    torch.cuda.empty_cache()
+    h = torch.randn((16384, 2 * WIDE_S), generator=gen, device="cuda")
+    timed(f"K1 16384x{2 * WIDE_S} k {TOP_K}", lambda: cuda_topk.topk_stats_cuda(h, TOP_K), k1_kernel)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,22 @@ is untouched.
   Prints the mean cycles of each phase at the train step's three shapes
   (dead columns pinned near -1e6 as bench.py pins them) and at the tight
   shape on Gaussian rows, and the kernel's device time by the profiler.
+- `k1_wide_phases`: a copy of K1's cluster route (csrc/kth_wide.cu,
+  `wide_cluster_kernel`) with a clock64 stamp, from thread 0 of the first
+  two CTAs (one cluster), at each phase boundary of their first 64 rows:
+  the wait for the slice, the keys and maxima, the bound, the filter, the
+  cluster barrier, the counts and bounds read, the union and select, the
+  epilogue's loop, the reductions. Prints the mean cycles of each over rows
+  4-59 and the row's period, at 16384 x 65536 and x 131072 (k 32), and the
+  copy's time beside the library's.
+- `k1_wide_variants`: K1's cluster route built three ways from the
+  committed kth_wide.cu: as it is; with its per-row barrier the full
+  cluster barrier (`hopper::cluster_sync`, whose release also waits for
+  the CTA's global stores and bulk copies in flight) in place of
+  `cluster_sync_shared`; and with 256 threads a CTA (slices of 16384
+  columns: 4 CTAs a row at 65536, 8 at 131072, two CTAs an SM). Each one's
+  registers, its CUDA-event time at 16384 x 65536 and x 131072 (k 32), its
+  kth held bitwise to the plain version.
 - `k5_caps`: K5 built with launch bounds that ask for 1, 2 and 3 CTAs an SM
   (the KPL 32 kernel's registers held to 128, 64 and 40), timed by CUDA
   events at the train step's three shapes (16384 x 1024 with 819 unmasked
@@ -166,6 +182,63 @@ def k6_capped_source(min_blocks: int) -> str:
     if src.count(_K6_BOUNDS) != 1:
         raise ValueError("kth.cu: the probe's launch bounds are not there once")
     return src.replace(_K6_BOUNDS, _K6_BOUNDS.replace("(MAXT)", f"(MAXT, {min_blocks})"))
+
+
+WIDE_S = (65536, 131072)
+WIDE_PHASES = ("wait for the slice", "keys and maxima", "bound", "filter", "cluster barrier",
+               "counts and bounds read", "union and select", "epilogue loop", "reductions")
+_WIDE_ROWS = 64  # rows stamped of each of the first two CTAs
+# Where each stamp goes in wide_cluster_kernel: (text, stamp index, before or after).
+_WIDE_STAMPS = (
+    ("    uint32_t key[kSliceVpt];\n    uint32_t mx;\n", 0, "after"),
+    ("      parity ^= 1;\n", 1, "after"),
+    ("    sm.maxima[tid] = mx;\n    __syncthreads();\n", 2, "after"),
+    ("      if (bounded && !own) {\n", 3, "before"),
+    ("      hopper::cluster_sync_shared();  // B:", 4, "before"),
+    ("      // 3. The union: each CTA's count and offset", 5, "before"),
+    ("      if (fits) {\n", 6, "before"),
+    ("    // 5. This slice's f, live, L0 and L1", 7, "before"),
+    ("    l0 = __reduce_add_sync(0xffffffffu, l0);\n", 8, "before"),
+    ("  }\n  hopper::cluster_sync();  // the last row's parts", 9, "before"),
+)
+
+
+def stamped_wide_source() -> str:
+    """kth_wide.cu with a clock64 stamp of thread 0 of CTAs 0 and 1 at each
+    phase boundary of K1's cluster kernel, into g_wide[(blockIdx.x * 64 +
+    it) * 10 + i] for its first 64 rows (a device pointer, null for no
+    stamps)."""
+    src = (_build.CSRC / "kth_wide.cu").read_text()
+    a = src.index("    wide_cluster_kernel(")
+    b = src.index("cudaError_t cluster_config(")
+    body = src[a:b]
+    for text, i, where in _WIDE_STAMPS:
+        if body.count(text) != 1:
+            raise ValueError(f"kth_wide.cu: the probe's marker {text!r} is not there once")
+        stamp = (f"    if (threadIdx.x == 0 && g_wide && blockIdx.x < 2 && it < {_WIDE_ROWS}) "
+                 f"g_wide[(blockIdx.x * {_WIDE_ROWS} + it) * 10 + {i}] = clock64();\n")
+        body = body.replace(text, stamp + text if where == "before" else text + stamp)
+    src = src[:a] + body + src[b:]
+    return src.replace("namespace {\n", "__device__ long long* g_wide;\nnamespace {\n", 1)
+
+
+# K1's cluster route built other ways: (text, its replacement) in kth_wide.cu.
+WIDE_VARIANTS = {
+    "as committed": (),
+    "full cluster barrier a row": (("      hopper::cluster_sync_shared();  // B:",
+                                    "      hopper::cluster_sync();  // B:"),),
+    "256 threads a CTA": (("constexpr int kSliceThreads = 512;", "constexpr int kSliceThreads = 256;"),),
+}
+
+
+def wide_variant_source(name: str) -> str:
+    """kth_wide.cu with WIDE_VARIANTS[name]'s replacements."""
+    src = (_build.CSRC / "kth_wide.cu").read_text()
+    for old, new in WIDE_VARIANTS[name]:
+        if src.count(old) != 1:
+            raise ValueError(f"kth_wide.cu: the probe's marker {old!r} is not there once")
+        src = src.replace(old, new)
+    return src
 
 
 def _compile(tmp: pathlib.Path, source: pathlib.Path, name: str) -> tuple[ctypes.CDLL, str]:
@@ -457,6 +530,88 @@ def k5_phases(tmp: pathlib.Path) -> list[str]:
     return lines
 
 
+def k1_wide_phases(tmp: pathlib.Path) -> list[str]:
+    d = tmp / "wide"
+    d.mkdir()
+    for f in ("hopper.cuh", "order_key.cuh", "row_stream.cuh", "topk_row.cuh"):
+        shutil.copy(_build.CSRC / f, d / f)
+    (d / "kth_wide.cu").write_text(stamped_wide_source() + (
+        '\nextern "C" int saev_probe_stamps(long long* p) {\n'
+        "  return cudaMemcpyToSymbol(g_wide, &p, sizeof(p));\n}\n"))
+    lib, _ = _compile(d, d / "kth_wide.cu", "wide_probe")
+    lib.saev_topk_stats_wide.argtypes = _build.SIGNATURES["saev_topk_stats_wide"]
+    lib.saev_probe_stamps.argtypes = [ctypes.c_void_p]
+    lines = []
+    for s in WIDE_S:
+        h = torch.randn((B, s), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        kth = torch.empty((B, 1), device="cuda")
+        f = torch.empty((B, s), dtype=torch.bfloat16, device="cuda")
+        live = torch.zeros(s, dtype=torch.int32, device="cuda")
+        l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
+        stamps = torch.zeros((2, _WIDE_ROWS, 10), dtype=torch.int64, device="cuda")
+
+        def call():
+            code = lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
+                                            l0.data_ptr(), l1.data_ptr(), None,
+                                            torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "select_probe K1 wide")
+
+        lib.saev_probe_stamps(None)
+        plain_ms = _events_ms(call)
+        library_ms = _events_ms(lambda: cuda_topk.topk_stats_cuda(h, K))
+        lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()))
+        call()
+        torch.cuda.synchronize()
+        lib.saev_probe_stamps(None)
+        if not torch.equal(kth, topk._kth_plain(h, K)):
+            raise AssertionError(f"select_probe: the stamped K1 differs from the plain version at {B}x{s}")
+        st = stamps.double()[:, 4:60]
+        cycles = (st[..., 1:] - st[..., :-1]).mean((0, 1)).tolist()
+        period = float((st[:, 1:, 0] - st[:, :-1, 0]).mean())
+        lines.append(f"K1 cluster route {B}x{s} k {K}: library {library_ms:.3f} ms, the probe's copy "
+                     f"{plain_ms:.3f} ms; mean cycles a row (CTAs 0 and 1, rows 4-59): "
+                     + ", ".join(f"{name} {c:.0f}" for name, c in zip(WIDE_PHASES, cycles))
+                     + f"; the row's period {period:.0f}")
+    return lines
+
+
+def k1_wide_variants(tmp: pathlib.Path) -> list[str]:
+    libs, lines = {}, []
+    for i, name in enumerate(WIDE_VARIANTS):
+        d = tmp / f"wide_variant_{i}"
+        d.mkdir()
+        for f in ("hopper.cuh", "order_key.cuh", "row_stream.cuh", "topk_row.cuh"):
+            shutil.copy(_build.CSRC / f, d / f)
+        (d / "kth_wide.cu").write_text(wide_variant_source(name))
+        lib, log = _compile(d, d / "kth_wide.cu", f"wide_variant_{i}")
+        lib.saev_topk_stats_wide.argtypes = _build.SIGNATURES["saev_topk_stats_wide"]
+        libs[name] = lib
+        res = _build.ptxas_resources(log, "wide_cluster_kernelILb1ELb0E")
+        lines.append(f"K1 cluster route, {name}: {list(res.values())}")
+    for s in WIDE_S:
+        h = torch.randn((B, s), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        want = topk._kth_plain(h, K)
+        kth = torch.empty((B, 1), device="cuda")
+        f = torch.empty((B, s), dtype=torch.bfloat16, device="cuda")
+        live = torch.zeros(s, dtype=torch.int32, device="cuda")
+        l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
+        times = []
+        for name, lib in libs.items():
+
+            def call(lib=lib):
+                code = lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(),
+                                                live.data_ptr(), l0.data_ptr(), l1.data_ptr(), None,
+                                                torch.cuda.current_stream().cuda_stream)
+                _build.check(code, "select_probe K1 wide variant")
+
+            ms = _events_ms(call)
+            if not torch.equal(kth, want):
+                raise AssertionError(f"select_probe: K1's cluster route, {name}, differs at {B}x{s}")
+            times.append(f"{name} {ms:.4f} ms")
+        lines.append(f"K1 cluster route {B}x{s} k {K}: " + "; ".join(times) + " (kth bitwise equal)")
+    return lines
+
+
 def k5_caps(tmp: pathlib.Path) -> list[str]:
     lines, libs = [], {}
     for min_blocks in (1, 2, 3):
@@ -496,7 +651,8 @@ def main() -> None:
     print(kprof.card())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps, p1_phases):
+        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps, k1_wide_phases, k1_wide_variants,
+                      p1_phases):
             for line in probe(pathlib.Path(tmp)):
                 print(line, flush=True)
 

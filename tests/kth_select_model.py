@@ -20,17 +20,18 @@ and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
   fewer than k columns are unmasked, G warps a row and the lane layout of
   the gathered keys (each unmasked column held once), the bisection from
   the common prefix of the row's least and largest unmasked key.
-- K1, K5 and K6 on rows wider than the narrow kernels hold (`wide_model`,
-  kth_wide.cu): K5's keys those of its unmasked columns alone, in column
-  order (`compact_mask_kernel`), the chunks of `wide_row_kernel` over a
-  row's keys, each chunk's k-th largest key (0 for a chunk of fewer than k),
-  the running lower bound L, the candidates of each chunk (its keys at or
-  above its own k-th key, L so far and 1) against the buffer's capacity,
-  then the k-th largest candidate, ranked up to the CTA's threads and
-  bisected from L past them, or the whole row bisected from L where the
-  buffer overflows. The chunk width, capacity and threads default to the
-  source's constants and are parameters, so a test can cut a small row
-  into several chunks.
+- K1, K5 and K6 on rows wider than the narrow kernels hold (kth_wide.cu):
+  K1's cluster route (`cluster_model`, `cluster_stats_model`): the
+  slices, each CTA's bound from its threads' maxima, the candidates of
+  each slice, the union and its kept keys, the cluster-wide bisection
+  where a buffer overflows, and L1 summed slice by slice in rank order;
+  K5's route chosen from n (`k5_wide_model`: the group route's KPL and G,
+  or the walk); the walk (`wide_model`: K6, K5 past the group route, K1
+  past the cluster route): the chunks, each chunk's k-th largest key, the
+  running lower bound, the buffer, the rank, the bisections. The slice,
+  chunk, capacities and threads default to the source's constants and are
+  parameters, so a test can cut a small row into several slices or
+  chunks.
 - P4 and P3 (`kth_ops_model`, `count_loop_model`, csrc/kth_ops.cu): the
   dispatch (VPT keys a thread in runs of 4 columns, T threads; P4's and
   P3's tables must agree), each mode's key domain and pad past the row's
@@ -240,16 +241,24 @@ def k5_model(h: torch.Tensor, mask: torch.Tensor, k: int) -> tuple[torch.Tensor,
 
 
 def wide_consts() -> dict[str, int]:
-    """kth_wide.cu's keys a thread, threads a CTA and candidate capacity."""
+    """kth_wide.cu's constants: the walk's keys a thread, threads a CTA and
+    candidate capacity; K1's cluster route's keys a thread, threads a CTA,
+    most CTAs a cluster, a CTA's candidate buffer and the gathered union's
+    capacity; K5's group route's warps a CTA and the most unmasked columns
+    it takes (KPL 64 keys a lane)."""
     src = _source("kth_wide.cu")
     get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])  # noqa: E731
-    return {"vpt": get("kWideVpt"), "threads": get("kWideThreads"), "cap": get("kWideCap")}
+    assert "constexpr int kGroupMaxN = kGroupWarps * 32 * 64;" in src
+    return {"vpt": get("kWideVpt"), "threads": get("kWideThreads"), "cap": get("kWideCap"),
+            "slice_vpt": get("kSliceVpt"), "slice_threads": get("kSliceThreads"),
+            "max_cluster": get("kMaxCluster"), "slice_cap": get("kSliceCap"), "union_cap": get("kUnionCap"),
+            "group_warps": get("kGroupWarps"), "group_max": get("kGroupWarps") * 32 * 64}
 
 
 def wide_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
-    """(start, width) of each chunk of a row of s keys (`wide_row_kernel`):
-    the fewest chunks of at most `chunk`, of one width rounded up to a
-    multiple of 4, the last one the rest; none for no keys."""
+    """(start, width) of each chunk of a row of s keys (the walk,
+    `wide_row`): the fewest chunks of at most `chunk`, of one width rounded
+    up to a multiple of 4, the last one the rest; none for no keys."""
     n = -(-s // chunk)
     if n == 0:
         return []
@@ -259,11 +268,19 @@ def wide_chunks(s: int, chunk: int) -> list[tuple[int, int]]:
 
 def wide_model(h: torch.Tensor, k: int, mask: torch.Tensor | None = None, *, chunk: int | None = None,
                cap: int | None = None, threads: int | None = None) -> dict:
-    """The two-level select of kth_wide.cu on a (B, S) f32 batch (K6; K5
-    with a (S,) bool mask, over the keys of its unmasked columns): kth (B,
-    1), -inf where K5's row has fewer than k unmasked columns, and per row
-    the lower bound L (a key), the candidate count and which way the row
-    took: `ranked`, `bisected` (the buffer) or `fallback` (the whole row)."""
+    """The walk of kth_wide.cu (`wide_row_kernel`: K6; K5 past the group
+    route, with a (S,) bool mask, over the keys of its unmasked columns; K1
+    past the cluster route) on a (B, S) f32 batch: kth (B, 1), -inf where
+    K5's row has fewer than k unmasked columns, and per row the lower bound
+    L (a key), the candidate count and which way the row took: `ranked`,
+    `bisected` (the buffer) or `fallback` (the whole row). The chunks, each
+    chunk's k-th largest key (0 for a chunk of fewer than k), the running L,
+    each chunk's candidates (its keys at or above its own k-th key, L so far
+    and 1) against the buffer's capacity, then the k-th largest candidate,
+    ranked up to the CTA's threads and bisected from L past them, or the
+    whole row bisected from L where the buffer overflows. The chunk width,
+    capacity and threads default to the source's and are parameters, so a
+    test can cut a small row into several chunks."""
     c = wide_consts()
     chunk = chunk or c["vpt"] * c["threads"]
     cap = cap or c["cap"]
@@ -304,8 +321,8 @@ def wide_model(h: torch.Tensor, k: int, mask: torch.Tensor | None = None, *, chu
             "bisected": ~fallback & ~rank, "fallback": fallback}
 
 
-def wide_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
-    """K1's wide route: `wide_model`'s kth, then f, live, L0 and L1 with
+def walk_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
+    """K1 on the walk: `wide_model`'s kth, then f, live, L0 and L1 with
     topk_row.cuh's per-element formulas (L1 summed in column order)."""
     sel = wide_model(h, k, **kw)
     kth = sel["kth"]
@@ -313,6 +330,159 @@ def wide_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
     f = torch.where(keep, h, 0.0).to(torch.bfloat16)
     return sel | {"f": f, "live": (f != 0).any(0), "l0": (keep & (h != 0)).sum(1, keepdim=True).float(),
                   "l1": torch.where(keep, h, 0.0).abs().sum(1, keepdim=True)}
+
+
+def cluster_slices(s: int, slice_cols: int) -> list[tuple[int, int]]:
+    """(start, width) of each CTA's slice of a row of s on K1's cluster
+    route (`cluster_ctas_for`, `slice_width`): C = ceil(s / slice_cols)
+    slices of one width, ceil(s / C) rounded up to a multiple of 4, the
+    last the rest."""
+    n = -(-s // slice_cols)
+    sw = (-(-s // n) + 3) // 4 * 4
+    return [(c * sw, min(sw, s - c * sw)) for c in range(n)]
+
+
+def cluster_model(h: torch.Tensor, k: int, *, vpt: int | None = None, threads: int | None = None,
+                  slice_cap: int | None = None, union_cap: int | None = None) -> dict:
+    """K1's select on its cluster route (`wide_cluster_kernel`) on a (B, S)
+    f32 batch: C CTAs a row, CTA c holding slice c in K1's layout (VPT keys
+    a thread in runs of 4 columns, T threads, key 0 past the slice's end).
+    Each CTA's bound L_c: where 2k <= T' (the threads that hold a column of
+    the last, smallest slice; `own`) the k-th largest of its threads'
+    maxima, else, where q = ceil(k / C) <= T', the least over the CTAs of
+    their q-th largest maxima; each cut to its bits down to kBoundBit as
+    `bisect` finds it; 0 where neither holds. Each CTA's keys >= L_c are its
+    candidates (counted against slice_cap, their sum against union_cap);
+    the union's keys >= the largest bound are kept, and the k-th largest
+    kept key is the row's, ranked up to T kept keys and bisected past them;
+    else (a buffer or the union overflows, no bound) the cluster bisects the
+    row from the largest bound. Returns kth (B, 1), C, the slices and per
+    row the bound, the candidate and kept counts and which way the row
+    took: `ranked`, `bisected` or `fallback`."""
+    c = wide_consts()
+    vpt = vpt or c["slice_vpt"]
+    threads = threads or c["slice_threads"]
+    slice_cap = slice_cap or c["slice_cap"]
+    union_cap = union_cap or c["union_cap"]
+    b, s = h.shape
+    k = min(k, s)
+    key = order_key(h)
+    slices = cluster_slices(s, vpt * threads)
+    n_ctas = len(slices)
+    t_live = min(threads, -(-slices[-1][1] // 4))
+    q = -(-k // n_ctas)
+    own, bounded = 2 * k <= t_live, q <= t_live
+    t = torch.arange(threads)[:, None]
+    j = torch.arange(vpt)[None, :]
+    layout = 4 * (t + (j // 4) * threads) + j % 4  # (T, VPT) column of each slot within a slice
+    held, lower, top = [], [], []
+    for c0, n in slices:
+        kc = torch.where(layout < n, key[:, c0 + layout.clamp(max=n - 1)], 0)  # (B, T, VPT)
+        mx = kc.amax(-1)
+        top.append(mx.amax(-1))
+        if bounded:
+            lower.append(bisect(mx.amin(-1), mx.amax(-1), k if own else q,
+                                lambda v: (mx >= v[:, None]).sum(-1), lowest=bound_bit()))
+        else:
+            lower.append(torch.zeros(b, dtype=torch.int64))
+        held.append(kc.flatten(1))
+    lower = torch.stack(lower, 1)  # (B, C)
+    if bounded and not own:
+        lower = lower.amin(1, keepdim=True).expand(b, n_ctas)
+    top = torch.stack(top, 1).amax(1)
+    n_cand = torch.stack([(kc >= lc[:, None]).sum(1) if bounded else torch.zeros(b, dtype=torch.int64)
+                          for kc, lc in zip(held, lower.unbind(1))], 1)
+    least, most = lower.amin(1), lower.amax(1)
+    n_union = n_cand.sum(1)
+    fits = bounded & (least > 0) & (n_cand <= slice_cap).all(1) & (n_union <= union_cap)
+    # The union: each slice's keys >= its own bound, of which those >= the
+    # largest bound are kept.
+    union = torch.cat([torch.where(kc >= lc[:, None], kc, 0) for kc, lc in zip(held, lower.unbind(1))], 1)
+    kept = torch.where(union >= most[:, None], union, 0)
+    n_kept = (kept > 0).sum(1)
+    by_kept = torch.sort(kept, dim=1, descending=True).values[:, k - 1]
+    row = torch.cat(held, 1)
+    by_row = bisect(most, top, k, lambda v: (row >= v[:, None]).sum(-1))
+    kth = torch.where(fits, by_kept, by_row)
+    assert bool((kth >= most).all())
+    rank = fits & (n_kept <= threads)
+    return {"kth": key_float(kth)[:, None], "ctas": n_ctas, "slices": slices, "lower": most, "n_cand": n_union,
+            "n_kept": n_kept, "own": own, "ranked": rank, "bisected": fits & ~rank, "fallback": ~fits}
+
+
+def cluster_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
+    """K1 on its cluster route: `cluster_model`'s kth, then f, live, L0 and
+    L1 with topk_row.cuh's per-element formulas, L1 in the kernel's order:
+    each CTA's part as K1 sums a row (each thread's keys in turn, a warp's
+    xor tree, the warps in turn), then the CTAs' parts in rank order."""
+    sel = cluster_model(h, k, **kw)
+    kth = sel["kth"]
+    c = wide_consts()
+    vpt = kw.get("vpt") or c["slice_vpt"]
+    threads = kw.get("threads") or c["slice_threads"]
+    b = h.shape[0]
+    t = torch.arange(threads)[:, None]
+    j = torch.arange(vpt)[None, :]
+    layout = 4 * (t + (j // 4) * threads) + j % 4
+    lane = torch.arange(32)
+    l1 = torch.zeros(b, dtype=torch.float32)
+    for c0, n in sel["slices"]:
+        inside = layout < n
+        x = torch.where(inside, h[:, c0 + layout.clamp(max=n - 1)], 0.0)  # (B, T, VPT)
+        fv = torch.where(inside & (x >= kth[:, :, None]), x, 0.0)
+        acc = torch.zeros((b, threads), dtype=torch.float32)
+        for i in range(vpt):  # each thread's keys in turn
+            acc = acc + fv[:, :, i].abs()
+        acc = acc.view(b, threads // 32, 32)
+        for o in (16, 8, 4, 2, 1):  # the warp's xor tree
+            acc = acc + acc[:, :, lane ^ o]
+        part = torch.zeros(b, dtype=torch.float32)
+        for w in range(threads // 32):  # the warps in turn
+            part = part + acc[:, w, 0]
+        l1 = l1 + part  # the CTAs in rank order
+    keep = h >= kth
+    f = torch.where(keep, h, 0.0).to(torch.bfloat16)
+    return sel | {"f": f, "live": (f != 0).any(0), "l0": (keep & (h != 0)).sum(1, keepdim=True).float(),
+                  "l1": l1[:, None]}
+
+
+def wide_stats_model(h: torch.Tensor, k: int, *, cluster: dict | None = None, walk: dict | None = None) -> dict:
+    """K1 on rows wider than its narrow kernel holds, as `saev_topk_stats_wide`
+    routes them: the cluster route up to kMaxCluster slices, the walk past
+    it; `cluster` and `walk` are the two models' keyword parameters."""
+    cluster, walk = cluster or {}, walk or {}
+    c = wide_consts()
+    slice_cols = (cluster.get("vpt") or c["slice_vpt"]) * (cluster.get("threads") or c["slice_threads"])
+    if -(-h.shape[1] // slice_cols) <= c["max_cluster"]:
+        return cluster_stats_model(h, k, **cluster) | {"route": "cluster"}
+    return walk_stats_model(h, k, **walk) | {"route": "walk"}
+
+
+def k5_wide_model(h: torch.Tensor, mask: torch.Tensor, k: int, *, warps: int | None = None,
+                  walk: dict | None = None) -> dict:
+    """K5 on rows wider than its narrow kernel holds (`saev_kth_masked_wide`):
+    the list of the n unmasked columns, then, chosen on the card from n, the
+    group route (`wide_masked_group_kernel`: KPL 32 keys a lane for n <=
+    warps * 32 * 32, KPL 64 up to warps * 32 * 64; G warps a row, the
+    fewest, a power of two, that hold n) or the walk past it (`wide_model`
+    with `walk`'s parameters). -inf where fewer than k columns are unmasked.
+    Returns value (B, 1), n, the route, KPL and G."""
+    warps = warps or wide_consts()["group_warps"]
+    k = min(k, h.shape[1])
+    n = int(mask.sum())
+    if n > warps * 32 * 64:
+        return {"value": wide_model(h, k, mask, **(walk or {}))["kth"], "n": n, "route": "walk", "kpl": 0, "g": 0}
+    kpl = 32 if n <= warps * 32 * 32 else 64
+    if n < k:
+        return {"value": torch.full((h.shape[0], 1), float("-inf")), "n": n, "route": "group", "kpl": kpl, "g": 0}
+    g_warps = 1
+    while g_warps * 32 * kpl < n:
+        g_warps *= 2
+    assert g_warps <= warps
+    key = order_key(h)[:, mask]
+    lo, hi = key.amin(1), key.amax(1)
+    kth = bisect(lo, hi, k, lambda t: (key >= t[:, None]).sum(-1))
+    return {"value": key_float(kth)[:, None], "n": n, "route": "group", "kpl": kpl, "g": g_warps}
 
 
 # --- P4 and P3, the pass loops (csrc/kth_ops.cu) ---

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 from encode_stats_model import cap, p1_model
-from kth_select_model import (cand_cap, count_loop_model, k1_layout, k1_model, k5_model, k6_model, kth_ops_model,
-                              wide_model)
+from kth_select_model import (cand_cap, cluster_stats_model, count_loop_model, k1_layout, k1_model, k5_model,
+                              k5_wide_model, k6_model, kth_ops_model, wide_model)
 
 from saev_tpu_torch.framework import train
 from saev_tpu_torch.nn import modeling, objectives
@@ -614,18 +614,23 @@ def test_gouter_kernel_odd_row_tiles(dev, cuts, g):
 
 
 # Rows wider than the narrow kernels hold (kth_wide.cu): a width just past
-# them, one of 3 chunks with S % 4 == 0, and the 64x and 128x dictionaries.
+# them (scalar loads), one with S % 4 == 0 that no slice width divides, and
+# the 64x and 128x dictionaries.
 WIDE_S = [32769, 40000, 65536, 131072]
 
 
 @pytest.mark.parametrize("k", [1, 32, 512])
 @pytest.mark.parametrize("s", WIDE_S)
 def test_wide_route_matches_plain(dev, s, k):
-    """K1 (kth, f, live, L0 bitwise; L1 within 1e-6) and K6 (bitwise) on the
-    wide route, each one launch; the rows that bisect the whole row are
-    the model's (`kth_select_model.wide_model`)."""
+    """K1 on its cluster route (kth, f, live, L0 bitwise; L1 within 1e-6
+    and bitwise its model's rank-order sum) and K6 on the walk (bitwise),
+    each one launch; the CTAs a cluster and the rows that bisect the whole
+    row are the models' (`kth_select_model.cluster_model`, `wide_model`)."""
+    from saev_tpu_torch.ops import _build
+
     h = _k1_select_rows(8, s, s + k)
-    model = wide_model(h, k)
+    k1 = cluster_stats_model(h, k)
+    k6 = wide_model(h, k)
     h = h.to(dev)
     before = cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches
     fb1 = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -635,26 +640,51 @@ def test_wide_route_matches_plain(dev, s, k):
     want = topk._topk_stats_plain(h, k)
     torch.cuda.synchronize()
     assert (cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert _build.lib().saev_wide_cluster_ctas(s) == k1["ctas"]
     for name in ("kth", "f", "live", "l0"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     torch.testing.assert_close(got.l1, want.l1, rtol=1e-6, atol=0)
+    assert torch.equal(got.l1.cpu(), k1["l1"])
     assert _same_bits(kth, topk._kth_plain(h, k)) and torch.equal(kth, got.kth)
-    assert int(fb1) == int(fb6) == int(model["fallback"].sum())
-    assert torch.equal(kth.cpu(), model["kth"])
+    assert int(fb1) == int(k1["fallback"].sum()) and int(fb6) == int(k6["fallback"].sum())
+    assert torch.equal(got.kth.cpu(), k1["kth"]) and torch.equal(kth.cpu(), k6["kth"])
+
+
+@pytest.mark.parametrize("s", WIDE_S)
+def test_threshold_entry_matches_k1_on_the_wide_route(dev, s):
+    """K1's threshold entry (feature-parallel) takes K1's route for S: given
+    K1's kth, its f, live, L0 and L1 are K1's bits, one launch."""
+    h = _k1_select_rows(8, s, s + 3).to(dev)
+    k1 = cuda_topk.topk_stats_cuda(h, 32)
+    before = cuda_topk.topk_stats_given_cuda.launches
+    given = cuda_topk.topk_stats_given_cuda(h, k1.kth)
+    torch.cuda.synchronize()
+    assert cuda_topk.topk_stats_given_cuda.launches == before + 1
+    assert torch.equal(given.f.view(torch.int16), k1.f.view(torch.int16)) and torch.equal(given.live, k1.live)
+    assert torch.equal(given.l0, k1.l0) and torch.equal(given.l1.view(torch.int32), k1.l1.view(torch.int32))
 
 
 @pytest.mark.parametrize("s", WIDE_S)
 def test_wide_route_masked_matches_plain(dev, s):
     """K5 on the wide route at k 512 (and 1): masks with 5% and half of the
-    columns unmasked, prefix and scattered, fewer than k unmasked, one, all
-    and none; bitwise to the plain version, -inf where fewer than k."""
+    columns unmasked, prefix and scattered, 40% scattered (the dense AuxK
+    step at 40% dead), 24576 (64 keys a lane), n just above the group
+    route's limit (the walk),
+    fewer than k unmasked, one, all and none; bitwise to the plain version
+    and to its model (`kth_select_model.k5_wide_model`: the group route or
+    the walk by n), -inf where fewer than k."""
+    from kth_select_model import wide_consts
+
     rng = np.random.default_rng(s)
     h = _rows(8, s, s).to(dev)
     h[:, : s // 20] = h[:, : s // 20] * 4.0 - 1e6  # pinned dead as bench.py pins them
     cols = np.arange(s)
+    over = wide_consts()["group_max"] + 1
     masks = {"prefix-5%": cols < s // 20, "scattered-5%": rng.random(s) < 0.05,
-             "scattered-half": rng.random(s) < 0.5, "k-1": cols < 511, "one": cols == s // 2,
+             "scattered-40%": rng.random(s) < 0.4, "scattered-half": rng.random(s) < 0.5,
+             "kpl-64": cols < 24576, "past-the-group-route": cols < over, "k-1": cols < 511, "one": cols == s // 2,
              "all-masked": np.zeros(s, bool), "none-masked": np.ones(s, bool)}
+    routes = set()
     for name, mask in masks.items():
         mt = torch.from_numpy(mask).to(dev)
         for k in (1, 512):
@@ -662,9 +692,13 @@ def test_wide_route_masked_matches_plain(dev, s):
             got = cuda_kth.kth_value_masked_cuda(h, mt, k)
             want = topk._kth_masked_plain(h, mt, k)
             torch.cuda.synchronize()
+            model = k5_wide_model(h.cpu(), torch.from_numpy(mask), k)
+            routes.add((model["route"], model["kpl"]))
             assert cuda_kth.kth_value_masked_cuda.launches == before + 1
             assert _same_bits(got, want), (name, k)
+            assert torch.equal(got.cpu().view(torch.int32), model["value"].view(torch.int32)), (name, k)
             assert bool(torch.isneginf(got).all()) == (int(mask.sum()) < k), (name, k)
+    assert {("group", 32), ("group", 64), ("walk", 0)} <= routes
 
 
 def _encode_operands(dev, b: int, d: int, s: int, case: str):

@@ -14,11 +14,14 @@ K5's masks: prefixes, scattered, n = k and k - 1, one column, all and none.
 Hypothesis draws random rows and masks.
 
 The wide route of K1, K5 and K6 (csrc/kth_wide.cu, rows over 32768
-columns) is modelled at a small chunk width (WIDE), so a row of a few
-hundred columns splits into three chunks or more with a ragged last one,
-and held to the same kernels and plain versions, bit for bit, on the same
-edge rows and masks; with a small capacity and few threads its rows reach
-the rank, the bisection over the candidates and the whole-row fallback.
+columns) is modelled at small widths: K1's cluster route at slices of 128
+or 256 columns (CLUSTER; 2 to 9 CTAs a row, the last slice ragged), K5's
+route chosen from n (GROUP: one warp a CTA, so the group route's limits
+fall at 1024 and 2048 columns) and the walk at a chunk width of 256
+(WIDE), and held to the same kernels and plain versions, bit for bit, on
+the same edge rows and masks; with small capacities and few threads their
+rows reach the rank, the bisection over the candidates and the
+cluster-wide or whole-row fallback.
 """
 
 import math
@@ -29,8 +32,9 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from kth_select_model import (cand_cap, k1_dispatch, k1_layout, k1_model, k5_model, k6_dispatch, k6_model,
-                              wide_chunks, wide_consts, wide_model, wide_stats_model)
+from kth_select_model import (cand_cap, cluster_model, cluster_slices, cluster_stats_model, k1_dispatch, k1_layout,
+                              k1_model, k5_model, k5_wide_model, k6_dispatch, k6_model, walk_stats_model, wide_chunks,
+                              wide_consts, wide_model)
 
 from saev_tpu.ops import pallas_topk
 from saev_tpu_torch.ops import topk
@@ -266,27 +270,46 @@ def test_select_probe_finds_its_markers():
         assert f"__launch_bounds__(MAXT, {min_blocks})\n    kth_stream_kernel(" in select_probe.k6_capped_source(min_blocks)
 
 
+def test_select_probe_finds_the_wide_markers():
+    """scripts/select_probe.py stamps a copy of K1's cluster kernel (csrc/
+    kth_wide.cu) at its ten phase boundaries, each once, in program order,
+    and declares its pointer once; nothing outside the cluster kernel
+    changes. Its variants of the route (the full cluster barrier a row, 256
+    threads a CTA) each find their one marker."""
+    from saev_tpu_torch.ops import _build
+    from saev_tpu_torch.scripts import select_probe
+
+    src = select_probe.stamped_wide_source()
+    at = [src.index(f"* 10 + {i}] = clock64();") for i in range(10)]
+    assert at == sorted(at) and all(src.count(f"* 10 + {i}] = clock64();") == 1 for i in range(10))
+    assert src.count("__device__ long long* g_wide;") == 1
+    plain = (_build.CSRC / "kth_wide.cu").read_text()
+    kept = "\n".join(line for line in src.splitlines() if "g_wide" not in line)
+    assert kept.strip() == plain.strip()
+    for name, edits in select_probe.WIDE_VARIANTS.items():
+        variant = select_probe.wide_variant_source(name)
+        assert (variant == plain) == (not edits) and all(new in variant for _, new in edits), name
+
+
 # --- the wide route (kth_wide.cu) ---
 
-# A chunk width that cuts these rows into 3-5 chunks, a buffer the tied rows
-# overflow, and a CTA of 64 threads, so Gaussian rows rank at k 1 and
-# bisect their candidates at k 32.
+# The walk (K6; K5 and K1 past their routes) at a chunk width that cuts these
+# rows into 3-5 chunks, a buffer the tied rows overflow, and a CTA of 64
+# threads, so Gaussian rows rank at k 1 and bisect their candidates at k 32.
 WIDE = {"chunk": 256, "cap": 200, "threads": 64}
+# K1's cluster route at slices of 256 columns (8 keys a thread, 32 threads):
+# 3 CTAs a row at 700 columns, 5 at 1031, the last slice ragged; buffers the
+# tied rows overflow.
+CLUSTER = {"vpt": 8, "threads": 32, "slice_cap": 96, "union_cap": 256}
+# K5's group route at one warp a CTA: KPL 32 up to 1024 unmasked columns,
+# KPL 64 up to 2048, the walk past it.
+GROUP = {"warps": 1, "walk": WIDE}
 
 
-@pytest.mark.parametrize("s", [700, 1031])
-@pytest.mark.parametrize("k", [1, 32, "s"])
-def test_wide_model_matches_pallas_and_plain(s, k):
-    """K6's and K1's wide route against the TPU kernels (interpret mode) and
-    the plain versions: kth bit for bit, f, live and L0 equal, L1 within
-    1e-6."""
-    k = s if k == "s" else k
-    h = _rows(32, s, s + k + 2)
+def _same_stats(got: dict, h: np.ndarray, k: int) -> None:
+    """K1's statistics against the Pallas kernel (interpret mode) and the
+    plain version: kth, f, live and L0 bit for bit, L1 within 1e-6."""
     ht = torch.from_numpy(h)
-    assert len(wide_chunks(s, WIDE["chunk"])) >= 3
-    got = wide_stats_model(ht, k, **WIDE)
-    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
-    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32))
     kth, f, live_p, l0, l1 = pallas_topk.topk_stats_pallas(jnp.asarray(h), k, 32, True)
     np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(kth).view(np.int32))
     np.testing.assert_array_equal(got["f"].float().numpy(), np.asarray(f, np.float32))
@@ -300,28 +323,49 @@ def test_wide_model_matches_pallas_and_plain(s, k):
     torch.testing.assert_close(got["l1"], plain.l1, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("s", [700, 1031])
+@pytest.mark.parametrize("k", [1, 32, "s"])
+def test_wide_model_matches_pallas_and_plain(s, k):
+    """K1's cluster route and the walk (K6's; K1's past the cluster route)
+    against the TPU kernels (interpret mode) and the plain versions: kth bit
+    for bit, f, live and L0 equal, L1 within 1e-6."""
+    k = s if k == "s" else k
+    h = _rows(32, s, s + k + 2)
+    ht = torch.from_numpy(h)
+    assert len(wide_chunks(s, WIDE["chunk"])) >= 3 and len(cluster_slices(s, 8 * 32)) >= 3
+    _same_stats(cluster_stats_model(ht, k, **CLUSTER), h, k)
+    _same_stats(walk_stats_model(ht, k, **WIDE), h, k)
+    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
+    np.testing.assert_array_equal(wide_model(ht, k, **WIDE)["kth"].numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
 @pytest.mark.parametrize("s,k", [(700, 32), (1031, 64), (1031, 1), (900, 900)])
 def test_wide_masked_model_matches_pallas_and_plain(s, k):
-    """K5's wide route: masked columns as key 0, -inf where fewer than k
-    columns are unmasked, against the TPU kernel and the plain version."""
+    """K5's wide route: the group route or the walk by n, -inf where fewer
+    than k columns are unmasked, against the TPU kernel and the plain
+    version."""
     h = _masked_rows(32, s, s + k)
     ht = torch.from_numpy(h)
     for name, mask in _k5_masks(s, k, s).items():
-        got = wide_model(ht, k, torch.from_numpy(mask), **WIDE)
+        mt = torch.from_numpy(mask)
+        got = k5_wide_model(ht, mt, k, **GROUP)
         want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
                                                          k, True)
-        np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32),
+        np.testing.assert_array_equal(got["value"].numpy().view(np.int32), np.asarray(want).view(np.int32),
                                       err_msg=name)
-        assert same_value_bits(got["kth"], topk._kth_masked_plain(ht, torch.from_numpy(mask), k)), name
-        assert bool(torch.isneginf(got["kth"]).all()) == (int(mask.sum()) < k), name
+        assert same_value_bits(got["value"], topk._kth_masked_plain(ht, mt, k)), name
+        assert bool(torch.isneginf(got["value"]).all()) == (int(mask.sum()) < k), name
+        walk = wide_model(ht, k, mt, **WIDE)["kth"]
+        assert torch.equal(walk.view(torch.int32), got["value"].view(torch.int32)), name
 
 
 def test_wide_model_reaches_every_branch():
-    """Gaussian rows rank their candidates at k 1 and bisect them at k 32;
-    the rows of zeros, of -0.0 beside a few positives, of -inf and tied at
-    the top overflow the buffer and bisect the whole row; a row tied across
-    the boundary keeps its ties at 7.0 (36 of them) in the buffer and
-    ranks them."""
+    """The walk: Gaussian rows rank their candidates at k 1 and bisect them
+    at k 32; the rows of zeros, of -0.0 beside a few positives, of -inf and
+    tied at the top overflow the buffer and bisect the whole row; a row
+    tied across the boundary keeps its ties at 7.0 (36 of them) in the
+    buffer and ranks them."""
     h = torch.from_numpy(_rows(64, 1031, 7))
     one = wide_model(h, 1, **WIDE)
     assert bool(one["ranked"][8:].all())
@@ -332,24 +376,129 @@ def test_wide_model_reaches_every_branch():
         assert same_value_bits(g["kth"], topk._kth_plain(h, int(g is got) * 31 + 1))
 
 
+def test_cluster_model_reaches_every_branch():
+    """K1's cluster route at 5 slices of 256 (4 keys a thread, 64 threads):
+    Gaussian rows rank their kept candidates at k 1 and bisect them at k 32
+    (each CTA's bound its own k-th largest maximum, the largest of them
+    dropping some); the rows of zeros, of -0.0 beside a few positives, of
+    -inf and tied at the top overflow a buffer and bisect the cluster's
+    registers; at k 100 (2k above 64 threads) the bound is the least of the
+    CTAs' 20th largest maxima; at k 400 (q = 80) no bound exists and every
+    row bisects."""
+    h = torch.from_numpy(_rows(64, 1280, 7))
+    kw = {"vpt": 4, "threads": 64, "slice_cap": 100, "union_cap": 400}
+    one = cluster_model(h, 1, **kw)
+    assert one["ctas"] == 5 and one["own"] and bool(one["ranked"][8:].all())
+    got = cluster_model(h, 32, **kw)
+    assert got["own"] and set(np.flatnonzero(got["fallback"].numpy()).tolist()) == {0, 4, 6, 7}
+    assert bool(got["bisected"][8:].all()) and bool((got["n_kept"][8:] < got["n_cand"][8:]).all())
+    shared = cluster_model(h, 100, **kw)
+    assert not shared["own"] and not bool(shared["fallback"][8:].any())
+    past = cluster_model(h, 400, **kw)
+    assert not past["own"] and bool(past["fallback"].all())
+    for g, k in ((one, 1), (got, 32), (shared, 100), (past, 400)):
+        assert same_value_bits(g["kth"], topk._kth_plain(h, k))
+
+
+@pytest.mark.parametrize("ctas", [2, 4, 8])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cluster_model_cluster_sizes(ctas, ragged):
+    """C = 2, 4 and 8 CTAs a row, with the last slice full or ragged (S not
+    a multiple of the slice): the slices cover the row once, their widths
+    multiples of 4 but the last; the route's bits are the plain version's
+    at k 1, 32 and past the bound (q above the last slice's threads), and
+    L1 in rank order within 1e-6."""
+    kw = {"vpt": 4, "threads": 32, "slice_cap": 128, "union_cap": 512}
+    s = ctas * 128 - (53 if ragged else 0)
+    slices = cluster_slices(s, 128)
+    assert len(slices) == ctas and slices[0][0] == 0 and sum(n for _, n in slices) == s
+    assert all(a + n == b for (a, n), (b, _) in zip(slices, slices[1:])) and all(n % 4 == 0 for _, n in slices[:-1])
+    assert (slices[-1][1] < slices[0][1]) == ragged
+    h = _rows(16, s, s + ctas)
+    ht = torch.from_numpy(h)
+    for k in (1, 32, 33 * ctas):
+        got = cluster_stats_model(ht, k, **kw)
+        plain = topk._topk_stats_plain(ht, k)
+        assert same_value_bits(got["kth"], plain.kth), k
+        for name in ("f", "live", "l0"):
+            assert torch.equal(got[name], getattr(plain, name)), (k, name)
+        torch.testing.assert_close(got["l1"], plain.l1, rtol=1e-6, atol=0)
+        if k == 33 * ctas:
+            assert bool(got["fallback"].all())
+
+
+def test_cluster_model_tie_across_a_slice_boundary():
+    """Ties at the top straddling the boundary of slices 0 and 1, more than
+    a CTA's buffer holds on either side: both CTAs' bounds are the tied
+    value, the buffers overflow, and the row bisects the cluster's
+    registers, to the plain version's bits; fewer ties fit and rank."""
+    kw = {"vpt": 4, "threads": 64, "slice_cap": 64, "union_cap": 256}
+    h = np.random.default_rng(3).normal(size=(4, 512)).astype(np.float32)
+    h[0, 256 - 80:256 + 80] = 5.0  # 80 ties in slice 0 and 80 in slice 1
+    h[1, 256 - 20:256 + 20] = 5.0  # 20 and 20
+    ht = torch.from_numpy(h)
+    got = cluster_stats_model(ht, 32, **kw)
+    assert got["ctas"] == 2 and bool(got["fallback"][0]) and not bool(got["fallback"][1:].any())
+    assert int(got["n_cand"][1]) >= 40
+    plain = topk._topk_stats_plain(ht, 32)
+    assert same_value_bits(got["kth"], plain.kth) and float(got["kth"][0]) == 5.0 == float(got["kth"][1])
+    assert torch.equal(got["f"], plain.f) and torch.equal(got["l0"], plain.l0)
+
+
+@pytest.mark.parametrize("n_off", [-1, 0, 1])
+@pytest.mark.parametrize("limit", ["kpl32", "group"])
+def test_k5_wide_model_route_at_its_limits(limit, n_off):
+    """K5's route by n at the group route's register limits (one warp a
+    CTA: KPL 32 holds 1024 columns, KPL 64 2048): n just below, at and just
+    above each, as a prefix and scattered, to the TPU kernel's and the plain
+    version's bits; the walk takes n past 2048."""
+    s = 2112
+    n = (1024 if limit == "kpl32" else 2048) + n_off
+    h = _masked_rows(32, s, n)
+    ht = torch.from_numpy(h)
+    rng = np.random.default_rng(n)
+    for mask in (np.arange(s) < n, np.isin(np.arange(s), rng.permutation(s)[:n])):
+        mt = torch.from_numpy(mask)
+        got = k5_wide_model(ht, mt, 512, **GROUP)
+        assert got["n"] == n
+        if limit == "kpl32":
+            assert got["route"] == "group" and got["kpl"] == (32 if n <= 1024 else 64)
+        else:
+            assert got["route"] == ("group" if n <= 2048 else "walk")
+        want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
+                                                         512, True)
+        np.testing.assert_array_equal(got["value"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+        assert same_value_bits(got["value"], topk._kth_masked_plain(ht, mt, 512))
+
+
 @pytest.mark.parametrize("s", [32769, 40000, 65536, 131072])
 def test_wide_chunks_at_the_card_widths(s):
-    """The kernel's chunks of the widths the card now takes: at most
-    kWideVpt * kWideThreads columns each, one width (a multiple of 4, so a
-    row with S % 4 == 0 keeps its 16-byte loads) but the last, covering the
-    row once; the Gaussian rows of 16384 x 65536 at k 32 and 512 fit the
-    candidate buffer (8 chunks of at most k candidates each, and ties)."""
+    """The routes at the widths the card takes: the walk's chunks (K6) at
+    most kWideVpt * kWideThreads columns each, one width (a multiple of 4,
+    so a row with S % 4 == 0 keeps its 16-byte loads) but the last,
+    covering the row once; K1's cluster (2 CTAs up to 65536, 4 at 131072)
+    with slices of at most kSliceVpt * kSliceThreads; K5's group route up to
+    kGroupMaxN unmasked columns. The Gaussian rows of 16384 x 65536 at k 32
+    and 512 fit the walk's buffer and K1's union."""
     c = wide_consts()
     chunks = wide_chunks(s, c["vpt"] * c["threads"])
     assert chunks[0][0] == 0 and sum(n for _, n in chunks) == s
     assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
     assert all(n % 4 == 0 for _, n in chunks[:-1]) and 0 < chunks[-1][1] <= chunks[0][1] <= c["vpt"] * c["threads"]
     assert len(chunks) * 512 <= c["cap"]
+    slice_cols = c["slice_vpt"] * c["slice_threads"]
+    slices = cluster_slices(s, slice_cols)
+    assert len(slices) == (2 if s <= 65536 else 4) <= c["max_cluster"]
+    assert all(n <= slice_cols for _, n in slices) and sum(n for _, n in slices) == s
+    assert c["group_max"] == c["group_warps"] * 32 * 64 == 32768
     if s == 65536:
         h = torch.from_numpy(np.random.default_rng(2).normal(size=(4, s)).astype(np.float32))
         for k in (32, 512):
             got = wide_model(h, k)
             assert not bool(got["fallback"].any()) and same_value_bits(got["kth"], topk._kth_plain(h, k))
+            got = cluster_model(h, k)
+            assert not bool(got["fallback"].any()) and same_value_bits(got["kth"], topk._kth_plain(h, k))
+            assert got["own"] == (2 * k <= c["slice_threads"])
 
 
 @settings(max_examples=40, deadline=None)
@@ -357,8 +506,8 @@ def test_wide_chunks_at_the_card_widths(s):
        levels=st.sampled_from([0, 3, 50]))
 def test_wide_model_matches_plain_on_random_rows(s, k_frac, p, seed, levels):
     """Random rows (continuous or a few levels, so ties), k anywhere, with
-    and without a mask, at a chunk width of 128: the same bits as the
-    plain versions whichever branch a row takes."""
+    and without a mask, at a chunk width of 128 and slices of 128: the same
+    bits as the plain versions whichever branch or route a row takes."""
     rng = np.random.default_rng(seed)
     h = rng.normal(size=(4, s)).astype(np.float32)
     if levels:
@@ -368,5 +517,9 @@ def test_wide_model_matches_plain_on_random_rows(s, k_frac, p, seed, levels):
     k = max(1, min(s, round(k_frac * s)))
     small = {"chunk": 128, "cap": 96, "threads": 32}
     assert same_value_bits(wide_model(ht, k, **small)["kth"], topk._kth_plain(ht, k))
+    kw = {"vpt": 4, "threads": 32, "slice_cap": 48, "union_cap": 160}
+    assert same_value_bits(cluster_model(ht, k, **kw)["kth"], topk._kth_plain(ht, k))
     mask = torch.from_numpy(rng.random(s) < p)
-    assert same_value_bits(wide_model(ht, k, mask, **small)["kth"], topk._kth_masked_plain(ht, mask, k))
+    want = topk._kth_masked_plain(ht, mask, k)
+    assert same_value_bits(wide_model(ht, k, mask, **small)["kth"], want)
+    assert same_value_bits(k5_wide_model(ht, mask, k, warps=1, walk=small)["value"], want)
