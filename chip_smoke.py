@@ -1,7 +1,8 @@
 """Drive the PyTorch port's production SAE train step, one training job
 around it, inference, extraction, interpretation, trait discovery,
-interactive interpretability and contrib's analysis of runs after it, on
-one CUDA card (and its multi-process training on two ranks).
+interactive interpretability, contrib's analysis of runs and its notebook
+drivers after it, on one CUDA card (and its multi-process training on two
+ranks).
 
     python3 chip_smoke.py
 
@@ -390,9 +391,9 @@ script exits non-zero:
                 launch count; its line before its last names the modules it
                 ran and those it could not import.
 
-22. contrib_last -- the last of contrib, in phase 21's root (which it
-                then removes) at Bird-MAE-Large's width (d_model 1024, 24
-                layers, 256 content tokens a clip): (a) 64 synthetic
+22. contrib_last -- the last of contrib, in phase 21's root (which phase
+                23 reads, then main removes) at Bird-MAE-Large's width
+                (d_model 1024, 24 layers, 256 content tokens a clip): (a) 64 synthetic
                 BirdCLEF clips, 16 with a 10 kHz tone over time patches
                 10-12, a random Bird-MAE-Large checkpoint with channel 295
                 planted (phase 20(e)'s plant), `framework.shards.cli` at
@@ -423,11 +424,30 @@ script exits non-zero:
                 once an inference batch and no plain version; logs each
                 step's seconds, the extraction's clips/s, and the modules
                 that ran and the packages that could not be imported.
+23. notebooks -- contrib's 21 notebook drivers that reach the JAX package,
+                as the port's copies (saev_tpu_torch/{birdsong,tdiscovery}/
+                notebooks, saev_tpu_torch/mimics/exps), in one process that
+                runs each as `python <file>` runs it (`runpy`, with its
+                environment and working directory) over phases 21's and
+                22's root: the runs' token_acts (K6 inferred them on the
+                card), shards and images, and what the phase writes from
+                them in root/nb (a summary and a JSONL tracker from each
+                run's inference, study runs and a k-means baseline run
+                beside r1 and r2, seeded probe metrics). birdset runs its
+                channel trace (BIRDSET_TRACE=1) on the card at
+                Bird-MAE-Large width from phase 22's checkpoint and must
+                print channel 295; every driver runs to its end with
+                contrib's printed markers, or stops on the ImportError of
+                a package this machine lacks (matplotlib, scikit-learn)
+                after printing what comes before it; logs each driver's
+                seconds. Launches no kernel: the drivers' process counts
+                every kernel's launches from 0 and must read none.
 
 Kernel launches are counted per driven path (slice, wide steps, steady,
 metrics, benches, job, inference, interpret, activations, muon, high, multi: each rank's
-counts, summed; tdiscovery; interactive_interp; contrib_host; contrib_last): every count
-is set to 0 just before the path and read just after.
+counts, summed; tdiscovery; interactive_interp; contrib_host; contrib_last;
+notebooks, in its drivers' process): every count is set to 0 just before
+the path and read just after.
 
 The line before the last is {"kernels": [...]} with every number measured or
 computed in this run: besides ms and plain_ms, each kernel's bound_ms (the
@@ -6248,8 +6268,308 @@ def phase_contrib_last(root: pathlib.Path, ch: dict) -> dict:
     log(f"contrib_last modules ran: {', '.join(out['ran'])}; could not import: "
         + (", ".join(f"{what} ({pkg})" for what, pkg in out["missing"].items()) or "none"))
     log(f"contrib_last: the phase {time.perf_counter() - t_phase:.1f} s ({card})")
-    return {"launches": launches}
+    return {"launches": launches, "out": out}
 
+
+# Phase 23 (notebooks): contrib's 21 notebook drivers that reach the JAX
+# package, as the port's copies, each run as `python <file>` runs it (one
+# process, `runpy`, each driver with its environment and working directory)
+# over phase 21's and 22's root: their runs, shards and token_acts (K6
+# inferred them on the card), and what the phase writes from those runs
+# (module doc, phase 23). Each entry:
+# (the copy, what it prints before it needs an optional package, what it
+# prints after, the optional packages it needs in that order). Where one is
+# missing, the driver stops on the ImportError that names it and must print
+# what comes before; else it runs to its end and prints all.
+NB = "saev_tpu_torch/tdiscovery/notebooks"
+NB_DRIVERS = {
+    "birdset": ("saev_tpu_torch/birdsong/notebooks/birdset.py",
+                ("== audio ==", "== image ==", "audio_vs_image", "pathological channel: ", "dominance (resid):"),
+                ("saved ",), ("matplotlib",)),
+    "explore": ("saev_tpu_torch/birdsong/notebooks/explore.py",
+                ("tokens x", "mean L0", "latent ", "wrote galleries under", "frontier:", "render clips for:"), (), ()),
+    "clips": ("saev_tpu_torch/birdsong/notebooks/clips.py", ("1 runs with clip galleries", "Wrote 2 pages"), (), ()),
+    "001_actfn": (f"{NB}/001_actfn.py", ("3 runs loaded from", "top-k(k=", "frontier:"), (), ()),
+    "002_ablations": (f"{NB}/002_ablations.py", ("3 runs loaded from", "mean final MSE", "mean final dead"), (), ()),
+    "002_optim": (f"{NB}/002_optim.py", ("8 runs.", "adam |", "muon |"), ("saved optim_pareto_grid.png",),
+                  ("matplotlib",)),
+    "003_auxk": (f"{NB}/003_auxk.py", ("8 runs.", "auxk |", "no-aux |", ": train ", " eval "),
+                 ("saved auxk_pareto_grid.png",), ("matplotlib",)),
+    "005_butterflies": (f"{NB}/005_butterflies.py", ("8 runs, ",), ("pareto ckpts", "Saved "), ("matplotlib",)),
+    "009_pe_core": (f"{NB}/009_pe_core.py", ("8 runs", "Backbones:"), ("pareto ckpts", "Saved "), ("matplotlib",)),
+    "007_cambridge_sae": (f"{NB}/007_cambridge_sae.py", ("8 runs",), ("dead_frac", "Saved "), ("matplotlib",)),
+    "008_pe": (f"{NB}/008_pe.py", ("2 runs with probe metrics", "purity@16="), ("Saved ",), ("matplotlib",)),
+    "metrics": (f"{NB}/metrics.py", ("2 runs; models:",), ("Saved ",), ("matplotlib",)),
+    "baselines": (f"{NB}/baselines.py", ("1 baseline runs, 2 SAE runs.", "k-means", "fit mse/inertia="), (), ()),
+    "visuals": (f"{NB}/visuals.py", ("1 runs with galleries", "Wrote 2 pages"), (), ()),
+    "007_cambridge_mimicry": (f"{NB}/007_cambridge_mimicry.py", ("lativitta dorsal vs malleti dorsal",
+                                                                  "classifier checkpoints."), (), ()),
+    "004_fishbase": (f"{NB}/004_fishbase.py", (), (), ()),
+    "004_fishbase_cls": (f"{NB}/004_fishbase_cls.py", ("Per-class view for 'class'", "Best run for 'class'"), (), ()),
+    "006_proposal_audit": (f"{NB}/006_proposal_audit.py", (), ("auc_b", "h1_layer_yield"), ("sklearn", "matplotlib")),
+    "exploration": ("saev_tpu_torch/mimics/exps/001-heliconius/exploration.py", ("pooled features",), (), ()),
+    "butterflies": (f"{NB}/butterflies.py", ("Saved ",), (), ()),
+    "fishvista": (f"{NB}/fishvista.py", ("N=128:", "usable ratios"), ("Saved ", " patches"), ("matplotlib",)),
+}
+NB_LIMIT = 300  # seconds the drivers' process may take
+# The study runs beside phase 21's: (run id, optimizer, AuxK, layer).
+NB_STUDY = (("s1", "adam", "auxk", 0), ("s2", "muon", "auxk", 0), ("s3", "adam", "no-aux", 0),
+            ("s4", "muon", "no-aux", 0), ("s5", "adam", "auxk", 1), ("s6", "muon", "auxk", 1))
+
+NB_RUNNER = r"""
+import contextlib, importlib.abc, io, json, os, pathlib, runpy, sys, time, traceback
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+from chip_smoke import _MeanHead, counts, reset_counts
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in spec["block"]:
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+
+
+if spec["block"]:
+    import importlib.util
+
+    real_find_spec = importlib.util.find_spec
+    importlib.util.find_spec = lambda name, *a: None if name.split(".")[0] in spec["block"] else real_find_spec(name, *a)
+    sys.meta_path.insert(0, Block())
+out = {}
+reset_counts()
+for name, path, env in spec["drivers"]:
+    cwd = pathlib.Path(spec["cwd"]) / name
+    cwd.mkdir(parents=True, exist_ok=True)
+    saved = (dict(os.environ), list(sys.path), list(sys.argv))
+    os.environ.update(env)
+    sys.argv = [path]
+    os.chdir(cwd)
+    buf, res = io.StringIO(), {"exit": 0, "error": None}
+    t0 = time.perf_counter()
+    try:
+        # A driver runs as __main__, where phase 21's pickled nearest-mean
+        # head (made without scikit-learn) names its class when chip_smoke.py
+        # runs as a script.
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, init_globals={"_MeanHead": _MeanHead}, run_name="__main__")
+    except SystemExit as err:
+        res["exit"] = 0 if err.code is None else err.code
+    except Exception as err:
+        res["exit"], res["error"] = 1, f"{type(err).__name__}: {err}"
+        res["traceback"] = traceback.format_exc()[-3000:]
+    res["seconds"], res["stdout"] = time.perf_counter() - t0, buf.getvalue()
+    os.environ.clear()
+    os.environ.update(saved[0])
+    sys.path[:], sys.argv[:] = saved[1], saved[2]
+    out[name] = res
+    try:
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+    except ImportError:
+        pass
+with open(spec["out"], "w") as fd:
+    json.dump({"drivers": out, "launches": counts()}, fd)
+"""
+
+
+def _nb_eval(art: pathlib.Path) -> dict:
+    """A run's eval on one split from its inference: L0 and dead latents from
+    token_acts, the MSEs from metrics.json."""
+    import scipy.sparse
+
+    acts = scipy.sparse.load_npz(art / "token_acts.npz").tocsc()
+    metrics = json.loads((art / "metrics.json").read_text())
+    return {"l0": acts.nnz / acts.shape[0], "mse": metrics["mse_per_token"],
+            "normalized_mse": metrics["normalized_mse"], "n_dead": int((np.diff(acts.indptr) == 0).sum())}
+
+
+def _nb_probe_metrics(train_art: pathlib.Path, test_art: pathlib.Path, train_name: str, n_latents: int,
+                      n_classes: int, rng) -> None:
+    """probe1d_metrics.npz on both splits and the test split's
+    probe1d_metrics__train-<train>.npz, from the seed (the files `tdiscovery
+    probe1d` and `metrics` write)."""
+    np.savez(train_art / "probe1d_metrics.npz", loss=rng.random((n_latents, n_classes)).astype(np.float32),
+             weights=rng.standard_normal((n_latents, n_classes)).astype(np.float32))
+    np.savez(test_art / "probe1d_metrics.npz", loss=rng.random((n_latents, n_classes)).astype(np.float32))
+    np.savez(test_art / f"probe1d_metrics__train-{train_name}.npz", ap=rng.random(n_classes).astype(np.float32),
+             precision=rng.random(n_classes).astype(np.float32), recall=rng.random(n_classes).astype(np.float32),
+             f1=rng.random(n_classes).astype(np.float32), top_labels=rng.integers(0, n_classes, (n_latents, 20)),
+             nnz_per_latent=rng.integers(0, 40, n_latents), n_pos_per_class=rng.integers(1, 64, n_classes))
+
+
+def _nb_inputs(dims: dict, device: str, root: pathlib.Path, ch: dict, cl: dict) -> dict:
+    """What the drivers read beyond phases 21 and 22, in root/nb: a summary
+    tracker and a JSONL tracker of r1, r2 and b1 (each run's eval measured
+    from its inference); two runs roots that link r1 and r2, study/ with six
+    study runs beside them (optimizer and AuxK variants: config and shard
+    links only, seeded summaries) and probe/ with a k-means baseline run;
+    probe metrics of r1, r2 and the baseline (seeded); a two-valued column
+    in phase 21's labels. Returns each driver's environment."""
+    from saev_tpu_torch import disk
+
+    nb = root / "nb"
+    runs_root, val, train = ch["runs"]["runs_root"], ch["split_dirs"]["validation"], ch["split_dirs"]["training"]
+    bird = cl["bird"]["dir"]
+    rng = np.random.default_rng(SEED + 90)
+    tracker, jsonl = nb / "tracker" / "saev", nb / "wandb" / "saev"
+    study, probe = nb / "study" / "saev" / "runs", nb / "probe" / "saev" / "runs"
+    for run_id, shards in (("r1", val), ("r2", val), ("b1", bird)):
+        ev = _nb_eval(runs_root / run_id / "inference" / shards.name)
+        (tracker / run_id).mkdir(parents=True)
+        (tracker / run_id / "summary.json").write_text(json.dumps({"eval": ev, "loss": {"n_dead": ev["n_dead"]}}))
+        (jsonl / run_id).mkdir(parents=True)
+        config = json.loads((runs_root / run_id / "checkpoint" / "config.json").read_text()) | {"optim": "adam"}
+        (jsonl / run_id / "config.json").write_text(json.dumps({"config": config, "tags": ["notebooks"]}))
+        (jsonl / run_id / "metrics.jsonl").write_text(json.dumps({
+            "step": 0, "_step": 0, "loss/l0": ev["l0"], "loss/mse": ev["mse"],
+            "metrics/normalized_mse": ev["normalized_mse"], "loss/n_dead": ev["n_dead"]}) + "\n")
+    for runs in (study, probe):
+        runs.mkdir(parents=True)
+        for run_id in ("r1", "r2"):
+            (runs / run_id).symlink_to(pathlib.Path("..", "..", "..", "..", "saev", "runs", run_id))
+    rel = pathlib.Path("..", "..", "..", "..", "..", "..", "saev", "shards")
+    d_sae = dims["d_sae"]
+    for run_id, optim, aux, layer in NB_STUDY:
+        run = disk.Run.new(run_id, train_shards_dir=rel / train.name, val_shards_dir=rel / val.name, runs_root=study)
+        act = {"key": "top-k", "top_k": dims["top_k"],
+               "aux": {"key": aux, "k_aux": 512, "alpha": 0.03125} if aux == "auxk" else {"key": aux}}
+        (run.run_dir / "checkpoint" / "config.json").write_text(json.dumps({
+            "sae": {"d_sae": d_sae, "activation": act}, "val_data": {"layer": layer}, "objective": {"n_prefixes": 1},
+            "lr": 1e-3, "optim": optim}))
+        (tracker / run_id).mkdir(parents=True)
+        (tracker / run_id / "summary.json").write_text(json.dumps({
+            "eval": {"l0": float(dims["top_k"] * (0.5 + rng.random())), "normalized_mse": float(rng.random()),
+                     "n_dead": int(rng.integers(0, d_sae // 4))}, "loss": {"n_dead": int(rng.integers(0, d_sae // 4))}}))
+    # A two-valued label column for 006's heads (scikit-learn 1.8 on fits
+    # liblinear's L1 head on two classes only).
+    labels = (ch["seg_root"] / "labels.csv").read_text().splitlines()
+    (ch["seg_root"] / "labels.csv").write_text("\n".join(
+        [labels[0] + ",pair"] + [f"{row},{'ab' if row.split(',')[1] in 'ab' else 'rest'}" for row in labels[1:]]) + "\n")
+    n_classes = ch["n_classes"] + 1
+    for run_id in ("r1", "r2"):
+        _nb_probe_metrics(runs_root / run_id / "inference" / train.name, runs_root / run_id / "inference" / val.name,
+                          train.name, d_sae, n_classes, rng)
+    kb1 = probe / "kb1"
+    for sub in ("checkpoint", "links", "inference"):
+        (kb1 / sub).mkdir(parents=True)
+    for name, split in (("train-shards", train), ("val-shards", val)):
+        (kb1 / "links" / name).symlink_to(rel / split.name)
+        (kb1 / "inference" / split.name).mkdir()
+    (kb1 / "checkpoint" / "baseline.pt").write_bytes(
+        (json.dumps({"method": "kmeans", "k": 8, "metrics": {"eval/inertia": 1.5}}) + "\n").encode() + b"\0")
+    _nb_probe_metrics(kb1 / "inference" / train.name, kb1 / "inference" / val.name, train.name, 8, n_classes, rng)
+    out = nb / "out"
+    sh = {"TD_RUNS_ROOT": str(study), "TD_TRACKER": str(tracker.parent)}
+    pr = {"TD_RUNS_ROOT": str(probe), "TD_TRACKER": str(tracker.parent), "TD_SHARDS_ROOT": str(root / "saev" / "shards")}
+    arch = dims["bird_arch"]
+    envs = {
+        "birdset": {"BIRDSET_AUDIO_SHARDS": str(bird), "BIRDSET_IMG_SHARDS": str(val),
+                    "BIRDSET_AUDIO_LAYER": str(dims["layer"]), "BIRDSET_OUT": str(nb / "birdset_report.json"),
+                    "BIRDSET_TRACE": "1", "BIRDSET_ARCH": f"{arch}={root / f'{arch}.pt'}"},
+        "explore": {"BIRDSONG_RUN": str(runs_root / "b1"), "BIRDSONG_SHARDS": str(bird), "BIRDSONG_TRACKER": str(jsonl)},
+        "clips": {"BS_RUNS_ROOTS": str(runs_root), "BS_OUT": str(out / "clips")},
+        "001_actfn": {"SAEV_TRACKER": str(jsonl)},
+        "002_ablations": {"SAEV_TRACKER": str(jsonl)},
+        "002_optim": {"OPTIM_RUNS": str(study), "OPTIM_TRACKER": str(tracker.parent), "OPTIM_EXPECTED": "2"},
+        "003_auxk": {"AUXK_RUNS": str(study), "AUXK_TRACKER": str(tracker.parent), "AUXK_EXPECTED": "2"},
+        "008_pe": {**pr, "TD_OUT": str(out / "008_pe")},
+        "metrics": {**pr, "TD_OUT": str(out / "metrics")},
+        "baselines": {"TD_RUNS": str(probe), "TD_SHARDS": str(root / "saev" / "shards"), "TD_TRACKER": str(tracker.parent)},
+        "visuals": {"TD_RUNS_ROOTS": str(runs_root), "TD_OUT": str(out / "visuals"), "TD_N_FEATURES": "8"},
+        "007_cambridge_mimicry": {"MIMICRY_RUNS": str(runs_root), "MIMICRY_SHARDS": str(val)},
+        "004_fishbase": {"FISHBASE_SHARDS": str(val), "FISHBASE_RUN": str(runs_root / "r1"),
+                         "FISHBASE_TRAITS": str(root / "traits.csv")},
+        "004_fishbase_cls": {"TD_RUNS_ROOT": str(runs_root), "TD_TRACKER": str(tracker.parent)},
+        "006_proposal_audit": {"TD_RUN": str(runs_root / "r1"), "TD_TRAIN_SHARDS": str(train),
+                               "TD_TEST_SHARDS": str(val), "TD_SOURCE_COL": "pair",
+                               "TD_OUT": str(out / "006_proposal_audit")},
+        "exploration": {"MIMICS_RUNS": str(runs_root), "MIMICS_SHARD": val.name, "MIMICS_TASK": "class",
+                        "MIMICS_OUT": str(out / "exploration")},
+        "butterflies": {"BF_ROOT": str(ch["seg_root"]), "BF_N": "4", "BF_OUT": str(out / "butterflies")},
+        "fishvista": {"FV_ROOT": str(root / "fv_seg"), "FV_OUT": str(out / "fishvista")},
+    }
+    for name in ("005_butterflies", "009_pe_core", "007_cambridge_sae"):
+        envs[name] = {**sh, "TD_OUT": str(out / name)}
+    if device == "cpu":
+        envs["birdset"]["BIRDSET_DEVICE"] = "cpu"
+    return envs
+
+
+def run_notebooks(dims: dict, device: str, root: pathlib.Path, ch: dict, cl: dict, block: tuple = ()) -> dict:
+    """The notebooks phase's path (module doc, phase 23) in phases 21's and
+    22's root, after them (their outputs `ch` and `cl`): the drivers' inputs,
+    then one process that runs the 21 copies, `block` made unimportable
+    there (the CPU rehearses the card's missing packages so). Returns each
+    driver's stdout, exit, error and seconds, the kernels' launches in that
+    process (counted from 0 before the first driver), and its seconds."""
+    import os
+
+    repo = pathlib.Path(__file__).resolve().parent
+    envs = _nb_inputs(dims, device, root, ch, cl)
+    spec = {"repo": str(repo), "cwd": str(root / "nb" / "cwd"), "out": str(root / "nb" / "drivers.json"),
+            "block": list(block), "drivers": [[name, str(repo / f[0]), envs[name]] for name, f in NB_DRIVERS.items()]}
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(repo)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", NB_RUNNER, json.dumps(spec)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=NB_LIMIT)
+    took = time.perf_counter() - t0
+    require(proc.returncode == 0, f"notebooks: the drivers' process exited {proc.returncode}\n{proc.stderr[-3000:]}")
+    return json.loads((root / "nb" / "drivers.json").read_text()) | {"seconds": took}
+
+
+def check_notebooks(out: dict, dims: dict, missing: set) -> dict:
+    """Each driver ran to its end and printed its markers, or stopped on the
+    ImportError of the first package it needs that is `missing`, having
+    printed what comes before; birdset's trace found the planted channel.
+    Returns {driver: the package it stopped on} for those that stopped."""
+    stopped = {}
+    for name, (_, before, after, needs) in NB_DRIVERS.items():
+        res = out["drivers"][name]
+        gone = [p for p in needs if p in missing]
+        if gone:
+            require(str(res["error"]).startswith(("ImportError", "ModuleNotFoundError"))
+                    and f"No module named '{gone[0]}'" in res["error"],
+                    f"notebooks: {name} must stop on the ImportError of {gone[0]}, not exit {res['exit']} "
+                    f"{res['error']}\n{res.get('traceback', '')}")
+            stopped[name] = gone[0]
+            want = before
+        else:
+            require(res["exit"] == 0 and res["error"] is None,
+                    f"notebooks: {name} exited {res['exit']} {res['error']}\n{res.get('traceback', '')}")
+            want = before + after
+        lacking = [m for m in want if m not in res["stdout"]]
+        require(not lacking, f"notebooks: {name} did not print {lacking}:\n{res['stdout'][-2000:]}")
+    channel = [line for line in out["drivers"]["birdset"]["stdout"].splitlines() if line.startswith("pathological")]
+    require(channel == [f"pathological channel: {dims['bad_channel']}"],
+            f"notebooks: birdset's trace found {channel}, planted {dims['bad_channel']}")
+    return stopped
+
+
+def phase_notebooks(root: pathlib.Path, ch: dict, cl: dict) -> dict:
+    """contrib's 21 notebook drivers as the port's copies over phase 21's and
+    22's root (module doc, phase 23); birdset's trace on the card at
+    Bird-MAE-Large width. Launches no kernel (counted in the drivers'
+    process)."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    card = card_and_limit()
+    out = run_notebooks(CL, "cuda", root, ch, cl)
+    missing = {p for p in ("sklearn", "matplotlib", "h5py") if importlib.util.find_spec(p) is None}
+    stopped = check_notebooks(out, CL, missing)
+    require(out["launches"] == dict.fromkeys(KERNELS, 0), f"notebooks: kernels launched {out['launches']}")
+    log(f"notebooks ({card}): " + "; ".join(f"{k} {v['seconds']:.2f} s" for k, v in out["drivers"].items())
+        + f"; the drivers' process {out['seconds']:.1f} s; kernel launches in it: none")
+    dom = [line for line in out["drivers"]["birdset"]["stdout"].splitlines() if line.startswith("dominance")]
+    log(f"notebooks ({card}): birdset's trace on the card at {CL['bird_arch']} width (d_model 1024, 24 layers) "
+        f"from phase 22's checkpoint: pathological channel {CL['bad_channel']} (planted); {dom[0][:160]}")
+    for name, package in stopped.items():
+        log(f"notebooks: {name} stopped on the ImportError of {package}, which this machine lacks: "
+            f"{out['drivers'][name]['error'][:160]}")
+    log(f"notebooks: the phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
 
 def main() -> int:
     name = phase_device()
@@ -6309,7 +6629,10 @@ def main() -> int:
         ch = phase_contrib_host(root)
         ch_counts = ch["launches"]
         torch.cuda.empty_cache()
-        cl_counts = phase_contrib_last(root, ch["out"])["launches"]
+        cl = phase_contrib_last(root, ch["out"])
+        cl_counts = cl["launches"]
+        torch.cuda.empty_cache()
+        phase_notebooks(root, ch["out"], cl["out"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()

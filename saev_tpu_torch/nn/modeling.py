@@ -12,8 +12,9 @@ Matmul precision, as the JAX package names it (saev_tpu/nn/modeling.py:38-50):
 the products here take a `precision`, "highest", "high" or "default"
 (`matmul`). "highest", the default of `encode`, `decode`, `forward`, eval
 and the log-step metrics, is a full float32 product: TF32 is off inside the
-call, whatever the caller's torch.set_float32_matmul_precision says, and the
-caller's setting is restored after (`_f32_products`); the backward's
+call, whatever the caller set (the legacy `allow_tf32`,
+torch.set_float32_matmul_precision or the per-backend `fp32_precision`),
+and the caller's state reads back after as it was (`_f32_products`); the backward's
 products too. "default", the train step's, means bf16 operands with float32
 accumulation and result on the card, as on the TPU: each operand rounded to
 bf16 to nearest even, `torch.mm(..., out_dtype=torch.float32)`, the bias
@@ -283,20 +284,46 @@ def _mm_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _matmul_switches() -> tuple | None:
+    """The per-backend float32 matmul switches of torch 2.9 on, cuBLAS's
+    (`torch.backends.cuda.matmul.fp32_precision`) and oneDNN's on the CPU
+    (`torch.backends.mkldnn.matmul.fp32_precision`); None on a torch
+    without them."""
+    cuda, mkldnn = torch.backends.cuda.matmul, getattr(torch.backends.mkldnn, "matmul", None)
+    if mkldnn is None or not hasattr(cuda, "fp32_precision"):
+        return None
+    return cuda, mkldnn
+
+
 @contextlib.contextmanager
 def _f32_products():
     """TF32 off for the products inside: "highest" is a float32 product
-    whatever the caller's torch.set_float32_matmul_precision says. The
-    caller's setting is restored after."""
-    prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        yield
+    whatever the caller set, through the legacy `allow_tf32`,
+    `torch.set_float32_matmul_precision` or the per-backend
+    `fp32_precision`. Where torch has the per-backend switches, only they
+    are read and set ("ieee" inside, the caller's values after): torch
+    refuses to read a precision that the legacy and the per-backend API set
+    differently, and the products read the per-backend switches. The legacy
+    state is never touched, so every reader, legacy or per-backend, reads
+    back after the call what the caller left. Before those switches, one
+    global setting: "highest" inside, the caller's after."""
+    switches = _matmul_switches()
+    if switches is None:
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev)
         return
-    torch.set_float32_matmul_precision("highest")
+    prev = [s.fp32_precision for s in switches]
+    for s in switches:
+        s.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        for s, p in zip(switches, prev):
+            s.fp32_precision = p
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:

@@ -126,10 +126,12 @@ def _bird_shards(shards_root: pathlib.Path, audio_root: pathlib.Path, rng) -> tu
     return shards_root / md.hash, direction
 
 
-def _bird_run(runs_root: pathlib.Path, shards_dir: pathlib.Path, direction: np.ndarray) -> pathlib.Path:
-    """b1: a TopK SAE whose latent 0 reads the tone's direction (bias -6, so
-    it fires on the tone's patches only) and whose latents read nothing of
-    channel BAD; the port's inference (CPU) over the clips."""
+def _bird_run(runs_root: pathlib.Path, shards_dir: pathlib.Path, direction: np.ndarray,
+              d_sae: int = BIRD_SAE) -> pathlib.Path:
+    """b1: a TopK SAE of `d_sae` latents whose latent 0 reads the tone's
+    direction (bias -6, so it fires on the tone's patches only) and whose
+    latents read nothing of channel BAD; the port's inference (CPU) over the
+    clips."""
     import torch
 
     from saev_tpu_torch import disk
@@ -137,7 +139,7 @@ def _bird_run(runs_root: pathlib.Path, shards_dir: pathlib.Path, direction: np.n
     from saev_tpu_torch.framework import inference
     from saev_tpu_torch.nn import modeling, serialize
 
-    cfg = modeling.SparseAutoencoderConfig(d_model=BIRD_D, d_sae=BIRD_SAE, activation=modeling.TopK(top_k=BIRD_K))
+    cfg = modeling.SparseAutoencoderConfig(d_model=BIRD_D, d_sae=d_sae, activation=modeling.TopK(top_k=BIRD_K))
     params, state = modeling.init(cfg, torch.Generator().manual_seed(3), device="cpu")
     params["W_enc"][BAD] = 0.0
     params["W_enc"][:, 0] = 4.0 * torch.from_numpy(direction).float()

@@ -901,16 +901,36 @@ def test_matmul_default_is_bf16_algebra(dev):
     assert rel_norm(modeling.matmul(a.to(dev), b.to(dev), "highest").cpu(), a @ b) <= 1e-6
 
 
-def test_highest_is_f32_under_global_tf32(dev):
-    """With the process's TF32 switch on, "highest" products (modeling.matmul
-    forward and backward, _linear_bias, the multi-prefix decode's batched
-    and mask products) stay f32: within 1e-6 rel-norm of the f64 product,
-    where TF32's rounding puts a plain product near 1e-4. The switch is on
-    again after each call."""
+# The process's TF32 switch, each way a caller can turn it on: (read, on, off).
+TF32_SWITCHES = {
+    "allow_tf32": (lambda: torch.backends.cuda.matmul.allow_tf32,
+                   lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", True),
+                   lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", False)),
+    "matmul_precision": (torch.get_float32_matmul_precision, lambda: torch.set_float32_matmul_precision("high"),
+                         lambda: torch.set_float32_matmul_precision("highest")),
+    "fp32_precision": (lambda: torch.backends.cuda.matmul.fp32_precision,
+                       lambda: setattr(torch.backends.cuda.matmul, "fp32_precision", "tf32"),
+                       lambda: setattr(torch.backends.cuda.matmul, "fp32_precision", "ieee")),
+}
+
+
+@pytest.mark.parametrize("switch", TF32_SWITCHES)
+def test_highest_is_f32_under_global_tf32(dev, switch):
+    """With the process's TF32 switch on (the legacy `allow_tf32`,
+    torch.set_float32_matmul_precision or the per-backend
+    `fp32_precision`), "highest" products (modeling.matmul forward and
+    backward, _linear_bias, the multi-prefix decode's batched and mask
+    products) stay f32: within 1e-6 rel-norm of the f64 product, where
+    TF32's rounding puts a plain product near 1e-4. The switch reads as the
+    caller set it after each call."""
+    if switch == "fp32_precision" and modeling._matmul_switches() is None:
+        pytest.skip(f"torch {torch.__version__} has no per-backend fp32_precision")
+    read, on, off = TF32_SWITCHES[switch]
     gen = torch.Generator().manual_seed(7)
     a, b, g = (torch.randn(s, generator=gen) for s in ((512, 1024), (1024, 256), (512, 256)))
     bias = torch.randn(256, generator=gen)
-    torch.backends.cuda.matmul.allow_tf32 = True
+    on()
+    set_to = read()
     try:
         assert rel_norm((a.to(dev) @ b.to(dev)).cpu(), a.double() @ b.double()) > 1e-5  # TF32 is on
         leaves = [t.to(dev).requires_grad_(True) for t in (a, b)]
@@ -921,9 +941,9 @@ def test_highest_is_f32_under_global_tf32(dev):
         params = {"W_dec": b.to(dev), "b_dec": bias.to(dev)}
         cuts = torch.tensor([100, 512, 1024], device=dev)
         dec = modeling.decode(cfg, params, a.to(dev), cuts, group_size=256, precision="highest")
-        assert torch.backends.cuda.matmul.allow_tf32
+        assert read() == set_to
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
+        off()
     a64, b64, g64 = a.double(), b.double(), g.double()
     for what, got, want in (("out", out, a64 @ b64), ("da", leaves[0].grad, g64 @ b64.T),
                             ("db", leaves[1].grad, a64.T @ g64), ("linear", lin, a64 @ b64 + bias.double())):

@@ -208,14 +208,18 @@ def test_highest_train_step_matches_jax(aux_enabled):
 
 @pytest.mark.parametrize("caller", ["high", "medium", "highest"])
 def test_highest_products_ignore_the_global_tf32_setting(monkeypatch, caller):
-    """Inside a "highest" product the float32 matmul precision is "highest"
-    (TF32 off), whatever the caller set; after it, the caller's setting."""
+    """Inside a "highest" product TF32 is off whatever the caller set: the
+    per-backend switches read "ieee" (the global precision "highest" on a
+    torch without them); after it, the caller's setting."""
     prev = torch.get_float32_matmul_precision()
     seen = []
     real = torch.Tensor.__matmul__
+    switches = modeling._matmul_switches()
+    f32 = "highest" if switches is None else ("ieee", "ieee")
 
     def spy(a, b):
-        seen.append(torch.get_float32_matmul_precision())
+        seen.append(torch.get_float32_matmul_precision() if switches is None
+                    else tuple(s.fp32_precision for s in switches))
         return real(a, b)
 
     try:
@@ -229,4 +233,4 @@ def test_highest_products_ignore_the_global_tf32_setting(monkeypatch, caller):
     finally:
         monkeypatch.undo()
         torch.set_float32_matmul_precision(prev)
-    assert len(seen) >= 3 and set(seen) == {"highest"}, seen
+    assert len(seen) >= 3 and set(seen) == {f32}, seen

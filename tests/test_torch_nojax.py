@@ -13,6 +13,7 @@ ImportError that names scikit-learn, the study figures one that names
 matplotlib, and the TreeOfLife extraction one that names h5py."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -218,3 +219,111 @@ def test_port_imports_without_jax():
     assert INTERACTIVE_INTERP_MODULES <= set(proc.stdout.split()[:-1])
     assert CONTRIB_HOST_MODULES <= set(proc.stdout.split()[:-1])
     assert CONTRIB_LAST_MODULES <= set(proc.stdout.split()[:-1])
+
+
+# ---------------------------------------------------------------------------
+# contrib's driver files (percent-format notebooks, experiment and sweep
+# files) against their copies in the port, by a static walk of imports.
+# ---------------------------------------------------------------------------
+
+# contrib's projects and the port's packages that hold their code.
+PROJECTS = {"birdsong": "birdsong", "trait_discovery": "tdiscovery", "mimics": "mimics",
+            "interactive_interp": "interactive_interp", "freshwater_fish": "freshwater_fish"}
+DRIVER_DIRS = ("notebooks", "exps", "sweeps")
+JAX_ROOTS = {"saev_tpu", "jax", "jaxlib"}
+
+
+def _imports(fpath: pathlib.Path) -> list[tuple[str, tuple[str, ...], int]]:
+    """Every import in the file, at any depth: (module, names, level)."""
+    import ast
+
+    out = []
+    for node in ast.walk(ast.parse(fpath.read_text(), str(fpath))):
+        if isinstance(node, ast.Import):
+            out += [(alias.name, (), 0) for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            out.append((node.module or "", tuple(alias.name for alias in node.names), node.level))
+    return out
+
+
+def _src_module(name: str) -> pathlib.Path | None:
+    """The file of `name` in one of contrib's src packages, if it is one."""
+    for src in sorted(ROOT.glob("contrib/*/src")):
+        base = src.joinpath(*name.split("."))
+        for fpath in (base.with_suffix(".py"), base / "__init__.py"):
+            if fpath.is_file():
+                return fpath
+    return None
+
+
+def _reaches_jax_package(fpath: pathlib.Path, seen: set | None = None) -> bool:
+    """Whether the file imports the JAX package, directly or through
+    contrib's src packages (followed transitively, relative imports too)."""
+    seen = set() if seen is None else seen
+    if fpath in seen:
+        return False
+    seen.add(fpath)
+    package = fpath.parent if fpath.name == "__init__.py" else fpath.parent
+    for module, names, level in _imports(fpath):
+        if level:
+            base = package
+            for _ in range(level - 1):
+                base = base.parent
+            targets = [base.joinpath(*module.split(".")) if module else base]
+            targets += [t / n for t in targets[:1] for n in names]
+            files = [f for t in targets for f in (t.with_suffix(".py"), t / "__init__.py") if f.is_file()]
+        else:
+            if module.split(".")[0] == "saev_tpu":
+                return True
+            files = [f for f in [_src_module(module)] + [_src_module(f"{module}.{n}") for n in names] if f]
+        if any(_reaches_jax_package(f, seen) for f in files):
+            return True
+    return False
+
+
+def _contrib_drivers() -> list[pathlib.Path]:
+    return sorted(p for p in ROOT.glob("contrib/*/**/*.py")
+                  if p.relative_to(ROOT / "contrib").parts[1] in DRIVER_DIRS)
+
+
+def _port_copy(driver: pathlib.Path) -> pathlib.Path:
+    project, *rest = driver.relative_to(ROOT / "contrib").parts
+    return ROOT / "saev_tpu_torch" / PROJECTS[project] / pathlib.Path(*rest)
+
+
+def test_every_contrib_driver_that_reaches_jax_has_a_copy():
+    """Every driver file of contrib (its notebooks, experiment and sweep
+    files) that reaches the JAX package, directly or through contrib's src
+    packages, has its copy at the mapped path in the port: 21 of them, and
+    a driver added later without a copy fails here."""
+    reaching = [p for p in _contrib_drivers() if _reaches_jax_package(p)]
+    assert len(reaching) == 21, [str(p.relative_to(ROOT)) for p in reaching]
+    missing = [str(p.relative_to(ROOT)) for p in reaching if not _port_copy(p).is_file()]
+    assert not missing, missing
+    # The walk sees through contrib's packages: clips.py imports only
+    # birdsong.browse, and 007_cambridge_mimicry.py only tdiscovery.mimicry,
+    # whose relative import of .classification loads the JAX package.
+    assert ROOT / "contrib/birdsong/notebooks/clips.py" in reaching
+    assert ROOT / "contrib/trait_discovery/notebooks/007_cambridge_mimicry.py" in reaching
+    assert ROOT / "contrib/trait_discovery/notebooks/figures.py" not in reaching
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    """No file under saev_tpu_torch/ (the notebook copies and experiment
+    files too, which no import walk reaches) imports JAX or the JAX
+    package, and the copies' sys.path lines name neither contrib nor a src
+    directory."""
+    import ast
+
+    bad, paths = [], []
+    for fpath in sorted((ROOT / "saev_tpu_torch").rglob("*.py")):
+        for module, _, level in _imports(fpath):
+            if not level and module.split(".")[0] in JAX_ROOTS:
+                bad.append(f"{fpath.relative_to(ROOT)}: {module}")
+        for node in ast.walk(ast.parse(fpath.read_text())):
+            if isinstance(node, ast.Call) and ast.unparse(node.func) == "sys.path.insert":
+                arg = ast.unparse(node)
+                if "contrib" in arg or re.search(r"['\"]src['\"]", arg):
+                    paths.append(f"{fpath.relative_to(ROOT)}: {arg}")
+    assert not bad, bad
+    assert not paths, paths

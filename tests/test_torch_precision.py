@@ -266,3 +266,102 @@ def test_train_step_card_route(monkeypatch):
             assert float(rel) <= 1e-2, (cap, key, float(rel))
         assert not torch.equal(stats["bf16"]["loss"], stats["f32"]["loss"])
         assert torch.equal(stats["bf16"]["n_dead"], stats["f32"]["n_dead"])
+
+
+# ---------------------------------------------------------------------------
+# "highest" under the caller's TF32 switch: the legacy `allow_tf32`,
+# torch.set_float32_matmul_precision, or the per-backend `fp32_precision`
+# (ROADMAP §3.10: torch refuses to read a precision that the two APIs set
+# differently, and the products used to set it through the legacy one).
+# ---------------------------------------------------------------------------
+
+
+def _read(fn):
+    try:
+        return fn()
+    except RuntimeError as err:
+        return f"refused: {str(err)[:60]}"
+
+
+def _precision_state() -> dict:
+    """What each reader of the f32 matmul precision reads now (a refusal
+    read as its message)."""
+    state = {"matmul_precision": _read(torch.get_float32_matmul_precision),
+             "allow_tf32": _read(lambda: torch.backends.cuda.matmul.allow_tf32)}
+    if modeling._matmul_switches() is not None:
+        state |= {"cuda.matmul": torch.backends.cuda.matmul.fp32_precision,
+                  "mkldnn.matmul": torch.backends.mkldnn.matmul.fp32_precision}
+    return state
+
+
+def _set_switch(switch: str, value) -> None:
+    if switch == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = value
+    elif switch == "matmul_precision":
+        torch.set_float32_matmul_precision(value)
+    else:
+        getattr(torch.backends, switch).matmul.fp32_precision = value
+
+
+CALLER_SWITCHES = [("allow_tf32", True), ("allow_tf32", False), ("matmul_precision", "high"),
+                   ("matmul_precision", "medium"), ("matmul_precision", "highest")]
+if modeling._matmul_switches() is not None:
+    CALLER_SWITCHES += [("cuda", "tf32"), ("cuda", "ieee"), ("mkldnn", "bf16"), ("mkldnn", "tf32")]
+
+
+@pytest.fixture
+def restore_precision():
+    """The process's f32 matmul precision as it was before the test."""
+    legacy = torch.get_float32_matmul_precision()
+    switches = modeling._matmul_switches()
+    prev = [s.fp32_precision for s in switches] if switches is not None else []
+    yield
+    torch.set_float32_matmul_precision(legacy)
+    for s, p in zip(switches or (), prev):
+        s.fp32_precision = p
+
+
+@pytest.mark.parametrize("switch,value", CALLER_SWITCHES, ids=[f"{s}={v}" for s, v in CALLER_SWITCHES])
+def test_f32_products_restore_the_callers_switch(restore_precision, switch, value):
+    """Under each caller's switch, "highest" products (forward, backward and
+    `_linear_bias`) are float32 with the per-backend switches at "ieee"
+    inside, within 1e-6 rel-norm of the float64 product; after them every
+    reader reads what it read before, a refusal included."""
+    _set_switch(switch, value)
+    before = _precision_state()
+    rng = np.random.default_rng(5)
+    a, b, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((64, 96), (96, 48), (64, 48)))
+    inside = []
+    real = torch.Tensor.__matmul__
+
+    def spy(x, y):
+        inside.append(_precision_state())
+        return real(x, y)
+
+    leaf = a.clone().requires_grad_(True)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.Tensor, "__matmul__", spy)
+        out = modeling.matmul(leaf, b, "highest")
+        out.backward(g)
+        lin = modeling._linear_bias(a, b, torch.zeros(48), "highest")
+    assert _precision_state() == before
+    assert len(inside) >= 3
+    if modeling._matmul_switches() is not None:
+        assert all((s["cuda.matmul"], s["mkldnn.matmul"]) == ("ieee", "ieee") for s in inside), inside
+    else:
+        assert all(s["matmul_precision"] == "highest" for s in inside), inside
+    a64, b64, g64 = a.double(), b.double(), g.double()
+    for what, got, want in (("out", out, a64 @ b64), ("da", leaf.grad, g64 @ b64.T), ("linear", lin, a64 @ b64)):
+        assert_rel(got.detach().numpy(), want.numpy(), 1e-6, what)
+
+
+def test_legacy_switch_reads_after_highest_products(restore_precision):
+    """ROADMAP §3.10's sequence: the legacy switch on, a "highest" product,
+    the switch off again; torch then reads the precision as "highest"
+    (it refused before, when the products set it through the other API)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    modeling.matmul(torch.ones(4, 4), torch.ones(4, 4), "highest")
+    assert torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
