@@ -53,12 +53,18 @@ script exits non-zero:
                 (a spy on them).
    wide      -- K1, K6 (k 32 and 512) and K5 (k 512) at 16384 x 65536 and
                 16384 x 131072, where their wrappers take csrc/kth_wide.cu
-                (K1 a thread block cluster a row, K6 the walk, K5 the group
-                route or the walk by its unmasked columns), on the parity
-                phase's edge rows and masks, bit for bit against their plain
-                versions (rows 0 and 4 take the whole-row fallback), then
-                timed against their plain versions, torch.topk and their byte
-                bounds, K5 also at 40% unmasked and none masked.
+                (K1 and K6 a thread block cluster a row, K5 the group route
+                up to 32768 unmasked columns and the cluster past them), on
+                the parity phase's edge rows, bit for bit against their plain
+                versions (K1's and K6's rows 0 and 4 take the whole-row
+                fallback at k 32; K6's at k 512 are K1's there), K5 under 5%,
+                40% and 60% of the columns unmasked as a prefix and
+                scattered, none, fewer than k and all, its fallback rows
+                logged (none); then timed against their plain versions,
+                torch.topk and their byte bounds, K5 also at 40% and 60%
+                unmasked and none masked, with the sector bound of its
+                scattered masks. Then the walk, at 512 x 266240 (past the
+                cluster route's 8 slices): K1, K6 and K5 the same way.
 4. reference -- the step on the card (kernel path, matmul_precision
                 "default": bf16 operands with f32 results) against the same
                 step on the CPU (plain f32 path) at a small shape: the
@@ -80,7 +86,9 @@ script exits non-zero:
                 kernel launches.
    wide steps -- the step at shapes the card refused before: d_sae 65536
                 (TopK 32, AuxK 512, Matryoshka 10, Adam; warm, tight rung and
-                dense, 5% of the latents pinned dead) and the production
+                dense, 5% of the latents pinned dead), d_sae 131072 dense
+                with 30% dead (K5 past 32768 unmasked columns, on the
+                cluster route) and the production
                 shape with 65 prefixes (warm), each held to the CPU's f32
                 step at batch 1024 (1e-2, L0 and n_dead equal, no plain
                 version run), then 3 steps at batch 16384: ms/step and peak
@@ -480,7 +488,9 @@ N_DEAD_5 = int(D_SAE * 0.05)  # 819 latents: bench.py's dead set
 N_DEAD_20 = int(D_SAE * 0.20)  # 3276 latents: the wide rung's case
 RAGGED_B = 1000  # a batch that is not a multiple of the kernels' 128-row tile
 WIDE_S = (65536, 131072)  # rows wider than the narrow select kernels' 32768 columns
+WALK_B, WALK_S = 512, 266240  # rows past the cluster route's 8 slices of 32768: the walk
 D_SAE_WIDE = 65536  # the "64x" dictionary at d_model 1024
+D_SAE_HUGE, DEAD_HUGE = 131072, 0.3  # the "128x" dictionary's dense step: K5 past 32768 unmasked columns
 N_PREFIXES_MANY = 65  # past 64 prefixes, as fault ROADMAP §3.6 reproduces it
 REFERENCE_B = 1024  # the batch at which a full-width step is held to the CPU's
 # Nonzeros a row of the parity phase's production f (10% of d_sae 16384, and
@@ -816,8 +826,8 @@ def _k1_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
     return err
 
 
-def _k1_inputs(s: int = D_SAE) -> torch.Tensor:
-    h = torch.randn((B, s), generator=_gen(), device="cuda")
+def _k1_inputs(s: int = D_SAE, b: int = B) -> torch.Tensor:
+    h = torch.randn((b, s), generator=_gen(), device="cuda")
     h[0] = 0.0  # all tied at zero
     h[1] = -h[1].abs()  # all negative
     h[2] = -h[2].abs()
@@ -852,7 +862,10 @@ def _k6_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
         require(torch.equal(got, v), f"K6 {what}: differs from P4's {mode}")
     require(int(fallback) == fallbacks, f"K6 {what}: {int(fallback)} rows fell back, expected {fallbacks}")
     if h.shape[1] > cuda_kth.NARROW_S:
-        form = "two-level select, kth_wide.cu"
+        from saev_tpu_torch.ops import _build
+
+        ctas = _build.lib().saev_wide_cluster_ctas(h.shape[1])
+        form = f"kth_wide.cu, {f'a cluster of {ctas} CTAs a row' if ctas else 'the walk'}"
     else:
         form = "streamed" if h.shape[1] % 4 == 0 else "one CTA a row"
     log(f"parity K6 {what} k {k} ({form}): kth bitwise equal to the plain version, K1's kth and P4's "
@@ -861,10 +874,10 @@ def _k6_case(h: torch.Tensor, k: int, what: str, fallbacks: int) -> float:
     return kth_err(got, want)
 
 
-def _k5_inputs(s: int, n_dead: int = N_DEAD_5) -> torch.Tensor:
-    """(B, s) with the first n_dead columns pinned as bench.py pins dead
+def _k5_inputs(s: int, n_dead: int = N_DEAD_5, b: int = B) -> torch.Tensor:
+    """(b, s) with the first n_dead columns pinned as bench.py pins dead
     latents: bias -1e6, where f32 values lie 0.0625 apart and many tie."""
-    h = torch.randn((B, s), generator=_gen(), device="cuda")
+    h = torch.randn((b, s), generator=_gen(), device="cuda")
     h[:, :n_dead] = h[:, :n_dead] * 4.0 - 1e6
     return h
 
@@ -1119,36 +1132,122 @@ def _grouped_full_batch(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _k5_wide_masks(s: int) -> dict:
+    """K5's masks on the wide route: 5%, 40% and 60% of the columns unmasked
+    as a prefix and scattered, none masked, fewer than k unmasked and all
+    masked."""
+    cols = torch.arange(s, device="cuda")
+    masks = {}
+    for frac in (0.05, 0.4, 0.6):
+        n = int(s * frac)
+        scattered = torch.zeros(s, dtype=torch.bool, device="cuda")
+        scattered[torch.randperm(s, generator=_gen(), device="cuda")[:n]] = True
+        masks[f"{n} unmasked ({frac:.0%}, prefix)"] = cols < n
+        masks[f"{n} unmasked ({frac:.0%}, scattered)"] = scattered
+    masks["none masked"] = torch.ones(s, dtype=torch.bool, device="cuda")
+    masks[f"{K_AUX - 3} unmasked (< k)"] = cols < K_AUX - 3
+    masks["all masked"] = torch.zeros(s, dtype=torch.bool, device="cuda")
+    return masks
+
+
+def _k5_route(s: int, n: int) -> str:
+    """K5's route on a row of s > 32768 with n unmasked columns."""
+    from saev_tpu_torch.ops import _build
+
+    if n <= 32768:
+        return "group route"
+    return "cluster route" if _build.lib().saev_wide_cluster_ctas(s) else "walk"
+
+
+def _sector_bytes(b: int, mask: torch.Tensor) -> int:
+    """The bytes of the 32-byte sectors of b f32 rows that hold a column the
+    (S,) mask leaves unmasked: what a gather of those columns reads."""
+    m = torch.nn.functional.pad(mask, (0, -mask.numel() % 8)).view(-1, 8).any(1)
+    return b * int(m.sum()) * 32
+
+
+def _k5_wide_cases(h: torch.Tensor) -> float:
+    """K5 at k_aux on h's wide rows under `_k5_wide_masks`, bit for bit
+    against its plain version with no plain version run by the card's call,
+    -inf where fewer than k columns are unmasked; h's rows are Gaussian (with
+    pinned dead columns), so no row may take the whole-row fallback."""
+    from saev_tpu_torch.ops import cuda_kth, topk
+
+    b, s = h.shape
+    err = 0.0
+    for what, mask in _k5_wide_masks(s).items():
+        n = int(mask.sum())
+        fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
+        with plain_spy() as plain:
+            got = cuda_kth.kth_value_masked_cuda(h, mask, K_AUX, fallback)
+            torch.cuda.synchronize()
+        require(not plain, f"K5 {b}x{s} {what}: the card call ran plain versions {plain}")
+        want = topk._kth_masked_plain(h, mask, K_AUX)
+        torch.cuda.synchronize()
+        require(same_bits(got, want), f"K5 {b}x{s} {what}: differs from its plain version")
+        n_inf = int(torch.isneginf(got).sum())
+        if n < K_AUX:
+            require(n_inf == b, f"K5 {b}x{s} {what}: {n_inf} of {b} rows are -inf, expected all")
+        require(int(fallback) == 0, f"K5 {b}x{s} {what}: {int(fallback)} rows took the whole-row fallback")
+        err = max(err, kth_err(got, want))
+        log(f"parity K5 {b}x{s} k {K_AUX} mask {what} ({_k5_route(s, n)}): bitwise equal, {n_inf} rows -inf, "
+            f"{int(fallback)} rows took the whole-row fallback, median kth {float(got.median()):.4f}")
+    return err
+
+
+def _walk_cases() -> float:
+    """K1, K6 and K5 at WALK_B x WALK_S, past the cluster route's 8 slices,
+    where csrc/kth_wide.cu walks each row (`wide_row_kernel`): the parity
+    phase's edge rows (rows 0 and 4 take the whole-row fallback) and K5's
+    wide masks, bit for bit against their plain versions."""
+    from saev_tpu_torch.ops import _build
+
+    what = f"{WALK_B}x{WALK_S} (the walk)"
+    require(_build.lib().saev_wide_cluster_ctas(WALK_S) == 0, f"{what}: a cluster route")
+    h = _k1_inputs(WALK_S, WALK_B)
+    fell = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], TOP_K)]
+    require(fell == [0, 4], f"K1 {what}: edge rows {fell} took the fallback, expected [0, 4]")
+    err = max(_k1_case(h, TOP_K, what, len(fell)), _k6_case(h, TOP_K, what, len(fell)))
+    del h
+    torch.cuda.empty_cache()
+    return max(err, _k5_wide_cases(_k5_inputs(WALK_S, int(WALK_S * 0.05), WALK_B)))
+
+
 def phase_wide() -> dict:
     """K1, K6 and K5 on rows wider than their narrow kernels hold
-    (csrc/kth_wide.cu: K1 on its cluster route, K6 on the walk, K5 on the
-    group route or the walk by its unmasked columns), at 16384 x 65536 and
-    x 131072, bit for bit against their plain versions with no plain
-    version run by the card's call: K1 at k 32, K6 at k 32 and k_aux 512 on
-    Gaussian rows with the parity phase's edge rows (rows 0 and 4 overflow
-    the candidate buffers and bisect the whole row, in K1's cluster and in
-    K6's walk), K5 at k_aux 512 under the parity phase's masks. Then each
-    one's time against its plain version, torch.topk and its byte bound, K5
-    also at 40% of the columns unmasked (scattered: the dense AuxK step at
-    40% dead) and none masked. Returns those rows by width."""
+    (csrc/kth_wide.cu: K1 and K6 on the cluster route, K5 on the group route
+    up to 32768 unmasked columns and on the cluster route past them), at
+    16384 x 65536 and x 131072, bit for bit against their plain versions
+    with no plain version run by the card's call: K1 at k 32, K6 at k 32 and
+    k_aux 512 on Gaussian rows with the parity phase's edge rows (rows 0 and
+    4 overflow the candidate buffers and bisect the whole row at k 32; K6's
+    rows at k_aux are K1's), K5 at k_aux 512 under `_k5_wide_masks`, no row
+    falling back. Then each one's time against its plain version, torch.topk
+    and its byte bound, K5 also at 40% and 60% of the columns unmasked and
+    none masked, held bitwise, with no row falling back, beside the bound of
+    the 32-byte sectors a gather of the unmasked columns would read. Then
+    the walk past 8 slices (`_walk_cases`). Returns the timed rows by
+    width."""
     from saev_tpu_torch.ops import _build, cuda_kth, cuda_topk, topk
 
     errs, times = {}, {}
     for s in WIDE_S:
         ctas, clusters = _build.lib().saev_wide_cluster_ctas(s), _build.lib().saev_wide_clusters(s)
         require(ctas >= 2 and clusters >= 1, f"K1 {B}x{s}: cluster route {ctas} CTAs, {clusters} clusters")
-        log(f"wide {B}x{s}: K1 on its cluster route, {ctas} CTAs a cluster ({s // ctas} columns a CTA), {clusters} "
-            f"clusters resident; K6 on the walk; K5 on the group route up to 32768 unmasked columns, the walk past")
+        log(f"wide {B}x{s}: K1, K6 and K5 past 32768 unmasked columns on the cluster route, {ctas} CTAs a cluster "
+            f"({s // ctas} columns a CTA), {clusters} clusters resident; K5 on the group route up to 32768")
         h = _k1_inputs(s)
         fell = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], TOP_K)]
         require(fell == [0, 4], f"K1 {B}x{s}: edge rows {fell} took the fallback, expected [0, 4]")
+        fell_aux = [i for i in range(8) if _k1_fallbacks(h[i:i + 1], K_AUX)]
+        log(f"wide {B}x{s}: at k {K_AUX} K1's select sends edge rows {fell_aux} to the whole-row bisection")
         errs[s] = max(_k1_case(h, TOP_K, f"{B}x{s}", len(fell)),
                       _k6_case(h, TOP_K, f"{B}x{s}", len(fell)),
-                      _k6_case(h, K_AUX, f"{B}x{s}", len(fell)))
+                      _k6_case(h, K_AUX, f"{B}x{s}", len(fell_aux)))
         del h
         torch.cuda.empty_cache()
         n_dead = int(s * 0.05)
-        errs[s] = max(errs[s], _k5_cases(s, n_dead, s))
+        errs[s] = max(errs[s], _k5_wide_cases(_k5_inputs(s, n_dead)))
         torch.cuda.empty_cache()
 
         h = torch.randn((B, s), generator=_gen(), device="cuda")
@@ -1169,24 +1268,28 @@ def phase_wide() -> dict:
         library_kth_ms(h[:, :n_dead], K_AUX, f"K5's selected columns {B}x{s} (wide route)")
         for k, r in row.items():
             log_timing(k, r, f" {B}x{s} (wide route), k {K_AUX if k == 'kth_value_masked' else TOP_K}")
-        scattered = torch.zeros(s, dtype=torch.bool, device="cuda")
-        scattered[torch.randperm(s, generator=_gen(), device="cuda")[:int(s * 0.4)]] = True
-        for what, m in ((f"{int(s * 0.4)} unmasked (40%, scattered)", scattered),
-                        ("none masked", torch.ones(s, dtype=torch.bool, device="cuda"))):
+        masks = _k5_wide_masks(s)
+        for what in [w for w in masks if "40%" in w or "60%" in w or w == "none masked"]:
+            m = masks[what]
             n = int(m.sum())
+            fallback = torch.zeros(1, dtype=torch.int32, device="cuda")
             with plain_spy() as plain:
-                got = cuda_kth.kth_value_masked_cuda(h, m, K_AUX)
+                got = cuda_kth.kth_value_masked_cuda(h, m, K_AUX, fallback)
                 torch.cuda.synchronize()
             require(not plain, f"K5 {B}x{s} {what}: the card call ran plain versions {plain}")
             require(same_bits(got, topk._kth_masked_plain(h, m, K_AUX)), f"K5 {B}x{s} {what}: differs")
+            require(int(fallback) == 0, f"K5 {B}x{s} {what}: {int(fallback)} rows took the whole-row fallback")
+            sector = bound((_sector_bytes(B, m), m, h[:, :1]), B * n, F32_OPS_S)["bound_ms"]
             log_timing("kth_value_masked", timed(_time(lambda: cuda_kth.kth_value_masked_cuda(h, m, K_AUX), 5),
                                                  _time(lambda: topk._kth_masked_plain(h, m, K_AUX), 2),
                                                  bound((B * n * 4, m, h[:, :1]), B * n, F32_OPS_S)),
-                       f" {B}x{s} (wide route, {'group route' if n <= 32768 else 'walk'}), k {K_AUX}, {what}, "
-                       f"bitwise equal")
+                       f" {B}x{s} (wide route, {_k5_route(s, n)}), k {K_AUX}, {what}, bitwise equal, "
+                       f"{int(fallback)} rows fell back; sector bound {sector:.3f} ms")
         times[s] = row
         del h
         torch.cuda.empty_cache()
+    errs[WALK_S] = _walk_cases()
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1554,13 +1657,39 @@ def _timed_steps(cfg, obj, variant: dict, n_dead: int, what: str, want: dict) ->
     return {"ms": ms, "peak_gib": peak}
 
 
+def _huge_dense():
+    """d_sae 131072's dense step (d_model 1024, TopK 32, AuxK 512,
+    Matryoshka 10, Adam) with 30% of the latents pinned dead: its config,
+    objective and dead count. Its AuxK select (K5) takes 39321 unmasked
+    columns, past the group route's 32768 and every rung of the ladder."""
+    from saev_tpu_torch.nn import modeling, objectives
+
+    cfg = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE_HUGE, activation=modeling.TopK(top_k=TOP_K))
+    n_dead = int(D_SAE_HUGE * DEAD_HUGE)
+    require(n_dead > 32768 and n_dead > objectives.subspace_cap_ladder(D_SAE_HUGE, K_AUX)[-1],
+            f"wide steps: {n_dead} dead of {D_SAE_HUGE} would not take the dense step's cluster route")
+    return cfg, objectives.Matryoshka(n_prefixes=N_PREFIXES), n_dead
+
+
+def time_huge_dense_step() -> dict:
+    """d_sae 131072's dense step (`_huge_dense`) timed at batch B by
+    `_timed_steps`, K1-K4 and K5 once a step. `scripts/route_probe.py
+    --step` times each tree's step with it."""
+    cfg, obj, n_dead = _huge_dense()
+    want = dict.fromkeys(KERNELS, 0) | dict.fromkeys(WARM_KERNELS, 1) | {"kth_value_masked": 1}
+    return _timed_steps(cfg, obj, {}, n_dead, f"wide step d_sae {D_SAE_HUGE} dense, {n_dead} dead (K5 past 32768 "
+                        f"unmasked columns)", want)
+
+
 def phase_wide_steps():
     """The train step at shapes the card refused before (fault ROADMAP
     §3.6): d_sae 65536 at d_model 1024 (TopK 32, AuxK 512, Matryoshka 10,
     Adam), in the warm, tight-rung and dense variants from a state with 5%
-    of the latents pinned dead, and the production shape with 65 prefixes
-    (warm). Each is held to the CPU's f32 step at batch 1024, then timed at
-    batch 16384. Returns the launch counts of the path and the timings."""
+    of the latents pinned dead; d_sae 131072's dense step with 30% pinned
+    dead, whose AuxK select (K5, 39321 unmasked columns) takes the cluster
+    route; and the production shape with 65 prefixes (warm). Each is held to
+    the CPU's f32 step at batch 1024, then timed at batch 16384. Returns the
+    launch counts of the path and the timings."""
     from saev_tpu_torch.nn import modeling, objectives
 
     wide = modeling.SparseAutoencoderConfig(d_model=D_MODEL, d_sae=D_SAE_WIDE, activation=modeling.TopK(top_k=TOP_K))
@@ -1581,9 +1710,13 @@ def phase_wide_steps():
         want = once | ({} if name == "warm" else {"kth_value_masked": 1})
         results[f"d_sae {D_SAE_WIDE} {name}"] = _timed_steps(
             wide, obj, variant, n_dead, f"wide step d_sae {D_SAE_WIDE} {name}, {n_dead} dead", want)
+    huge, obj_huge, n_dead_huge = _huge_dense()
+    log(_held_step(huge, obj_huge, {}, n_dead_huge, f"wide step d_sae {D_SAE_HUGE} dense", rng))
+    results[f"d_sae {D_SAE_HUGE} dense"] = time_huge_dense_step()
     wide_route = counts()
-    log(f"wide steps: launches at d_sae {D_SAE_WIDE}, K1's and K5's rows on the wide route (csrc/kth_wide.cu): "
-        f"K1 {wide_route['topk_stats']}, K5 {wide_route['kth_value_masked']}, K6 {wide_route['kth_value']}")
+    log(f"wide steps: launches at d_sae {D_SAE_WIDE} and {D_SAE_HUGE}, K1's and K5's rows on the wide route "
+        f"(csrc/kth_wide.cu): K1 {wide_route['topk_stats']}, K5 {wide_route['kth_value_masked']}, "
+        f"K6 {wide_route['kth_value']}")
     reset_counts()
     log(_held_step(many, obj_many, dict(aux_enabled=False), 0, f"step {N_PREFIXES_MANY} prefixes warm", rng))
     results[f"{N_PREFIXES_MANY} prefixes warm"] = _timed_steps(

@@ -135,7 +135,7 @@ __device__ __forceinline__ void cluster_sync() {
 // CTA's shared memory before it against the cluster's reads after it. The
 // full barrier's release also waits for this CTA's global stores and bulk
 // copies in flight, which K1's wide route has at every row
-// (scripts/select_probe.py `k1_wide_variants` times both). Needs PTX ISA
+// (scripts/select_probe.py `wide_variants` times both). Needs PTX ISA
 // 8.6 (CUDA 12.8).
 __device__ __forceinline__ void cluster_sync_shared() {
   asm volatile(

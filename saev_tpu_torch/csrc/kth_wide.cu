@@ -12,24 +12,34 @@
 //
 // What bounds it on the card: device memory. K1 reads h once and writes f
 // (bf16) once: 6 GiB at 16384 x 65536, 1.92 ms at 3.35 TB/s. K6 reads h once
-// (1.28 ms there). K5 needs only its unmasked columns: 0.064 ms at 5%.
+// (1.28 ms there). K5 needs only its unmasked columns: 0.064 ms at 5%; past
+// 32768 of them a gather over the list reads nearly every 32-byte sector of
+// the row anyway (at 40% unmasked, 98% of them), so K5 reads whole rows.
 //
 // What the design does about it, by kernel:
-//  - K1 (`wide_cluster_kernel`): a thread block cluster of C CTAs holds a
+//  - K1, K6 and K5 past kGroupMaxN unmasked columns (`wide_cluster_kernel`;
+//    K6 and K5 select alone, STATS false): a thread block cluster of C CTAs holds a
 //    row, each CTA a slice of at most kSlice = 32768 columns in registers
 //    (64 keys a thread, 512 threads, runs of 4 columns as topk_row.cuh lays
 //    them out; equal widths, multiples of 4, but the last), so h is read once
 //    and f written once: C = 2 at 65536, 4 at 131072, one CTA an SM. The
 //    clusters are persistent and stream: once a CTA holds its slice, its
-//    last warp starts the bulk copy (cp.async.bulk on an mbarrier) of its
+//    last warp starts the bulk copy (one cp.async.bulk on an mbarrier: eight
+//    of 16 KB held the CTA's bound up, `select_probe.k1_wide_phases`) of its
 //    slice of the cluster's next row. A row:
-//     1. Bound. Warp 0 takes L, the k-th largest of the CTA's 512 thread
-//        maxima cut to its bits down to kBoundBit (`bisect`): the slice has
+//     1. Bound. The CTA takes L, the k-th largest of its 512 thread maxima
+//        cut to its bits down to kBoundBit (`bound_bit`: lower where the
+//        maxima span few bits), searched from the row before's: the slice has
 //        k keys >= L, so L is at most the slice's k-th largest key and the
 //        row's. That needs 2k <= T', the threads that hold a column of the
 //        last (smallest) slice (more k leaves most of a slice above L); else,
 //        where q = ceil(k / C) <= T', L is the least of the CTAs' q-th
-//        largest maxima, exchanged over one more cluster barrier.
+//        largest maxima, exchanged over one more cluster barrier. K5 (a
+//        masked column's key is 0, from a bit mask each thread builds once
+//        a call) takes the cluster's k-th largest of its C x 512 maxima,
+//        read over distributed shared memory after one more cluster
+//        barrier: a slice the mask empties has maxima of 0, which would
+//        leave a CTA's own or q-th largest maximum no bound.
 //     2. Filter. Each CTA writes its keys >= L to its buffer (kSliceCap),
 //        with their count, L and its largest key.
 //     3. One cluster barrier (`cluster_sync_shared`: it orders shared memory
@@ -44,13 +54,14 @@
 //        bound) the cluster bisects the row in its registers from the
 //        largest bound, each step one cluster barrier and the C x 16 warp
 //        counts read remotely. `fallback` counts those rows.
-//     5. Each CTA writes its slice of f and live, and its L0 and L1, from its
+//     5. K1: each CTA writes its slice of f and live, and its L0 and L1, from its
 //        registers with topk_row.cuh's per-element formulas. L1 is summed in
 //        a fixed order: each thread's keys in turn, a warp's xor tree, the
 //        warps in turn, then the CTAs in rank order, read by rank 0's last
-//        warp after the next row's barrier.
+//        warp after the next row's barrier. K6 and K5: rank 0 writes the
+//        row's value (K5: -inf for key 0, fewer than k columns unmasked).
 //    Rows wider than kMaxCluster slices take the walk below.
-//  - K5 (`wide_masked_group_kernel`): the mask is shared by every row, so
+//  - K5 up to kGroupMaxN (`wide_masked_group_kernel`): the mask is shared by every row, so
 //    the cost follows n, the unmasked columns, not S. One CTA lists them once
 //    a call (`compact_mask_kernel`), then kth_masked.cu's design runs on the
 //    list: persistent CTAs of kGroupWarps warps, each staging the list in
@@ -60,11 +71,12 @@
 //    largest key, a warp reduction a step and a named barrier for the group
 //    alone, ended early by a step that finds exactly k keys at or above its
 //    candidate (the least of them is the answer). n is read on the card:
-//    the call launches the walk (n > kGroupMaxN = 32768), KPL 32 (n <= 16384)
-//    and KPL 64, and each launch whose range does not hold n exits at once.
-//    Fewer than k unmasked columns give -inf on every row.
-//  - K6, K1's threshold entry, K5 past kGroupMaxN and K1 past kMaxCluster
-//    slices (`wide_row_kernel`, the walk): one CTA of 512 threads a row walks
+//    the call launches the cluster route or the walk (n > kGroupMaxN =
+//    32768), KPL 32 (n <= 16384) and KPL 64, and each launch whose range
+//    does not hold n exits at once. Fewer than k unmasked columns give -inf
+//    on every row.
+//  - K1, its threshold entry, K6 and K5 past kGroupMaxN on rows wider than
+//    kMaxCluster slices (S > 262144; `wide_row_kernel`, the walk): one CTA of 512 threads a row walks
 //    the row's keys in chunks of at most 16384 (32 keys a thread), reading
 //    each chunk straight into registers, with 16-byte loads where the row
 //    allows:
@@ -91,7 +103,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "row_stream.cuh"
 #include "topk_row.cuh"
 
 namespace {
@@ -104,6 +115,15 @@ constexpr int kSlice = kSliceVpt * kSliceThreads;  // columns a CTA holds at mos
 constexpr int kMaxCluster = 8;                     // CTAs a cluster (the portable most)
 constexpr int kSliceCap = 2048;                    // candidates a CTA's buffer holds
 constexpr int kUnionCap = 4096;                    // candidates of the row a CTA gathers
+constexpr int kWarpKeys = 32;                      // kept candidates a lane holds where one warp selects
+constexpr int kBoundSteps = 14;                    // bits below the maxima's common prefix a bound resolves
+constexpr int kGroupWarps = 16;                    // K5's group route: warps a CTA
+constexpr int kGroupMaxN = kGroupWarps * 32 * 64;  // unmasked columns the group route holds (KPL 64)
+
+// Named barrier `id` (> 0) of `threads` threads of the CTA.
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
 struct ClusterSmem {
   uint32_t maxima[kSliceThreads];
@@ -112,14 +132,15 @@ struct ClusterSmem {
   uint32_t cand[2][kSliceCap];
   uint32_t meta[2][3];
   uint32_t uni[kUnionCap];  // every CTA's candidates, gathered
-  uint32_t own[2];          // this CTA's bound and largest key
   uint32_t q_bound;         // this CTA's bound where k is above a slice's threads
+  int n_unmasked;           // K5: this CTA's unmasked columns
   int n_local;
   uint32_t kth_key;
   int counts[2][kSliceThreads / 32];  // the whole-row bisection's, by step parity
   int l0_warp[kSliceThreads / 32];
   float l1_warp[kSliceThreads / 32];
   uint32_t part[2][2];  // this CTA's L0 and L1 (f32 bits), by row parity, read by rank 0
+  uint32_t ends[2][kSliceThreads / 32];  // each warp's least and largest key (`block_min_max`)
 };
 
 // CTAs a cluster for a row of S (the fewest slices of at most kSlice), 0
@@ -146,22 +167,119 @@ __device__ __forceinline__ void finish_row(uint32_t part0, uint32_t part1, long 
   }
 }
 
+// `bisect`'s answer (order_key.cuh) from a guess: the largest t in [lo, hi]
+// with its bits below `lowest` clear (its bits above lo's and hi's highest
+// differing bit lo's) and count(t) >= k, where count(lo) >= k. Counts from
+// the guess outward by steps that double until they bracket the answer,
+// then halves the bracket; a guess near the answer (the row before's) takes
+// a few counts where `bisect` takes one for each bit from the differing one
+// down to `lowest`. No count leaves [least, most + step], so the search
+// ends (at most 33 counts out, 33 in) wherever the guess lies.
+template <class Count>
+__device__ __forceinline__ uint32_t bisect_from(uint32_t lo, uint32_t hi, int k, int lowest, uint32_t guess,
+                                                Count count) {
+  if (lo == hi) return lo;
+  const int top = 31 - __clz(lo ^ hi);
+  if (top < lowest) return lo & ~((2u << top) - 1u);
+  const uint64_t step = 1ull << lowest;
+  const uint64_t least = lo & ~((2u << top) - 1u), most = hi & ~static_cast<uint32_t>(step - 1);
+  uint64_t a = least, b = most + step;  // count(a) >= k; count(b) < k (b past `most`: none there)
+  uint64_t g = guess & ~static_cast<uint32_t>(step - 1);
+  g = g < least ? least : g > most ? most : g;
+  if (count(static_cast<uint32_t>(g)) >= k) {
+    a = g;
+    for (uint64_t d = step; a + d <= most; d *= 2) {
+      if (count(static_cast<uint32_t>(a + d)) < k) {
+        b = a + d;
+        break;
+      }
+      a += d;
+    }
+  } else {
+    b = g;
+    for (uint64_t d = step; b >= least + step + d; d *= 2) {  // b - d > least, without wrapping below 0
+      if (count(static_cast<uint32_t>(b - d)) >= k) {
+        a = b - d;
+        break;
+      }
+      b -= d;
+    }
+  }
+  while (b - a > step) {
+    const uint64_t mid = a + (b - a) / step / 2 * step;
+    if (count(static_cast<uint32_t>(mid)) >= k) a = mid;
+    else b = mid;
+  }
+  return static_cast<uint32_t>(a);
+}
+
+// Thread 0 of the copying warp: a slice of `bytes` at src into shared memory
+// at dst, one bulk copy on bar's next phase.
+__device__ __forceinline__ void fetch_slice(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
+  hopper::mbar_expect_tx(bar, bytes);
+  hopper::bulk_load(dst, src, bytes, bar);
+}
+
+// The lowest bit a bound over maxima in [lo, hi] keeps: kBoundBit (the
+// sign, the exponent and 6 mantissa bits where the maxima span exponents),
+// or lower where they span fewer bits, so the bound resolves the top
+// kBoundSteps bits below their common prefix. Maxima in a narrow range of
+// large keys (dead latents pinned near -1e6, where 2^17 keys span 512.0)
+// would otherwise leave the bound below every one of them.
+__device__ __forceinline__ int bound_bit(uint32_t lo, uint32_t hi) {
+  return lo == hi ? 0 : min(kBoundBit, max(0, 31 - __clz(lo ^ hi) - (kBoundSteps - 1)));
+}
+
+// The least of every thread's lo and the largest of every thread's hi,
+// into each: a warp reduction, then the CTA's warps through shared memory.
+// Every thread of the CTA calls it; it returns the CTA's count of `pred`.
+__device__ __forceinline__ int block_min_max(ClusterSmem& sm, uint32_t& lo, uint32_t& hi, bool pred = false) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  __syncthreads();  // the previous call's reads are done
+  if (lane == 0) {
+    sm.ends[0][warp] = lo;
+    sm.ends[1][warp] = hi;
+  }
+  const int n = __syncthreads_count(pred);
+#pragma unroll
+  for (int w = 0; w < kSliceThreads / 32; ++w) {
+    lo = min(lo, sm.ends[0][w]);
+    hi = max(hi, sm.ends[1][w]);
+  }
+  return n;
+}
+
 // A cluster of C CTAs (the launch's cluster dimension) walks rows cluster
 // id, + clusters, ..; CTA `rank` holds columns [rank * sw, rank * sw + len)
 // of each. STREAM: S % 4 == 0, h 16-byte and f 8-byte aligned; the slice is
 // staged in `slice_buf` (sw floats of dynamic shared memory) by bulk copy.
 // Otherwise each thread reads its keys from device memory, one at a time.
 // GIVEN (K1's threshold entry) skips the select: kth_out[row] holds the
-// threshold on entry, and the epilogue runs from it.
-template <bool STREAM, bool GIVEN>
+// threshold on entry, and the epilogue runs from it. STATS false (K6, K5)
+// selects alone: rank 0 writes kth_out[row], and f, live, l0_out and l1_out
+// are not read. MASKED (K5): `mask` (S bytes) and *n_live, the unmasked
+// columns counted by compact_mask_kernel; a masked column's key is 0, below
+// every float's, and a row whose k-th largest key is 0 (fewer than k
+// columns unmasked) gets -inf.
+template <bool STREAM, bool GIVEN, bool STATS = true, bool MASKED = false>
 __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
-    wide_cluster_kernel(const float* __restrict__ h, int B, int S, int k, int sw, float* __restrict__ kth_out,
+    wide_cluster_kernel(const float* __restrict__ h, const uint8_t* __restrict__ mask,
+                        const int* __restrict__ n_live, int B, int S, int k, int sw, float* __restrict__ kth_out,
                         __nv_bfloat16* __restrict__ f, int* __restrict__ live, float* __restrict__ l0_out,
                         float* __restrict__ l1_out, int* __restrict__ fallback) {
+  static_assert(STATS || !GIVEN, "a given threshold is K1's");
+  static_assert(!(STATS && MASKED), "K1 has no mask");
+  // K5: the group route takes a list of kGroupMaxN or fewer (the walk's
+  // `exit` below says why not `return`). Every CTA of the cluster leaves.
+  if constexpr (MASKED) {
+    if (*n_live <= kGroupMaxN) asm volatile("exit;");
+  }
   extern __shared__ __align__(16) float slice_buf[];
   __shared__ ClusterSmem sm;
   __shared__ __align__(8) uint64_t full;
-  constexpr int nt = kSliceThreads, n_warps = nt / 32, MW = nt / 32;
+  constexpr int nt = kSliceThreads, n_warps = nt / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = static_cast<int>(hopper::cluster_ctas());
   const uint32_t rank = hopper::cluster_rank();
@@ -171,10 +289,33 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
   // Where 2k <= T', each CTA's k-th largest maximum bounds its own slice's
   // k-th largest key (`own`); a larger k would leave most of a slice above
   // it. Else, where q = ceil(k / C) <= T', the least of the CTAs' q-th
-  // largest maxima bounds the row's (one more cluster barrier).
+  // largest maxima bounds the row's (one more cluster barrier). K5 takes the
+  // least of the CTAs' q_c-th largest maxima, q_c its share of k in
+  // proportion to its unmasked columns, and where that is 0 (a CTA's
+  // maxima hold fewer than q_c positive keys) the cluster's k-th largest
+  // maximum, where k threads hold a column (`bounded_cluster`).
   const int t_live = min(nt, (S - (C - 1) * sw + 3) / 4);
   const int q = (k + C - 1) / C;
-  const bool own = 2 * k <= t_live, bounded = q <= t_live;
+  const bool own = !MASKED && 2 * k <= t_live, bounded = MASKED || q <= t_live;
+  const bool bounded_cluster = MASKED && k <= (C - 1) * nt + t_live;
+  // K5: bit j of this thread's slot j holds an unmasked column; this CTA's
+  // unmasked columns, counted once a call.
+  uint64_t unmasked = 0;
+  if constexpr (MASKED) {
+#pragma unroll
+    for (int j = 0; j < kSliceVpt; ++j) {
+      const int c = 4 * (tid + (j / 4) * nt) + j % 4;
+      if (c < len && mask[c0 + c] != 0) unmasked |= 1ull << j;
+    }
+    const int n_here = __reduce_add_sync(0xffffffffu, __popcll(unmasked));
+    if (lane == 0) sm.counts[0][warp] = n_here;
+    __syncthreads();
+    if (tid == 0) {
+      int n_slice = 0;
+      for (int w = 0; w < n_warps; ++w) n_slice += sm.counts[0][w];
+      sm.n_unmasked = n_slice;
+    }
+  }
   const uint32_t bar = hopper::smem_u32(&full), buf = hopper::smem_u32(slice_buf);
   const uint32_t bytes = 4u * static_cast<uint32_t>(len);
   if (tid == 0) {
@@ -182,12 +323,21 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
     if constexpr (STREAM) {
       hopper::mbar_init(bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      if (cid < B) fetch_row(buf, h + cid * S + c0, bytes, bar);
+      if (cid < B) fetch_slice(buf, h + cid * S + c0, bytes, bar);
     }
   }
   hopper::cluster_sync();  // every CTA of the cluster runs before any reads another's memory
+  // K5: this CTA's share of k, in proportion to its unmasked columns of the
+  // row's (0 where it has none): the shares sum to k or more.
+  int q_share = 0;
+  if constexpr (MASKED) {
+    int n_cta = lane < C ? static_cast<int>(hopper::dsmem_ld(hopper::smem_u32(&sm.n_unmasked), lane)) : 0;
+    const long long n_row = __reduce_add_sync(0xffffffffu, n_cta);
+    n_cta = __shfl_sync(0xffffffffu, n_cta, static_cast<int>(rank));
+    q_share = static_cast<int>((static_cast<long long>(k) * n_cta + n_row - 1) / n_row);
+  }
 
-  uint32_t parity = 0;
+  uint32_t parity = 0, guess = 0;
   int it = 0;
 #pragma unroll 1
   for (long row = cid; row < B; row += n_clusters, ++it) {
@@ -201,14 +351,25 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
     } else {
       mx = row_keys<kSliceVpt, false>(h + row * S + c0, len, key);
     }
+    if constexpr (MASKED) {
+      if (unmasked != ~0ull) {  // a thread whose columns are all unmasked keeps its keys
+        mx = 0;
+#pragma unroll
+        for (int j = 0; j < kSliceVpt; ++j) {
+          key[j] = (unmasked >> j) & 1 ? key[j] : 0u;
+          mx = max(mx, key[j]);
+        }
+      }
+    }
     sm.maxima[tid] = mx;
     __syncthreads();
+    if (tid == 0) sm.n_local = 0;  // the row before's kept count is read: this row's candidates
     if constexpr (STREAM) {
-      // The last warp starts the next copy, while warp 0 finds the bound.
+      // The last warp starts the next copy, while the CTA finds the bound.
       if (tid == nt - 32 && row + n_clusters < B) {
         // The buffer's reads are done: order them before the copy's writes.
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        fetch_row(buf, h + (row + n_clusters) * S + c0, bytes, bar);
+        fetch_slice(buf, h + (row + n_clusters) * S + c0, bytes, bar);
       }
     }
 
@@ -227,46 +388,58 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
         finish_row(part0, part1, row - n_clusters, C, l0_out, l1_out);
       }
     } else {
-      // 1. The bound L and this slice's largest key, by warp 0 alone (the
-      // other warps would only contend for its issue slots).
-      if (warp == 0) {
-        uint32_t m[MW];
-#pragma unroll
-        for (int i = 0; i < MW; ++i) m[i] = sm.maxima[lane + 32 * i];
-        uint32_t lo = m[0], top = m[0];
-#pragma unroll
-        for (int i = 1; i < MW; ++i) {
-          lo = min(lo, m[i]);
-          top = max(top, m[i]);
-        }
-        lo = __reduce_min_sync(0xffffffffu, lo);
-        top = __reduce_max_sync(0xffffffffu, top);
-        uint32_t t = 0;
-        if (bounded) {
-          t = bisect(lo, top, own ? k : q, kBoundBit, [&](uint32_t v, int) {
-            int c = 0;
-#pragma unroll
-            for (int i = 0; i < MW; ++i) c += m[i] >= v;
-            return static_cast<int>(__reduce_add_sync(0xffffffffu, c));
-          });
-        }
-        if (lane == 0) {
-          sm.own[0] = t;
-          sm.own[1] = top;
-        }
+      // 1. The bound L and this slice's largest key, by the whole CTA (one
+      // __syncthreads_count a count), searched from the row before's
+      // between the least positive maximum and the largest: 0 where fewer
+      // than `want` maxima are positive (threads past the slice's end, or
+      // whose columns the mask leaves out).
+      uint32_t lo = mx > 0 ? mx : 0xFFFFFFFFu, hi = mx;
+      const int n_pos = block_min_max(sm, lo, hi, mx > 0);
+      uint32_t L = 0;
+      const int want = MASKED ? q_share : own ? k : q;
+      if (MASKED && want == 0) {
+        L = 0xFFFFFFFFu;  // no unmasked column here: no bound from this CTA
+      } else if (bounded && want <= n_pos) {
+        L = bisect_from(lo, hi, want, bound_bit(lo, hi), guess,
+                        [&](uint32_t v) { return __syncthreads_count(mx >= v); });
+        guess = L;
       }
-      __syncthreads();
-      uint32_t L = sm.own[0], hi = sm.own[1];
       if (bounded && !own) {
         if (tid == 0) sm.q_bound = L;
-        hopper::cluster_sync_shared();  // A: every CTA's q-th largest maximum
+        hopper::cluster_sync_shared();  // A: every CTA's q-th largest maximum (and its maxima)
         uint32_t b = 0xFFFFFFFFu;
         if (lane < C) b = hopper::dsmem_ld(hopper::smem_u32(&sm.q_bound), lane);
         L = __reduce_min_sync(0xffffffffu, b);
       }
+      if constexpr (MASKED) {
+        // A CTA whose maxima hold fewer than its share of positive keys
+        // leaves L 0: then the cluster's k-th largest maximum, each thread
+        // reading its index's maximum of every CTA (barrier A ordered them).
+        if (L == 0 && bounded_cluster) {
+          uint32_t m[kMaxCluster];
+#pragma unroll
+          for (int r = 0; r < kMaxCluster; ++r)
+            m[r] = r < C ? hopper::dsmem_ld(hopper::smem_u32(&sm.maxima[tid]), r) : 0u;
+          uint32_t c_lo = 0xFFFFFFFFu, c_hi = 0u;  // the least positive maximum and the largest
+#pragma unroll
+          for (int r = 0; r < kMaxCluster; ++r) {
+            if (m[r] > 0) c_lo = min(c_lo, m[r]);
+            c_hi = max(c_hi, m[r]);
+          }
+          block_min_max(sm, c_lo, c_hi);
+          const auto count = [&](uint32_t v, int) {
+            int total = 0;
+#pragma unroll
+            for (int r = 0; r < kMaxCluster; ++r)
+              if (r < C) total += __syncthreads_count(m[r] >= v);
+            return total;
+          };
+          if (count(1u, 0) >= k) L = bisect(c_lo, c_hi, k, bound_bit(c_lo, c_hi), count);
+        }
+      }
 
       // 2. This slice's keys >= L. L > 0 keeps the ragged end's key 0 out.
-      if (bounded && L > 0) {
+      if (L > 0) {
         int c = 0;
 #pragma unroll
         for (int j = 0; j < kSliceVpt; ++j) c += key[j] >= L;
@@ -300,7 +473,7 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
       // CTA's bound is at most the row's k-th largest key, so their largest is
       // too. Rank 0's last warp reads the row before's L0 and L1 parts in the
       // same round trip.
-      const bool finishing = it > 0 && rank == 0 && warp == n_warps - 1;
+      const bool finishing = STATS && it > 0 && rank == 0 && warp == n_warps - 1;
       int nc = 0;
       uint32_t b_lo = 0xFFFFFFFFu, b_max = 0u, b_hi = 0u, part0 = 0u, part1 = 0u;
       if (lane < C) {
@@ -327,12 +500,19 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
       const bool fits = bounded && least > 0 && !__any_sync(0xffffffffu, nc > kSliceCap) && n_union <= kUnionCap;
       if (fits) {
         // Candidate i of the union is candidate i - off[r] of CTA r, the last
-        // CTA whose offset is at most i: one remote read a thread a round. Of
-        // them the row's k-th largest key is the k-th largest of those at or
-        // above `lower`: only those are kept (sm.n_local, zeroed before B).
+        // CTA whose offset is at most i: one remote read a thread a round,
+        // every round's read issued before any is used. Of them the row's
+        // k-th largest key is the k-th largest of those at or above `lower`:
+        // only those are kept (sm.n_local, zeroed before B), one shared
+        // atomic a warp.
         const uint32_t at = hopper::smem_u32(&sm.cand[rp][0]);
-        for (int i0 = 0; i0 < n_union; i0 += nt) {
-          const int i = i0 + tid;
+        constexpr int UPT = kUnionCap / nt;
+        const int rounds = (n_union + nt - 1) / nt;
+        uint32_t v[UPT];
+#pragma unroll
+        for (int u = 0; u < UPT; ++u) {
+          if (u == rounds) break;
+          const int i = u * nt + tid;
           int r_i = 0, o_i = 0;
           for (int r = 1; r < C; ++r) {
             const int o = __shfl_sync(0xffffffffu, off, r);
@@ -341,19 +521,34 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
               o_i = o;
             }
           }
-          uint32_t v = 0;
-          if (i < n_union) v = hopper::dsmem_ld(at + 4u * (i - o_i), r_i);
-          const bool keep = i < n_union && v >= lower;
-          const uint32_t kept = __ballot_sync(0xffffffffu, keep);
-          int base = 0;
-          if (lane == 0 && kept != 0) base = atomicAdd(&sm.n_local, __popc(kept));
-          base = __shfl_sync(0xffffffffu, base, 0);
-          if (keep) sm.uni[base + __popc(kept & ((1u << lane) - 1u))] = v;
+          v[u] = i < n_union ? hopper::dsmem_ld(at + 4u * (i - o_i), r_i) : 0u;
+        }
+        uint32_t kept[UPT];
+        int n_warp = 0;
+#pragma unroll
+        for (int u = 0; u < UPT; ++u) {
+          if (u == rounds) break;
+          kept[u] = __ballot_sync(0xffffffffu, v[u] >= lower);  // lower > 0: an empty slot is not kept
+          n_warp += __popc(kept[u]);
+        }
+        int base = 0;
+        if (lane == 0 && n_warp > 0) base = atomicAdd(&sm.n_local, n_warp);
+        base = __shfl_sync(0xffffffffu, base, 0);
+#pragma unroll
+        for (int u = 0; u < UPT; ++u) {
+          if (u == rounds) break;
+          if (v[u] >= lower) sm.uni[base + __popc(kept[u] & ((1u << lane) - 1u))] = v[u];
+          base += __popc(kept[u]);
         }
         __syncthreads();
         const int n_kept = sm.n_local;
-        // The k-th largest kept candidate: ranked, one a thread, or bisected
-        // by one warp. Tied candidates write the same value.
+        // The k-th largest kept candidate: ranked, one a thread (tied
+        // candidates write the same value), or past T bisected from the
+        // bound, a step that finds exactly k at or above its candidate ending
+        // it (the least of those is then the key): K6 and K5 by warp 0 where
+        // its registers hold them (kWarpKeys a lane; the row's keys are no
+        // longer needed), else by the block, kUnionCap / T of them a thread
+        // in registers (a __syncthreads_count for each T of them a step).
         if (n_kept <= nt) {
           if (tid < n_kept) {
             const uint32_t v = sm.uni[tid];
@@ -366,17 +561,61 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
             }
             if (gt < k && k <= ge) sm.kth_key = v;
           }
-        } else if (warp == 0) {
-          const uint32_t r = bisect(lower, hi, k, 0, [&](uint32_t v, int) {
-            int c = 0;
-            for (int j = lane; j < n_kept; j += 32) c += sm.uni[j] >= v;
-            return static_cast<int>(__reduce_add_sync(0xffffffffu, c));
-          });
-          if (lane == 0) sm.kth_key = r;
+        } else if (!STATS && n_kept <= 32 * kWarpKeys) {
+          if (warp == 0) {
+            uint32_t c[kWarpKeys];
+#pragma unroll
+            for (int i = 0; i < kWarpKeys; ++i) c[i] = lane + 32 * i < n_kept ? sm.uni[lane + 32 * i] : 0u;
+            int b = lower == hi ? -1 : 31 - __clz(lower ^ hi);
+            uint32_t r = b < 0 ? lower : lower & ~((2u << b) - 1u);
+#pragma unroll 1
+            for (; b >= 0; --b) {
+              const uint32_t t = r | (1u << b);
+              int cnt = 0;
+#pragma unroll
+              for (int i = 0; i < kWarpKeys; ++i) cnt += c[i] >= t;
+              cnt = __reduce_add_sync(0xffffffffu, cnt);
+              if (cnt >= k) r = t;
+              if (cnt == k) break;
+            }
+            if (b >= 0) {  // exactly k candidates >= r: the least of them
+              uint32_t least = 0xFFFFFFFFu;
+#pragma unroll
+              for (int i = 0; i < kWarpKeys; ++i) least = c[i] >= r ? min(least, c[i]) : least;
+              r = __reduce_min_sync(0xffffffffu, least);
+            }
+            if (lane == 0) sm.kth_key = r;
+          }
+        } else {
+          constexpr int CPT = kUnionCap / nt;
+          const int kept_rounds = (n_kept + nt - 1) / nt;
+          uint32_t cand[CPT];
+#pragma unroll
+          for (int i = 0; i < CPT; ++i) cand[i] = tid + i * nt < n_kept ? sm.uni[tid + i * nt] : 0u;
+          int b = lower == hi ? -1 : 31 - __clz(lower ^ hi);
+          uint32_t r = b < 0 ? lower : lower & ~((2u << b) - 1u);
+#pragma unroll 1
+          for (; b >= 0; --b) {
+            const uint32_t t = r | (1u << b);
+            int total = 0;
+#pragma unroll
+            for (int i = 0; i < CPT; ++i)
+              if (i < kept_rounds) total += __syncthreads_count(cand[i] >= t);
+            if (total >= k) r = t;
+            if (total == k) break;
+          }
+          if (b >= 0) {  // exactly k candidates >= r: the least of them
+            uint32_t least = 0xFFFFFFFFu;
+#pragma unroll
+            for (int i = 0; i < CPT; ++i) least = cand[i] >= r ? min(least, cand[i]) : least;
+            uint32_t most = 0u;
+            block_min_max(sm, least, most);
+            r = least;
+          }
+          if (tid == 0) sm.kth_key = r;
         }
         __syncthreads();
         kth = sm.kth_key;
-        if (tid == 0) sm.n_local = 0;
       } else {
         // 4. The row in the cluster's registers, from the bound.
         kth = bisect(lower, hi, k, 0, [&](uint32_t v, int b) {
@@ -393,6 +632,10 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
         });
         if (fallback != nullptr && rank == 0 && tid == 0) atomicAdd(fallback, 1);
       }
+    }
+    if constexpr (!STATS) {  // K6, K5: the select alone
+      if (rank == 0 && tid == 0) kth_out[row] = MASKED && kth == 0 ? -INFINITY : key_float(kth);
+      continue;
     }
 
     // 5. This slice's f, live, L0 and L1 (topk_row.cuh `topk_stats_row`).
@@ -442,25 +685,27 @@ __global__ void __launch_bounds__(kSliceThreads, 512 / kSliceThreads)
       if (!GIVEN && rank == 0) kth_out[row] = kv;
     }
   }
-  hopper::cluster_sync();  // the last row's parts
-  if (it > 0 && rank == 0 && warp == 0) {
-    uint32_t part0 = 0u, part1 = 0u;
-    if (lane < C) {
-      part0 = hopper::dsmem_ld(hopper::smem_u32(&sm.part[(it - 1) & 1][0]), lane);
-      part1 = hopper::dsmem_ld(hopper::smem_u32(&sm.part[(it - 1) & 1][1]), lane);
+  hopper::cluster_sync();  // the last row's parts; no CTA leaves while another reads its memory
+  if constexpr (STATS) {
+    if (it > 0 && rank == 0 && warp == 0) {
+      uint32_t part0 = 0u, part1 = 0u;
+      if (lane < C) {
+        part0 = hopper::dsmem_ld(hopper::smem_u32(&sm.part[(it - 1) & 1][0]), lane);
+        part1 = hopper::dsmem_ld(hopper::smem_u32(&sm.part[(it - 1) & 1][1]), lane);
+      }
+      finish_row(part0, part1, cid + static_cast<long>(it - 1) * n_clusters, C, l0_out, l1_out);
     }
-    finish_row(part0, part1, cid + static_cast<long>(it - 1) * n_clusters, C, l0_out, l1_out);
+    hopper::cluster_sync();  // no CTA leaves while rank 0 reads its memory
   }
-  hopper::cluster_sync();  // no CTA leaves while rank 0 reads its memory
 }
 
-template <bool STREAM, bool GIVEN = false>
+template <bool STREAM, bool GIVEN = false, bool STATS = true, bool MASKED = false>
 cudaError_t cluster_config(int S, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int& clusters) {
+  const auto kernel = wide_cluster_kernel<STREAM, GIVEN, STATS, MASKED>;
   const int C = cluster_ctas_for(S);
   if (C == 0) return cudaErrorInvalidValue;
   const int smem = STREAM ? 4 * slice_width(S, C) : 0;
-  cudaError_t e =
-      cudaFuncSetAttribute(wide_cluster_kernel<STREAM, GIVEN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cfg = {};
   cfg.gridDim = dim3(C, 1, 1);
@@ -473,38 +718,31 @@ cudaError_t cluster_config(int S, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, wide_cluster_kernel<STREAM, GIVEN>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (e != cudaSuccess) return e;
   return clusters < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 // As many clusters as the card holds at once, at most B. A launch the card
 // refuses returns its error; nothing falls back.
-template <bool STREAM, bool GIVEN = false>
-cudaError_t launch_cluster(const float* h, int B, int S, int k, float* kth, __nv_bfloat16* f, int* live, float* l0,
-                           float* l1, int* fallback, cudaStream_t stream) {
+template <bool STREAM, bool GIVEN = false, bool STATS = true, bool MASKED = false>
+cudaError_t launch_cluster(const float* h, const uint8_t* mask, const int* n_live, int B, int S, int k, float* kth,
+                           __nv_bfloat16* f, int* live, float* l0, float* l1, int* fallback, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int clusters = 0;
-  cudaError_t e = cluster_config<STREAM, GIVEN>(S, cfg, attr, clusters);
+  cudaError_t e = cluster_config<STREAM, GIVEN, STATS, MASKED>(S, cfg, attr, clusters);
   if (e != cudaSuccess) return e;
   const int C = cluster_ctas_for(S);
   cfg.gridDim = dim3(C * (B < clusters ? B : clusters), 1, 1);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, wide_cluster_kernel<STREAM, GIVEN>, h, B, S, k, slice_width(S, C), kth, f, live, l0,
-                         l1, fallback);
+  e = cudaLaunchKernelEx(&cfg, wide_cluster_kernel<STREAM, GIVEN, STATS, MASKED>, h, mask, n_live, B, S, k,
+                         slice_width(S, C), kth, f, live, l0, l1, fallback);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // --- K5: G warps a row over the list of unmasked columns ------------------------
-
-constexpr int kGroupWarps = 16;                    // warps a CTA
-constexpr int kGroupMaxN = kGroupWarps * 32 * 64;  // unmasked columns the group route holds (KPL 64)
-
-__device__ __forceinline__ void group_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
 
 // The launch of KPL keys a lane takes n (*n_live) in (kGroupWarps * 32 *
 // KPL / 2, kGroupWarps * 32 * KPL], KPL 32 from 0; any other n exits at
@@ -631,11 +869,12 @@ cudaError_t launch_group(const float* h, const int* idx, const int* n_live, int 
 constexpr int kWideVpt = 32;       // keys a thread holds of one chunk
 constexpr int kWideThreads = 512;  // threads a CTA
 constexpr int kWideChunk = kWideVpt * kWideThreads;  // columns a chunk holds at most
-constexpr int kWideCap = 8192;     // candidates the buffer holds (32 KB)
+// Candidates the buffer holds (64 KB of dynamic shared memory): a row of 17
+// chunks (266240 columns) at k 512 puts about 8200 there.
+constexpr int kWideCap = 16384;
 
 struct WideSmem {
   SelectSmem<kWideThreads> sel;
-  uint32_t cand[kWideCap];
   int n_cand;
   uint32_t kth_key;
   uint32_t top[32];
@@ -710,6 +949,7 @@ __global__ void __launch_bounds__(kWideThreads)
     if (*n_live <= kGroupMaxN) asm volatile("exit;");
   }
   __shared__ WideSmem sm;
+  extern __shared__ uint32_t wide_cand[];  // kWideCap candidates
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int n_warps = kWideThreads / 32;
   const long row = blockIdx.x;
@@ -756,7 +996,7 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
       for (int j = 0; j < kWideVpt; ++j) {
         if (key[j] >= theta) {
-          if (pos < kWideCap) sm.cand[pos] = key[j];
+          if (pos < kWideCap) wide_cand[pos] = key[j];
           ++pos;
         }
       }
@@ -783,11 +1023,11 @@ __global__ void __launch_bounds__(kWideThreads)
     // 3-4. The k-th largest key of the row.
     if (n_cand <= kWideThreads) {
       if (tid < n_cand) {
-        const uint32_t v = sm.cand[tid];
+        const uint32_t v = wide_cand[tid];
         int gt = 0, ge = 0;
 #pragma unroll 4
         for (int j = 0; j < n_cand; ++j) {
-          const uint32_t u = sm.cand[j];
+          const uint32_t u = wide_cand[j];
           gt += u > v;
           ge += u >= v;
         }
@@ -798,7 +1038,7 @@ __global__ void __launch_bounds__(kWideThreads)
     } else if (n_cand <= kWideCap) {
       kth = bisect(lower, hi, k, 0, [&](uint32_t t, int b) {
         int c = 0;
-        for (int j = tid; j < n_cand; j += kWideThreads) c += sm.cand[j] >= t;
+        for (int j = tid; j < n_cand; j += kWideThreads) c += wide_cand[j] >= t;
         return block_count(c, b);
       });
     } else {
@@ -926,22 +1166,29 @@ __global__ void __launch_bounds__(kCompactThreads)
   if (tid == 0) *n_live = base;
 }
 
+template <bool VEC, bool MASKED, bool STATS, bool GIVEN>
+int launch_walk(const float* h, const int* idx, const int* n_live, int B, int S, int k, float* kth,
+                __nv_bfloat16* f, int* live, float* l0, float* l1, int* fallback, cudaStream_t stream) {
+  const auto kernel = wide_row_kernel<VEC, MASKED, STATS, GIVEN>;
+  constexpr int smem = kWideCap * static_cast<int>(sizeof(uint32_t));
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int n_chunks = wide_chunks(S), cs = wide_chunk_width(S, n_chunks);
+  kernel<<<B, kWideThreads, smem, stream>>>(h, idx, n_live, S, k, n_chunks, cs, kth, f, live, l0, l1, fallback);
+  return cudaGetLastError();
+}
+
 template <bool MASKED, bool STATS, bool GIVEN = false>
 int launch_wide(const float* h, const int* idx, const int* n_live, int B, int S, int k, float* kth,
                 __nv_bfloat16* f, int* live, float* l0, float* l1, int* fallback, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
-  const int n_chunks = wide_chunks(S), cs = wide_chunk_width(S, n_chunks);
   if constexpr (!MASKED) {  // K5 gathers: no 16-byte loads
     if (S % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-        (!STATS || reinterpret_cast<uintptr_t>(f) % 8 == 0)) {
-      wide_row_kernel<true, MASKED, STATS, GIVEN><<<B, kWideThreads, 0, stream>>>(
-          h, idx, n_live, S, k, n_chunks, cs, kth, f, live, l0, l1, fallback);
-      return cudaGetLastError();
-    }
+        (!STATS || reinterpret_cast<uintptr_t>(f) % 8 == 0))
+      return launch_walk<true, MASKED, STATS, GIVEN>(h, idx, n_live, B, S, k, kth, f, live, l0, l1, fallback,
+                                                     stream);
   }
-  wide_row_kernel<false, MASKED, STATS, GIVEN><<<B, kWideThreads, 0, stream>>>(h, idx, n_live, S, k, n_chunks, cs,
-                                                                               kth, f, live, l0, l1, fallback);
-  return cudaGetLastError();
+  return launch_walk<false, MASKED, STATS, GIVEN>(h, idx, n_live, B, S, k, kth, f, live, l0, l1, fallback, stream);
 }
 
 bool streams(const float* h, int S, const __nv_bfloat16* f) {
@@ -959,8 +1206,9 @@ extern "C" int saev_topk_stats_wide(const float* h, int B, int S, int k, float* 
   if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
   if (cluster_ctas_for(S) == 0)
     return launch_wide<false, true>(h, nullptr, nullptr, B, S, k, kth, f, live, l0, l1, fallback, stream);
-  if (streams(h, S, f)) return launch_cluster<true>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
-  return launch_cluster<false>(h, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  if (streams(h, S, f))
+    return launch_cluster<true>(h, nullptr, nullptr, B, S, k, kth, f, live, l0, l1, fallback, stream);
+  return launch_cluster<false>(h, nullptr, nullptr, B, S, k, kth, f, live, l0, l1, fallback, stream);
 }
 
 // K1's cluster route for a row of S: its CTAs a cluster (0 where S takes the
@@ -985,30 +1233,52 @@ extern "C" int saev_topk_stats_given_wide(const float* h, int B, int S, float* k
   if (B <= 0 || S <= 0) return cudaErrorInvalidValue;
   if (cluster_ctas_for(S) == 0)
     return launch_wide<false, true, true>(h, nullptr, nullptr, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
-  if (streams(h, S, f)) return launch_cluster<true, true>(h, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
-  return launch_cluster<false, true>(h, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
+  if (streams(h, S, f))
+    return launch_cluster<true, true>(h, nullptr, nullptr, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
+  return launch_cluster<false, true>(h, nullptr, nullptr, B, S, 1, kth, f, live, l0, l1, nullptr, stream);
 }
 
-// K6 on a row of any width (the walk).
+// K6 on a row of any width: K1's cluster route, its select alone, up to
+// kMaxCluster slices (so its kth and fallback rows are K1's), the walk past
+// it. fallback, when not null, gains 1 for each row that took the whole-row
+// bisection.
 extern "C" int saev_kth_wide(const float* h, int B, int S, int k, float* out, int* fallback,
                              cudaStream_t stream) {
-  return launch_wide<false, false>(h, nullptr, nullptr, B, S, k, out, nullptr, nullptr, nullptr, nullptr,
-                                   fallback, stream);
+  if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
+  if (cluster_ctas_for(S) == 0)
+    return launch_wide<false, false>(h, nullptr, nullptr, B, S, k, out, nullptr, nullptr, nullptr, nullptr,
+                                     fallback, stream);
+  if (streams(h, S, nullptr))
+    return launch_cluster<true, false, false>(h, nullptr, nullptr, B, S, k, out, nullptr, nullptr, nullptr,
+                                              nullptr, fallback, stream);
+  return launch_cluster<false, false, false>(h, nullptr, nullptr, B, S, k, out, nullptr, nullptr, nullptr, nullptr,
+                                             fallback, stream);
 }
 
 // K5 on a row of any width: -inf where fewer than k columns are unmasked.
 // idx (S ints) and n_live (1 int) are the list of unmasked columns, written
-// here. Four launches in order on the stream: the list, then the walk and
-// the group route at 32 and 64 keys a lane, of which the one whose range
-// holds n selects and the others exit at once.
+// here. Four launches in order on the stream: the list, then the route for
+// n > kGroupMaxN (the cluster route over whole rows under the mask up to
+// kMaxCluster slices, the walk over the list past it) and the group route
+// at 32 and 64 keys a lane, of which the one whose range holds n selects and
+// the others exit at once. fallback, when not null, gains 1 for each row
+// that took the whole-row bisection (the group route has none).
 extern "C" int saev_kth_masked_wide(const float* h, const uint8_t* mask, int B, int S, int k, float* out,
-                                    int* idx, int* n_live, cudaStream_t stream) {
+                                    int* idx, int* n_live, int* fallback, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || k <= 0 || k > S) return cudaErrorInvalidValue;
   compact_mask_kernel<<<1, kCompactThreads, 0, stream>>>(mask, S, idx, n_live);
   cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess)
-    e = static_cast<cudaError_t>(launch_wide<true, false>(h, idx, n_live, B, S, k, out, nullptr, nullptr, nullptr,
-                                                          nullptr, nullptr, stream));
+  if (e == cudaSuccess) {
+    if (cluster_ctas_for(S) == 0)
+      e = static_cast<cudaError_t>(launch_wide<true, false>(h, idx, n_live, B, S, k, out, nullptr, nullptr,
+                                                            nullptr, nullptr, fallback, stream));
+    else if (streams(h, S, nullptr))
+      e = launch_cluster<true, false, false, true>(h, mask, n_live, B, S, k, out, nullptr, nullptr, nullptr,
+                                                   nullptr, fallback, stream);
+    else
+      e = launch_cluster<false, false, false, true>(h, mask, n_live, B, S, k, out, nullptr, nullptr, nullptr,
+                                                    nullptr, fallback, stream);
+  }
   if (e == cudaSuccess) e = launch_group<32>(h, idx, n_live, B, S, k, out, stream);
   if (e == cudaSuccess) e = launch_group<64>(h, idx, n_live, B, S, k, out, stream);
   return e;

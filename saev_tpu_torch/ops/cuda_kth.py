@@ -1,7 +1,9 @@
 """Wrappers of kernels K6 and K5, the exact per-row k-th largest value, plain
 (csrc/kth.cu, on K1's select in csrc/topk_row.cuh) and with a column mask
 (csrc/kth_masked.cu); both take rows wider than NARROW_S through
-csrc/kth_wide.cu (K6 its chunked walk, K5 its unmasked columns alone).
+csrc/kth_wide.cu (K6 on K1's thread block cluster, K5 on its list of
+unmasked columns up to 32768 of them and on the cluster past it; both walk
+rows of more than 262144 columns).
 
 Counterparts of saev_tpu/ops/pallas_topk.py `exact_kth_value_pallas` (K6) and
 `exact_kth_value_masked_pallas` (K5). A CUDA tensor launches the kernel; a
@@ -33,6 +35,12 @@ def _check_h(h: torch.Tensor, k: int, what: str) -> int:
     return k
 
 
+def _check_fallback(fallback: torch.Tensor | None, h: torch.Tensor, what: str) -> None:
+    if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1
+                                 or fallback.device != h.device):
+        raise ValueError(f"{what} wants a (1,) int32 fallback count on {h.device}")
+
+
 def kth_value_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 1) exact k-th largest of each row of a (B, S) f32 batch.
 
@@ -43,9 +51,7 @@ def kth_value_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None
     if h.device.type != "cuda":
         return _kth_plain(h, min(k, h.shape[-1]))
     k = _check_h(h, k, "kth_value")
-    if fallback is not None and (fallback.dtype != torch.int32 or fallback.numel() != 1
-                                 or fallback.device != h.device):
-        raise ValueError(f"kth_value wants a (1,) int32 fallback count on {h.device}")
+    _check_fallback(fallback, h, "kth_value")
     out = torch.empty((h.shape[0], 1), dtype=torch.float32, device=h.device)
     entry = _build.lib().saev_kth if h.shape[1] <= NARROW_S else _build.lib().saev_kth_wide
     code = entry(
@@ -57,13 +63,19 @@ def kth_value_cuda(h: torch.Tensor, k: int, fallback: torch.Tensor | None = None
     return out
 
 
-def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int,
+                          fallback: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 1) exact k-th largest of where(mask, h, -inf) per row; `mask` is a
     (S,) bool column mask shared by every row. -inf where a row has fewer
-    than k unmasked columns."""
+    than k unmasked columns.
+
+    `fallback`, as `kth_value_cuda`'s, counts the rows of the wide route
+    past 32768 unmasked columns that took the whole-row bisection; the
+    narrow kernel and the list's group route have none."""
     if h.device.type != "cuda":
         return _kth_masked_plain(h, mask, min(k, h.shape[-1]))
     k = _check_h(h, k, "kth_value_masked")
+    _check_fallback(fallback, h, "kth_value_masked")
     if mask.dtype != torch.bool or tuple(mask.shape) != (h.shape[1],) or mask.device != h.device:
         raise ValueError(
             f"kth_value_masked wants a ({h.shape[1]},) bool mask on {h.device}, got "
@@ -79,7 +91,9 @@ def kth_value_masked_cuda(h: torch.Tensor, mask: torch.Tensor, k: int) -> torch.
         # The wide route's list of unmasked columns (s ints) and its length.
         cols = torch.empty((s + 1,), dtype=torch.int32, device=h.device)
         code = _build.lib().saev_kth_masked_wide(h.data_ptr(), mask.data_ptr(), b, s, k, out.data_ptr(),
-                                                 cols.data_ptr(), cols[s:].data_ptr(), _build.stream_ptr(h))
+                                                 cols.data_ptr(), cols[s:].data_ptr(),
+                                                 None if fallback is None else fallback.data_ptr(),
+                                                 _build.stream_ptr(h))
     _build.check(code, "kth_value_masked")
     kth_value_masked_cuda.launches += 1
     return out

@@ -23,22 +23,29 @@ is untouched.
   Prints the mean cycles of each phase at the train step's three shapes
   (dead columns pinned near -1e6 as bench.py pins them) and at the tight
   shape on Gaussian rows, and the kernel's device time by the profiler.
-- `k1_wide_phases`: a copy of K1's cluster route (csrc/kth_wide.cu,
+- `k1_wide_phases`: a copy of the cluster route (csrc/kth_wide.cu,
   `wide_cluster_kernel`) with a clock64 stamp, from thread 0 of the first
   two CTAs (one cluster), at each phase boundary of their first 64 rows:
   the wait for the slice, the keys and maxima, the bound, the filter, the
   cluster barrier, the counts and bounds read, the union and select, the
-  epilogue's loop, the reductions. Prints the mean cycles of each over rows
-  4-59 and the row's period, at 16384 x 65536 and x 131072 (k 32), and the
+  epilogue's loop, the reductions (K6 and K5 select alone: their union and
+  select run to the next row's start). Prints the mean cycles of each over
+  rows 4-59 and the row's period, at 16384 x 65536 and x 131072, for K1
+  and K6 at k 32 and K5 at k_aux 512 (none masked, 60% scattered), and the
   copy's time beside the library's.
-- `k1_wide_variants`: K1's cluster route built three ways from the
-  committed kth_wide.cu: as it is; with its per-row barrier the full
-  cluster barrier (`hopper::cluster_sync`, whose release also waits for
-  the CTA's global stores and bulk copies in flight) in place of
-  `cluster_sync_shared`; and with 256 threads a CTA (slices of 16384
-  columns: 4 CTAs a row at 65536, 8 at 131072, two CTAs an SM). Each one's
-  registers, its CUDA-event time at 16384 x 65536 and x 131072 (k 32), its
-  kth held bitwise to the plain version.
+- `wide_variants` (alone: `--wide-variants [ROOT]`): the cluster route
+  built from the committed kth_wide.cu as it is and five other ways: the
+  full cluster barrier a row (`hopper::cluster_sync`, whose release also
+  waits for the CTA's global stores and bulk copies in flight) in place of
+  `cluster_sync_shared`; 256 threads a CTA (slices of 16384 columns: 4 CTAs
+  a row at 65536, 8 at 131072, two CTAs an SM); K6's and K5's kept
+  candidates selected by the block, as K1's are, in place of one warp's
+  registers; each row's bound by `bisect` alone, not searched from the row
+  before's; and eight bulk copies of 16 KB a slice in place of one; with
+  ROOT, the tree there too (its K1 and K6). K1's registers in each, and the
+  CUDA-event times of K1 and K6 (k 32) and K5 (k_aux 512, none masked and
+  60% scattered) at 16384 x 65536 and x 131072, over three rounds that take
+  the builds in turn, every kth held bitwise to the plain version.
 - `k5_caps`: K5 built with launch bounds that ask for 1, 2 and 3 CTAs an SM
   (the KPL 32 kernel's registers held to 128, 64 and 40), timed by CUDA
   events at the train step's three shapes (16384 x 1024 with 819 unmasked
@@ -67,6 +74,7 @@ import ctypes
 import pathlib
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import torch
@@ -222,12 +230,23 @@ def stamped_wide_source() -> str:
     return src.replace("namespace {\n", "__device__ long long* g_wide;\nnamespace {\n", 1)
 
 
-# K1's cluster route built other ways: (text, its replacement) in kth_wide.cu.
+# The cluster route built other ways: (text, its replacement) in kth_wide.cu.
 WIDE_VARIANTS = {
     "as committed": (),
     "full cluster barrier a row": (("      hopper::cluster_sync_shared();  // B:",
                                     "      hopper::cluster_sync();  // B:"),),
     "256 threads a CTA": (("constexpr int kSliceThreads = 512;", "constexpr int kSliceThreads = 256;"),),
+    "the block selects K6's and K5's kept candidates": (
+        ("        } else if (!STATS && n_kept <= 32 * kWarpKeys) {", "        } else if (false) {"),),
+    "the bound by `bisect` alone": (
+        ("        L = bisect_from(lo, hi, want, bound_bit(lo, hi), guess,\n"
+         "                        [&](uint32_t v) { return __syncthreads_count(mx >= v); });",
+         "        L = bisect(lo, hi, want, bound_bit(lo, hi), [&](uint32_t v, int) { return __syncthreads_count(mx >= v); "
+         "});"),),
+    "eight bulk copies a slice": (
+        ("  hopper::bulk_load(dst, src, bytes, bar);\n",
+         "  for (uint32_t off = 0; off < bytes; off += 16384u)\n"
+         "    hopper::bulk_load(dst + off, reinterpret_cast<const char*>(src) + off, min(16384u, bytes - off), bar);\n"),),
 }
 
 
@@ -533,13 +552,14 @@ def k5_phases(tmp: pathlib.Path) -> list[str]:
 def k1_wide_phases(tmp: pathlib.Path) -> list[str]:
     d = tmp / "wide"
     d.mkdir()
-    for f in ("hopper.cuh", "order_key.cuh", "row_stream.cuh", "topk_row.cuh"):
+    for f in ("hopper.cuh", "order_key.cuh", "topk_row.cuh"):
         shutil.copy(_build.CSRC / f, d / f)
     (d / "kth_wide.cu").write_text(stamped_wide_source() + (
         '\nextern "C" int saev_probe_stamps(long long* p) {\n'
         "  return cudaMemcpyToSymbol(g_wide, &p, sizeof(p));\n}\n"))
     lib, _ = _compile(d, d / "kth_wide.cu", "wide_probe")
-    lib.saev_topk_stats_wide.argtypes = _build.SIGNATURES["saev_topk_stats_wide"]
+    for name in ("saev_topk_stats_wide", "saev_kth_wide", "saev_kth_masked_wide"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
     lib.saev_probe_stamps.argtypes = [ctypes.c_void_p]
     lines = []
     for s in WIDE_S:
@@ -548,67 +568,122 @@ def k1_wide_phases(tmp: pathlib.Path) -> list[str]:
         f = torch.empty((B, s), dtype=torch.bfloat16, device="cuda")
         live = torch.zeros(s, dtype=torch.int32, device="cuda")
         l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
-        stamps = torch.zeros((2, _WIDE_ROWS, 10), dtype=torch.int64, device="cuda")
+        cols = torch.empty((s + 1,), dtype=torch.int32, device="cuda")
+        scattered = torch.rand(s, generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda") < 0.6
+        stream = torch.cuda.current_stream().cuda_stream
+        # (what, the stamped copy's call, the library's, the plain version's kth)
+        cases = [
+            (f"K1 cluster route {B}x{s} k {K}",
+             lambda: lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
+                                              l0.data_ptr(), l1.data_ptr(), None, stream),
+             lambda: cuda_topk.topk_stats_cuda(h, K), lambda: topk._kth_plain(h, K)),
+            (f"K6 cluster route {B}x{s} k {K}",
+             lambda: lib.saev_kth_wide(h.data_ptr(), B, s, K, kth.data_ptr(), None, stream),
+             lambda: cuda_kth.kth_value_cuda(h, K), lambda: topk._kth_plain(h, K))]
+        for what, mask in (("none masked", torch.ones(s, dtype=torch.bool, device="cuda")),
+                           ("60% scattered", scattered)):
+            cases.append((f"K5 cluster route {B}x{s} k {K_AUX}, {what}",
+                          lambda mask=mask: lib.saev_kth_masked_wide(h.data_ptr(), mask.data_ptr(), B, s, K_AUX,
+                                                                     kth.data_ptr(), cols.data_ptr(),
+                                                                     cols[s:].data_ptr(), None, stream),
+                          lambda mask=mask: cuda_kth.kth_value_masked_cuda(h, mask, K_AUX),
+                          lambda mask=mask: topk._kth_masked_plain(h, mask, K_AUX)))
+        for what, call, library, plain in cases:
+            stamps = torch.zeros((2, _WIDE_ROWS, 10), dtype=torch.int64, device="cuda")
 
-        def call():
-            code = lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(), live.data_ptr(),
-                                            l0.data_ptr(), l1.data_ptr(), None,
-                                            torch.cuda.current_stream().cuda_stream)
-            _build.check(code, "select_probe K1 wide")
+            def checked(call=call, what=what):
+                _build.check(call(), f"select_probe {what}")
 
-        lib.saev_probe_stamps(None)
-        plain_ms = _events_ms(call)
-        library_ms = _events_ms(lambda: cuda_topk.topk_stats_cuda(h, K))
-        lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()))
-        call()
-        torch.cuda.synchronize()
-        lib.saev_probe_stamps(None)
-        if not torch.equal(kth, topk._kth_plain(h, K)):
-            raise AssertionError(f"select_probe: the stamped K1 differs from the plain version at {B}x{s}")
-        st = stamps.double()[:, 4:60]
-        cycles = (st[..., 1:] - st[..., :-1]).mean((0, 1)).tolist()
-        period = float((st[:, 1:, 0] - st[:, :-1, 0]).mean())
-        lines.append(f"K1 cluster route {B}x{s} k {K}: library {library_ms:.3f} ms, the probe's copy "
-                     f"{plain_ms:.3f} ms; mean cycles a row (CTAs 0 and 1, rows 4-59): "
-                     + ", ".join(f"{name} {c:.0f}" for name, c in zip(WIDE_PHASES, cycles))
-                     + f"; the row's period {period:.0f}")
+            lib.saev_probe_stamps(None)
+            plain_ms = _events_ms(checked)
+            library_ms = _events_ms(library)
+            lib.saev_probe_stamps(ctypes.c_void_p(stamps.data_ptr()))
+            checked()
+            torch.cuda.synchronize()
+            lib.saev_probe_stamps(None)
+            if not torch.equal(kth, plain()):
+                raise AssertionError(f"select_probe: the stamped copy differs from the plain version: {what}")
+            st = stamps.double()[:, 4:60]
+            if what.startswith("K1"):
+                cycles = (st[..., 1:] - st[..., :-1]).mean((0, 1)).tolist()
+                names = WIDE_PHASES
+            else:  # the select alone: the union and select run to the next row's start
+                cycles = (st[..., 1:7] - st[..., :6]).mean((0, 1)).tolist()
+                cycles.append(float((st[:, 1:, 0] - st[:, :-1, 6]).mean()))
+                names = WIDE_PHASES[:6] + ("union, select and the value's store",)
+            period = float((st[:, 1:, 0] - st[:, :-1, 0]).mean())
+            lines.append(f"{what}: library {library_ms:.3f} ms, the probe's copy {plain_ms:.3f} ms; mean cycles a "
+                         f"row (CTAs 0 and 1, rows 4-59): " + ", ".join(f"{n} {c:.0f}" for n, c in zip(names, cycles))
+                         + f"; the row's period {period:.0f}")
     return lines
 
 
-def k1_wide_variants(tmp: pathlib.Path) -> list[str]:
+def _variant_lib(d: pathlib.Path, csrc: pathlib.Path, source: str, name: str) -> tuple[ctypes.CDLL, str]:
+    d.mkdir()
+    for f in csrc.glob("*.cuh"):
+        shutil.copy(f, d / f.name)
+    (d / "kth_wide.cu").write_text(source)
+    return _compile(d, d / "kth_wide.cu", name)
+
+
+def wide_variants(tmp: pathlib.Path, against: pathlib.Path | None = None, rounds: int = 3) -> list[str]:
+    """The cluster route of each WIDE_VARIANTS entry, and of the tree at
+    `against` (its csrc/kth_wide.cu; K1 and K6 alone, since its K5 entry may
+    take other arguments), built in parallel; K1's registers in each; then,
+    at 16384 x 65536 and x 131072 on Gaussian rows, K1's and K6's CUDA-event
+    times at k 32 and K5's at k_aux 512 (none masked, 60% scattered), each
+    over `rounds` rounds that take the builds in turn, with every kth held
+    bitwise to the plain version."""
+    import concurrent.futures
+
+    jobs = {name: (_build.CSRC, wide_variant_source(name)) for name in WIDE_VARIANTS}
+    if against is not None:
+        csrc = against / "saev_tpu_torch" / "csrc"
+        jobs[f"the tree at {against}"] = (csrc, (csrc / "kth_wide.cu").read_text())
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = {name: pool.submit(_variant_lib, tmp / f"wide_variant_{i}", csrc, src, f"wide_variant_{i}")
+                 for i, (name, (csrc, src)) in enumerate(jobs.items())}
+        built = {name: fut.result() for name, fut in built.items()}
     libs, lines = {}, []
-    for i, name in enumerate(WIDE_VARIANTS):
-        d = tmp / f"wide_variant_{i}"
-        d.mkdir()
-        for f in ("hopper.cuh", "order_key.cuh", "row_stream.cuh", "topk_row.cuh"):
-            shutil.copy(_build.CSRC / f, d / f)
-        (d / "kth_wide.cu").write_text(wide_variant_source(name))
-        lib, log = _compile(d, d / "kth_wide.cu", f"wide_variant_{i}")
-        lib.saev_topk_stats_wide.argtypes = _build.SIGNATURES["saev_topk_stats_wide"]
+    for name, (lib, log) in built.items():
+        for entry in ("saev_topk_stats_wide", "saev_kth_wide", "saev_kth_masked_wide"):
+            getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
         libs[name] = lib
-        res = _build.ptxas_resources(log, "wide_cluster_kernelILb1ELb0E")
-        lines.append(f"K1 cluster route, {name}: {list(res.values())}")
+        res = _build.ptxas_resources(log, "wide_cluster_kernelILb1ELb0ELb1E")
+        lines.append(f"cluster route, {name}: K1 {list(res.values())}")
     for s in WIDE_S:
         h = torch.randn((B, s), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-        want = topk._kth_plain(h, K)
         kth = torch.empty((B, 1), device="cuda")
         f = torch.empty((B, s), dtype=torch.bfloat16, device="cuda")
         live = torch.zeros(s, dtype=torch.int32, device="cuda")
         l0, l1 = torch.empty((B, 1), device="cuda"), torch.empty((B, 1), device="cuda")
-        times = []
-        for name, lib in libs.items():
-
-            def call(lib=lib):
-                code = lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(),
-                                                live.data_ptr(), l0.data_ptr(), l1.data_ptr(), None,
-                                                torch.cuda.current_stream().cuda_stream)
-                _build.check(code, "select_probe K1 wide variant")
-
-            ms = _events_ms(call)
-            if not torch.equal(kth, want):
-                raise AssertionError(f"select_probe: K1's cluster route, {name}, differs at {B}x{s}")
-            times.append(f"{name} {ms:.4f} ms")
-        lines.append(f"K1 cluster route {B}x{s} k {K}: " + "; ".join(times) + " (kth bitwise equal)")
+        cols = torch.empty((s + 1,), dtype=torch.int32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        scattered = torch.rand(s, generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda") < 0.6
+        # (what, the call of a build, the plain version's kth, whether the tree at `against` runs it)
+        cases = [(f"K1 {B}x{s} k {K}",
+                  lambda lib: lib.saev_topk_stats_wide(h.data_ptr(), B, s, K, kth.data_ptr(), f.data_ptr(),
+                                                       live.data_ptr(), l0.data_ptr(), l1.data_ptr(), None, stream),
+                  topk._kth_plain(h, K), True),
+                 (f"K6 {B}x{s} k {K}", lambda lib: lib.saev_kth_wide(h.data_ptr(), B, s, K, kth.data_ptr(), None, stream),
+                  topk._kth_plain(h, K), True)]
+        for what, mask in (("none masked", torch.ones(s, dtype=torch.bool, device="cuda")),
+                           ("60% scattered", scattered)):
+            cases.append((f"K5 {B}x{s} k {K_AUX}, {what}",
+                          lambda lib, mask=mask: lib.saev_kth_masked_wide(
+                              h.data_ptr(), mask.data_ptr(), B, s, K_AUX, kth.data_ptr(), cols.data_ptr(),
+                              cols[s:].data_ptr(), None, stream),
+                          topk._kth_masked_plain(h, mask, K_AUX), False))
+        for what, call, want, both in cases:
+            names = [n for n in libs if both or n in WIDE_VARIANTS]
+            times = {n: [] for n in names}
+            for _ in range(rounds):
+                for n in names:
+                    times[n].append(_events_ms(lambda n=n: _build.check(call(libs[n]), f"select_probe {what}, {n}")))
+                    if not torch.equal((kth + 0.0).view(torch.int32), (want + 0.0).view(torch.int32)):
+                        raise AssertionError(f"select_probe: the cluster route, {n}, differs: {what}")
+            lines.append(f"{what} (ms, {rounds} rounds): " + "; ".join(
+                f"{n} {min(t):.4f}-{max(t):.4f}" for n, t in times.items()) + " (kth bitwise equal)")
     return lines
 
 
@@ -645,17 +720,20 @@ def k5_caps(tmp: pathlib.Path) -> list[str]:
     return lines
 
 
-def main() -> None:
+def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("select_probe needs a CUDA device")
     print(kprof.card())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probes = (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps, k1_wide_phases, wide_variants, p1_phases)
+    if argv and argv[0] == "--wide-variants":
+        against = pathlib.Path(argv[1]).resolve() if len(argv) > 1 else None
+        probes = (lambda tmp: wide_variants(tmp, against),)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        for probe in (k1_phases, k6_phases, k6_caps, k5_phases, k5_caps, k1_wide_phases, k1_wide_variants,
-                      p1_phases):
+        for probe in probes:
             for line in probe(pathlib.Path(tmp)):
                 print(line, flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -21,14 +21,19 @@ and K6's fallback, and K1's L1 in the kernel's order). Imports no JAX.
   the gathered keys (each unmasked column held once), the bisection from
   the common prefix of the row's least and largest unmasked key.
 - K1, K5 and K6 on rows wider than the narrow kernels hold (kth_wide.cu):
-  K1's cluster route (`cluster_model`, `cluster_stats_model`): the
-  slices, each CTA's bound from its threads' maxima, the candidates of
-  each slice, the union and its kept keys, the cluster-wide bisection
-  where a buffer overflows, and L1 summed slice by slice in rank order;
-  K5's route chosen from n (`k5_wide_model`: the group route's KPL and G,
-  or the walk); the walk (`wide_model`: K6, K5 past the group route, K1
-  past the cluster route): the chunks, each chunk's k-th largest key, the
-  running lower bound, the buffer, the rank, the bisections. The slice,
+  the cluster route of K1, K6 and K5 (`cluster_model`, its select, with a
+  mask for K5; `cluster_stats_model`, K1's statistics): the slices, each
+  CTA's bound from its threads' maxima (K5's from the cluster's), the
+  candidates of each slice, the union and its kept keys, the cluster-wide
+  bisection where a buffer overflows, and L1 summed slice by slice in rank
+  order; the kernel's search of a bound from the row before's
+  (`bisect_from`, one row, in its uint64 arithmetic; the cluster model
+  takes `bisect`'s answer, which it must equal); K5's route chosen from n
+  and S (`k5_wide_model`: the group route's
+  KPL and G, the cluster or the walk); K6's by S (`k6_wide_model`); the
+  walk (`wide_model`: K1, K6 and K5 past the cluster route): the chunks,
+  each chunk's k-th largest key, the running lower bound, the buffer, the
+  rank, the bisections. The slice,
   chunk, capacities and threads default to the source's constants and are
   parameters, so a test can cut a small row into several slices or
   chunks.
@@ -63,6 +68,19 @@ def cand_cap() -> int:
 
 def bound_bit() -> int:
     return int(re.search(r"constexpr int kBoundBit = (\d+);", _source("topk_row.cuh"))[1])
+
+
+def wide_bound_bit(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """kth_wide.cu `bound_bit`, row by row: kBoundBit, or lower where the
+    maxima in [lo, hi] span fewer bits, so a bound resolves the top
+    kBoundSteps bits below their common prefix (both read from the
+    sources)."""
+    steps = int(re.search(r"constexpr int kBoundSteps = (\d+);", _source("kth_wide.cu"))[1])
+    diff = lo ^ hi
+    top = torch.full_like(lo, -1)
+    for b in range(32):
+        top = torch.where((diff >> b) != 0, b, top)
+    return torch.where(diff == 0, 0, (top - (steps - 1)).clamp(0, bound_bit()))
 
 
 def _select_dispatch(name: str, s: int) -> tuple[int, int]:
@@ -107,10 +125,10 @@ def key_float(key: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
 
 
-def bisect(lo: torch.Tensor, hi: torch.Tensor, k: int, count, lowest: int = 0) -> torch.Tensor:
+def bisect(lo: torch.Tensor, hi: torch.Tensor, k: int, count, lowest: int | torch.Tensor = 0) -> torch.Tensor:
     """topk_row.cuh `bisect`, row by row: from lo's and hi's common prefix,
-    one step for each bit below it down to `lowest`; count(t) gives each
-    row's count of keys >= t[row]."""
+    one step for each bit below it down to `lowest` (a row's own where a
+    tensor); count(t) gives each row's count of keys >= t[row]."""
     diff = lo ^ hi
     top = torch.full_like(lo, -1)
     for b in range(32):
@@ -120,6 +138,58 @@ def bisect(lo: torch.Tensor, hi: torch.Tensor, k: int, count, lowest: int = 0) -
         cand = cur | (1 << b)
         cur = torch.where((b <= top) & (b >= lowest) & (count(cand) >= k), cand, cur)
     return cur
+
+
+U64 = 2**64 - 1
+
+
+def bisect_from(lo: int, hi: int, k: int, lowest: int, guess: int, count, max_counts: int = 66) -> tuple[int, int]:
+    """kth_wide.cu `bisect_from` on one row, in the kernel's uint64 arithmetic
+    (a count reads its argument's low 32 bits, as the kernel's uint32 cast
+    does): `bisect`'s answer over [lo, hi] down to bit `lowest`, counted out
+    from `guess` by steps that double, then in by halving the bracket.
+    count(t) is the row's count of keys >= t. Returns the answer and the
+    counts it took; raises past `max_counts` (the kernel's most: 33 out,
+    the first included, and 33 in), where the kernel would not end."""
+    calls = 0
+
+    def counted(t: int) -> int:
+        nonlocal calls
+        calls += 1
+        if calls > max_counts:
+            raise RuntimeError(f"bisect_from did not end: lo {lo:#x}, hi {hi:#x}, k {k}, guess {guess:#x}")
+        return count(t & 0xFFFFFFFF)
+
+    if lo == hi:
+        return lo, 0
+    top = (lo ^ hi).bit_length() - 1
+    if top < lowest:
+        return lo & ~((2 << top) - 1) & 0xFFFFFFFF, 0
+    step = 1 << lowest
+    least, most = lo & ~((2 << top) - 1) & 0xFFFFFFFF, hi & ~(step - 1)
+    a, b = least, most + step
+    g = min(max(guess & ~(step - 1), least), most)
+    if counted(g) >= k:
+        a, d = g, step
+        while a + d <= most:
+            if counted(a + d) < k:
+                b = a + d
+                break
+            a, d = a + d, 2 * d
+    else:
+        b, d = g, step
+        while b >= least + step + d:
+            if counted((b - d) & U64) >= k:
+                a = (b - d) & U64
+                break
+            b, d = (b - d) & U64, 2 * d
+    while b - a > step:
+        mid = a + (b - a) // step // 2 * step
+        if counted(mid) >= k:
+            a = mid
+        else:
+            b = mid
+    return a, calls
 
 
 # --- K1 ---
@@ -332,6 +402,16 @@ def walk_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
                   "l1": torch.where(keep, h, 0.0).abs().sum(1, keepdim=True)}
 
 
+def _bound(mx: torch.Tensor, want: int) -> torch.Tensor:
+    """The cluster route's bound over maxima mx (B, N): the want-th largest,
+    bisected between the least positive maximum and the largest down to
+    `wide_bound_bit` of them; 0 where fewer than `want` are positive."""
+    lo = torch.where(mx > 0, mx, 2**32 - 1).amin(-1)
+    hi = mx.amax(-1)
+    got = bisect(lo, hi, want, lambda v: (mx >= v[:, None]).sum(-1), lowest=wide_bound_bit(lo, hi))
+    return torch.where((mx > 0).sum(-1) >= want, got, 0)
+
+
 def cluster_slices(s: int, slice_cols: int) -> list[tuple[int, int]]:
     """(start, width) of each CTA's slice of a row of s on K1's cluster
     route (`cluster_ctas_for`, `slice_width`): C = ceil(s / slice_cols)
@@ -342,23 +422,30 @@ def cluster_slices(s: int, slice_cols: int) -> list[tuple[int, int]]:
     return [(c * sw, min(sw, s - c * sw)) for c in range(n)]
 
 
-def cluster_model(h: torch.Tensor, k: int, *, vpt: int | None = None, threads: int | None = None,
-                  slice_cap: int | None = None, union_cap: int | None = None) -> dict:
-    """K1's select on its cluster route (`wide_cluster_kernel`) on a (B, S)
-    f32 batch: C CTAs a row, CTA c holding slice c in K1's layout (VPT keys
-    a thread in runs of 4 columns, T threads, key 0 past the slice's end).
-    Each CTA's bound L_c: where 2k <= T' (the threads that hold a column of
-    the last, smallest slice; `own`) the k-th largest of its threads'
-    maxima, else, where q = ceil(k / C) <= T', the least over the CTAs of
-    their q-th largest maxima; each cut to its bits down to kBoundBit as
-    `bisect` finds it; 0 where neither holds. Each CTA's keys >= L_c are its
-    candidates (counted against slice_cap, their sum against union_cap);
-    the union's keys >= the largest bound are kept, and the k-th largest
-    kept key is the row's, ranked up to T kept keys and bisected past them;
-    else (a buffer or the union overflows, no bound) the cluster bisects the
-    row from the largest bound. Returns kth (B, 1), C, the slices and per
-    row the bound, the candidate and kept counts and which way the row
-    took: `ranked`, `bisected` or `fallback`."""
+def cluster_model(h: torch.Tensor, k: int, mask: torch.Tensor | None = None, *, vpt: int | None = None,
+                  threads: int | None = None, slice_cap: int | None = None, union_cap: int | None = None) -> dict:
+    """The select of the cluster route (`wide_cluster_kernel`: K1's and K6's,
+    and K5's with a (S,) bool `mask`) on a (B, S) f32 batch: C CTAs a row,
+    CTA c holding slice c in K1's layout (VPT keys a thread in runs of 4
+    columns, T threads, key 0 past the slice's end and, for K5, at a masked
+    column). Each CTA's bound L_c: where 2k <= T' (the threads that hold a
+    column of the last, smallest slice; `own`, not K5's) the k-th largest of
+    its threads' maxima, else, where q = ceil(k / C) <= T', the least over
+    the CTAs of their q-th largest maxima. K5's: the least over the CTAs of
+    their q_c-th largest maxima, q_c = ceil(k n_c / n) for the n_c of the n
+    unmasked columns in slice c (0, no bound, where n_c is 0; 0 where q_c >
+    T), and where that is 0 the k-th largest of the cluster's C x T maxima,
+    where k <= (C - 1) T + T'. Each cut to its bits down to kBoundBit as
+    `bisect` finds it; 0 where none holds. Each
+    CTA's keys >= L_c are its candidates (counted against slice_cap, their
+    sum against union_cap; none where L_c is 0); the union's keys >= the
+    largest bound are kept, and the k-th largest kept key is the row's,
+    ranked up to T kept keys and bisected past them; else (a buffer or the
+    union overflows, a bound of 0) the cluster bisects the row from the
+    largest bound. Returns kth (B, 1) (K5: -inf where the key is 0, fewer
+    than k columns unmasked), C, the slices and per row the bound, the
+    candidate and kept counts and which way the row took: `ranked`,
+    `bisected` or `fallback`."""
     c = wide_consts()
     vpt = vpt or c["slice_vpt"]
     threads = threads or c["slice_threads"]
@@ -367,31 +454,44 @@ def cluster_model(h: torch.Tensor, k: int, *, vpt: int | None = None, threads: i
     b, s = h.shape
     k = min(k, s)
     key = order_key(h)
+    if mask is not None:
+        key = torch.where(mask, key, 0)
     slices = cluster_slices(s, vpt * threads)
     n_ctas = len(slices)
     t_live = min(threads, -(-slices[-1][1] // 4))
     q = -(-k // n_ctas)
-    own, bounded = 2 * k <= t_live, q <= t_live
+    own, bounded = mask is None and 2 * k <= t_live, mask is not None or q <= t_live
+    bounded_cluster = mask is not None and k <= (n_ctas - 1) * threads + t_live
+    if mask is not None:  # each CTA's share of k
+        n_c = [int(mask[c0:c0 + n].sum()) for c0, n in slices]
+        shares = [-(-k * m // max(sum(n_c), 1)) for m in n_c]
     t = torch.arange(threads)[:, None]
     j = torch.arange(vpt)[None, :]
     layout = 4 * (t + (j // 4) * threads) + j % 4  # (T, VPT) column of each slot within a slice
-    held, lower, top = [], [], []
-    for c0, n in slices:
+    held, maxima, lower, top = [], [], [], []
+    for c, (c0, n) in enumerate(slices):
         kc = torch.where(layout < n, key[:, c0 + layout.clamp(max=n - 1)], 0)  # (B, T, VPT)
         mx = kc.amax(-1)
+        maxima.append(mx)
         top.append(mx.amax(-1))
-        if bounded:
-            lower.append(bisect(mx.amin(-1), mx.amax(-1), k if own else q,
-                                lambda v: (mx >= v[:, None]).sum(-1), lowest=bound_bit()))
+        want = shares[c] if mask is not None else k if own else q
+        if mask is not None and want == 0:  # no bound from a slice with no unmasked column
+            lower.append(torch.full((b,), 2**32 - 1 if sum(n_c) else 0, dtype=torch.int64))
+        elif bounded and want <= threads:
+            lower.append(_bound(mx, want))
         else:
             lower.append(torch.zeros(b, dtype=torch.int64))
         held.append(kc.flatten(1))
     lower = torch.stack(lower, 1)  # (B, C)
     if bounded and not own:
         lower = lower.amin(1, keepdim=True).expand(b, n_ctas)
+    if bounded_cluster:
+        mx = torch.cat(maxima, 1)  # (B, C T): the cluster's maxima
+        whole = _bound(mx, k)
+        lower = torch.where(lower == 0, whole[:, None], lower)
     top = torch.stack(top, 1).amax(1)
-    n_cand = torch.stack([(kc >= lc[:, None]).sum(1) if bounded else torch.zeros(b, dtype=torch.int64)
-                          for kc, lc in zip(held, lower.unbind(1))], 1)
+    n_cand = torch.stack([torch.where(lc > 0, (kc >= lc[:, None]).sum(1), 0) for kc, lc in zip(held, lower.unbind(1))],
+                         1)
     least, most = lower.amin(1), lower.amax(1)
     n_union = n_cand.sum(1)
     fits = bounded & (least > 0) & (n_cand <= slice_cap).all(1) & (n_union <= union_cap)
@@ -406,7 +506,10 @@ def cluster_model(h: torch.Tensor, k: int, *, vpt: int | None = None, threads: i
     kth = torch.where(fits, by_kept, by_row)
     assert bool((kth >= most).all())
     rank = fits & (n_kept <= threads)
-    return {"kth": key_float(kth)[:, None], "ctas": n_ctas, "slices": slices, "lower": most, "n_cand": n_union,
+    value = key_float(kth)
+    if mask is not None:
+        value = torch.where(kth == 0, float("-inf"), value)
+    return {"kth": value[:, None], "ctas": n_ctas, "slices": slices, "lower": most, "n_cand": n_union,
             "n_kept": n_kept, "own": own, "ranked": rank, "bisected": fits & ~rank, "fallback": ~fits}
 
 
@@ -446,35 +549,60 @@ def cluster_stats_model(h: torch.Tensor, k: int, **kw) -> dict:
                   "l1": l1[:, None]}
 
 
+def takes_cluster(s: int, cluster: dict | None = None) -> bool:
+    """Whether a row of s takes the cluster route (`cluster_ctas_for` is not
+    0: at most kMaxCluster slices of `cluster`'s VPT x T columns) or the
+    walk."""
+    cluster, c = cluster or {}, wide_consts()
+    slice_cols = (cluster.get("vpt") or c["slice_vpt"]) * (cluster.get("threads") or c["slice_threads"])
+    return -(-s // slice_cols) <= c["max_cluster"]
+
+
 def wide_stats_model(h: torch.Tensor, k: int, *, cluster: dict | None = None, walk: dict | None = None) -> dict:
     """K1 on rows wider than its narrow kernel holds, as `saev_topk_stats_wide`
     routes them: the cluster route up to kMaxCluster slices, the walk past
     it; `cluster` and `walk` are the two models' keyword parameters."""
-    cluster, walk = cluster or {}, walk or {}
-    c = wide_consts()
-    slice_cols = (cluster.get("vpt") or c["slice_vpt"]) * (cluster.get("threads") or c["slice_threads"])
-    if -(-h.shape[1] // slice_cols) <= c["max_cluster"]:
-        return cluster_stats_model(h, k, **cluster) | {"route": "cluster"}
-    return walk_stats_model(h, k, **walk) | {"route": "walk"}
+    if takes_cluster(h.shape[1], cluster):
+        return cluster_stats_model(h, k, **(cluster or {})) | {"route": "cluster"}
+    return walk_stats_model(h, k, **(walk or {})) | {"route": "walk"}
+
+
+def k6_wide_model(h: torch.Tensor, k: int, *, cluster: dict | None = None, walk: dict | None = None) -> dict:
+    """K6 on rows wider than its narrow kernel holds, as `saev_kth_wide`
+    routes them: K1's cluster route, its select alone (`cluster_model`), up
+    to kMaxCluster slices, the walk (`wide_model`) past it. Returns the
+    model's dict with its `route`."""
+    if takes_cluster(h.shape[1], cluster):
+        return cluster_model(h, k, **(cluster or {})) | {"route": "cluster"}
+    return wide_model(h, k, **(walk or {})) | {"route": "walk"}
 
 
 def k5_wide_model(h: torch.Tensor, mask: torch.Tensor, k: int, *, warps: int | None = None,
-                  walk: dict | None = None) -> dict:
+                  cluster: dict | None = None, walk: dict | None = None) -> dict:
     """K5 on rows wider than its narrow kernel holds (`saev_kth_masked_wide`):
     the list of the n unmasked columns, then, chosen on the card from n, the
     group route (`wide_masked_group_kernel`: KPL 32 keys a lane for n <=
     warps * 32 * 32, KPL 64 up to warps * 32 * 64; G warps a row, the
-    fewest, a power of two, that hold n) or the walk past it (`wide_model`
-    with `walk`'s parameters). -inf where fewer than k columns are unmasked.
-    Returns value (B, 1), n, the route, KPL and G."""
+    fewest, a power of two, that hold n) or, past it, the cluster route over
+    whole rows under the mask (`cluster_model` with `cluster`'s parameters)
+    up to kMaxCluster slices and the walk over the list (`wide_model` with
+    `walk`'s) past them. -inf where fewer than k columns are unmasked.
+    Returns value (B, 1), n, the route, KPL and G, and the rows that took
+    the whole-row bisection (`fallback`, none on the group route)."""
     warps = warps or wide_consts()["group_warps"]
     k = min(k, h.shape[1])
     n = int(mask.sum())
+    none = torch.zeros(h.shape[0], dtype=torch.bool)
     if n > warps * 32 * 64:
-        return {"value": wide_model(h, k, mask, **(walk or {}))["kth"], "n": n, "route": "walk", "kpl": 0, "g": 0}
+        if takes_cluster(h.shape[1], cluster):
+            got, route = cluster_model(h, k, mask, **(cluster or {})), "cluster"
+        else:
+            got, route = wide_model(h, k, mask, **(walk or {})), "walk"
+        return {"value": got["kth"], "n": n, "route": route, "kpl": 0, "g": 0, "fallback": got["fallback"]}
     kpl = 32 if n <= warps * 32 * 32 else 64
     if n < k:
-        return {"value": torch.full((h.shape[0], 1), float("-inf")), "n": n, "route": "group", "kpl": kpl, "g": 0}
+        return {"value": torch.full((h.shape[0], 1), float("-inf")), "n": n, "route": "group", "kpl": kpl, "g": 0,
+                "fallback": none}
     g_warps = 1
     while g_warps * 32 * kpl < n:
         g_warps *= 2
@@ -482,7 +610,7 @@ def k5_wide_model(h: torch.Tensor, mask: torch.Tensor, k: int, *, warps: int | N
     key = order_key(h)[:, mask]
     lo, hi = key.amin(1), key.amax(1)
     kth = bisect(lo, hi, k, lambda t: (key >= t[:, None]).sum(-1))
-    return {"value": key_float(kth)[:, None], "n": n, "route": "group", "kpl": kpl, "g": g_warps}
+    return {"value": key_float(kth)[:, None], "n": n, "route": "group", "kpl": kpl, "g": g_warps, "fallback": none}
 
 
 # --- P4 and P3, the pass loops (csrc/kth_ops.cu) ---

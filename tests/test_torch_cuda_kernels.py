@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 from encode_stats_model import cap, p1_model
-from kth_select_model import (cand_cap, cluster_stats_model, count_loop_model, k1_layout, k1_model, k5_model,
-                              k5_wide_model, k6_model, kth_ops_model, wide_model)
+from kth_select_model import (cand_cap, count_loop_model, k1_layout, k1_model, k5_model, k5_wide_model, k6_model,
+                              k6_wide_model, kth_ops_model, takes_cluster, wide_stats_model)
 
 from saev_tpu_torch.framework import train
 from saev_tpu_torch.nn import modeling, objectives
@@ -614,23 +614,27 @@ def test_gouter_kernel_odd_row_tiles(dev, cuts, g):
 
 
 # Rows wider than the narrow kernels hold (kth_wide.cu): a width just past
-# them (scalar loads), one with S % 4 == 0 that no slice width divides, and
-# the 64x and 128x dictionaries.
-WIDE_S = [32769, 40000, 65536, 131072]
+# them (scalar loads), one with S % 4 == 0 that no slice width divides, the
+# 64x and 128x dictionaries, and a width past the cluster route's 8 slices
+# of 32768 columns, which K1, K6 and K5 walk.
+WIDE_S = [32769, 40000, 65536, 131072, 266240]
 
 
 @pytest.mark.parametrize("k", [1, 32, 512])
 @pytest.mark.parametrize("s", WIDE_S)
 def test_wide_route_matches_plain(dev, s, k):
-    """K1 on its cluster route (kth, f, live, L0 bitwise; L1 within 1e-6
-    and bitwise its model's rank-order sum) and K6 on the walk (bitwise),
-    each one launch; the CTAs a cluster and the rows that bisect the whole
-    row are the models' (`kth_select_model.cluster_model`, `wide_model`)."""
+    """K1 (kth, f, live, L0 bitwise; L1 within 1e-6, and on the cluster
+    route bitwise its model's rank-order sum) and K6 (bitwise, and K1's
+    kth), each one launch, on the cluster route up to 262144 columns and
+    the walk past it; the route, the CTAs a cluster and the rows that
+    bisect the whole row are the models' (`kth_select_model.wide_stats_model`,
+    `k6_wide_model`)."""
     from saev_tpu_torch.ops import _build
 
     h = _k1_select_rows(8, s, s + k)
-    k1 = cluster_stats_model(h, k)
-    k6 = wide_model(h, k)
+    k1 = wide_stats_model(h, k)
+    k6 = k6_wide_model(h, k)
+    assert k1["route"] == k6["route"] == ("cluster" if s <= 262144 else "walk")
     h = h.to(dev)
     before = cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches
     fb1 = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -640,11 +644,12 @@ def test_wide_route_matches_plain(dev, s, k):
     want = topk._topk_stats_plain(h, k)
     torch.cuda.synchronize()
     assert (cuda_topk.topk_stats_cuda.launches, cuda_kth.kth_value_cuda.launches) == (before[0] + 1, before[1] + 1)
-    assert _build.lib().saev_wide_cluster_ctas(s) == k1["ctas"]
+    assert _build.lib().saev_wide_cluster_ctas(s) == (k1["ctas"] if k1["route"] == "cluster" else 0)
     for name in ("kth", "f", "live", "l0"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     torch.testing.assert_close(got.l1, want.l1, rtol=1e-6, atol=0)
-    assert torch.equal(got.l1.cpu(), k1["l1"])
+    if k1["route"] == "cluster":
+        assert torch.equal(got.l1.cpu(), k1["l1"])
     assert _same_bits(kth, topk._kth_plain(h, k)) and torch.equal(kth, got.kth)
     assert int(fb1) == int(k1["fallback"].sum()) and int(fb6) == int(k6["fallback"].sum())
     assert torch.equal(got.kth.cpu(), k1["kth"]) and torch.equal(kth.cpu(), k6["kth"])
@@ -667,12 +672,14 @@ def test_threshold_entry_matches_k1_on_the_wide_route(dev, s):
 @pytest.mark.parametrize("s", WIDE_S)
 def test_wide_route_masked_matches_plain(dev, s):
     """K5 on the wide route at k 512 (and 1): masks with 5% and half of the
-    columns unmasked, prefix and scattered, 40% scattered (the dense AuxK
-    step at 40% dead), 24576 (64 keys a lane), n just above the group
-    route's limit (the walk),
-    fewer than k unmasked, one, all and none; bitwise to the plain version
-    and to its model (`kth_select_model.k5_wide_model`: the group route or
-    the walk by n), -inf where fewer than k."""
+    columns unmasked, prefix and scattered, 40% and 60% as a prefix and
+    scattered (the dense AuxK step at 40% dead), the last 40% (a prefix
+    masked: whole slices hold no unmasked column), 24576 (64 keys a lane), n
+    just above the group route's limit (the cluster route, or the walk past
+    262144 columns), fewer than k unmasked, one, all and none; bitwise to
+    the plain version and to its model (`kth_select_model.k5_wide_model`:
+    the group route, the cluster or the walk by n and S), its rows that
+    bisect the whole row the model's, -inf where fewer than k."""
     from kth_select_model import wide_consts
 
     rng = np.random.default_rng(s)
@@ -682,6 +689,8 @@ def test_wide_route_masked_matches_plain(dev, s):
     over = wide_consts()["group_max"] + 1
     masks = {"prefix-5%": cols < s // 20, "scattered-5%": rng.random(s) < 0.05,
              "scattered-40%": rng.random(s) < 0.4, "scattered-half": rng.random(s) < 0.5,
+             "prefix-40%": cols < int(s * 0.4), "prefix-60%": cols < int(s * 0.6),
+             "scattered-60%": rng.random(s) < 0.6, "last-40%": cols >= s - int(s * 0.4),
              "kpl-64": cols < 24576, "past-the-group-route": cols < over, "k-1": cols < 511, "one": cols == s // 2,
              "all-masked": np.zeros(s, bool), "none-masked": np.ones(s, bool)}
     routes = set()
@@ -689,7 +698,8 @@ def test_wide_route_masked_matches_plain(dev, s):
         mt = torch.from_numpy(mask).to(dev)
         for k in (1, 512):
             before = cuda_kth.kth_value_masked_cuda.launches
-            got = cuda_kth.kth_value_masked_cuda(h, mt, k)
+            fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = cuda_kth.kth_value_masked_cuda(h, mt, k, fallback)
             want = topk._kth_masked_plain(h, mt, k)
             torch.cuda.synchronize()
             model = k5_wide_model(h.cpu(), torch.from_numpy(mask), k)
@@ -698,7 +708,65 @@ def test_wide_route_masked_matches_plain(dev, s):
             assert _same_bits(got, want), (name, k)
             assert torch.equal(got.cpu().view(torch.int32), model["value"].view(torch.int32)), (name, k)
             assert bool(torch.isneginf(got).all()) == (int(mask.sum()) < k), (name, k)
-    assert {("group", 32), ("group", 64), ("walk", 0)} <= routes
+            assert int(fallback) == int(model["fallback"].sum()), (name, k)
+    assert {("group", 32), ("group", 64), ("cluster" if takes_cluster(s) else "walk", 0)} <= routes
+
+
+def _rows_after_rows(n: int, s: int, seed: int) -> torch.Tensor:
+    """4 n rows in four blocks of n: Gaussian; most values N(-10, 1) with 16
+    non-negative ones in each 32768 columns (the thread maxima span the
+    sign, fewer than 32 of them above -1.5); Gaussian; N(-2, 0.3) (the
+    maxima span -2.0). With n clusters or fewer, cluster c takes rows c, c +
+    n, .., so the first rows of blocks 1 and 3 that each cluster takes
+    follow one of its Gaussian rows."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(4 * n, s)).astype(np.float32)
+    sign = rng.normal(-10.0, 1.0, size=(n, s)).astype(np.float32)
+    for c0 in range(0, s, 32768):
+        cols = c0 + rng.permutation(min(32768, s - c0))[:16]
+        sign[:, cols] = np.abs(rng.normal(size=(n, 16))).astype(np.float32)
+    h[n:2 * n] = sign
+    h[3 * n:] = rng.normal(-2.0, 0.3, size=(n, s)).astype(np.float32)
+    return torch.from_numpy(h)
+
+
+@pytest.mark.parametrize("s", [65536, 131072])
+def test_wide_route_rows_after_rows(dev, s):
+    """The cluster route searches each row's bound from the bound of the row
+    before it in its cluster (kth_wide.cu `bisect_from`): rows whose thread
+    maxima span the sign or -2.0 right after a Gaussian row, at several rows
+    a cluster (`saev_wide_clusters`). K1's kth and K6 at k 32 and K5 at k 32
+    and 512, none masked and 60% scattered (past the group route, so the
+    cluster route), bit for bit to the plain versions and their models, with
+    the models' fallback rows."""
+    from saev_tpu_torch.ops import _build
+
+    n = _build.lib().saev_wide_clusters(s)
+    assert n > 0
+    h = _rows_after_rows(n, s, s)
+    hd = h.to(dev)
+    fb1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    fb6 = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = cuda_topk.topk_stats_cuda(hd, 32, fb1)
+    kth = cuda_kth.kth_value_cuda(hd, 32, fb6)
+    torch.cuda.synchronize()
+    model = k6_wide_model(h, 32)
+    assert model["route"] == "cluster"
+    assert _same_bits(kth, topk._kth_plain(hd, 32)) and torch.equal(kth, got.kth)
+    assert torch.equal(kth.cpu(), model["kth"])
+    assert int(fb1) == int(fb6) == int(model["fallback"].sum())
+    rng = np.random.default_rng(s + 1)
+    for name, mask in (("none-masked", np.ones(s, bool)), ("scattered-60%", rng.random(s) < 0.6)):
+        mt = torch.from_numpy(mask).to(dev)
+        for k in (32, 512):
+            fallback = torch.zeros(1, dtype=torch.int32, device=dev)
+            value = cuda_kth.kth_value_masked_cuda(hd, mt, k, fallback)
+            torch.cuda.synchronize()
+            want = k5_wide_model(h, torch.from_numpy(mask), k)
+            assert want["route"] == "cluster", (name, k)
+            assert _same_bits(value, topk._kth_masked_plain(hd, mt, k)), (name, k)
+            assert torch.equal(value.cpu().view(torch.int32), want["value"].view(torch.int32)), (name, k)
+            assert int(fallback) == int(want["fallback"].sum()), (name, k)
 
 
 def _encode_operands(dev, b: int, d: int, s: int, case: str):

@@ -14,14 +14,19 @@ K5's masks: prefixes, scattered, n = k and k - 1, one column, all and none.
 Hypothesis draws random rows and masks.
 
 The wide route of K1, K5 and K6 (csrc/kth_wide.cu, rows over 32768
-columns) is modelled at small widths: K1's cluster route at slices of 128
-or 256 columns (CLUSTER; 2 to 9 CTAs a row, the last slice ragged), K5's
-route chosen from n (GROUP: one warp a CTA, so the group route's limits
-fall at 1024 and 2048 columns) and the walk at a chunk width of 256
-(WIDE), and held to the same kernels and plain versions, bit for bit, on
-the same edge rows and masks; with small capacities and few threads their
-rows reach the rank, the bisection over the candidates and the
-cluster-wide or whole-row fallback.
+columns) is modelled at small widths: the cluster route of K1 and K6 at
+slices of 128 or 256 columns (CLUSTER; 2 to 9 CTAs a row, the last slice
+ragged) and of K6 and K5 (under its mask, its bound the cluster's) at
+slices of 512 (CLUSTER_K5), K5's route chosen from n and S (GROUP: one warp
+a CTA, so the group route's limits fall at 1024 and 2048 columns; the
+cluster route past them up to 8 slices) and the walk at a chunk width of
+256 (WIDE), and held to the same kernels and plain versions, bit for bit,
+on the same edge rows and masks (prefixes that empty whole slices, n < k
+and n = k, ties across a slice boundary, an unmasked -inf); with small
+capacities and few threads their rows reach the rank, the bisection over
+the candidates and the cluster-wide or whole-row fallback. The routes'
+limits at the card's widths (8 slices of 32768: S = 262144) are held to
+the plain versions at full size.
 """
 
 import math
@@ -32,8 +37,9 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from kth_select_model import (cand_cap, cluster_model, cluster_slices, cluster_stats_model, k1_dispatch, k1_layout,
-                              k1_model, k5_model, k5_wide_model, k6_dispatch, k6_model, walk_stats_model, wide_chunks,
+from kth_select_model import (bisect, bisect_from, cand_cap, cluster_model, cluster_slices, cluster_stats_model,
+                              k1_dispatch, k1_layout, k1_model, k5_model, k5_wide_model, k6_dispatch, k6_model,
+                              k6_wide_model, order_key, takes_cluster, walk_stats_model, wide_bound_bit, wide_chunks,
                               wide_consts, wide_model)
 
 from saev_tpu.ops import pallas_topk
@@ -275,7 +281,8 @@ def test_select_probe_finds_the_wide_markers():
     kth_wide.cu) at its ten phase boundaries, each once, in program order,
     and declares its pointer once; nothing outside the cluster kernel
     changes. Its variants of the route (the full cluster barrier a row, 256
-    threads a CTA) each find their one marker."""
+    threads a CTA, the block's select for K6 and K5, the bound by `bisect`
+    alone, eight bulk copies a slice) each find their one marker."""
     from saev_tpu_torch.ops import _build
     from saev_tpu_torch.scripts import select_probe
 
@@ -302,8 +309,16 @@ WIDE = {"chunk": 256, "cap": 200, "threads": 64}
 # tied rows overflow.
 CLUSTER = {"vpt": 8, "threads": 32, "slice_cap": 96, "union_cap": 256}
 # K5's group route at one warp a CTA: KPL 32 up to 1024 unmasked columns,
-# KPL 64 up to 2048, the walk past it.
-GROUP = {"warps": 1, "walk": WIDE}
+# KPL 64 up to 2048; past it the cluster route up to 8 slices of 256 (2048
+# columns, so never at these widths) and the walk.
+GROUP = {"warps": 1, "cluster": CLUSTER, "walk": WIDE}
+# The cluster route of K6 and K5 at slices of 512 columns (8 keys a thread,
+# 64 threads): 6 CTAs a row at 2600 columns, 8 at 4000, the last slice
+# ragged; buffers the tied rows overflow. K5's routes at one warp a CTA with
+# it: the group route up to 2048 unmasked columns, the cluster past it up
+# to 4096 columns, the walk past them.
+CLUSTER_K5 = {"vpt": 8, "threads": 64, "slice_cap": 160, "union_cap": 480}
+GROUP_CLUSTER = {"warps": 1, "cluster": CLUSTER_K5, "walk": WIDE}
 
 
 def _same_stats(got: dict, h: np.ndarray, k: int) -> None:
@@ -523,3 +538,267 @@ def test_wide_model_matches_plain_on_random_rows(s, k_frac, p, seed, levels):
     want = topk._kth_masked_plain(ht, mask, k)
     assert same_value_bits(wide_model(ht, k, mask, **small)["kth"], want)
     assert same_value_bits(k5_wide_model(ht, mask, k, warps=1, walk=small)["value"], want)
+
+
+# --- the cluster route of K6 and K5 (select alone; K5 under its mask) ---
+
+
+def _cluster_rows(b: int, s: int, seed: int) -> np.ndarray:
+    """`_masked_rows` with ties at the top straddling the boundary of slices
+    0 and 1 of CLUSTER_K5 (columns 472-551, row 9) and a row of -inf with a
+    finite value at every 7th column (row 10), whose k-th largest unmasked
+    value is -inf where a mask leaves fewer than k of them."""
+    h = _masked_rows(b, s, seed)
+    h[9, 512 - 40:512 + 40] = 6.0
+    h[10] = -np.inf
+    h[10, ::7] = np.abs(h[11, ::7])
+    return h
+
+
+def _cluster_masks(s: int, k: int, seed: int) -> dict:
+    """K5's masks on the cluster route: 40% and 60% unmasked as a prefix
+    (the last slices hold no unmasked column) and scattered, the last 40%
+    (the first slices hold none), n = k and k - 1, one, all and none."""
+    rng = np.random.default_rng(seed)
+    cols = np.arange(s)
+    return {
+        "prefix-40%": cols < int(s * 0.4),
+        "prefix-60%": cols < int(s * 0.6),
+        "last-40%": cols >= s - int(s * 0.4),
+        "scattered-40%": rng.random(s) < 0.4,
+        "scattered-60%": rng.random(s) < 0.6,
+        "n-is-k": cols >= s - k,
+        "n-is-k-1": cols < k - 1,
+        "one": cols == s // 2,
+        "all-masked": np.zeros(s, bool),
+        "none-masked": np.ones(s, bool),
+    }
+
+
+@pytest.mark.parametrize("s", [2600, 4000])
+@pytest.mark.parametrize("k", [1, 32, 200])
+def test_cluster_masked_model_matches_pallas_and_plain(s, k):
+    """K5 on the cluster route (`cluster_model` under a mask, CLUSTER_K5)
+    against the TPU kernel in interpret mode, bit for bit, and the plain
+    version, -0.0 and +0.0 as one value: prefixes that empty whole slices,
+    scattered masks, n < k and n = k, one, all and none, on the edge rows
+    (zeros, -0.0, ties across a slice boundary, -inf unmasked); -inf where
+    fewer than k columns are unmasked."""
+    h = _cluster_rows(32, s, s + k)
+    ht = torch.from_numpy(h)
+    assert len(cluster_slices(s, 8 * 64)) >= 6
+    for name, mask in _cluster_masks(s, k, s + k).items():
+        mt = torch.from_numpy(mask)
+        got = cluster_model(ht, k, mt, **CLUSTER_K5)
+        want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
+                                                         k, True)
+        np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32),
+                                      err_msg=name)
+        assert same_value_bits(got["kth"], topk._kth_masked_plain(ht, mt, k)), name
+        assert bool(torch.isneginf(got["kth"]).all()) == (int(mask.sum()) < k), name
+
+
+@pytest.mark.parametrize("s", [2600, 4000])
+@pytest.mark.parametrize("k", [1, 32, 200, "s"])
+def test_cluster_select_model_matches_pallas_and_plain(s, k):
+    """K6 on the cluster route (`cluster_model`, its select alone, and
+    `k6_wide_model`, which takes it at these slices) against the TPU kernel
+    in interpret mode and the plain version, on the edge rows."""
+    k = s if k == "s" else k
+    h = _cluster_rows(32, s, s + k + 1)
+    ht = torch.from_numpy(h)
+    got = k6_wide_model(ht, k, cluster=CLUSTER_K5, walk=WIDE)
+    assert got["route"] == "cluster" and torch.equal(got["kth"], cluster_model(ht, k, **CLUSTER_K5)["kth"])
+    want = pallas_topk.exact_kth_value_pallas(jnp.asarray(h), k, True)
+    np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+    assert same_value_bits(got["kth"], topk._kth_plain(ht, k))
+
+
+def test_cluster_masked_model_reaches_every_branch():
+    """K5's cluster route at CLUSTER_K5, 8 slices of 512: each CTA's share of
+    k follows its unmasked columns, so a mask that empties slices still
+    bounds the Gaussian rows (no fallback under the last 40% or the first
+    40% unmasked, at k 1, 32 and 100); most rank their kept candidates at k
+    1 and all bisect them at k 100, where more than 64 are kept; the rows of
+    zeros, of -0.0 beside a few positives, of -inf and tied at the top
+    overflow and bisect the cluster's registers; where fewer than k threads
+    hold an unmasked column the bound is 0 and every row bisects."""
+    s = 4000
+    h = torch.from_numpy(_cluster_rows(64, s, 11))
+    cols = torch.arange(s)
+    # The last 40% leaves out row 7's ties (its first 2048 columns).
+    for mask, fell in ((cols < int(s * 0.4), {0, 4, 6, 7}), (cols >= s - int(s * 0.4), {0, 4, 6})):
+        one = cluster_model(h, 1, mask, **CLUSTER_K5)
+        assert one["ctas"] == 8 and not one["own"] and not bool(one["fallback"][12:].any())
+        assert int(one["ranked"][12:].sum()) > int(one["bisected"][12:].sum())
+        got = cluster_model(h, 32, mask, **CLUSTER_K5)
+        assert set(np.flatnonzero(got["fallback"].numpy()).tolist()) == fell
+        assert bool((got["lower"][12:] > 0).all())
+        wide = cluster_model(h, 100, mask, **CLUSTER_K5)
+        assert bool(wide["bisected"][12:].all())
+        for g, k in ((one, 1), (got, 32), (wide, 100)):
+            assert same_value_bits(g["kth"], topk._kth_masked_plain(h, mask, k))
+    sparse = cols % 64 == 0  # 63 columns: fewer than k threads hold one
+    got = cluster_model(h, 100, sparse, **CLUSTER_K5)
+    assert bool(got["fallback"].all()) and bool((got["lower"] == 0).all())
+    assert bool(torch.isneginf(got["kth"]).all())
+
+
+@pytest.mark.parametrize("n_off", [-1, 0, 1])
+def test_k5_wide_model_cluster_route_at_its_limits(n_off):
+    """K5's route by n and S at one warp a CTA with CLUSTER_K5: n just below,
+    at and just above the group route's 2048, as a prefix and scattered, at
+    3000 columns (the cluster route past 2048) and 4100 (past 8 slices of
+    512: the walk), to the TPU kernel's and the plain version's bits."""
+    n = 2048 + n_off
+    for s, past in ((3000, "cluster"), (4100, "walk")):
+        h = _masked_rows(32, s, n + s)
+        ht = torch.from_numpy(h)
+        rng = np.random.default_rng(n)
+        for mask in (np.arange(s) < n, np.isin(np.arange(s), rng.permutation(s)[:n])):
+            mt = torch.from_numpy(mask)
+            got = k5_wide_model(ht, mt, 512, **GROUP_CLUSTER)
+            assert got["route"] == ("group" if n <= 2048 else past)
+            want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32),
+                                                             512, True)
+            np.testing.assert_array_equal(got["value"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+            assert same_value_bits(got["value"], topk._kth_masked_plain(ht, mt, 512))
+
+
+@pytest.mark.parametrize("off", [-4, 0, 4])
+def test_wide_routes_at_the_cluster_limit(off):
+    """At the card's constants K6 and K5 (past 32768 unmasked columns) take
+    the cluster route up to 8 slices of 32768 columns, S = 262144, and the
+    walk past it (S = 262144 + 4), as K1 does; Gaussian rows at k 32 and
+    k_aux 512 (K5 under 40% scattered) to the plain versions' bits, with no
+    row falling back."""
+    s = 262144 + off
+    route = "cluster" if off <= 0 else "walk"
+    assert takes_cluster(s) == (off <= 0)
+    rng = np.random.default_rng(s)
+    h = torch.from_numpy(rng.normal(size=(2, s)).astype(np.float32))
+    got = k6_wide_model(h, 32)
+    assert got["route"] == route and not bool(got["fallback"].any())
+    assert same_value_bits(got["kth"], topk._kth_plain(h, 32))
+    mask = torch.from_numpy(rng.random(s) < 0.4)
+    got = k5_wide_model(h, mask, 512)
+    assert got["route"] == route and not bool(got["fallback"].any())
+    assert same_value_bits(got["value"], topk._kth_masked_plain(h, mask, 512))
+
+
+@settings(max_examples=40, deadline=None)
+@given(s=st.integers(1, 2500), k_frac=st.floats(0.0, 1.0), p=st.floats(0.0, 1.0), seed=st.integers(0, 2**16),
+       layout=st.sampled_from(["scattered", "prefix", "last"]), levels=st.sampled_from([0, 3, 50]))
+def test_cluster_masked_model_matches_plain_on_random_masks(s, k_frac, p, seed, layout, levels):
+    """Random rows (continuous or a few levels, so ties) and masks
+    (scattered, a prefix or the last columns) at slices of 128 and small
+    buffers, k anywhere: K5's cluster route gives the plain version's bits
+    whichever branch a row takes."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(4, s)).astype(np.float32)
+    if levels:
+        h = np.round(h * levels / 3).astype(np.float32) * np.float32(0.25)
+    h[rng.random(h.shape) < 0.05] = -np.inf
+    ht = torch.from_numpy(h)
+    k = max(1, min(s, round(k_frac * s)))
+    n = round(p * s)
+    mask = {"scattered": rng.random(s) < p, "prefix": np.arange(s) < n, "last": np.arange(s) >= s - n}[layout]
+    mt = torch.from_numpy(mask)
+    kw = {"vpt": 4, "threads": 32, "slice_cap": 48, "union_cap": 160}
+    assert same_value_bits(cluster_model(ht, k, mt, **kw)["kth"], topk._kth_masked_plain(ht, mt, k))
+
+
+@pytest.mark.parametrize("s", [2600, 4000])
+def test_cluster_masked_model_pinned_prefix(s):
+    """K5's cluster route on dead latents pinned as bench.py pins them (bias
+    -1e6, where f32 values lie 0.0625 apart and 2^17 keys span 512.0) under
+    a prefix mask of them: the bound resolves the maxima's narrow range
+    (`wide_bound_bit`), so no row falls back, to the TPU kernel's and the
+    plain version's bits."""
+    rng = np.random.default_rng(s)
+    h = rng.normal(size=(32, s)).astype(np.float32)
+    n = int(s * 0.6)
+    h[:, :n] = (h[:, :n].astype(np.float64) - 1e6).astype(np.float32)
+    mask = np.arange(s) < n
+    ht, mt = torch.from_numpy(h), torch.from_numpy(mask)
+    for k in (32, 100):
+        got = cluster_model(ht, k, mt, **CLUSTER_K5)
+        assert not bool(got["fallback"].any()), k
+        want = pallas_topk.exact_kth_value_masked_pallas(jnp.asarray(h), jnp.asarray(mask[None, :], jnp.int32), k,
+                                                         True)
+        np.testing.assert_array_equal(got["kth"].numpy().view(np.int32), np.asarray(want).view(np.int32))
+        assert same_value_bits(got["kth"], topk._kth_masked_plain(ht, mt, k))
+
+
+# --- kth_wide.cu `bisect_from`: the cluster route's bound, searched from the row before's ---
+
+
+def _thread_maxima(h: np.ndarray) -> np.ndarray:
+    """The 512 thread maxima of a 32768-column slice in K1's layout (64 keys a
+    thread), as order keys."""
+    key = order_key(torch.from_numpy(h)).numpy()
+    return key.reshape(16, 512, 4).transpose(1, 0, 2).reshape(512, 64).max(1)
+
+
+def _bisect_from_cases() -> dict:
+    """(maxima as order keys, the bound's lowest bit or None for the kernel's
+    `bound_bit`, guesses) by name: random keys in narrow windows (near key 1,
+    across the sign, at the top) and over every key; the bound of a Gaussian
+    slice; and slices after a Gaussian one, the guess its bound (about
+    +2.9): most values N(-10, 1) with 16 of them non-negative, so the maxima
+    span the sign and fewer than k lie above -1.5, and maxima that span
+    -2.0, where the counts run down past half the keys."""
+    rng = np.random.default_rng(28)
+
+    def keys(lo: int, hi: int) -> np.ndarray:
+        return rng.integers(lo, hi, 512, dtype=np.int64, endpoint=True)
+
+    gauss = _thread_maxima(rng.normal(size=32768).astype(np.float32))
+    lo, hi = torch.tensor([int(gauss.min())]), torch.tensor([int(gauss.max())])
+    prev = int(bisect(lo, hi, 32, lambda t: (torch.from_numpy(gauss)[None] >= t[:, None]).sum(-1),
+                      lowest=wide_bound_bit(lo, hi))[0])
+    sign = rng.normal(-10.0, 1.0, 32768).astype(np.float32)
+    sign[rng.permutation(32768)[:16]] = np.abs(rng.normal(size=16))
+    two = rng.normal(-2.0, 0.3, 32768).astype(np.float32)
+    return {
+        "near-key-1": (keys(1, 0xFFF), 0, []),
+        "across-the-sign": (keys(0x7FFFFE00, 0x800001FF), 3, []),
+        "near-the-top": (keys(0xFFFFF000, 0xFFFFFFFF), 2, []),
+        "every-key": (keys(1, 0xFFFFFFFF), 17, []),
+        "gaussian": (gauss, None, [prev]),
+        "after-gaussian-across-the-sign": (_thread_maxima(sign), None, [prev]),
+        "after-gaussian-across-minus-2": (_thread_maxima(two), None, [prev]),
+    }
+
+
+_BISECT_FROM = _bisect_from_cases()
+
+
+@pytest.mark.parametrize("case", list(_BISECT_FROM))
+def test_bisect_from_ends_and_matches_bisect(case):
+    """The model of kth_wide.cu `bisect_from` (its uint64 arithmetic) ends
+    within the kernel's 66 counts and gives `bisect`'s answer from every
+    guess: below, at and above the answer, the range's ends, past them, 0
+    and the largest key, and the row before's bound, at k 1, 2, 32, half
+    and all of the maxima. Among the rows: maxima that span the sign after
+    a Gaussian row, where a downward step once ran past key 0 and the
+    kernel's search never ended, and maxima that span -2.0."""
+    mx, lowest, guesses = _BISECT_FROM[case]
+    mxt = torch.from_numpy(mx)
+    lo, hi = int(mx.min()), int(mx.max())
+    if lowest is None:
+        lowest = int(wide_bound_bit(torch.tensor([lo]), torch.tensor([hi]))[0])
+    step = 1 << lowest
+
+    def count(t: int) -> int:
+        return int((mxt >= t).sum())
+
+    for want in sorted({1, 2, 32, len(mx) // 2, len(mx)}):
+        ref = int(bisect(torch.tensor([lo]), torch.tensor([hi]), want,
+                         lambda t: (mxt[None] >= t[:, None]).sum(-1), lowest=lowest)[0])
+        assert count(ref) >= want
+        for g in guesses + [ref - step, ref, ref + step, ref + 7 * step, ref - 1000 * step, lo - step, lo, hi,
+                            hi + step, 0, 0xFFFFFFFF]:
+            got, calls = bisect_from(lo, hi, want, lowest, g % 2**32, count)
+            assert got == ref, (want, hex(g))
+            assert calls <= 66
